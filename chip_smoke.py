@@ -4,13 +4,17 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (any failure exits non-zero without the final result line):
-  1. build every CUDA kernel of the serving path from csrc/ (one nvcc per
+  1. build every CUDA kernel of the port from csrc/ (one nvcc per
      source, all started together) and print the card's name and power
      limit;
   2. hold each kernel against its plain PyTorch version on the card at
-     the shapes the serving path gives it (B=12, T=800, F=161; f32 with
-     TF32 off, and bf16 for the vgg block), and time the kernel, the
-     plain version and one PyTorch library yardstick the port never calls;
+     the shapes the serving and training paths give it (B=12, T=800,
+     F=161; f32 with TF32 off, and bf16): the STFT, the vgg block-1
+     forward and backward, the dropout attention forward and backward
+     (encoder self- and decoder cross-attention, rates 0 and 0.1), the
+     dropout bits (bit-exact) and the block-2 pool backward (exact); time
+     the kernel, the plain version and one PyTorch library yardstick the
+     port never calls;
   3. serve: the full-width AiShell README model (vgg_cnn, 4 layers,
      8 heads, dim 512, dim_inner 2048, the AiShell vocabulary) with
      seeded random weights, written as a checkpoint in the JAX package's
@@ -21,8 +25,18 @@ Phases (any failure exits non-zero without the final result line):
      of 64 greedy steps, and the encoder output and 8 decoder steps on
      the card (f32, TF32 off) against the port's CPU path on one
      utterance;
-  4. one JSON line of per-kernel numbers, then the result line
-     {"ok": true, "device": {...}}.
+  4. train: the same model at the AiShell README's training settings
+     (batch 12, dropout 0.1, label smoothing 0.1, Noam Adam, bf16 over f32
+     master weights) through the port's `train` entry point for 2 epochs
+     on 24 synthetic ~8 s utterances, with every kernel's launch count set
+     to 0 before and read after (each must have launched), then one more
+     epoch with --auto-resume (the optimizer step must continue); then,
+     on one fixed batch, the launches per step, the median train step
+     time over 10 steps, a profile of one step, 100 overfitting steps
+     (the loss must fall under half its first value) and one f32 step
+     (dropout 0, TF32 off) on the card against the port's CPU path;
+  5. one JSON line of per-kernel numbers (and the serving and training
+     numbers), then the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -48,8 +62,27 @@ VGG_F32_TOL = 1e-4   # f32 sums of 9 and 576 products in another order
 # bf16: a conv output on the other side of a bf16 rounding boundary is one
 # bf16 ulp off (2^-8 relative) and may flip a near-tied pool choice
 VGG_BF16_RTOL, VGG_BF16_ATOL = 2 ** -6, 2 ** -6
+# training kernels, max |kernel - plain| / max |plain| per tensor
+VGG_BWD_F32_TOL = 1e-4   # f32 sums over B*F*T positions in another order
+# bf16, against the plain backward on the same forward `out` / `idx`: the
+# same pool routing and relu masks, f32 sums in another order; a dx1 sum
+# that lands by a bf16 rounding boundary may round to the neighbouring
+# bf16 value before dW1 takes it. Dropping that rounding moves dW1 by
+# more than this tolerance (tests/test_torch_vgg_block1.py pins it)
+VGG_BWD_BF16_TOL = 1e-3
+# against autograd of the plain forward, which takes its own pool argmax
+# (conv1 / x1 from cuDNN bf16 may sit one bf16 ulp off the kernel's and
+# flip a near-tied pool or relu choice) and rounds its gradients to bf16
+VGG_BWD_AUTOGRAD_TOL = 2e-2
+# bf16 attention: probabilities round to bf16 before (kernel) or after
+# (plain) the normalisation, and the backward rounds dS to bf16
+ATTN_TOL = 2e-2
 ENC_TOL = 2e-3       # f32 encoder, 4 layers: GPU vs CPU sum order
 DEC_TOL = 2e-3       # f32 decoder logits, 4 layers: GPU vs CPU sum order
+# f32 train step, card vs CPU: loss, and each gradient relative to its
+# largest value (floor 1e-3 of the largest gradient): sums in another
+# order through 8 layers and their backward
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 2e-3
 
 
 def fail(msg):
@@ -91,7 +124,7 @@ def gpu_line():
 
 def phase_build(cuda_lib):
     t0 = time.time()
-    paths = cuda_lib.build(["stft", "vgg_block1"])
+    paths = cuda_lib.build(["stft", "vgg_block1", "attention", "pool_bwd"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
     for src in sorted(paths):
         for ln in cuda_lib.build_log(src).splitlines():
@@ -225,29 +258,260 @@ def check_vgg(torch, dev):
             "library_ms": lib_ms}
 
 
+def rel_err(a, b):
+    """max |a - b| over max |b| (floor 1e-3)."""
+    b = b.float()
+    return ((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-3)
+            ).item()
+
+
+def entry(name, source, replaces, err, ms, plain_ms, t_ops, t_bytes,
+          lib_ms, **extra):
+    e = {"name": name, "route": "cuda",
+         "source": f"end2end_asr_tpu_torch/csrc/{source}",
+         "replaces": replaces, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "library_ms": lib_ms}
+    e.update(extra)
+    return e
+
+
+def check_vgg_bwd(torch, dev):
+    """Kernel 3 at the training shapes, bf16 (the main path) and f32."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
+    F, T = 161, 800
+    g0 = torch.Generator().manual_seed(SEED + 2)
+    spect = torch.randn(B, F, T, generator=g0).to(dev)
+    ws = [(torch.randn(*s, generator=g0) * sc).to(dev) for s, sc in
+          (((3, 3, 1, 64), 0.3), ((64,), 0.1), ((3, 3, 64, 64), 0.05),
+           ((64,), 0.1))]
+    res = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8,
+                          device=dev)
+        out = V.vgg_block1(spect, *ws, cdt=cdt, idx_out=idx)
+        g = torch.randn(out.shape, generator=g0).to(dev, cdt)
+        got = V.vgg_block1_bwd(spect, *ws[:3], out, idx, g, cdt)
+        want = V.vgg_block1_bwd_plain(spect, *ws[:3], out, idx, g, cdt)
+        again = V.vgg_block1_bwd(spect, *ws[:3], out, idx, g, cdt)
+        # and autograd through the plain forward (VGG_BWD_AUTOGRAD_TOL)
+        wr = [w.clone().requires_grad_() for w in ws]
+        o2, _ = V.vgg_block1_plain(spect, *wr, cdt=cdt)
+        auto = torch.autograd.grad(o2, wr, g)
+        torch.cuda.synchronize()
+        tol = VGG_BWD_F32_TOL if cdt == torch.float32 else VGG_BWD_BF16_TOL
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        auto_errs = [rel_err(a, b) for a, b in zip(got, auto)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"vgg_block1_bwd {str(cdt)[6:]} rel err dW1/db1/dW2/db2 "
+            f"{errs} (tol {tol}); vs autograd of the plain forward "
+            f"{auto_errs} (tol {VGG_BWD_AUTOGRAD_TOL}); two runs "
+            f"bit-identical: {same}")
+        if not (max(errs) <= tol and max(auto_errs) <= VGG_BWD_AUTOGRAD_TOL
+                and same and all(torch.isfinite(a).all() for a in got)):
+            fail(f"vgg_block1_bwd {cdt} disagrees with its plain version")
+        ms = time_ms(torch, lambda: V.vgg_block1_bwd(
+            spect, *ws[:3], out, idx, g, cdt), iters=10)
+        plain = time_ms(torch, lambda: V.vgg_block1_bwd_plain(
+            spect, *ws[:3], out, idx, g, cdt), iters=5)
+        res[cdt] = (max(errs), ms, plain,
+                    max((a - b).abs().max().item() for a, b in zip(got, want)))
+    xs = spect.to(torch.bfloat16)[:, None]
+    wc = [w.to(torch.bfloat16).requires_grad_() for w in ws]
+
+    def lib_fwd():
+        y = Fn.conv2d(xs, wc[0].permute(3, 2, 0, 1), wc[1], padding=1)
+        y = Fn.conv2d(torch.relu(y), wc[2].permute(3, 2, 0, 1), padding=1)
+        return torch.relu(Fn.max_pool2d(y, 2) + wc[3][None, :, None, None])
+    gl = torch.randn(B, 64, F // 2, T // 2, generator=g0).to(
+        dev, torch.bfloat16)
+    fwd_ms = time_ms(torch, lib_fwd, iters=5)
+    both_ms = time_ms(torch, lambda: torch.autograd.grad(lib_fwd(), wc, gl),
+                      iters=5)
+    flops = 2 * B * F * T * 64 * (576 + 9) * 2
+    nbytes = 4 * B * F * T + B * (F // 2) * (T // 2) * 64 * 5 + 4 * 2 * (
+        9 * 64 + 64 + 576 * 64 + 64)
+    err, ms, plain, abs_err = res[torch.bfloat16]
+    log(f"vgg_block1_bwd bf16 ms {ms:.4f} plain {plain:.4f}; f32 ms "
+        f"{res[torch.float32][1]:.4f} plain {res[torch.float32][2]:.4f}; "
+        f"cuDNN conv2d x2 + max_pool2d backward ~{both_ms - fwd_ms:.4f} "
+        f"({flops / 1e9:.1f} GFLOP)")
+    return entry("vgg_block1_bwd", "vgg_block1.cu",
+                 "end2end_asr_tpu/ops/vgg_fused.py:214", abs_err, ms, plain,
+                 flops / BF16_PEAK, nbytes / HBM_BPS, both_ms - fwd_ms,
+                 rel_err=err, rel_err_f32=res[torch.float32][0],
+                 ms_f32=res[torch.float32][1],
+                 plain_ms_f32=res[torch.float32][2],
+                 bound_ms_f32=1e3 * flops / F32_PEAK)
+
+
+def check_attention(torch, dev):
+    """Kernels 4, 5 at the encoder self-attention (T = 200) and decoder
+    cross-attention (U + 1 = 51 queries) shapes, rates 0 and 0.1; kernel 9
+    bit-exact against the plain Philox."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops import attention_fused as AF
+    H, D = 8, 64
+    g0 = torch.Generator().manual_seed(SEED + 3)
+    out_entries, times = {}, {}
+    for label, Tq, Tk in (("enc_self", 200, 200), ("dec_cross", 51, 200)):
+        q, k, v = (torch.randn(B, H, t, D, generator=g0).to(
+            dev, torch.bfloat16) for t in (Tq, Tk, Tk))
+        mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
+        mask[0, 0] = True                 # a query with every key masked
+        bias = torch.where(mask, -1e9, 0.0).to(dev)
+        dout = torch.randn(B, H, Tq, D, generator=g0).to(dev, torch.bfloat16)
+        for rate in (0.0, 0.1):
+            seed = 0x5EED + int(rate * 10)
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = AF.flash_mha_train(*qkv, bias, seed, rate)
+            grads = torch.autograd.grad(out, qkv, dout)
+            qf = [t.float().requires_grad_() for t in (q, k, v)]
+            want = AF.flash_mha_train_plain(*qf, bias, seed, rate)
+            want_g = torch.autograd.grad(want, qf, dout.float())
+            torch.cuda.synchronize()
+            ef = rel_err(out, want)
+            eb = [rel_err(a, b) for a, b in zip(grads, want_g)]
+            log(f"attention {label} rate {rate}: fwd rel err {ef:.3g}, "
+                f"dq/dk/dv {[round(e, 6) for e in eb]} (tol {ATTN_TOL})")
+            if not (ef <= ATTN_TOL and max(eb) <= ATTN_TOL
+                    and torch.isfinite(out.float()).all()):
+                fail(f"attention {label} rate {rate} disagrees with plain")
+            out_entries[(label, rate)] = (
+                (out.float() - want).abs().max().item(),
+                max((a.float() - b).abs().max().item()
+                    for a, b in zip(grads, want_g)))
+        rate, seed = 0.1, 77
+        o, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
+        fwd_ms = time_ms(torch, lambda: AF.attn_fwd(q, k, v, bias, seed,
+                                                    rate), iters=50)
+        bwd_ms = time_ms(torch, lambda: AF.attn_bwd(
+            q, k, v, bias, o, stats, dout, seed, rate), iters=50)
+        qf = [t.float() for t in (q, k, v)]
+        pf_ms = time_ms(torch, lambda: AF.flash_mha_train_plain(
+            *qf, bias, seed, rate), iters=5)
+        qg = [t.float().requires_grad_() for t in (q, k, v)]
+        pb_ms = time_ms(torch, lambda: torch.autograd.grad(
+            AF.flash_mha_train_plain(*qg, bias, seed, rate), qg,
+            dout.float()), iters=5) - pf_ms
+        ql = [t.clone().requires_grad_() for t in (q, k, v)]
+        bl = bias[:, None].to(torch.bfloat16)
+        sdpa = lambda: Fn.scaled_dot_product_attention(*ql, attn_mask=bl,
+                                                       dropout_p=rate)
+        lf_ms = time_ms(torch, sdpa, iters=50)
+        lb_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), ql, dout),
+                        iters=50) - lf_ms
+        n = B * H * Tq * Tk * D
+        in_b = 2 * B * H * (Tq + 2 * Tk) * D + 4 * B * Tq * Tk
+        times[label] = dict(
+            fwd=(fwd_ms, pf_ms, 4 * n / BF16_PEAK,
+                 (in_b + 2 * B * H * Tq * D + 8 * B * H * Tq) / HBM_BPS,
+                 lf_ms),
+            bwd=(bwd_ms, pb_ms, 10 * n / BF16_PEAK,
+                 (in_b + 2 * 2 * B * H * Tq * D + 8 * B * H * Tq
+                  + 2 * B * H * (Tq + 2 * Tk) * D) / HBM_BPS, lb_ms))
+        log(f"attention {label} (rate 0.1): fwd {fwd_ms:.4f} ms (plain "
+            f"{pf_ms:.4f}, SDPA {lf_ms:.4f}); bwd {bwd_ms:.4f} ms (plain "
+            f"{pb_ms:.4f}, SDPA backward ~{lb_ms:.4f})")
+
+    # kernel 9: bit-exact with the plain Philox, and deterministic
+    seed = 0xDEADBEEF_00C0FFEE
+    bits = AF.dropout_bits(seed, B, 8, 200, 200, device=dev)
+    want = AF.dropout_bits_plain(seed, B, 8, 200, 200, device=dev)
+    same = torch.equal(bits, want) and torch.equal(
+        bits, AF.dropout_bits(seed, B, 8, 200, 200, device=dev))
+    keep = (bits < AF.dropout_thresh16(0.1) * 65536).double().mean().item()
+    log(f"dropout_bits (12, 8*200, 200): bit-exact {same}; keep fraction "
+        f"{keep:.6f} (expected {AF.dropout_thresh16(0.1) / 65536:.6f})")
+    if not same:
+        fail("dropout_bits differs from the plain Philox stream")
+    bits_ms = time_ms(torch, lambda: AF.dropout_bits(seed, B, 8, 200, 200,
+                                                     device=dev), iters=20)
+    bits_plain = time_ms(torch, lambda: AF.dropout_bits_plain(
+        seed, B, 8, 200, 200, device=dev), iters=3)
+    t = times["enc_self"]
+    fwd_err = max(v[0] for v in out_entries.values())
+    bwd_err = max(v[1] for v in out_entries.values())
+    cross = times["dec_cross"]
+    return [
+        entry("attn_fwd", "attention.cu",
+              "end2end_asr_tpu/ops/attention_fused.py:78", fwd_err,
+              t["fwd"][0], t["fwd"][1], t["fwd"][2], t["fwd"][3],
+              t["fwd"][4], shape="(12,8,200,200,64) bf16, rate 0.1",
+              ms_dec_cross=cross["fwd"][0],
+              plain_ms_dec_cross=cross["fwd"][1],
+              library_ms_dec_cross=cross["fwd"][4],
+              bound_ms_dec_cross=1e3 * max(cross["fwd"][2],
+                                           cross["fwd"][3])),
+        entry("attn_bwd", "attention.cu",
+              "end2end_asr_tpu/ops/attention_fused.py:96", bwd_err,
+              t["bwd"][0], t["bwd"][1], t["bwd"][2], t["bwd"][3],
+              t["bwd"][4], shape="(12,8,200,200,64) bf16, rate 0.1",
+              library_note="SDPA forward+backward minus forward",
+              ms_dec_cross=cross["bwd"][0],
+              plain_ms_dec_cross=cross["bwd"][1],
+              library_ms_dec_cross=cross["bwd"][4],
+              bound_ms_dec_cross=1e3 * max(cross["bwd"][2],
+                                           cross["bwd"][3])),
+        # the bound counts the bytes written; Philox is integer work with
+        # no peak rate in the table, so operations are not counted
+        entry("dropout_bits", "attention.cu",
+              "end2end_asr_tpu/ops/attention_fused.py:273", 0.0, bits_ms,
+              bits_plain, 0.0, 4 * B * 8 * 200 * 200 / HBM_BPS, None)]
+
+
+def check_pool_bwd(torch, dev):
+    """Kernel 6 at conv4's output (12, 128, 80, 400) bf16: exact."""
+    from end2end_asr_tpu_torch.ops import pool_vjp as PV
+    g0 = torch.Generator().manual_seed(SEED + 4)
+    y = torch.randn(B, 128, 80, 400, generator=g0).to(dev, torch.bfloat16)
+    g = torch.randn(B, 128, 40, 200, generator=g0).to(dev, torch.bfloat16)
+    got = PV.pool_bwd(y, g)
+    want = PV.pool_bwd_plain(y, g)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"pool_bwd (12,128,80,400) bf16 max_abs_err {err} (tol 0: exact)")
+    if err != 0.0:
+        fail("pool_bwd disagrees with its plain version")
+    ms = time_ms(torch, lambda: PV.pool_bwd(y, g), iters=20)
+    plain = time_ms(torch, lambda: PV.pool_bwd_plain(y, g), iters=5)
+    _, ind = torch.nn.functional.max_pool2d(y, 2, 2, return_indices=True)
+    lib = time_ms(torch, lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        g, y, [2, 2], [2, 2], [0, 0], [1, 1], False, ind), iters=20)
+    nbytes = 2 * (2 * y.numel() + g.numel())
+    log(f"pool_bwd ms {ms:.4f} plain {plain:.4f} max_pool2d backward "
+        f"{lib:.4f}; bound {1e3 * nbytes / HBM_BPS:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB)")
+    return entry("pool_bwd", "pool_bwd.cu",
+                 "end2end_asr_tpu/ops/pool_vjp.py:39", err, ms, plain, 0.0,
+                 nbytes / HBM_BPS, lib)
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
-def make_corpus(root, labels, rng):
-    """12 WAVs of 7-7.99 s (tones + noise) with random transcripts."""
+def make_corpus(root, labels, rng, n=B, name="manifest.csv"):
+    """n WAVs of 7-7.99 s (tones + noise) with random transcripts."""
     import numpy as np
     from end2end_asr_tpu_torch.data.audio import save_wav
     sr = 16000
     rows = []
     chars = [c for c in labels if c.strip()]
-    for i in range(B):
+    for i in range(n):
         n = int(rng.uniform(7.0, SECONDS_MAX) * sr)
         t = np.arange(n) / sr
         y = 0.3 * np.sin(2 * math.pi * (100 + 40 * i) * t) \
             + 0.05 * rng.randn(n)
-        wav = os.path.join(root, f"u{i}.wav")
-        txt = os.path.join(root, f"u{i}.txt")
+        wav = os.path.join(root, f"{name[:-4]}_u{i}.wav")
+        txt = os.path.join(root, f"{name[:-4]}_u{i}.txt")
         save_wav(wav, y, sr)
         with open(txt, "w", encoding="utf-8") as f:
             f.write("".join(rng.choice(chars, rng.randint(8, 20))))
         rows.append(f"{wav},{txt}")
-    manifest = os.path.join(root, "manifest.csv")
+    manifest = os.path.join(root, name)
     with open(manifest, "w") as f:
         f.write("\n".join(rows) + "\n")
     return manifest
@@ -407,6 +671,209 @@ def phase_serve(torch, dev, kernels, work):
                   "profile": breakdown}
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+def aishell_config(**kw):
+    """The AiShell README training configuration (README.md:46-54) at full
+    width: batch 12, label smoothing 0.1, dropout 0.1, Noam Adam, bf16."""
+    from end2end_asr_tpu_torch.config import Config
+    base = dict(feat_extractor="vgg_cnn", num_layers=4, num_heads=8,
+                dim_model=512, dim_key=64, dim_value=64, dim_inner=2048,
+                dim_emb=512, batch_size=B, label_smoothing=0.1, dropout=0.1,
+                k_lr=1.0, min_lr=1e-6, warmup=4000, dtype="bfloat16",
+                seed=SEED)
+    base.update(kw)
+    return Config(**base)
+
+
+def train_argv(cfg, manifest, valid, labels_path, extra=()):
+    return ["--train-manifest-list", manifest,
+            "--valid-manifest-list", valid, "--labels-path", labels_path,
+            "--name", "aishell", "--save-folder", "models",
+            "--feat_extractor", cfg.feat_extractor,
+            "--num-layers", str(cfg.num_layers),
+            "--num-heads", str(cfg.num_heads),
+            "--dim-model", str(cfg.dim_model),
+            "--dim-key", str(cfg.dim_key), "--dim-value", str(cfg.dim_value),
+            "--dim-inner", str(cfg.dim_inner), "--dim-emb", str(cfg.dim_emb),
+            "--batch-size", str(cfg.batch_size),
+            "--label-smoothing", str(cfg.label_smoothing),
+            "--dropout", str(cfg.dropout), "--k-lr", str(cfg.k_lr),
+            "--min-lr", str(cfg.min_lr), "--warmup", str(cfg.warmup),
+            "--dtype", cfg.dtype, "--seed", str(cfg.seed),
+            "--save-every", "1", *extra]
+
+
+def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
+                steps=10, overfit_steps=100):
+    """`kernels`: {name: (module, launch-count function)}. Runs the train
+    entry point at full width, then times, profiles, overfits and holds
+    an f32 step on the card against the CPU path."""
+    import numpy as np
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                          init_params,
+                                                          num_params)
+    from end2end_asr_tpu_torch.config import load_vocab
+    from end2end_asr_tpu_torch.models.transformer import forward
+    from end2end_asr_tpu_torch.training.loss import calculate_loss
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams, features,
+                                                      make_train_step_impl)
+    from end2end_asr_tpu_torch.training.trainer import batch_tensors
+
+    with open(labels_path, encoding="utf-8") as f:
+        labels = json.load(f)
+    rs = np.random.RandomState(SEED + 10)
+    manifest = make_corpus(work, labels, rs, n=2 * B, name="train.csv")
+    valid = make_corpus(work, labels, rs, n=B, name="valid.csv")
+    cfg = aishell_config()
+
+    def counts():
+        return {n: c() for n, (_, c) in kernels.items()}
+
+    def reset():
+        for m, _ in kernels.values():
+            m.reset_launches()
+
+    cwd = os.getcwd()
+    os.chdir(work)           # log/ and models/ of the run go here
+    try:
+        argv = train_argv(cfg, manifest, valid, labels_path,
+                          ["--epochs", str(epochs), "--device", str(dev)])
+        reset()
+        t0 = time.time()
+        res = port_train.main(argv)
+        torch.cuda.synchronize()
+        run_counts = counts()
+        wall = time.time() - t0
+        m = res["metrics"]
+        log(f"train: {epochs} epochs x 2 steps in {wall:.1f} s, metrics "
+            f"{ {k: v for k, v in m.items() if k != 'history'} }, optimizer "
+            f"step {res['opt_step']}, launches {run_counts}")
+        missing = [n for n, c in run_counts.items() if c < 1]
+        if missing:
+            fail(f"train: kernels not launched: {missing}")
+        if res["opt_step"] != 2 * epochs or not all(
+                math.isfinite(m[k]) for k in ("train_loss", "valid_loss")):
+            fail(f"train: bad result {m}, step {res['opt_step']}")
+        with open(os.path.join("log", "aishell"), encoding="utf-8") as f:
+            train_log = f.read()
+        if "TRAIN LOSS" not in train_log or "VALID SET 0" not in train_log:
+            fail("train: log/aishell lacks the TRAIN / VALID lines")
+        res2 = port_train.main(
+            train_argv(cfg, manifest, valid, labels_path,
+                       ["--epochs", str(epochs + 1), "--device", str(dev),
+                        "--auto-resume"]))
+        log(f"train --auto-resume: one more epoch, optimizer step "
+            f"{res['opt_step']} -> {res2['opt_step']}")
+        if res2["opt_step"] != res["opt_step"] + 2 or res2["epochs_run"] != 1:
+            fail("train --auto-resume did not continue the optimizer step")
+    finally:
+        os.chdir(cwd)
+
+    # a fixed batch: launches per step, step time, profile
+    label2id, _ = load_vocab(labels_path)
+    params = init_params(cfg, len(label2id),
+                         torch.Generator().manual_seed(SEED))
+    log(f"model: {num_params(params) / 1e6:.2f} M params")
+    dims = dims_from_config(cfg)
+    fp = FlatParams(params, dev)
+    opt = init_opt_state(cfg, fp.data)
+    rng = DropoutRng(SEED, dev)
+    step = make_train_step_impl(cfg, dims)
+    batch = next(iter(AudioBatchLoader(ManifestDataset([manifest], label2id),
+                                       cfg)))
+    tensors = batch_tensors(batch, dev)
+    one = lambda: step(fp, fp.data, opt, rng, *tensors, batch.src_bucket)
+    one()
+    torch.cuda.synchronize()
+    reset()
+    one()
+    torch.cuda.synchronize()
+    per_step = counts()
+    log(f"launches per train step (bucket {batch.src_bucket} frames, "
+        f"{batch.targets.shape[1]} target columns): {per_step}")
+    if per_step["attn_fwd"] != 3 * cfg.num_layers or \
+            per_step["attn_bwd"] != 3 * cfg.num_layers:
+        fail(f"expected {3 * cfg.num_layers} attention forwards and "
+             f"backwards per step, got {per_step}")
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    log(f"train step: median {step_ms:.2f} ms over {steps} steps "
+        f"(min {min(times):.2f}, max {max(times):.2f}); "
+        f"{B / step_ms * 1e3:.1f} utterances/s")
+    prof = profile(torch, one, top=10)
+
+    # overfit one batch: peak lr k·5120^-0.5·warmup^-0.5 ≈ 1e-3
+    ocfg = aishell_config(k_lr=0.36, warmup=25)
+    ostep = make_train_step_impl(ocfg, dims)
+    ofp = FlatParams(params, dev)
+    data, oopt = ofp.data, init_opt_state(ocfg, ofp.data)
+    losses = []
+    for _ in range(overfit_steps):
+        data, oopt, om, _, _ = ostep(ofp, data, oopt, rng, *tensors,
+                                     batch.src_bucket)
+        losses.append(om["loss"].item())
+    half_at = next((i for i, v in enumerate(losses) if v < losses[0] / 2),
+                   None)
+    log(f"overfit (k_lr 0.36, warmup 25: peak lr "
+        f"{0.36 * 5120 ** -0.5 * 25 ** -0.5:.2e}): loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}; under half the first at step {half_at}")
+    if half_at is None or not all(math.isfinite(v) for v in losses):
+        fail("overfit: the loss did not fall under half its first value "
+             f"within {overfit_steps} steps: {losses[::10]}")
+
+    # one f32 step at dropout 0 (TF32 off) on the card vs the CPU path
+    fcfg = aishell_config(dtype="float32", dropout=0.0)
+    fdims = dims_from_config(fcfg)
+    two = [t[:2] for t in batch_tensors(batch, "cpu")]
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        ffp = FlatParams(params, d)
+        leaf = ffp.data.clone().requires_grad_()
+        ts = [t.to(d) for t in two]
+        spect = features(fcfg, ts[0], ts[1], batch.src_bucket)
+        pred, gold = forward(ffp.tree(leaf), spect, ts[1], ts[2], fdims,
+                             train=True)
+        loss = calculate_loss(pred, gold, None, ts[3], fcfg.label_smoothing)
+        g, = torch.autograd.grad(loss, leaf)
+        grads.append((loss.item(), ffp.views(g.cpu())))
+    (lg, gg), (lc, gc) = grads
+    gmax = max(v.abs().max().item() for v in gc.values())
+    gerr = max(((gg[k] - v).abs().max() / max(v.abs().max().item(),
+                                              1e-3 * gmax)).item()
+               for k, v in gc.items())
+    lerr = abs(lg - lc) / abs(lc)
+    log(f"f32 train step card vs CPU (2 utterances, dropout 0, TF32 off): "
+        f"loss {lg:.6f} vs {lc:.6f} (rel {lerr:.2e}, tol {STEP_LOSS_TOL}); "
+        f"grads max rel err {gerr:.2e} (tol {STEP_GRAD_TOL})")
+    if not (lerr <= STEP_LOSS_TOL and gerr <= STEP_GRAD_TOL):
+        fail("the f32 train step on the card disagrees with the CPU path")
+    return run_counts, {
+        "train_step_ms": step_ms, "train_step_ms_all": times,
+        "utterances_per_s": B / step_ms * 1e3,
+        "bucket_frames": batch.src_bucket,
+        "target_columns": int(batch.targets.shape[1]),
+        "launches_per_step": per_step, "profile_step": prof,
+        "run_2_epochs_s": wall, "opt_step_after_resume": res2["opt_step"],
+        "overfit_first_loss": losses[0], "overfit_last_loss": losses[-1],
+        "overfit_half_at_step": half_at,
+        "f32_step_card_vs_cpu_loss_rel_err": lerr,
+        "f32_step_card_vs_cpu_grad_rel_err": gerr}
+
+
 def profile(torch, fn, top=6):
     """One warm call of fn under torch.profiler: wall ms, summed device
     time of its kernels, their share of the wall time (the device's busy
@@ -446,7 +913,8 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     try:
-        from end2end_asr_tpu_torch.ops import cuda_lib, stft, vgg_fused
+        from end2end_asr_tpu_torch.ops import (attention_fused, cuda_lib,
+                                               pool_vjp, stft, vgg_fused)
     except ImportError as e:
         fail(f"the port is not importable ({e}); run from the repo root")
 
@@ -463,16 +931,40 @@ def main():
 
     t0 = time.time()
     phase_build(cuda_lib)
-    entries = [check_stft(torch, dev), check_vgg(torch, dev)]
+    entries = [check_stft(torch, dev), check_vgg(torch, dev),
+               check_vgg_bwd(torch, dev), *check_attention(torch, dev),
+               check_pool_bwd(torch, dev)]
+    log(f"kernel checks done at {time.time() - t0:.1f} s")
     kernels = {"stft_logmag": stft, "vgg_block1_fwd": vgg_fused}
+    AF = attention_fused
+    train_kernels = {
+        "stft_logmag": (stft, stft.launches),
+        "vgg_block1_fwd": (vgg_fused, vgg_fused.launches),
+        "vgg_block1_bwd": (vgg_fused, vgg_fused.bwd_launches),
+        "attn_fwd": (AF, lambda: AF.FWD.launches),
+        "attn_bwd": (AF, lambda: AF.BWD.launches),
+        "pool_bwd": (pool_vjp, pool_vjp.launches)}
+    labels_path = os.path.abspath(os.path.join("data", "labels",
+                                               "aishell_labels.json"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         runs, serve = phase_serve(torch, dev, kernels, work)
+        log(f"serving done at {time.time() - t0:.1f} s")
+        train_counts, train = phase_train(torch, dev, train_kernels, work,
+                                          labels_path)
     for e in entries:
-        e["launches"] = runs["greedy"][e["name"]]
-        e["launches_beam8"] = runs["beam8"][e["name"]]
-    log(f"serving times: {serve}; total {time.time() - t0:.1f} s")
+        # the training run is this slice's main path; the serving kernels
+        # also keep their counts from the serving runs
+        e["launches"] = train_counts.get(e["name"], 0)
+        if e["name"] in runs["greedy"]:
+            e["launches_serve_greedy"] = runs["greedy"][e["name"]]
+            e["launches_serve_beam8"] = runs["beam8"][e["name"]]
+        if e["name"] == "dropout_bits":
+            e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
+    log(f"serving times: {serve}; training: {train}; total "
+        f"{time.time() - t0:.1f} s")
     print(gpu)
-    print(json.dumps({"kernels": entries, "serve": serve, "gpu": gpu}))
+    print(json.dumps({"kernels": entries, "serve": serve, "train": train,
+                      "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

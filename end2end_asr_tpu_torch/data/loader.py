@@ -1,4 +1,4 @@
-"""Bucketed batch loader with static shapes (serving path).
+"""Bucketed batch loader with static shapes.
 
 A copy of the JAX package's ``data/loader.py`` without the prefetch
 thread, the host-feature path and the multi-host slicing. Batches are
@@ -9,7 +9,7 @@ math runs on the device (ops/features.py, ops/stft.py).
 BucketingSampler semantics (utils/data_loader.py:223-243 of the
 reference): sequential index bins of batch_size over duration-sorted
 manifests, shuffle WITHIN a bin every iteration, shuffle bin order on
-.shuffle(epoch).
+.shuffle(epoch) (the training loader, with the run's seed).
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ class BucketingSampler:
     def __len__(self) -> int:
         return len(self.bins)
 
+    def shuffle(self, epoch: int) -> None:
+        self.rng.shuffle(self.bins)
+
 
 @dataclass
 class Batch:
@@ -48,6 +51,7 @@ class Batch:
     n_frames: np.ndarray               # (B,) valid spectrogram frames
     src_bucket: int                    # T (frames after padding)
     targets: np.ndarray                # (B, U_bucket) PAD-padded, SOS…EOS
+    tgt_lengths: np.ndarray            # (B,)
     # rows [0:real_rows) are real; the tail (if any) is cycled padding
     # (pad_to_full below). -1 = all rows real.
     real_rows: int = -1
@@ -81,6 +85,9 @@ class AudioBatchLoader:
     def __len__(self) -> int:
         return len(self.sampler)
 
+    def shuffle(self, epoch: int) -> None:
+        self.sampler.shuffle(epoch)
+
     def __iter__(self) -> Iterator[Batch]:
         rng = np.random.RandomState(self._seed + self.epoch)
         self.epoch += 1
@@ -111,9 +118,11 @@ class AudioBatchLoader:
 
         B = len(items)
         targets = np.full((B, U_b), PAD_TOKEN, np.int32)
+        tgt_lengths = np.zeros(B, np.int32)
         for i, t in enumerate(transcripts):
             t = t[:U_b]
             targets[i, :len(t)] = t
+            tgt_lengths[i] = len(t)
 
         # reflect-pad PCM rows on the host, heavy math on the device
         n_pcm = (T_b - 1) * hop  # samples that yield exactly T_b frames
@@ -127,4 +136,5 @@ class AudioBatchLoader:
             pcm = np.clip(np.rint(pcm * 32768.0), -32768,
                           32767).astype(np.int16)
         return Batch(pcm=pcm, n_frames=frames, src_bucket=T_b,
-                     targets=targets, real_rows=real_rows)
+                     targets=targets, tgt_lengths=tgt_lengths,
+                     real_rows=real_rows)

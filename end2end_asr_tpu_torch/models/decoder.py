@@ -1,13 +1,16 @@
-"""Transformer decoder: KV-cached single-step decode (inference).
+"""Transformer decoder: teacher-forced training forward and KV-cached
+single-step decode (inference).
 
-Port of the JAX package's ``models/decoder.py`` decode path (reference:
+Port of the JAX package's ``models/decoder.py`` (reference:
 models/asr/transformer.py:206-305, :316-517). Inference quirks kept
 exactly, as the reference runs them (transformer.py:336-348,430-443):
 non-pad mask of ones, NO cross-attention mask, dropout off — so the
 cached step equals a full-prefix recompute. The embedding is scaled by
 x_logit_scale = dim_model**-0.5 when the output projection is tied to it
-(emb_trg_sharing), else 1. (The training forward, with its EOS-as-pad
-masks and double-SOS preprocess, belongs to the training slice.)
+(emb_trg_sharing), else 1. Training quirks kept (decoder.py:6-14 of the
+JAX package): `preprocess_targets` prepends SOS to targets that already
+begin with SOS and pads seq_in with EOS, and the non-pad and key-pad
+masks use pad_idx = EOS.
 
 The caches are updated IN PLACE (one position written per step), where
 the JAX package returns new arrays: the step writes position t of the
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from end2end_asr_tpu_torch.config import EOS_TOKEN, PAD_TOKEN, SOS_TOKEN
 from end2end_asr_tpu_torch.models import layers as L
 
 Params = Dict[str, object]
@@ -38,6 +42,66 @@ def output_logits(p: Params, h: torch.Tensor,
     else:
         w = p["embedding"].T
     return (h.to(dtype) @ w.to(dtype)).to(torch.float32)
+
+
+def preprocess_targets(targets: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """targets: (B, U) PAD-padded ids, already SOS…EOS wrapped. Returns
+    (seq_in, seq_out), both (B, U+1) int64:
+    seq_in = SOS + targets, EOS-padded; seq_out = targets + EOS,
+    PAD-padded (transformer.py:254-266, common_layers.py:14-22)."""
+    B, U = targets.shape
+    targets = targets.to(torch.int64)
+    lengths = (targets != PAD_TOKEN).sum(dim=1)[:, None]
+    pos = torch.arange(U + 1, device=targets.device)[None, :]
+    tgt_w = torch.nn.functional.pad(targets, (0, 1), value=PAD_TOKEN)
+    sos = torch.full((B, 1), SOS_TOKEN, dtype=torch.int64,
+                     device=targets.device)
+    shifted = torch.cat([sos, targets], dim=1)
+    seq_in = torch.where(pos <= lengths, shifted,
+                         torch.full_like(shifted, EOS_TOKEN))
+    seq_out = torch.where(pos < lengths, tgt_w,
+                          torch.where(pos == lengths,
+                                      torch.full_like(tgt_w, EOS_TOKEN),
+                                      torch.full_like(tgt_w, PAD_TOKEN)))
+    return seq_in, seq_out
+
+
+def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
+                  enc_input_lengths: torch.Tensor, num_heads: int,
+                  dim_key: int, dim_value: int, dim_model: int,
+                  emb_trg_sharing: bool = False, dropout_rate: float = 0.0,
+                  rng: Optional[L.DropoutRng] = None,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Teacher-forced forward (transformer.py:268-305): logits (B, U, V)
+    f32. `rng` turns on training dropout (embedding, attention, FFN)."""
+    B, U = seq_in.shape
+    T_enc = enc_out.shape[1]
+    dev = seq_in.device
+    non_pad = L.non_pad_mask_from_pad(seq_in, EOS_TOKEN)
+    self_mask = (L.attn_key_pad_mask(seq_in, EOS_TOKEN, U)
+                 | L.subsequent_mask(B, U, dev))
+    cross_mask = L.attn_pad_mask_from_lengths(enc_input_lengths, T_enc, U)
+    self_bias = L.train_attn_bias(self_mask, dropout_rate, rng)
+    cross_bias = L.train_attn_bias(cross_mask, dropout_rate, rng)
+
+    scale = logit_scale(dim_model, emb_trg_sharing)
+    out = p["embedding"][seq_in] * scale + p["pe"].detach()[None, :U]
+    if rng is not None:
+        out = L.dropout(out, dropout_rate, rng)
+    for lp in p["layers"]:
+        out = L.mha(lp["self_attn"], out, out, out, num_heads, dim_key,
+                    dim_value, mask=self_mask, dtype=dtype,
+                    dropout_rate=dropout_rate, rng=rng, bias=self_bias)
+        out = out * non_pad
+        out = L.mha(lp["enc_attn"], out, enc_out, enc_out, num_heads,
+                    dim_key, dim_value, mask=cross_mask, dtype=dtype,
+                    dropout_rate=dropout_rate, rng=rng, bias=cross_bias)
+        out = out * non_pad
+        out = L.ffn(lp["ffn"], out, dtype=dtype, dropout_rate=dropout_rate,
+                    rng=rng)
+        out = out * non_pad
+    return output_logits(p, out, dtype)
 
 
 def fused_qkv_weights(p: Params, dtype: torch.dtype = torch.bfloat16):

@@ -1,15 +1,17 @@
-"""Transformer encoder (eval path).
+"""Transformer encoder.
 
 Port of the JAX package's ``models/encoder.py`` (reference:
 models/asr/transformer.py:126-203). Input projection + LayerNorm +
 additive sinusoidal positional encoding at the bottom
 (transformer.py:172-173); per layer: post-LN self-attention → non-pad
-mask multiply → conv-FFN → non-pad mask multiply.
+mask multiply → conv-FFN → non-pad mask multiply. In training
+(`rng` given) with dropout, as encoder.py:48-135 of the JAX package;
+remat and sequence / pipeline parallelism are not ported (ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -20,21 +22,27 @@ Params = Dict[str, object]
 
 def apply_encoder(p: Params, x: torch.Tensor, input_lengths: torch.Tensor,
                   num_heads: int, dim_key: int, dim_value: int,
-                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  dtype: torch.dtype = torch.bfloat16,
+                  dropout_rate: float = 0.0,
+                  rng: Optional[L.DropoutRng] = None) -> torch.Tensor:
     """x: (B, T, dim_input) post-front-end features; input_lengths (B,).
     Lengths >= T mask nothing (the conv-front-end no-op quirk of the
-    reference, see layers.non_pad_mask_from_lengths)."""
+    reference, see layers.non_pad_mask_from_lengths). `rng` turns on
+    training dropout. The positional table gets no gradient."""
     B, T, _ = x.shape
     non_pad = L.non_pad_mask_from_lengths(input_lengths, T)
     self_attn_mask = L.attn_pad_mask_from_lengths(input_lengths, T, T)
+    self_attn_bias = L.train_attn_bias(self_attn_mask, dropout_rate, rng)
 
     out = L.layer_norm(p["ln_input"], L.dense(p["input_linear"], x, dtype)
                        .to(torch.float32))
-    out = out + p["pe"][None, :T]
+    out = out + p["pe"].detach()[None, :T]
     for lp in p["layers"]:
         out = L.mha(lp["self_attn"], out, out, out, num_heads, dim_key,
-                    dim_value, mask=self_attn_mask, dtype=dtype)
+                    dim_value, mask=self_attn_mask, dtype=dtype,
+                    dropout_rate=dropout_rate, rng=rng, bias=self_attn_bias)
         out = out * non_pad
-        out = L.ffn(lp["ffn"], out, dtype=dtype)
+        out = L.ffn(lp["ffn"], out, dtype=dtype, dropout_rate=dropout_rate,
+                    rng=rng)
         out = out * non_pad
     return out

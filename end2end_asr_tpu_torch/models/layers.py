@@ -1,17 +1,22 @@
-"""Transformer building blocks (eval path), plain functions on tensors.
+"""Transformer building blocks, plain functions on tensors.
 
 Port of the JAX package's ``models/layers.py``. Behavioral contract with
 the reference (`models/common_layers.py`):
-  * masks — get_non_pad_mask/get_attn_key_pad_mask
-    (common_layers.py:28-64); the decoder's causal mask belongs to the
-    training slice (inference decodes one position at a time),
+  * masks — get_non_pad_mask/get_attn_key_pad_mask/get_subsequent_mask
+    (common_layers.py:28-74),
   * sinusoidal positional encoding (common_layers.py:76-98),
   * multi-head attention with separate Q/K/V projection widths
     (num_heads*dim_key / num_heads*dim_value) and post-LN residual
-    (common_layers.py:144-225), here on its eval path: matmul + masked
-    softmax with -inf fill, as the JAX package's ``attn_core``,
+    (common_layers.py:144-225): matmul + masked softmax with -inf fill,
+    as the JAX package's ``attn_core``, and in training with dropout the
+    fused attention kernel (ops/attention_fused.py, -1e9 fill, as the
+    JAX package routes it at layers.py:274-283),
   * position-wise FFN with kernel-1 Conv1d (common_layers.py:124-142) as
-    two dense layers over the feature axis.
+    two dense layers over the feature axis,
+  * inverted dropout with a uint16 keep threshold (layers.py:110-140).
+
+Random bits come from a `DropoutRng`: explicit generators, never the
+global one.
 
 Params are the JAX package's pytree with tensors for leaves: nested
 dicts (and lists for layer stacks) keyed exactly as there, so a JAX
@@ -27,9 +32,51 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from end2end_asr_tpu_torch.ops import attention_fused as AF
+from end2end_asr_tpu_torch.ops.attention_fused import dropout_thresh16
+
 Params = Dict[str, object]
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
+
+
+class DropoutRng:
+    """The random streams of one training run, seeded from the run's seed:
+    `host` (a CPU generator) draws the 64-bit Philox seeds of the
+    attention kernel as host ints, with no device round trip; `dev` (a
+    generator on the training device) draws the uint16 bits of the plain
+    dropout."""
+
+    def __init__(self, seed: int, device):
+        device = torch.device(device)
+        self.host = torch.Generator().manual_seed(seed)
+        self.dev = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def kernel_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
+
+    def bits16(self, shape, device) -> torch.Tensor:
+        return torch.randint(0, 65536, tuple(shape), generator=self.dev,
+                             device=device, dtype=torch.int32)
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng] = None,
+            bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout with a uint16 integer-compare mask: keep where
+    bits < round((1-rate)·2^16), scale by 65536/thresh in x's dtype;
+    zeros when the threshold rounds to 0. `bits` (uint16 values, x's
+    shape) replace the draw from `rng` (tests pass numpy bits)."""
+    if rate <= 0.0:
+        return x
+    thresh = dropout_thresh16(rate)
+    if thresh >= 65536:
+        return x
+    if thresh <= 0:
+        return torch.zeros_like(x)
+    if bits is None:
+        bits = rng.bits16(x.shape, x.device)
+    scale = torch.tensor(65536.0 / thresh, dtype=x.dtype, device=x.device)
+    return torch.where(bits < thresh, x * scale, torch.zeros_like(x))
 
 
 def dense(p: Params, x: torch.Tensor,
@@ -70,6 +117,26 @@ def non_pad_mask_from_lengths(lengths: torch.Tensor, T: int) -> torch.Tensor:
     return (t < lengths[:, None]).to(torch.float32)[:, :, None]
 
 
+def non_pad_mask_from_pad(seq: torch.Tensor, pad_idx: int) -> torch.Tensor:
+    """(B, T, 1) float mask, 1.0 where token != pad_idx
+    (common_layers.py:39-42)."""
+    return (seq != pad_idx).to(torch.float32)[:, :, None]
+
+
+def attn_key_pad_mask(seq_k: torch.Tensor, pad_idx: int,
+                      len_q: int) -> torch.Tensor:
+    """(B, T_q, T_k) bool, True = masked (common_layers.py:46-55)."""
+    pad = seq_k == pad_idx
+    return pad[:, None, :].expand(seq_k.shape[0], len_q, seq_k.shape[1])
+
+
+def subsequent_mask(B: int, T: int, device=None) -> torch.Tensor:
+    """(B, T, T) bool causal mask, True = masked (common_layers.py:66-74)."""
+    m = torch.triu(torch.ones((T, T), dtype=torch.bool, device=device),
+                   diagonal=1)
+    return m[None].expand(B, T, T)
+
+
 def attn_pad_mask_from_lengths(lengths: torch.Tensor, T_k: int,
                                len_q: int) -> torch.Tensor:
     """(B, T_q, T_k) bool, True = masked key positions >= length
@@ -77,6 +144,22 @@ def attn_pad_mask_from_lengths(lengths: torch.Tensor, T_k: int,
     t = torch.arange(T_k, device=lengths.device)[None, :]
     pad = t >= lengths[:, None]
     return pad[:, None, :].expand(lengths.shape[0], len_q, T_k)
+
+
+def attn_bias(mask: torch.Tensor) -> torch.Tensor:
+    """The fused attention kernel's f32 additive form of a (B, T_q, T_k)
+    bool mask: -1e9 where masked, else 0."""
+    return torch.where(mask, AF.MASK_BIAS, 0.0).to(torch.float32)
+
+
+def train_attn_bias(mask: torch.Tensor, dropout_rate: float,
+                    rng: Optional[DropoutRng]) -> Optional[torch.Tensor]:
+    """attn_bias(mask) when training with dropout (the kernel route of
+    `mha`), else None: a training forward builds it once and hands it to
+    every layer that shares the mask."""
+    if rng is None or dropout_rate <= 0.0:
+        return None
+    return attn_bias(mask)
 
 
 # ---------------------------------------------------------------------------
@@ -96,17 +179,23 @@ def sinusoid_table(max_length: int, dim_model: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Multi-head attention, eval path (common_layers.py:144-225)
+# Multi-head attention (common_layers.py:144-225)
 # ---------------------------------------------------------------------------
 
 def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
         value: torch.Tensor, num_heads: int, dim_key: int, dim_value: int,
         mask: Optional[torch.Tensor] = None,
-        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
+        rng: Optional[DropoutRng] = None,
+        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Post-LN residual MHA. query/key_/value: (B, T, H). mask: (B, T_q,
     T_k) bool, True = masked (-inf before the softmax). The projections
     and both attention products run in `dtype`; the softmax and the
-    residual/LayerNorm run in float32."""
+    residual/LayerNorm run in float32. With `rng` (training) and
+    dropout_rate > 0, the attention probabilities and the output
+    projection are dropped; with a mask the attention runs through the
+    fused kernel (flash_mha_train), as the JAX package's training path,
+    with `bias` (attn_bias(mask), built here when not given)."""
     B, Tq, _ = query.shape
     Tk = key_.shape[1]
     residual = query
@@ -114,14 +203,28 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
     k = dense(p["k"], key_, dtype).reshape(B, Tk, num_heads, dim_key)
     v = dense(p["v"], value, dtype).reshape(B, Tk, num_heads, dim_value)
 
-    scale = 1.0 / math.sqrt(dim_key)  # temperature = sqrt(dim_key)
-    attn = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
-    if mask is not None:
-        attn = attn.masked_fill(mask[:, None, :, :], float("-inf"))
-    attn = torch.softmax(attn, dim=-1).to(dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    training = rng is not None and dropout_rate > 0.0
+    if (training and dropout_thresh16(dropout_rate) > 0
+            and mask is not None):
+        if bias is None:
+            bias = attn_bias(mask)
+        out = AF.flash_mha_train(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), bias,
+                                 rng.kernel_seed(), dropout_rate)
+        out = out.transpose(1, 2)
+    else:
+        scale = 1.0 / math.sqrt(dim_key)  # temperature = sqrt(dim_key)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+        if mask is not None:
+            attn = attn.masked_fill(mask[:, None, :, :], float("-inf"))
+        attn = torch.softmax(attn, dim=-1).to(dtype)
+        if training:
+            attn = dropout(attn, dropout_rate, rng)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
     out = out.reshape(B, Tq, num_heads * dim_value)
     out = dense(p["out"], out.to(dtype), dtype).to(torch.float32)
+    if training:
+        out = dropout(out, dropout_rate, rng)
     return layer_norm(p["ln"], out + residual)
 
 
@@ -130,8 +233,11 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ffn(p: Params, x: torch.Tensor,
-        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
+        rng: Optional[DropoutRng] = None) -> torch.Tensor:
     residual = x
     h = torch.relu(dense(p["w1"], x, dtype))
     h = dense(p["w2"], h, dtype).to(torch.float32)
+    if rng is not None:
+        h = dropout(h, dropout_rate, rng)
     return layer_norm(p["ln"], h + residual)

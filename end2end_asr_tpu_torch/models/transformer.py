@@ -1,23 +1,25 @@
-"""Transformer container (eval path): front end + encoder + decoder.
+"""Transformer container: front end + encoder + decoder.
 
 Port of the JAX package's ``models/transformer.py`` (reference:
 models/asr/transformer.py:16-124, utils/functions.py:116-162). The params
 are the JAX pytree ``{"frontend", "encoder", "decoder"}`` with tensors
 for leaves. Greedy/beam decoding (decoding/) reuse `encode` and the
-decoder's cached step.
+decoder's cached step; training runs `forward` (transformer.py:126-147 of
+the JAX package), whose encoder keeps gradients.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from end2end_asr_tpu_torch.config import Config
+from end2end_asr_tpu_torch.models import decoder as D
 from end2end_asr_tpu_torch.models import encoder as E
 from end2end_asr_tpu_torch.models import frontend as Fe
-from end2end_asr_tpu_torch.models.layers import sinusoid_table
+from end2end_asr_tpu_torch.models.layers import DropoutRng, sinusoid_table
 
 Params = Dict[str, object]
 
@@ -31,6 +33,7 @@ class ModelDims(NamedTuple):
     feat_extractor: str
     dtype: torch.dtype
     ref_compat_masks: bool
+    dropout: float = 0.0
 
 
 def dims_from_config(cfg: Config) -> ModelDims:
@@ -40,7 +43,7 @@ def dims_from_config(cfg: Config) -> ModelDims:
         emb_trg_sharing=cfg.emb_trg_sharing,
         feat_extractor=cfg.feat_extractor,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-        ref_compat_masks=cfg.ref_compat_masks)
+        ref_compat_masks=cfg.ref_compat_masks, dropout=cfg.dropout)
 
 
 def encoder_lengths(dims: ModelDims, src_lengths: torch.Tensor
@@ -54,17 +57,48 @@ def encoder_lengths(dims: ModelDims, src_lengths: torch.Tensor
     return src_lengths // 4
 
 
+def encode_train(params: Params, spect: torch.Tensor,
+                 src_lengths: torch.Tensor, dims: ModelDims, train: bool,
+                 rng: Optional[DropoutRng] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`encode` that keeps gradients; `train` selects the front end's
+    training kernels and, with `rng`, dropout."""
+    feats = Fe.apply_frontend(params.get("frontend"), spect,
+                              dims.feat_extractor, dtype=dims.dtype,
+                              train=train)
+    enc_lens = encoder_lengths(dims, src_lengths)
+    enc_out = E.apply_encoder(params["encoder"], feats, enc_lens,
+                              dims.num_heads, dims.dim_key, dims.dim_value,
+                              dtype=dims.dtype, dropout_rate=dims.dropout,
+                              rng=rng if train else None)
+    return enc_out, enc_lens
+
+
 @torch.inference_mode()
 def encode(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
            dims: ModelDims) -> Tuple[torch.Tensor, torch.Tensor]:
     """spect: (B, F, T). Returns (enc_out (B, T', H) f32, enc_lengths)."""
-    feats = Fe.apply_frontend(params.get("frontend"), spect,
-                              dims.feat_extractor, dtype=dims.dtype)
-    enc_lens = encoder_lengths(dims, src_lengths)
-    enc_out = E.apply_encoder(params["encoder"], feats, enc_lens,
-                              dims.num_heads, dims.dim_key, dims.dim_value,
-                              dtype=dims.dtype)
-    return enc_out, enc_lens
+    return encode_train(params, spect, src_lengths, dims, train=False)
+
+
+def forward(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
+            targets: torch.Tensor, dims: ModelDims, train: bool = False,
+            rng: Optional[DropoutRng] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward (transformer.py:59-85 of the reference):
+    (pred logits (B, U, V) f32, gold (B, U)). `train` with `rng` turns
+    on dropout."""
+    rng = rng if train else None
+    enc_out, enc_lens = encode_train(params, spect, src_lengths, dims,
+                                     train, rng)
+    seq_in, seq_out = D.preprocess_targets(targets)
+    pred = D.apply_decoder(params["decoder"], seq_in, enc_out, enc_lens,
+                           dims.num_heads, dims.dim_key, dims.dim_value,
+                           dims.dim_model,
+                           emb_trg_sharing=dims.emb_trg_sharing,
+                           dropout_rate=dims.dropout, rng=rng,
+                           dtype=dims.dtype)
+    return pred, seq_out
 
 
 # ---------------------------------------------------------------------------

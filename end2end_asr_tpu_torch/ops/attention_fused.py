@@ -1,0 +1,296 @@
+"""Kernels 4, 5 and 9: the training attention with in-kernel dropout
+(csrc/attention.cu), its recomputing backward, the dropout bit stream, and
+their plain versions.
+
+    out = dropout(softmax(q kᵀ / √dk + bias)) @ v
+
+Replaces ``end2end_asr_tpu/ops/attention_fused.py``: ``_kernels.fwd``
+(forward), ``_kernels.bwd`` (backward) and the ``dropout_bits`` test hook.
+As there, nothing (Tq, Tk)-sized reaches device memory: the forward keeps
+two f32 softmax statistics per query row (the max and the sum; one
+log-sum-exp loses the sum under the −1e9 mask, see the source) besides
+its output, and the backward recomputes the scores and regenerates the
+same dropout mask from the seed.
+
+Semantics kept from the JAX package:
+  * keep = bits < thresh16·65536 on uint32 bits, thresh16 =
+    round((1 − rate)·65536) (``models/layers.dropout_thresh16``), and kept
+    probabilities are scaled by 65536/thresh16, so the estimator is
+    unbiased; rate 0 (thresh16 = 65536) draws nothing;
+  * the mask bias is −1e9, not −inf: a row whose keys are all masked comes
+    out uniform and finite;
+  * bias and seed get no gradient (the caller detaches the bias).
+
+The random bits are Philox4x32-10, counter-based, with the layout written
+once in the spec comment at the top of csrc/attention.cu; `philox_bits`
+below is the same function in int64 tensor arithmetic, so the plain
+version and the kernel draw the same bits on the CPU and on the card. The
+TPU's stream (its own hardware PRNG) cannot be reproduced: tests compare
+with the JAX package through keep masks fed from numpy.
+
+Bound on the H100: at the flagship (B=12, H=8, T=200, dk=64) one encoder
+self-attention is 4·B·H·Tq·Tk·dk ≈ 1 GFLOP forward (≈1 µs on the bf16
+tensor cores) and reads ≈ 9 MB (≈3 µs): the kernels are bound by launch
+cost at this size. Both use mma.sync bf16 tensor-core products with f32
+softmax statistics; see the source for the tiling.
+
+`flash_mha_train` takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernels, and raises if it cannot. `dropout_bits`
+returns the uint32 bits held in int64 (PyTorch has no comparisons on
+uint32 tensors).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from end2end_asr_tpu_torch.ops import cuda_lib
+
+P, I = cuda_lib.P, cuda_lib.I
+U64 = cuda_lib.U64
+
+FWD = cuda_lib.CudaKernel("attention", "attn_fwd_bf16",
+                          [P] * 6 + [I] * 6 + [U64, P])
+BWD = cuda_lib.CudaKernel("attention", "attn_bwd_bf16",
+                          [P] * 10 + [I] * 6 + [U64, P, P])
+BITS = cuda_lib.CudaKernel("attention", "dropout_bits_u32",
+                           [P] + [I] * 4 + [U64, P])
+KERNELS = {"attn_fwd": FWD, "attn_bwd": BWD, "dropout_bits": BITS}
+
+HEAD_DIMS = (64,)   # head widths the kernels are built for
+MASK_BIAS = -1e9
+
+
+def dropout_thresh16(rate: float) -> int:
+    """uint16 keep threshold: round((1-rate)·2^16) (the JAX package's
+    models/layers.dropout_thresh16)."""
+    return int(round((1.0 - rate) * 65536.0))
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 in int64 tensor arithmetic (spec: csrc/attention.cu)
+# ---------------------------------------------------------------------------
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit halves of a·m for a < 2^32 (int64 tensor) and a
+    32-bit constant m, through 16-bit limbs so no product exceeds 2^49."""
+    ah, al = a >> 16, a & 0xFFFF
+    mh, ml = m >> 16, m & 0xFFFF
+    mid = ah * ml + al * mh
+    t = al * ml + ((mid & 0xFFFF) << 16)
+    lo = t & _MASK32
+    hi = (ah * mh + (mid >> 16) + (t >> 32)) & _MASK32
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding uint32 counter words;
+    (k0, k1) the uint32 key words. Returns the four uint32 output words."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
+                device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) int64 holding the uint32 bits of the attention
+    dropout stream: bits[b, h, q, k] = word (k & 3) of
+    philox4x32_10(counter=(k >> 2, q, h, b), key=(seed lo, seed hi))."""
+    s = seed & 0xFFFFFFFFFFFFFFFF
+    kw = (Tk + 3) // 4
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    shape = (B, H, Tq, kw)
+    c0 = ar(kw).view(1, 1, 1, kw).expand(shape)
+    c1 = ar(Tq).view(1, 1, Tq, 1).expand(shape)
+    c2 = ar(H).view(1, H, 1, 1).expand(shape)
+    c3 = ar(B).view(B, 1, 1, 1).expand(shape)
+    words = philox4x32_10(c0, c1, c2, c3, s & _MASK32, s >> 32)
+    return torch.stack(words, dim=-1).reshape(B, H, Tq, 4 * kw)[..., :Tk]
+
+
+def keep_mask(seed: int, B: int, H: int, Tq: int, Tk: int, thresh16: int,
+              device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) bool: the kernels' dropout keep mask."""
+    return philox_bits(seed, B, H, Tq, Tk, device) < thresh16 * 65536
+
+
+def dropout_bits_plain(seed: int, B: int, H: int, Tq: int, Tk: int,
+                       device=None) -> torch.Tensor:
+    return philox_bits(seed, B, H, Tq, Tk, device).reshape(B, H * Tq, Tk)
+
+
+def dropout_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
+                 device=None) -> torch.Tensor:
+    """(B, H·Tq, Tk) int64 holding the uint32 bits that the forward AND
+    backward kernels draw for these shapes (the JAX package's
+    ``dropout_bits``). On a CUDA device the kernel writes them."""
+    device = torch.device(device or "cpu")
+    if device.type == "cpu":
+        return dropout_bits_plain(seed, B, H, Tq, Tk, device)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_bits: unsupported device {device}")
+    out = torch.empty((B, H * Tq, Tk), dtype=torch.int32, device=device)
+    if out.numel():
+        with torch.cuda.device(device):
+            BITS.launch(out.data_ptr(), B, H, Tq, Tk, seed & (2 ** 64 - 1),
+                        torch.cuda.current_stream().cuda_stream)
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def flash_mha_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor, seed: int, rate: float,
+                          keep: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """softmax(q kᵀ/√dk + bias) → dropout → @ v with f32 scores and
+    softmax, the probabilities rounded to q's dtype before the product
+    (as the JAX kernel's p_all). `keep` (B, H, Tq, Tk) bool overrides the
+    Philox mask (tests feed masks from numpy)."""
+    B, H, Tq, Dk = q.shape
+    Tk = k.shape[2]
+    s = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+         * (1.0 / math.sqrt(Dk)) + bias.float()[:, None])
+    p = torch.softmax(s, dim=-1)
+    thresh16 = dropout_thresh16(rate)
+    if keep is not None or thresh16 < 65536:
+        if keep is None:
+            keep = keep_mask(seed, B, H, Tq, Tk, thresh16, q.device)
+        p = torch.where(keep, p * (65536.0 / thresh16),
+                        torch.zeros((), dtype=p.dtype, device=p.device))
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, bias):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or bias.dim() != 3:
+        raise ValueError("flash_mha_train: q/k/v (B, H, T, d), bias "
+                         "(B, Tq, Tk)")
+    B, H, Tq, Dk = q.shape
+    Tk, Dv = k.shape[2], v.shape[3]
+    if (k.shape != (B, H, Tk, Dk) or v.shape[:3] != (B, H, Tk)
+            or bias.shape != (B, Tq, Tk)):
+        raise ValueError("flash_mha_train: shapes disagree: q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} bias {tuple(bias.shape)}")
+    if Dk != Dv or Dk not in HEAD_DIMS:
+        raise ValueError(f"flash_mha_train: head widths {Dk}/{Dv}; the "
+                         f"kernels take dk = dv in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_mha_train: {name} must be bf16 on the "
+                             "card (the kernels are bf16 tensor-core)")
+        if t.device != q.device:
+            raise ValueError(f"flash_mha_train: {name} on {t.device}")
+    if bias.dtype != torch.float32 or bias.device != q.device:
+        raise ValueError("flash_mha_train: bias must be f32 on q's device")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def attn_fwd(q, k, v, bias, seed: int, rate: float):
+    """Kernel 4: (out (B, H, Tq, d) bf16, stats (B, H, Tq, 2) f32: the
+    row max and row sum of the softmax)."""
+    _check(q, k, v, bias)
+    q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    out = torch.empty_like(q)
+    stats = torch.empty((B, H, Tq, 2), dtype=torch.float32,
+                        device=q.device)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                       B, H, Tq, Tk, D, dropout_thresh16(rate),
+                       seed & (2 ** 64 - 1), _stream())
+    return out, stats
+
+
+def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
+    """Kernel 5: (dq, dk, dv) bf16, the forward and its mask recomputed."""
+    q, k, v, bias, out, stats, g = (
+        t.contiguous() for t in (q, k, v, bias, out, stats, g))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    if dq.numel() and dk.numel():
+        with torch.cuda.device(q.device):
+            BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                       g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), B, H, Tq, Tk, D,
+                       dropout_thresh16(rate), seed & (2 ** 64 - 1),
+                       delta.data_ptr(), _stream())
+    return dq, dk, dv
+
+
+class FlashMhaTrain(torch.autograd.Function):
+    """Forward kernel 4, backward kernel 5 on CUDA tensors; the plain
+    version and its autograd on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate):
+        ctx.seed, ctx.rate = seed, rate
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias)
+            return flash_mha_train_plain(q, k, v, bias, seed, rate)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_mha_train: unsupported device "
+                             f"{q.device}")
+        out, stats = attn_fwd(q, k, v, bias, seed, rate)
+        ctx.save_for_backward(q, k, v, bias, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.device.type == "cpu":
+            q, k, v, bias = ctx.saved_tensors
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = flash_mha_train_plain(*qkv, bias, ctx.seed, ctx.rate)
+                dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        else:
+            q, k, v, bias, out, stats = ctx.saved_tensors
+            dq, dk, dv = attn_bwd(q, k, v, bias, out, stats,
+                                  g.to(q.dtype), ctx.seed, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+def flash_mha_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, seed: int,
+                    rate: float) -> torch.Tensor:
+    """Fused softmax(q kᵀ/√dk + bias) → dropout(rate) → @ v, as the JAX
+    package's ``flash_mha_train``. q, k: (B, H, Tq|Tk, dk); v: (B, H, Tk,
+    dv); bias: (B, Tq, Tk) f32 additive mask (0 or −1e9); seed: the 64-bit
+    Philox key of this call; rate in [0, 1). Returns (B, H, Tq, dv) in q's
+    dtype. bias and seed get no gradient."""
+    if dropout_thresh16(rate) <= 0:
+        raise ValueError("flash_mha_train: rate rounds to keep 0; the "
+                         "caller takes the plain path (layers.mha)")
+    return FlashMhaTrain.apply(q, k, v, bias, int(seed), float(rate))
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

@@ -128,3 +128,4 @@ class CudaKernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U64 = ctypes.c_uint64

@@ -61,7 +61,7 @@ def main(argv=None, timings: Optional[list] = None):
                         format="%(asctime)s - %(message)s",
                         level=logging.INFO)
 
-    cfg, _, params, _, label2id, id2label, _ = load_checkpoint(
+    cfg, _, params, _, _, label2id, id2label, _ = load_checkpoint(
         cli.continue_from)
     overrides = {k: getattr(cli, k)
                  for k in explicit_cli_overrides(argv)

@@ -1,0 +1,173 @@
+"""Training CLI of the port — the flags of root ``train.py`` plus
+``--device`` (default ``cuda``).
+
+    python -m end2end_asr_tpu_torch.train --train-manifest-list train.csv \
+        --valid-manifest-list dev.csv --labels-path labels.json --name run \
+        --feat_extractor vgg_cnn ... [--continue-from ckpt | --auto-resume] \
+        [--device cpu]
+
+Builds the vocabulary (duplicate labels warned), the train loader (the
+shuffled BucketingSampler of the run's seed) and one valid loader per
+manifest, initialises the model from the seed or resumes from
+``--continue-from`` / ``--auto-resume`` (checkpoints of either package:
+parameters, optimizer state, epoch, metrics), and runs the Trainer. Logs
+to log/<name>. Without a GPU it raises unless --device cpu is given.
+Data / model parallelism, ZeRO, sequence parallelism, SpecAugment, sox
+and noise augmentation, the emb_cnn front end and CTC are not ported yet
+and raise, naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+from typing import Dict, List, Optional
+
+import torch
+
+from end2end_asr_tpu_torch.config import (ARCH_FIELDS, Config,
+                                          config_from_args,
+                                          explicit_cli_overrides, load_vocab,
+                                          resolve_labels_path)
+
+logger = logging.getLogger("end2end_asr_tpu_torch")
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise NotImplementedError for every option of root train.py that
+    the port does not have yet."""
+    todo = [
+        (cfg.parallel or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
+         "--parallel / --mesh-*", "parallelism (ROADMAP queue 1, item 7)"),
+        (cfg.zero1 or cfg.fsdp, "--zero1 / --fsdp",
+         "ZeRO (ROADMAP queue 1, item 7)"),
+        (cfg.seq_parallel, "--seq-parallel",
+         "sequence parallelism (ROADMAP queue 1, item 7)"),
+        (cfg.spec_augment, "--spec-augment",
+         "ops/specaugment.py (ROADMAP queue 1, item 1)"),
+        (cfg.noise_dir or cfg.augment, "--noise-dir / --augment",
+         "noise and sox augmentation (ROADMAP queue 1, item 1)"),
+        (cfg.feat_extractor == "emb_cnn", "emb_cnn",
+         "the emb_cnn front end (ROADMAP queue 1, item 2)"),
+        (cfg.loss != "ce", f"--loss {cfg.loss}",
+         "ops/ctc.py (ROADMAP queue 1, item 1)"),
+        (cfg.remat, "--remat", "rematerialisation (ROADMAP queue 1, item 1)"),
+        (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
+         "orbax checkpoints (ROADMAP queue 1, item 8)"),
+    ]
+    for bad, flag, item in todo:
+        if bad:
+            raise NotImplementedError(f"{flag} is not ported yet: {item}")
+    if cfg.quantize_int8:
+        raise SystemExit("--quantize-int8 is eval-only (test/transcribe); "
+                         "training runs f32 master weights")
+
+
+def _warn_duplicate_labels(labels_path: str) -> None:
+    with open(resolve_labels_path(labels_path), encoding="utf-8") as f:
+        raw = "".join(json.load(f))
+    seen = set()
+    for ch in raw:
+        if ch in seen:
+            print("multiple label: ", ch)
+        seen.add(ch)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Runs the training and returns the Trainer's result dict."""
+    from end2end_asr_tpu_torch.test import split_device_arg
+    if argv is None:
+        argv = sys.argv[1:]
+    device_name, argv = split_device_arg(argv)
+    cfg = config_from_args(argv)
+    refuse_unported(cfg)
+
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
+                                                   BucketingSampler)
+    from end2end_asr_tpu_torch.evaluation import resolve_device
+    from end2end_asr_tpu_torch.models.transformer import init_params
+    from end2end_asr_tpu_torch.training import checkpoint as ckpt
+    from end2end_asr_tpu_torch.training.trainer import Trainer
+
+    device = resolve_device(device_name)
+    print("=" * 50)
+    print("THE EXPERIMENT LOG IS SAVED IN: log/" + cfg.name)
+    print("TRAINING MANIFEST: ", list(cfg.train_manifest_list))
+    print("VALID MANIFEST: ", list(cfg.valid_manifest_list))
+    print("=" * 50)
+
+    os.makedirs("log", exist_ok=True)
+    resuming = bool(cfg.continue_from or cfg.auto_resume)
+    handler = logging.FileHandler("log/" + cfg.name,
+                                  mode="a" if resuming else "w",
+                                  encoding="utf-8")
+    handler.setFormatter(logging.Formatter("%(asctime)s - %(message)s"))
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        start_epoch, metrics, opt_state = 0, None, None
+        if cfg.auto_resume and not cfg.continue_from:
+            latest = ckpt.find_latest_checkpoint(cfg.save_folder, cfg.name)
+            if latest:
+                print("AUTO-RESUME from", latest)
+                cfg = cfg.replace(continue_from=latest)
+        if cfg.continue_from:
+            logger.info("Continue from checkpoint: %s", cfg.continue_from)
+            (ckpt_cfg, epoch, params, opt_state, _, label2id, id2label,
+             metrics) = ckpt.load_checkpoint(cfg.continue_from)
+            if opt_state is None:
+                # converted reference checkpoints carry only the Noam step
+                from end2end_asr_tpu_torch.training.optimizer import \
+                    init_opt_state
+                opt_state = init_opt_state(ckpt_cfg, params)
+                opt_state["step"] = torch.tensor(
+                    int(metrics.get("noam_step", 0)), dtype=torch.int32)
+            # architecture from the checkpoint; flags typed on THIS command
+            # line override the rest; run identity follows the CLI
+            overrides = {k: getattr(cfg, k)
+                         for k in explicit_cli_overrides(argv)
+                         if k not in ARCH_FIELDS}
+            overrides.update(
+                train_manifest_list=cfg.train_manifest_list,
+                valid_manifest_list=cfg.valid_manifest_list,
+                test_manifest_list=cfg.test_manifest_list,
+                epochs=cfg.epochs, name=cfg.name,
+                save_folder=cfg.save_folder, batch_size=cfg.batch_size,
+                parallel=cfg.parallel, shuffle=cfg.shuffle,
+                continue_from=cfg.continue_from)
+            cfg = ckpt_cfg.replace(**overrides)
+            refuse_unported(cfg)
+            start_epoch = epoch
+        else:
+            label2id, id2label = load_vocab(cfg.labels_path)
+            _warn_duplicate_labels(cfg.labels_path)
+            if cfg.model not in ("TRFS", "LRTRFS"):
+                raise SystemExit("The model is not supported, check args --h")
+            params = init_params(cfg, len(label2id),
+                                 torch.Generator().manual_seed(cfg.seed))
+
+        train_data = ManifestDataset(list(cfg.train_manifest_list), label2id,
+                                     sample_rate=cfg.sample_rate)
+        train_loader = AudioBatchLoader(
+            train_data, cfg, sampler=BucketingSampler(
+                len(train_data), cfg.batch_size, seed=cfg.seed))
+        valid_loaders = [
+            AudioBatchLoader(ManifestDataset([m], label2id,
+                                             sample_rate=cfg.sample_rate),
+                             cfg)
+            for m in cfg.valid_manifest_list]
+        trainer = Trainer(cfg, label2id, id2label, device,
+                          metrics_every=cfg.metrics_every)
+        return trainer.train(params, opt_state, train_loader, valid_loaders,
+                             start_epoch=start_epoch, num_epochs=cfg.epochs,
+                             last_metrics=metrics)
+    finally:
+        logger.removeHandler(handler)
+        handler.close()
+
+
+if __name__ == "__main__":
+    main()

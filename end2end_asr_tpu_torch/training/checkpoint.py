@@ -10,14 +10,17 @@ pytree (nested dicts and lists of tensors, keyed as in the JAX package),
 and writes the same format, so a checkpoint made here loads in the JAX
 package's ``load_checkpoint`` and the other way round.
 
-The serving path reads ``params`` and ``state``; the optimizer group is
-the training slice's.
+The serving path reads ``params`` and ``state``; training also carries
+the optimizer group both ways (``opt::step``, ``opt::mu::…``,
+``opt::nu::…`` for Adam; ``opt::lr``, ``opt::buf::…`` for annealing SGD),
+the epoch and the metrics, so a run resumes in either package.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -30,16 +33,23 @@ SEP = "::"
 
 def params_from_jax(flat: Dict[str, np.ndarray]):
     """The JAX param pytree, flattened to {"a::b::0::c": array}, as the
-    port's pytree: nested dicts, lists where every key of a level is a
-    digit, and tensors (copies) for leaves."""
+    port's pytree with tensors (copies) for leaves (see unflatten)."""
+    return unflatten({k: (v.clone() if isinstance(v, torch.Tensor)
+                          else torch.from_numpy(np.array(v)))
+                      for k, v in flat.items()})
+
+
+def unflatten(flat: Dict[str, object]):
+    """{"a::b::0::c": leaf} (the JAX pytree, flattened) → the port's
+    pytree: nested dicts, lists where every key of a level is a digit,
+    the leaves as given (no copy)."""
     root: Dict = {}
     for key, val in flat.items():
         parts = key.split(SEP)
         node = root
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = (val.clone() if isinstance(val, torch.Tensor)
-                           else torch.from_numpy(np.array(val)))
+        node[parts[-1]] = val
 
     def listify(node):
         if not isinstance(node, dict):
@@ -53,7 +63,7 @@ def params_from_jax(flat: Dict[str, np.ndarray]):
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Inverse of params_from_jax: {"a::b::0::c": tensor}."""
+    """Inverse of unflatten: {"a::b::0::c": tensor}."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -76,15 +86,17 @@ def _to_numpy(t: torch.Tensor):
 
 def save_checkpoint(base_path: str, cfg: Config, epoch: int, params,
                     label2id: Dict[str, int], id2label: Dict[int, str],
-                    model_state=None, metrics: Optional[Dict] = None
-                    ) -> None:
+                    model_state=None, metrics: Optional[Dict] = None,
+                    opt_state=None) -> None:
     """Write `<base_path>.npz` + `<base_path>.json` in the JAX package's
-    npz format (no optimizer state)."""
+    npz format; `opt_state` (a tree of tensors keyed as the JAX
+    package's) goes into the ``opt`` group."""
     d = os.path.dirname(base_path)
     if d:
         os.makedirs(d, exist_ok=True)
     arrays, bf16_keys = {}, []
-    for group, tree in (("params", params), ("state", model_state or {})):
+    for group, tree in (("params", params), ("opt", opt_state or {}),
+                        ("state", model_state or {})):
         for k, v in flatten_params(tree).items():
             key = group + SEP + k
             arrays[key], is_bf16 = _to_numpy(v)
@@ -106,9 +118,10 @@ def save_checkpoint(base_path: str, cfg: Config, epoch: int, params,
 
 
 def load_checkpoint(base_path: str):
-    """Returns (cfg, epoch, params, model_state, label2id, id2label,
-    metrics) with CPU tensors. Accepts the path with or without
-    extension. bfloat16 leaves come back as bfloat16 tensors."""
+    """As the JAX package's load_checkpoint: (cfg, epoch, params,
+    opt_state or None, model_state, label2id, id2label, metrics) with CPU
+    tensors. Accepts the path with or without extension. bfloat16 leaves
+    come back as bfloat16 tensors."""
     if base_path.endswith(".npz") or base_path.endswith(".json"):
         base_path = base_path.rsplit(".", 1)[0]
     if os.path.isdir(base_path + ".orbax"):
@@ -129,10 +142,32 @@ def load_checkpoint(base_path: str):
             else:
                 t = torch.from_numpy(np.array(arr))
             groups[g][rest] = t
-    params = params_from_jax(groups["params"])
-    model_state = (params_from_jax(groups["state"])
-                   if groups["state"] else {})
+    params = unflatten(groups["params"])
+    opt_state = unflatten(groups["opt"]) if groups["opt"] else None
+    model_state = unflatten(groups["state"]) if groups["state"] else {}
     cfg = Config.from_dict(meta["args"])
     id2label = {int(k): v for k, v in meta["id2label"].items()}
-    return (cfg, meta["epoch"], params, model_state, meta["label2id"],
-            id2label, meta.get("metrics", {}))
+    return (cfg, meta["epoch"], params, opt_state, model_state,
+            meta["label2id"], id2label, meta.get("metrics", {}))
+
+
+def find_latest_checkpoint(save_folder: str, name: str) -> Optional[str]:
+    """Newest epoch_N checkpoint base path under <save_folder>/<name>, or
+    None (train --auto-resume)."""
+    d = os.path.join(save_folder, name)
+    if not os.path.isdir(d):
+        return None
+    best, best_epoch = None, -1
+    for f in os.listdir(d):
+        m = re.fullmatch(r"epoch_(\d+)\.json", f)
+        if m and os.path.exists(os.path.join(d, f[:-5] + ".npz")):
+            if int(m.group(1)) > best_epoch:
+                best_epoch = int(m.group(1))
+                best = os.path.join(d, f[:-5])
+    return best
+
+
+def checkpoint_paths(save_folder: str, name: str, epoch: Optional[int],
+                     best: bool) -> str:
+    base = "best_model" if best else f"epoch_{epoch}"
+    return os.path.join(save_folder, name, base)

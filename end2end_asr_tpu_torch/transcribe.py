@@ -47,7 +47,8 @@ def main(argv=None):
     from end2end_asr_tpu_torch.training.checkpoint import load_checkpoint
 
     device = resolve_device(args.device)
-    cfg, _, params, _, _, id2label, _ = load_checkpoint(args.continue_from)
+    cfg, _, params, _, _, _, id2label, _ = load_checkpoint(
+        args.continue_from)
     cfg = cfg.replace(beam_search=args.beam_search,
                       beam_width=args.beam_width,
                       c_weight=args.c_weight)

@@ -102,3 +102,148 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         S.stft_logmag(torch.zeros(2, 500, device=dev, dtype=torch.float64),
                       *(torch.zeros(320, 161, device=dev),) * 2, 160, 2)
+
+
+# ---------------------------------------------------------------------------
+# training kernels: attention (4, 5, 9), vgg block-1 backward (3), pool (6)
+# ---------------------------------------------------------------------------
+
+from end2end_asr_tpu_torch.ops import attention_fused as AF  # noqa: E402
+from end2end_asr_tpu_torch.ops import pool_vjp as PV  # noqa: E402
+
+# bf16 attention: probabilities round to bf16 (2^-8 relative) at another
+# point than the plain version's (before normalisation), and the backward's
+# dS is rounded to bf16 before its products: errors relative to the largest
+# value of each tensor stay under 2e-2
+ATTN_TOL = 2e-2
+
+
+def _rel_err(got, want, floor=1e-3):
+    """max |got - want| over max |want| (at least `floor`)."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(floor)).item()
+
+
+def _attn_inputs(dev, B, H, Tq, Tk, seed, mask_row=False):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, T, 64, generator=g).to(dev, torch.bfloat16)
+               for T in (Tq, Tk, Tk))
+    mask = torch.rand(B, Tq, Tk, generator=g) < 0.2
+    if mask_row:
+        mask[0, Tq - 1] = True         # every key masked for this query
+    bias = torch.where(mask, -1e9, 0.0).to(dev)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk", [(1, 1), (7, 33), (33, 7), (201, 201),
+                                   (51, 200)])
+def test_attention_kernels_match_plain(dev, rate, Tq, Tk):
+    q, k, v, bias = _attn_inputs(dev, 2, 3, Tq, Tk, seed=Tq * 1000 + Tk,
+                                 mask_row=True)
+    g = torch.Generator().manual_seed(7)
+    dout = torch.randn(2, 3, Tq, 64, generator=g).to(dev, torch.bfloat16)
+    seed = 0x1234_5678_9ABC_DEF0
+    AF.reset_launches()
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = AF.flash_mha_train(*qkv, bias, seed, rate)
+    grads = torch.autograd.grad(out, qkv, dout)
+    assert AF.FWD.launches == 1 and AF.BWD.launches == 1
+    qkv = [t.float().requires_grad_() for t in (q, k, v)]
+    want = AF.flash_mha_train_plain(*qkv, bias, seed, rate)
+    want_g = torch.autograd.grad(want, qkv, dout.float())
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, want) < ATTN_TOL
+    # with one key dq and dk are exactly zero; the kernel's D = dO.O takes
+    # the bf16-rounded output, so they come out at rounding level: at
+    # Tk = 1 every gradient is held relative to the largest of the three
+    floor = max(g.abs().max().item() for g in want_g) if Tk == 1 else 1e-3
+    for a, b in zip(grads, want_g):
+        assert _rel_err(a, b, floor) < ATTN_TOL
+
+
+def test_attention_fully_masked_row_is_uniform(dev):
+    q, k, v, bias = _attn_inputs(dev, 1, 2, 4, 9, seed=3)
+    bias[0, 2] = -1e9
+    out = AF.flash_mha_train(q, k, v, bias, 5, 0.0)
+    torch.testing.assert_close(out[0, :, 2].float(),
+                               v[0].float().mean(dim=1), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_dropout_bits_kernel_is_the_plain_stream(dev):
+    for seed in (0, 1, 2 ** 64 - 1, 0xDEADBEEF_00C0FFEE):
+        got = AF.dropout_bits(seed, 2, 3, 37, 201, device=dev)
+        want = AF.dropout_bits_plain(seed, 2, 3, 37, 201, device=dev)
+        assert torch.equal(got, want)
+        assert torch.equal(got, AF.dropout_bits(seed, 2, 3, 37, 201,
+                                                device=dev))
+
+
+def test_attention_mask_is_the_bits_mask_and_deterministic(dev):
+    """Forward and backward draw the mask dropout_bits gives."""
+    q, k, v, bias = _attn_inputs(dev, 2, 2, 40, 70, seed=11)
+    rate, seed = 0.3, 99
+    keep = (AF.dropout_bits(seed, 2, 2, 40, 70, device=dev).view(2, 2, 40, 70)
+            < AF.dropout_thresh16(rate) * 65536)
+    dout = torch.ones(2, 2, 40, 64, device=dev, dtype=torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = AF.flash_mha_train(*qkv, bias, seed, rate)
+        runs.append((out, *torch.autograd.grad(out, qkv, dout)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    qkv = [t.float().requires_grad_() for t in (q, k, v)]
+    want = AF.flash_mha_train_plain(*qkv, bias, 0, rate, keep=keep)
+    want_g = torch.autograd.grad(want, qkv, dout.float())
+    assert _rel_err(runs[0][0], want) < ATTN_TOL
+    for a, b in zip(runs[0][1:], want_g):
+        assert _rel_err(a, b) < ATTN_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 128, 80, 400), (1, 3, 7, 9),
+                                   (2, 5, 4, 11), (1, 2, 1, 1)])
+def test_pool_bwd_kernel_matches_plain(dev, dtype, shape):
+    g0 = torch.Generator().manual_seed(sum(shape))
+    y = torch.randn(*shape, generator=g0).to(dev, dtype)
+    if shape[-1] > 1:
+        y[..., ::3] = y[..., 1::3].max()    # ties inside windows
+    B, Cc, F, T = shape
+    g = torch.randn(B, Cc, F // 2, T // 2, generator=g0).to(dev, dtype)
+    PV.reset_launches()
+    got = PV.pool_bwd(y, g)
+    assert PV.launches() == 1
+    assert torch.equal(got, PV.pool_bwd_plain(y, g))
+
+
+# block-1 backward against the plain backward on the same forward out/idx,
+# relative to the largest gradient of the tensor: f32 sums over ~B*F*T
+# terms in another order; bf16: the same, plus a dx1 sum by a bf16
+# rounding boundary that rounds to the neighbouring value before dW1 takes
+# it; dropping that rounding moves dW1 by more than 1e-3
+# (test_torch_vgg_block1.py::test_bf16_card_tolerance_catches_unrounded_dx1)
+VGG_BWD_F32_TOL, VGG_BWD_BF16_TOL = 1e-4, 1e-3
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,T", [(2, 16, 16), (1, 17, 9), (2, 161, 129),
+                                   (1, 9, 801), (3, 5, 300)])
+def test_vgg_block1_bwd_kernel_matches_plain(dev, cdt, B, F, T):
+    args = _block_args(dev, B, F, T, seed=F + T)
+    idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8, device=dev)
+    out = V.vgg_block1(*args, cdt=cdt, idx_out=idx)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(dev, cdt)
+    V.reset_launches()
+    got = V.vgg_block1_bwd(*args[:4], out, idx, g, cdt)
+    assert V.bwd_launches() == 1
+    want = V.vgg_block1_bwd_plain(*args[:4], out, idx, g, cdt)
+    tol = VGG_BWD_F32_TOL if cdt == torch.float32 else VGG_BWD_BF16_TOL
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_err(a, b) < tol
+    again = V.vgg_block1_bwd(*args[:4], out, idx, g, cdt)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)          # fixed-order reduction

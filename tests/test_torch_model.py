@@ -46,7 +46,7 @@ def test_jax_checkpoint_loads_identically(tmp_path, rank):
     base = str(tmp_path / "ck")
     save_checkpoint(base, cfg, 3, params, None, {}, label2id, id2label)
 
-    (tcfg, epoch, tparams, _, t_l2i, t_i2l, _) = TC.load_checkpoint(base)
+    (tcfg, epoch, tparams, _, _, t_l2i, t_i2l, _) = TC.load_checkpoint(base)
     assert epoch == 3 and t_l2i == label2id and t_i2l == id2label
     assert tcfg.to_dict() == torch_config(cfg).to_dict()
     want = flatten_tree(params)

@@ -1,0 +1,57 @@
+"""Port parity: the block-2 pool and its backward (kernel 6).
+
+The port's `max_pool2` (plain pool forward, `pool_bwd_plain` backward on
+the CPU) against `jax.grad` of the JAX package's `max_pool2` — the Pallas
+backward in interpret mode where it applies (even T, C % 64 == 0), XLA's
+select_and_scatter elsewhere — with ties inside windows and odd F and T.
+Exact at f32: the backward only routes values. The JAX package works in
+NHWC, the port's block 2 in NCHW.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from end2end_asr_tpu.ops.pool_vjp import max_pool2 as jax_max_pool2
+from end2end_asr_tpu_torch.ops import pool_vjp as PV
+
+
+def _inputs(B, C, F, T, seed):
+    r = np.random.RandomState(seed)
+    y = r.randn(B, F, T, C).astype(np.float32)
+    y[:, :, 1::3] = y[:, :, 0::3][:, :, :y[:, :, 1::3].shape[2]]  # ties
+    y[:, 1::4] = y[:, 0::4][:, :y[:, 1::4].shape[1]]              # ties
+    y[0, :2, :2, 0] = 0.5                                         # 4-way
+    g = r.randn(B, F // 2, T // 2, C).astype(np.float32)
+    return y, g
+
+
+@pytest.mark.parametrize("B,C,F,T", [(2, 64, 8, 10), (1, 128, 7, 12),
+                                     (2, 64, 9, 9), (1, 3, 5, 7)])
+def test_pool_and_backward_match_jax(B, C, F, T):
+    y, g = _inputs(B, C, F, T, seed=F * T)
+    want, vjp = jax.vjp(jax_max_pool2, jnp.asarray(y))
+    want_dy, = vjp(jnp.asarray(g))
+    yt = torch.from_numpy(y).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    out = PV.max_pool2(yt)
+    dy, = torch.autograd.grad(out, yt,
+                              torch.from_numpy(g).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(out.detach().permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want))
+    np.testing.assert_array_equal(dy.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want_dy))
+    # a 4-way tie goes to the first element of the window
+    assert dy[0, 0, 0, 0] == g[0, 0, 0, 0] and not dy[0, 0, :2, :2].flatten(
+    )[1:].any()
+    if F % 2:
+        assert not dy[:, :, F - 1].any()    # odd last row: no window
+    if T % 2:
+        assert not dy[..., T - 1].any()
+
+
+def test_pool_bwd_refuses_other_devices():
+    y = torch.zeros(1, 1, 2, 2, device="meta")
+    with pytest.raises(ValueError):
+        PV.pool_bwd(y, torch.zeros(1, 1, 1, 1, device="meta"))

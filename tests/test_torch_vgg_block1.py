@@ -140,3 +140,96 @@ def test_exact_ties_go_to_the_first_window_element():
     assert not idx.any()
     np.testing.assert_array_equal(out, np.broadcast_to(np.maximum(b2, 0),
                                                        out.shape))
+
+
+# ---------------------------------------------------------------------------
+# the backward (kernel 3): gradients of w1, b1, w2, b2, none for spect
+# ---------------------------------------------------------------------------
+
+# f32 weight gradients: sums over B·F·T terms in another order; relative
+# to the largest |grad| of each tensor
+GRAD_F32_TOL = 2e-5
+
+
+def _port_grads(args, g, cdt=torch.float32):
+    spect, *w = [torch.from_numpy(a) for a in args]
+    w = [t.requires_grad_() for t in w]
+    out = TV.VggBlock1.apply(spect, *w, cdt)
+    return [t.numpy() for t in torch.autograd.grad(
+        out, w, torch.from_numpy(g).to(cdt))]
+
+
+def _assert_grads_close(got, want, tol):
+    for a, b in zip(got, want):
+        b = np.asarray(b, np.float32)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= tol * np.abs(b).max()
+
+
+def test_bwd_matches_jax_fused_vjp():
+    """Against jax.grad of the JAX package's fused vgg_block1 (its Pallas
+    backward in interpret mode)."""
+    args = _mk(2, 16, 16, seed=5)
+    g = np.random.RandomState(6).randn(2, 8, 8, 64).astype(np.float32)
+    _, vjp = jax.vjp(lambda *w: vgg_block1(jnp.asarray(args[0]), *w,
+                                           jnp.float32),
+                     *[jnp.asarray(a) for a in args[1:]])
+    want = vjp(jnp.asarray(g))
+    _assert_grads_close(_port_grads(args, g), want, GRAD_F32_TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 17, 16), (2, 9, 13)])
+def test_bwd_matches_composite_at_odd_sizes(shape):
+    args = _mk(*shape, seed=7)
+    B, F, T = shape
+    g = np.random.RandomState(8).randn(B, F // 2, T // 2,
+                                       64).astype(np.float32)
+    _, vjp = jax.vjp(lambda *w: composite(jnp.asarray(args[0]), *w,
+                                          jnp.float32),
+                     *[jnp.asarray(a) for a in args[1:]])
+    _assert_grads_close(_port_grads(args, g), vjp(jnp.asarray(g)),
+                        GRAD_F32_TOL)
+
+
+def test_bwd_gives_no_input_gradient_and_bf16_runs():
+    args = _mk(1, 8, 8, seed=9)
+    spect = torch.from_numpy(args[0]).requires_grad_()
+    w = [torch.from_numpy(a).requires_grad_() for a in args[1:]]
+    out = TV.VggBlock1.apply(spect, *w, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out.float().sum(), [spect, *w],
+                                allow_unused=True)
+    assert grads[0] is None
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in grads[1:])
+
+
+def test_bf16_card_tolerance_catches_unrounded_dx1():
+    """The bf16 kernel-vs-plain tolerance of the block-1 backward
+    (VGG_BWD_BF16_TOL = 1e-3 in tests/test_torch_gpu.py and chip_smoke.py)
+    is below what dropping the rounding of dx1 to bf16 before dW1
+    (vgg_fused.py:279-284 of the JAX package) does to dW1."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops.pool_vjp import pool_bwd_plain
+    B, F, T = 2, 16, 16
+    bf = torch.bfloat16
+    spect, w1, b1, w2, b2 = [torch.from_numpy(a) for a in _mk(B, F, T, 11)]
+    out, idx = TV.vgg_block1_plain(spect, w1, b1, w2, b2, cdt=bf)
+    g = torch.from_numpy(np.random.RandomState(12).randn(
+        B, F // 2, T // 2, 64).astype(np.float32)).to(bf)
+    dw1 = TV.vgg_block1_bwd_plain(spect, w1, b1, w2, out, idx, g, bf)[0]
+    # dx1 again, unrounded: x1 as the plain forward, g routed by the pool
+    x = spect.to(bf)[:, None]
+    x1 = torch.relu(Fn.conv2d(x, w1.to(bf).permute(3, 2, 0, 1), padding=1)
+                    + b1.to(bf)[None, :, None, None])
+    w2c = w2.to(bf).permute(3, 2, 0, 1)
+    gm = torch.where(out > 0, g, torch.zeros((), dtype=bf))
+    dy2 = pool_bwd_plain(Fn.conv2d(x1, w2c, padding=1),
+                         gm.permute(0, 3, 1, 2)).float()
+    dx1 = torch.nn.grad.conv2d_input(x1.shape, w2c.float(), dy2, padding=1)
+    dx1 = torch.where(x1 > 0, dx1, torch.zeros(()))
+    for d, close in ((dx1.to(bf).float(), True), (dx1, False)):
+        got = torch.nn.grad.conv2d_weight(x.float(), (64, 1, 3, 3), d,
+                                          padding=1).permute(2, 3, 1, 0)
+        rel = ((got - dw1).abs().max() / dw1.abs().max()).item()
+        assert (rel < 1e-5) if close else (rel > 1e-3), rel
