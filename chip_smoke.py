@@ -12,9 +12,11 @@ Phases (any failure exits non-zero without the final result line):
      F=161; f32 with TF32 off, and bf16): the STFT, the vgg block-1
      forward and backward, the dropout attention forward and backward
      (encoder self- and decoder cross-attention, rates 0 and 0.1), the
-     dropout bits (bit-exact) and the block-2 pool backward (exact); time
-     the kernel, the plain version and one PyTorch library yardstick the
-     port never calls;
+     dropout bits (bit-exact), the block-2 pool backward (exact), the
+     fused vgg block-2 forward and backward at (12, 80, 400, 64) and at a
+     second even shape, and the two streaming probes at (38400, 1024);
+     time the kernel, the plain version and one PyTorch library yardstick
+     the port never calls;
   3. serve: the full-width AiShell README model (vgg_cnn, 4 layers,
      8 heads, dim 512, dim_inner 2048, the AiShell vocabulary) with
      seeded random weights, written as a checkpoint in the JAX package's
@@ -35,7 +37,19 @@ Phases (any failure exits non-zero without the final result line):
      time over 10 steps, a profile of one step, 100 overfitting steps
      (the loss must fall under half its first value) and one f32 step
      (dropout 0, TF32 off) on the card against the port's CPU path;
-  5. one JSON line of per-kernel numbers (and the serving and training
+  5. gate on: with ops.vgg_fused.BLOCK2_ENABLED set, the same model serves
+     the 12-utterance batch greedy through `test` and trains an epoch
+     through `train` with --spec-augment --remat; the block-2 kernels must
+     have launched and the pool backward and every library convolution
+     must not; the f32 encoder output equals the gate-off one; the step
+     time and the launches per step stand beside the gate-off ones;
+  6. ctc / emb_cnn: the model with --feat_extractor emb_cnn --loss ctc
+     trains six steps on one batch through `train` (the loss must be
+     finite and fall), saves, and serves the checkpoint greedy through
+     `test` with the saved batch-norm state; a batch whose targets cannot
+     be aligned gives an infinite loss and the optimizer step stays;
+  7. the streaming probe's entry point, its four lines printed;
+  8. one JSON line of per-kernel numbers (and the serving and training
      numbers), then the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
@@ -74,6 +88,30 @@ VGG_BWD_BF16_TOL = 1e-3
 # (conv1 / x1 from cuDNN bf16 may sit one bf16 ulp off the kernel's and
 # flip a near-tied pool or relu choice) and rounds its gradients to bf16
 VGG_BWD_AUTOGRAD_TOL = 2e-2
+# block 2 (kernels 7, 8), relative L2 error per tensor, ||k - p|| / ||p||.
+VGG2_F32_TOL = 1e-4      # f32 sums of 576 / 1152 products, and over B*F*T
+# f32 backward, the tensors downstream of the relu mask (dx, dW3, db3): the
+# mask is x2 > 0 of a RECOMPUTED x2, and among 4.9e7 activations a few sit
+# within one f32 sum error (~3e-7) of zero, so the kernel and the plain
+# version may mask one of them differently. One such element among the
+# 2.4e7 active ones moves each of the three norms by (1 / 2.4e7)^0.5 =
+# 2e-4, and single dx elements by their whole value (printed as max_rel).
+# The arithmetic itself is held to VGG2_F32_TOL with the mask out of play
+# (b3 + 10: every activation positive) and at the small shapes of
+# tests/test_torch_gpu.py
+VGG2_F32_MASK_TOL = 1e-3
+# bf16 forward: as block 1 (one bf16 ulp where a sum rounds the other way)
+# bf16 backward on the same out / idx: a dx2 or dx sum by a bf16 rounding
+# boundary rounds to the neighbouring value: one bf16 ulp (2^-8 relative)
+# on a share of the elements of dx; the weight gradients sum those
+VGG2_BWD_BF16_TOL = 2 ** -8
+# the pool argmax must equal the plain version's wherever the plain conv4's
+# best and second-best window values lie further apart than both may move,
+# relative to max(|best|, 1): two bf16 ulps (2^-6; below 1 the floor covers
+# a conv3 activation that is one bf16 ulp off and moves conv4's sum by
+# ~1e-3 whatever its size), or the f32 tolerance
+IDX_GAP_BF16, IDX_GAP_F32 = 2 ** -6, 1e-4
+STREAM_ADAM_TOL = 1e-6   # the probe's own exactness limit
 # bf16 attention: probabilities round to bf16 before (kernel) or after
 # (plain) the normalisation, and the backward rounds dS to bf16
 ATTN_TOL = 2e-2
@@ -124,7 +162,8 @@ def gpu_line():
 
 def phase_build(cuda_lib):
     t0 = time.time()
-    paths = cuda_lib.build(["stft", "vgg_block1", "attention", "pool_bwd"])
+    paths = cuda_lib.build(["stft", "vgg_block1", "attention", "pool_bwd",
+                            "vgg_block2", "stream"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
     for src in sorted(paths):
         for ln in cuda_lib.build_log(src).splitlines():
@@ -489,19 +528,235 @@ def check_pool_bwd(torch, dev):
                  nbytes / HBM_BPS, lib)
 
 
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def check_vgg2(torch, dev):
+    """Kernels 7 and 8 at block 2's shapes on the main path, x (12, 80, 400,
+    64), bf16 and f32, and at a second even shape (F = 82, T = 398)."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
+    g0 = torch.Generator().manual_seed(SEED + 5)
+
+    def make(Bn, F, T, cdt):
+        x = torch.randn(Bn, F, T, 64, generator=g0).relu().to(dev, cdt)
+        ws = [(torch.randn(*s, generator=g0) * sc).to(dev) for s, sc in
+              (((3, 3, 64, 128), (2 / 576) ** 0.5), ((128,), 0.1),
+               ((3, 3, 128, 128), (2 / 1152) ** 0.5), ((128,), 0.1))]
+        return x, ws
+
+    def idx_agrees(x, ws, cdt, idx):
+        """Share of outputs whose argmax equals the plain one among those
+        whose plain best and second-best values are clearly apart."""
+        y4 = Fn.conv2d(V._x2_plain(x, ws[0], ws[1], cdt),
+                       V._nchw(ws[2], cdt), padding=1).float()
+        Bn, C, F, T = y4.shape
+        w = y4.reshape(Bn, C, F // 2, 2, T // 2, 2).permute(
+            0, 2, 4, 1, 3, 5).reshape(Bn, F // 2, T // 2, C, 4)
+        top = w.topk(2, dim=-1).values
+        gap = (IDX_GAP_BF16 if cdt == torch.bfloat16 else IDX_GAP_F32)
+        clear = (top[..., 0] - top[..., 1]) > gap * top[..., 0].abs(
+            ).clamp_min(1.0)
+        _, want_idx = V.pool2_first_wins(y4.to(cdt))
+        same = idx == want_idx.permute(0, 2, 3, 1)
+        return (bool(same[clear].all()), clear.float().mean().item(),
+                same.float().mean().item())
+
+    res = {}
+    for Bn, F, T in ((B, 80, 400), (2, 82, 398)):
+        for cdt in (torch.bfloat16, torch.float32):
+            name = f"{str(cdt)[6:]} ({Bn},{F},{T},64)"
+            x, ws = make(Bn, F, T, cdt)
+            idx = torch.empty((Bn, F // 2, T // 2, 128), dtype=torch.uint8,
+                              device=dev)
+            out = V.vgg_block2(x, *ws, cdt=cdt, idx_out=idx)
+            want, _ = V.vgg_block2_plain(x, *ws, cdt=cdt)
+            torch.cuda.synchronize()
+            if (out.shape != want.shape or out.dtype != cdt
+                    or not torch.isfinite(out.float()).all()):
+                fail(f"vgg_block2 {name}: bad output")
+            diff = (out.float() - want.float()).abs()
+            ferr, fl2 = diff.max().item(), rel_l2(out, want)
+            if cdt == torch.float32:
+                ok = fl2 <= VGG2_F32_TOL and ferr <= VGG_F32_TOL * max(
+                    1.0, want.abs().max().item())
+            else:
+                ok = bool((diff <= VGG_BF16_ATOL
+                           + VGG_BF16_RTOL * want.float().abs()).all())
+            idx_ok, clear, same = idx_agrees(x, ws, cdt, idx)
+            log(f"vgg_block2 {name}: max_abs_err {ferr:.3g}, rel L2 "
+                f"{fl2:.3g}; pool argmax equal on {100 * same:.4f}% of "
+                f"outputs, and on every one of the {100 * clear:.2f}% whose "
+                f"two best values are clearly apart: {idx_ok}")
+            if not (ok and idx_ok and same > 0.99):
+                fail(f"vgg_block2 {name} disagrees with its plain version")
+            g = torch.randn(out.shape, generator=g0).to(dev, cdt)
+            got = V.vgg_block2_bwd(x, *ws[:3], out, idx, g, cdt)
+            again = V.vgg_block2_bwd(x, *ws[:3], out, idx, g, cdt)
+            plain = V.vgg_block2_bwd_plain(x, *ws[:3], out, idx, g, cdt)
+            torch.cuda.synchronize()
+            tols = ([VGG2_F32_MASK_TOL] * 3 + [VGG2_F32_TOL] * 2
+                    if cdt == torch.float32 else [VGG2_BWD_BF16_TOL] * 5)
+            l2 = [rel_l2(a, b) for a, b in zip(got, plain)]
+            mx = [rel_err(a, b) for a, b in zip(got, plain)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"vgg_block2_bwd {name}: rel L2 dx/dW3/db3/dW4/db4 "
+                f"{[float(f'{e:.3g}') for e in l2]} (tol {tols}); max_rel "
+                f"{[float(f'{e:.3g}') for e in mx]}; two runs bit-identical: "
+                f"{same}")
+            if not (all(e <= t for e, t in zip(l2, tols)) and same
+                    and all(torch.isfinite(a.float()).all() for a in got)):
+                fail(f"vgg_block2_bwd {name} disagrees with its plain "
+                     "version")
+            if cdt == torch.float32:
+                # the same with every activation positive: no mask decision
+                on = [ws[0], ws[1].abs() + 10.0, ws[2]]
+                o2 = V.vgg_block2(x, *on, ws[3], cdt=cdt, idx_out=idx)
+                l2on = [rel_l2(a, b) for a, b in zip(
+                    V.vgg_block2_bwd(x, *on, o2, idx, g, cdt),
+                    V.vgg_block2_bwd_plain(x, *on, o2, idx, g, cdt))]
+                log(f"vgg_block2_bwd {name}, b3 + 10 (mask all on): rel L2 "
+                    f"{[float(f'{e:.3g}') for e in l2on]} (tol "
+                    f"{VGG2_F32_TOL})")
+                if not max(l2on) <= VGG2_F32_TOL:
+                    fail(f"vgg_block2_bwd {name} (mask all on) disagrees "
+                         "with its plain version")
+                idx = torch.empty_like(idx)
+                out = V.vgg_block2(x, *ws, cdt=cdt, idx_out=idx)
+            if Bn != B:
+                continue
+            fwd = lambda: V.vgg_block2(x, *ws, cdt=cdt, idx_out=idx)
+            res[cdt] = dict(
+                ferr=ferr, fl2=fl2, bl2=max(l2),
+                berr=max((a.float() - b.float()).abs().max().item()
+                         for a, b in zip(got, plain)),
+                fwd=time_ms(torch, fwd, iters=10),
+                fwd_plain=time_ms(torch, lambda: V.vgg_block2_plain(
+                    x, *ws, cdt=cdt), iters=5),
+                bwd=time_ms(torch, lambda: V.vgg_block2_bwd(
+                    x, *ws[:3], out, idx, g, cdt), iters=10),
+                bwd_plain=time_ms(torch, lambda: V.vgg_block2_bwd_plain(
+                    x, *ws[:3], out, idx, g, cdt), iters=5))
+            if cdt == torch.bfloat16:
+                # library: cuDNN conv2d x2 + max_pool2d, and its autograd
+                xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+                wl = [w.to(cdt).requires_grad_() for w in ws]
+
+                def lib_fwd():
+                    y = Fn.conv2d(xl, wl[0].permute(3, 2, 0, 1), wl[1],
+                                  padding=1)
+                    y = Fn.conv2d(torch.relu(y), wl[2].permute(3, 2, 0, 1),
+                                  padding=1)
+                    return torch.relu(Fn.max_pool2d(y, 2)
+                                      + wl[3][None, :, None, None])
+                gl = g.permute(0, 3, 1, 2).contiguous()
+                lib_f = time_ms(torch, lib_fwd, iters=5)
+                lib_b = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_fwd(), [xl, *wl], gl), iters=5) - lib_f
+    flops = 2 * B * 80 * 400 * 128 * 9 * (64 + 128)
+    f_bytes = 2 * B * 80 * 400 * 64 + 3 * B * 40 * 200 * 128 + 2 * 9 * (
+        64 * 128 + 128 * 128)
+    b_bytes = 2 * 2 * B * 80 * 400 * 64 + 5 * B * 40 * 200 * 128 + 4 * 9 * (
+        64 * 128 + 128 * 128)
+    rb, rf = res[torch.bfloat16], res[torch.float32]
+    log(f"vgg_block2 bf16 fwd {rb['fwd']:.4f} ms (plain {rb['fwd_plain']:.4f}"
+        f", cuDNN conv2d x2 + max_pool2d {lib_f:.4f}), bwd {rb['bwd']:.4f} "
+        f"(plain {rb['bwd_plain']:.4f}, cuDNN autograd backward ~{lib_b:.4f})"
+        f"; f32 fwd {rf['fwd']:.4f} (plain {rf['fwd_plain']:.4f}), bwd "
+        f"{rf['bwd']:.4f} (plain {rf['bwd_plain']:.4f}); bounds "
+        f"{1e3 * flops / BF16_PEAK:.4f} / {2e3 * flops / BF16_PEAK:.4f} ms "
+        f"bf16, {1e3 * flops / F32_PEAK:.4f} / {2e3 * flops / F32_PEAK:.4f} "
+        f"f32 ({flops / 1e9:.1f} GFLOP forward)")
+    rep = "end2end_asr_tpu/ops/vgg_fused.py:"
+    return [
+        entry("vgg_block2_fwd", "vgg_block2.cu", rep + "654", rb["ferr"],
+              rb["fwd"], rb["fwd_plain"], flops / BF16_PEAK,
+              f_bytes / HBM_BPS, lib_f, rel_l2=rb["fl2"],
+              max_abs_err_f32=rf["ferr"], rel_l2_f32=rf["fl2"],
+              ms_f32=rf["fwd"], plain_ms_f32=rf["fwd_plain"],
+              bound_ms_f32=1e3 * flops / F32_PEAK),
+        entry("vgg_block2_bwd", "vgg_block2.cu", rep + "682", rb["berr"],
+              rb["bwd"], rb["bwd_plain"], 2 * flops / BF16_PEAK,
+              b_bytes / HBM_BPS, lib_b, rel_l2=rb["bl2"],
+              max_abs_err_f32=rf["berr"], rel_l2_f32=rf["bl2"],
+              ms_f32=rf["bwd"], plain_ms_f32=rf["bwd_plain"],
+              bound_ms_f32=2e3 * flops / F32_PEAK,
+              library_note="autograd forward+backward minus forward")]
+
+
+def check_stream(torch, dev):
+    """Kernels 10 and 11 at the probe's size, (38400, 1024) f32."""
+    from end2end_asr_tpu_torch.tools import probe_stream as PS
+    g0 = torch.Generator().manual_seed(SEED + 6)
+    p, m, v, g = (torch.randn(PS.N_ROWS, PS.N_COLS, generator=g0).to(dev)
+                  for _ in range(4))
+    v = v.abs()
+    out = PS.stream_copy(p)
+    cerr = (out - PS.copy_plain(p)).abs().max().item()
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    PS.stream_adam(pk, mk, vk, g, 3.0)
+    want = PS.adam_plain(p, m, v, g, 3.0)
+    torch.cuda.synchronize()
+    aerr = max((a - b).abs().max().item() for a, b in zip((pk, mk, vk), want))
+    log(f"stream_copy max_abs_err {cerr} (tol 0: exact); stream_adam "
+        f"max_abs_err {aerr:.3g} (tol {STREAM_ADAM_TOL})")
+    if cerr != 0.0 or not aerr <= STREAM_ADAM_TOL:
+        fail("a streaming kernel disagrees with its plain version")
+    copy_ms = time_ms(torch, lambda: PS.stream_copy(p))
+    copy_plain = time_ms(torch, lambda: PS.copy_plain(p))
+    copy_lib = time_ms(torch, lambda: torch.add(p, 1))
+    adam_ms = time_ms(torch, lambda: PS.stream_adam(pk, mk, vk, g, 3.0))
+    adam_plain = time_ms(torch, lambda: PS.adam_plain(p, m, v, g, 3.0))
+    # one PyTorch call that computes the same update, if it agrees within
+    # the probe's limit: the fused Adam of torch.optim, timed and not used
+    adam_lib, note = None, "none: no single PyTorch call"
+    if hasattr(torch, "_fused_adam_"):
+        pl, ml, vl = p.clone(), m.clone(), v.clone()
+        step = torch.tensor(3.0, device=dev)
+        call = lambda: torch._fused_adam_(
+            [pl], [g], [ml], [vl], [], [step], lr=PS.LR, beta1=PS.B1,
+            beta2=PS.B2, weight_decay=0.0, eps=PS.EPS, amsgrad=False,
+            maximize=False)
+        call()
+        lerr = max((a - b).abs().max().item()
+                   for a, b in zip((pl, ml, vl), want))
+        if lerr <= STREAM_ADAM_TOL:
+            adam_lib, note = time_ms(torch, call), "torch._fused_adam_"
+        else:
+            note = f"none: torch._fused_adam_ is {lerr:.3g} off"
+    n = 4 * PS.N_ROWS * PS.N_COLS
+    log(f"stream_copy ms {copy_ms:.4f} plain {copy_plain:.4f} torch.add "
+        f"{copy_lib:.4f}, bound {1e3 * 2 * n / HBM_BPS:.4f} "
+        f"({2 * n / 1e6:.1f} MB); stream_adam ms {adam_ms:.4f} plain "
+        f"{adam_plain:.4f} library {adam_lib} ({note}), bound "
+        f"{1e3 * 7 * n / HBM_BPS:.4f} ({7 * n / 1e6:.1f} MB)")
+    rep = "tools/probe_stream.py:"
+    return [entry("stream_copy", "stream.cu", rep + "59", cerr, copy_ms,
+                  copy_plain, 0.0, 2 * n / HBM_BPS, copy_lib,
+                  gbps=2 * n / copy_ms / 1e6),
+            entry("stream_adam", "stream.cu", rep + "89", aerr, adam_ms,
+                  adam_plain, 0.0, 7 * n / HBM_BPS, adam_lib,
+                  library_note=note, gbps=7 * n / adam_ms / 1e6)]
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
-def make_corpus(root, labels, rng, n=B, name="manifest.csv"):
-    """n WAVs of 7-7.99 s (tones + noise) with random transcripts."""
+def make_corpus(root, labels, rng, n=B, name="manifest.csv", text=None,
+                seconds_min=7.0):
+    """n WAVs of seconds_min-7.99 s (tones + noise) with random transcripts
+    of 8-19 characters, or text(chars, rng) where given."""
     import numpy as np
     from end2end_asr_tpu_torch.data.audio import save_wav
     sr = 16000
     rows = []
     chars = [c for c in labels if c.strip()]
     for i in range(n):
-        n = int(rng.uniform(7.0, SECONDS_MAX) * sr)
+        n = int(rng.uniform(seconds_min, SECONDS_MAX) * sr)
         t = np.arange(n) / sr
         y = 0.3 * np.sin(2 * math.pi * (100 + 40 * i) * t) \
             + 0.05 * rng.randn(n)
@@ -509,7 +764,8 @@ def make_corpus(root, labels, rng, n=B, name="manifest.csv"):
         txt = os.path.join(root, f"{name[:-4]}_u{i}.txt")
         save_wav(wav, y, sr)
         with open(txt, "w", encoding="utf-8") as f:
-            f.write("".join(rng.choice(chars, rng.randint(8, 20))))
+            f.write(text(chars, rng) if text else
+                    "".join(rng.choice(chars, rng.randint(8, 20))))
         rows.append(f"{wav},{txt}")
     manifest = os.path.join(root, name)
     with open(manifest, "w") as f:
@@ -688,10 +944,10 @@ def aishell_config(**kw):
     return Config(**base)
 
 
-def train_argv(cfg, manifest, valid, labels_path, extra=()):
+def train_argv(cfg, manifest, valid, labels_path, extra=(), name="aishell"):
     return ["--train-manifest-list", manifest,
             "--valid-manifest-list", valid, "--labels-path", labels_path,
-            "--name", "aishell", "--save-folder", "models",
+            "--name", name, "--save-folder", "models",
             "--feat_extractor", cfg.feat_extractor,
             "--num-layers", str(cfg.num_layers),
             "--num-heads", str(cfg.num_heads),
@@ -706,11 +962,67 @@ def train_argv(cfg, manifest, valid, labels_path, extra=()):
             "--save-every", "1", *extra]
 
 
+def kernel_counts(kernels):
+    """`kernels`: {name: (reset function, launch-count function)}."""
+    return {n: count() for n, (_, count) in kernels.items()}
+
+
+def reset_kernels(kernels):
+    for reset, _ in kernels.values():
+        reset()
+
+
+def fixed_batch_step(torch, dev, kernels, cfg, params, batch, steps=10,
+                     model_state=None, label="train step"):
+    """The train step of `cfg` on one fixed batch: our kernels' launches
+    in one step, the median host time over `steps` steps (each ending in a
+    synchronize), and a profile of one step."""
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                          to_device)
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams,
+                                                      make_train_step_impl)
+    from end2end_asr_tpu_torch.training.trainer import batch_tensors
+    fp = FlatParams(params, dev)
+    opt = init_opt_state(cfg, fp.data)
+    rng = DropoutRng(SEED, dev)
+    state = to_device(model_state or {}, dev)
+    step = make_train_step_impl(cfg, dims_from_config(cfg))
+    tensors = batch_tensors(batch, dev)
+    one = lambda: step(fp, fp.data, opt, rng, *tensors, batch.src_bucket,
+                       model_state=state)
+    one()
+    torch.cuda.synchronize()
+    reset_kernels(kernels)
+    out = one()
+    torch.cuda.synchronize()
+    per_step = kernel_counts(kernels)
+    log(f"launches per {label} (bucket {batch.src_bucket} frames, "
+        f"{batch.targets.shape[1]} target columns): {per_step}")
+    if not bool(out[3]["finite"].item()):
+        fail(f"{label}: the loss is not finite")
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    log(f"{label}: median {step_ms:.2f} ms over {steps} steps "
+        f"(min {min(times):.2f}, max {max(times):.2f}); "
+        f"{B / step_ms * 1e3:.1f} utterances/s")
+    return {"step_ms": step_ms, "step_ms_all": times,
+            "launches_per_step": per_step,
+            "profile": profile(torch, one, top=10)}
+
+
 def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
-                steps=10, overfit_steps=100):
-    """`kernels`: {name: (module, launch-count function)}. Runs the train
-    entry point at full width, then times, profiles, overfits and holds
-    an f32 step on the card against the CPU path."""
+                steps=10, overfit_steps=60):
+    """`kernels`: see kernel_counts. Runs the train entry point at full
+    width, then times, profiles, overfits and holds an f32 step on the
+    card against the CPU path."""
     import numpy as np
     from end2end_asr_tpu_torch import train as port_train
     from end2end_asr_tpu_torch.data.dataset import ManifestDataset
@@ -734,13 +1046,8 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
     valid = make_corpus(work, labels, rs, n=B, name="valid.csv")
     cfg = aishell_config()
 
-    def counts():
-        return {n: c() for n, (_, c) in kernels.items()}
-
-    def reset():
-        for m, _ in kernels.values():
-            m.reset_launches()
-
+    counts = lambda: kernel_counts(kernels)
+    reset = lambda: reset_kernels(kernels)
     cwd = os.getcwd()
     os.chdir(work)           # log/ and models/ of the run go here
     try:
@@ -783,38 +1090,19 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
                          torch.Generator().manual_seed(SEED))
     log(f"model: {num_params(params) / 1e6:.2f} M params")
     dims = dims_from_config(cfg)
-    fp = FlatParams(params, dev)
-    opt = init_opt_state(cfg, fp.data)
     rng = DropoutRng(SEED, dev)
-    step = make_train_step_impl(cfg, dims)
     batch = next(iter(AudioBatchLoader(ManifestDataset([manifest], label2id),
                                        cfg)))
     tensors = batch_tensors(batch, dev)
-    one = lambda: step(fp, fp.data, opt, rng, *tensors, batch.src_bucket)
-    one()
-    torch.cuda.synchronize()
-    reset()
-    one()
-    torch.cuda.synchronize()
-    per_step = counts()
-    log(f"launches per train step (bucket {batch.src_bucket} frames, "
-        f"{batch.targets.shape[1]} target columns): {per_step}")
+    fixed = fixed_batch_step(torch, dev, kernels, cfg, params, batch,
+                             steps=steps)
+    per_step, times, step_ms, prof = (fixed["launches_per_step"],
+                                      fixed["step_ms_all"], fixed["step_ms"],
+                                      fixed["profile"])
     if per_step["attn_fwd"] != 3 * cfg.num_layers or \
             per_step["attn_bwd"] != 3 * cfg.num_layers:
         fail(f"expected {3 * cfg.num_layers} attention forwards and "
              f"backwards per step, got {per_step}")
-    times = []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(times)
-    log(f"train step: median {step_ms:.2f} ms over {steps} steps "
-        f"(min {min(times):.2f}, max {max(times):.2f}); "
-        f"{B / step_ms * 1e3:.1f} utterances/s")
-    prof = profile(torch, one, top=10)
 
     # overfit one batch: peak lr k·5120^-0.5·warmup^-0.5 ≈ 1e-3
     ocfg = aishell_config(k_lr=0.36, warmup=25)
@@ -823,8 +1111,8 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
     data, oopt = ofp.data, init_opt_state(ocfg, ofp.data)
     losses = []
     for _ in range(overfit_steps):
-        data, oopt, om, _, _ = ostep(ofp, data, oopt, rng, *tensors,
-                                     batch.src_bucket)
+        data, oopt, _, om, _, _ = ostep(ofp, data, oopt, rng, *tensors,
+                                        batch.src_bucket)
         losses.append(om["loss"].item())
     half_at = next((i for i, v in enumerate(losses) if v < losses[0] / 2),
                    None)
@@ -861,7 +1149,7 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         f"grads max rel err {gerr:.2e} (tol {STEP_GRAD_TOL})")
     if not (lerr <= STEP_LOSS_TOL and gerr <= STEP_GRAD_TOL):
         fail("the f32 train step on the card disagrees with the CPU path")
-    return run_counts, {
+    return run_counts, manifest, valid, {
         "train_step_ms": step_ms, "train_step_ms_all": times,
         "utterances_per_s": B / step_ms * 1e3,
         "bucket_frames": batch.src_bucket,
@@ -872,6 +1160,239 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "overfit_half_at_step": half_at,
         "f32_step_card_vs_cpu_loss_rel_err": lerr,
         "f32_step_card_vs_cpu_grad_rel_err": gerr}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the block-2 gate on
+# ---------------------------------------------------------------------------
+
+def phase_gate_on(torch, dev, kernels, work, labels_path, ckpt,
+                  serve_manifest, manifest, valid):
+    """Serving and training with ops.vgg_fused.BLOCK2_ENABLED set, as a
+    test sets it. `kernels` as in phase_train, with the block-2 entries."""
+    import numpy as np
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch import test as port_test
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
+    from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
+    from end2end_asr_tpu_torch.training.checkpoint import load_checkpoint
+
+    counts = lambda: kernel_counts(kernels)
+    reset = lambda: reset_kernels(kernels)
+    cfg, _, params, _, _, label2id, _, _ = load_checkpoint(ckpt)
+    batch = next(iter(AudioBatchLoader(
+        ManifestDataset([serve_manifest], label2id), cfg)))
+    cfg32 = cfg.replace(dtype="float32")
+    dims32 = dims_from_config(cfg32)
+    p32 = prepare_params(params, dims32, dev)
+    pcm = torch.from_numpy(batch.pcm).to(dev)
+    frames = torch.from_numpy(batch.n_frames.astype(np.int64)).to(dev)
+    enc = lambda: encode_pcm(p32, cfg32, dims32, pcm, frames,
+                             batch.src_bucket)[0]
+    e_off = enc()
+
+    # every library convolution of the run is counted: with the gate on the
+    # front end must call none (nor a plain version, which would)
+    convs, real_conv = [0], Fn.conv2d
+
+    def counting_conv(*a, **k):
+        convs[0] += 1
+        return real_conv(*a, **k)
+
+    def check(label, c, need):
+        log(f"gate on, {label}: launches {c}; library conv2d calls "
+            f"{convs[0]}")
+        missing = [n for n in need if c[n] < 1]
+        if missing or c["pool_bwd"] != 0 or convs[0] != 0:
+            fail(f"gate on, {label}: kernels not launched {missing}, "
+                 f"pool_bwd {c['pool_bwd']}, conv2d calls {convs[0]}")
+
+    V.BLOCK2_ENABLED = True
+    Fn.conv2d = counting_conv
+    cwd = os.getcwd()
+    try:
+        e_on = enc()
+        err = (e_on - e_off).abs().max().item()
+        log(f"encoder f32 on the card, gate on vs gate off ({B} utterances): "
+            f"max_abs_err {err:.3g} (tol {ENC_TOL}); conv2d calls {convs[0]}")
+        if not err <= ENC_TOL or convs[0] != 0:
+            fail(f"the gate-on encoder disagrees with the gate-off one: {err}")
+        reset()
+        res = port_test.main(["--continue-from", ckpt,
+                              "--test-manifest-list", serve_manifest,
+                              "--batch-size", str(B), "--device", str(dev)])
+        torch.cuda.synchronize()
+        serve_counts = counts()
+        check("serve greedy", serve_counts,
+              ["stft_logmag", "vgg_block1_fwd", "vgg_block2_fwd"])
+        if not all(math.isfinite(v) for v in res.values()):
+            fail(f"gate on, serve: non-finite metrics {res}")
+
+        tcfg = aishell_config()
+        os.chdir(work)
+        reset()
+        convs[0] = 0
+        t0 = time.time()
+        res = port_train.main(train_argv(
+            tcfg, manifest, valid, labels_path,
+            ["--epochs", "1", "--device", str(dev), "--spec-augment",
+             "--remat"], name="gate_on"))
+        torch.cuda.synchronize()
+        train_counts = counts()
+        check(f"train --spec-augment --remat (2 steps, {time.time() - t0:.1f}"
+              " s)", train_counts,
+              [n for n in kernels if n != "pool_bwd"])
+        m = res["metrics"]
+        if res["opt_step"] != 2 or not all(
+                math.isfinite(m[k]) for k in ("train_loss", "valid_loss")):
+            fail(f"gate on, train: bad result {m}, step {res['opt_step']}")
+        os.chdir(cwd)
+
+        tbatch = next(iter(AudioBatchLoader(
+            ManifestDataset([manifest], label2id), tcfg)))
+        fixed = fixed_batch_step(torch, dev, kernels, tcfg, params, tbatch,
+                                 label="gate-on train step")
+        fixed_sr = fixed_batch_step(
+            torch, dev, kernels, tcfg.replace(spec_augment=True, remat=True),
+            params, tbatch, label="gate-on --spec-augment --remat step")
+    finally:
+        os.chdir(cwd)
+        Fn.conv2d = real_conv
+        V.BLOCK2_ENABLED = False
+    for f in (fixed, fixed_sr):
+        c = f["launches_per_step"]
+        if (c["vgg_block2_fwd"], c["vgg_block2_bwd"], c["pool_bwd"]) != (
+                1, 1, 0):
+            fail(f"gate on: expected one block-2 forward and backward and "
+                 f"no pool backward per step, got {c}")
+    return serve_counts, train_counts, {
+        "encoder_f32_gate_on_vs_off_max_abs_err": err,
+        "train_step_ms": fixed["step_ms"],
+        "train_step_ms_all": fixed["step_ms_all"],
+        "launches_per_step": fixed["launches_per_step"],
+        "profile_step": fixed["profile"],
+        "spec_augment_remat_step_ms": fixed_sr["step_ms"],
+        "spec_augment_remat_step_ms_all": fixed_sr["step_ms_all"],
+        "spec_augment_remat_profile_step": fixed_sr["profile"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: CTC and the emb_cnn front end
+# ---------------------------------------------------------------------------
+
+def phase_ctc_embcnn(torch, dev, kernels, work, labels_path, epochs=6):
+    import numpy as np
+    from end2end_asr_tpu_torch import test as port_test
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.config import load_vocab
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.models.transformer import (init_params,
+                                                          init_state)
+    from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
+                                                           load_checkpoint)
+    with open(labels_path, encoding="utf-8") as f:
+        labels = json.load(f)
+    rs = np.random.RandomState(SEED + 20)
+    # CTC here runs over the decoder's output positions (the 50-token
+    # target bucket + 1), scaled by the valid share of the frames: ~50 for
+    # utterances of 7.95-7.99 s. 12 distinct characters (+ SOS, EOS) can be
+    # aligned; 30 copies of one character need 32 labels and 29 blanks
+    # between the copies, 61 positions, and cannot
+    feasible = make_corpus(
+        work, labels, rs, name="ctc.csv", seconds_min=7.95,
+        text=lambda chars, r: "".join(r.choice(chars, 12, replace=False)))
+    infeasible = make_corpus(
+        work, labels, rs, name="ctc_inf.csv", seconds_min=7.95,
+        text=lambda chars, r: str(r.choice(chars)) * 30)
+    # peak lr k * 672^-0.5 * warmup^-0.5 ~ 2.8e-3 at step 25; step 6 runs
+    # at 6.7e-4
+    cfg = aishell_config(feat_extractor="emb_cnn", loss="ctc", k_lr=0.36,
+                         warmup=25)
+    extra = ["--loss", "ctc", "--device", str(dev), "--save-every", "100"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_kernels(kernels)
+        t0 = time.time()
+        res = port_train.main(train_argv(
+            cfg, feasible, feasible, labels_path,
+            extra + ["--epochs", str(epochs)], name="ctc"))
+        torch.cuda.synchronize()
+        run_counts = kernel_counts(kernels)
+        losses = [h["train_loss"] for h in res["metrics"]["history"]]
+        log(f"ctc / emb_cnn: {epochs} epochs x 1 step in "
+            f"{time.time() - t0:.1f} s, train loss per step "
+            f"{[round(v, 4) for v in losses]}, valid loss "
+            f"{res['metrics']['valid_loss']:.4f}, optimizer step "
+            f"{res['opt_step']}, launches {run_counts}")
+        if (len(losses) != epochs or res["opt_step"] != epochs
+                or not all(math.isfinite(v) and v > 0 for v in losses)
+                or not losses[-1] < losses[0]
+                or not math.isfinite(res["metrics"]["valid_loss"])):
+            fail(f"ctc / emb_cnn: the loss is not finite and falling: "
+                 f"{losses}")
+        best = os.path.join(work, "models", "ctc", "best_model")
+        _, epoch, _, opt, state, _, _, _ = load_checkpoint(best)
+        flat = flatten_params(state)
+        moved = float(flat["frontend::bn1::mean"].abs().sum())
+        log(f"checkpoint {best}: epoch {epoch}, optimizer step "
+            f"{int(opt['step'])}, state {sorted(flat)}, |bn1 mean| sum "
+            f"{moved:.4f}")
+        if len(flat) != 4 or not moved > 0:
+            fail("ctc / emb_cnn: the checkpoint lacks the batch-norm state")
+        out = port_test.main(["--continue-from", best,
+                              "--test-manifest-list", feasible,
+                              "--batch-size", str(B), "--device", str(dev)])
+        log(f"ctc / emb_cnn: served the checkpoint greedy: {out}")
+        if not all(math.isfinite(v) for v in out.values()):
+            fail(f"ctc / emb_cnn: non-finite serving metrics {out}")
+        res2 = port_train.main(train_argv(
+            cfg, infeasible, infeasible, labels_path,
+            extra + ["--epochs", str(epoch + 1), "--continue-from", best],
+            name="ctc_inf"))
+        with open(os.path.join("log", "ctc_inf"), encoding="utf-8") as f:
+            skipped = "Found infinity loss" in f.read()
+        log(f"ctc / emb_cnn: an infeasible batch: epochs run "
+            f"{res2['epochs_run']}, optimizer step {int(opt['step'])} -> "
+            f"{res2['opt_step']}, skip logged: {skipped}")
+        if (res2["epochs_run"] != 1 or res2["opt_step"] != int(opt["step"])
+                or not skipped):
+            fail("ctc / emb_cnn: the infeasible batch was not skipped")
+    finally:
+        os.chdir(cwd)
+    label2id, _ = load_vocab(labels_path)
+    params = init_params(cfg, len(label2id),
+                         torch.Generator().manual_seed(SEED))
+    batch = next(iter(AudioBatchLoader(
+        ManifestDataset([feasible], label2id), cfg)))
+    fixed = fixed_batch_step(torch, dev, kernels, cfg, params, batch,
+                             model_state=init_state(cfg),
+                             label="ctc / emb_cnn train step")
+    return {"train_losses": losses, "valid_loss": res["metrics"]["valid_loss"],
+            "serve": out, "opt_step_after_infeasible_batch": res2["opt_step"],
+            "train_step_ms": fixed["step_ms"],
+            "train_step_ms_all": fixed["step_ms_all"],
+            "launches_per_step": fixed["launches_per_step"],
+            "profile_step": fixed["profile"]}
+
+
+def phase_probe(torch):
+    """The streaming probe through its entry point (its four lines go to
+    the standard output); returns its kernels' launch counts."""
+    from end2end_asr_tpu_torch.tools import probe_stream as PS
+    PS.reset_launches()
+    PS.main([])
+    torch.cuda.synchronize()
+    c = {"stream_copy": PS.copy_launches(), "stream_adam": PS.adam_launches()}
+    log(f"probe: launches {c}")
+    if min(c.values()) < 1:
+        fail(f"probe: kernels not launched: {c}")
+    return c
 
 
 def profile(torch, fn, top=6):
@@ -933,38 +1454,66 @@ def main():
     phase_build(cuda_lib)
     entries = [check_stft(torch, dev), check_vgg(torch, dev),
                check_vgg_bwd(torch, dev), *check_attention(torch, dev),
-               check_pool_bwd(torch, dev)]
+               check_pool_bwd(torch, dev), *check_vgg2(torch, dev),
+               *check_stream(torch, dev)]
     log(f"kernel checks done at {time.time() - t0:.1f} s")
     kernels = {"stft_logmag": stft, "vgg_block1_fwd": vgg_fused}
     AF = attention_fused
+    V = vgg_fused
     train_kernels = {
-        "stft_logmag": (stft, stft.launches),
-        "vgg_block1_fwd": (vgg_fused, vgg_fused.launches),
-        "vgg_block1_bwd": (vgg_fused, vgg_fused.bwd_launches),
-        "attn_fwd": (AF, lambda: AF.FWD.launches),
-        "attn_bwd": (AF, lambda: AF.BWD.launches),
-        "pool_bwd": (pool_vjp, pool_vjp.launches)}
+        "stft_logmag": (stft.reset_launches, stft.launches),
+        "vgg_block1_fwd": (V.reset_launches, V.launches),
+        "vgg_block1_bwd": (V.reset_launches, V.bwd_launches),
+        "attn_fwd": (AF.reset_launches, lambda: AF.FWD.launches),
+        "attn_bwd": (AF.reset_launches, lambda: AF.BWD.launches),
+        "pool_bwd": (pool_vjp.reset_launches, pool_vjp.launches)}
+    gate_kernels = dict(train_kernels,
+                        vgg_block2_fwd=(V.reset_launches2, V.launches2),
+                        vgg_block2_bwd=(V.reset_launches2, V.bwd2_launches))
     labels_path = os.path.abspath(os.path.join("data", "labels",
                                                "aishell_labels.json"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         runs, serve = phase_serve(torch, dev, kernels, work)
         log(f"serving done at {time.time() - t0:.1f} s")
-        train_counts, train = phase_train(torch, dev, train_kernels, work,
-                                          labels_path)
+        train_counts, manifest, valid, train = phase_train(
+            torch, dev, train_kernels, work, labels_path)
+        log(f"training done at {time.time() - t0:.1f} s")
+        gate_serve, gate_train, gate = phase_gate_on(
+            torch, dev, gate_kernels, work, labels_path,
+            os.path.join(work, "model"), os.path.join(work, "manifest.csv"),
+            manifest, valid)
+        log(f"gate on done at {time.time() - t0:.1f} s; step "
+            f"{gate['train_step_ms']:.2f} ms and "
+            f"{gate['profile_step']['kernel_launches']} launches against "
+            f"{train['train_step_ms']:.2f} ms and "
+            f"{train['profile_step']['kernel_launches']} with the gate off; "
+            f"with --spec-augment --remat "
+            f"{gate['spec_augment_remat_step_ms']:.2f} ms and "
+            f"{gate['spec_augment_remat_profile_step']['kernel_launches']}")
+        ctc = phase_ctc_embcnn(torch, dev, train_kernels, work, labels_path)
+        log(f"ctc / emb_cnn done at {time.time() - t0:.1f} s")
+    probe_counts = phase_probe(torch)
     for e in entries:
-        # the training run is this slice's main path; the serving kernels
-        # also keep their counts from the serving runs
+        # each path was driven with the counts set to 0 just before it: the
+        # training run for the kernels of the default path (the serving
+        # kernels also keep their serving counts), the gate-on training run
+        # for block 2, the probe's entry point for the streaming kernels
         e["launches"] = train_counts.get(e["name"], 0)
         if e["name"] in runs["greedy"]:
             e["launches_serve_greedy"] = runs["greedy"][e["name"]]
             e["launches_serve_beam8"] = runs["beam8"][e["name"]]
+        if e["name"] in ("vgg_block2_fwd", "vgg_block2_bwd"):
+            e["launches"] = gate_train[e["name"]]
+            e["launches_serve_greedy"] = gate_serve[e["name"]]
+        if e["name"] in probe_counts:
+            e["launches"] = probe_counts[e["name"]]
         if e["name"] == "dropout_bits":
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
-    log(f"serving times: {serve}; training: {train}; total "
-        f"{time.time() - t0:.1f} s")
+    log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
+        f"ctc / emb_cnn: {ctc}; total {time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
-                      "gpu": gpu}))
+                      "gate_on": gate, "ctc_embcnn": ctc, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Batch evaluation (the reference's test.py:19-62 evaluate()).
 
 Port of the JAX package's ``evaluation.py``: per batch, int16 PCM →
-features (the STFT kernel, ops/stft.py) → encode (vgg front end with the
-fused block-1 kernel, then the encoder) → greedy or beam decode; strip
+features (the STFT kernel, ops/stft.py) → encode (the front end — vgg
+with its fused kernels, or emb_cnn with the checkpoint's batch-norm
+statistics — then the encoder) → greedy or beam decode; strip
 special chars and accumulate CER / WER / CER_EN / CER_ZH totals.
 """
 
@@ -22,7 +23,8 @@ from end2end_asr_tpu_torch.decoding.greedy import (greedy_decode_progressive,
 from end2end_asr_tpu_torch.models.transformer import (ModelDims,
                                                       cast_dense_weights,
                                                       dims_from_config,
-                                                      encode, to_device)
+                                                      encode, to_device,
+                                                      with_state)
 from end2end_asr_tpu_torch.ops.stft import batched_features
 from end2end_asr_tpu_torch.utils.metrics import (calculate_cer,
                                                  calculate_cer_en_zh,
@@ -58,9 +60,13 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def prepare_params(params, dims: ModelDims, device: torch.device):
-    """Params on `device` with dense weights stored in the compute dtype."""
-    return to_device(cast_dense_weights(params, dims.dtype), device)
+def prepare_params(params, dims: ModelDims, device: torch.device,
+                   model_state=None):
+    """Params on `device` with dense weights stored in the compute dtype,
+    and the model state (a checkpoint's ``state`` group: the emb_cnn
+    batch norms' running statistics) under "state" for `encode`."""
+    return to_device(with_state(cast_dense_weights(params, dims.dtype),
+                                model_state), device)
 
 
 def encode_pcm(params, cfg: Config, dims: ModelDims, pcm: torch.Tensor,

@@ -72,9 +72,12 @@ def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
                   dim_key: int, dim_value: int, dim_model: int,
                   emb_trg_sharing: bool = False, dropout_rate: float = 0.0,
                   rng: Optional[L.DropoutRng] = None,
-                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  dtype: torch.dtype = torch.bfloat16,
+                  remat: bool = False) -> torch.Tensor:
     """Teacher-forced forward (transformer.py:268-305): logits (B, U, V)
-    f32. `rng` turns on training dropout (embedding, attention, FFN)."""
+    f32. `rng` turns on training dropout (embedding, attention, FFN);
+    `remat` checkpoints each layer (decoder.py:196-197 of the JAX
+    package)."""
     B, U = seq_in.shape
     T_enc = enc_out.shape[1]
     dev = seq_in.device
@@ -89,7 +92,8 @@ def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
     out = p["embedding"][seq_in] * scale + p["pe"].detach()[None, :U]
     if rng is not None:
         out = L.dropout(out, dropout_rate, rng)
-    for lp in p["layers"]:
+
+    def layer(lp, out, enc_out):
         out = L.mha(lp["self_attn"], out, out, out, num_heads, dim_key,
                     dim_value, mask=self_mask, dtype=dtype,
                     dropout_rate=dropout_rate, rng=rng, bias=self_bias)
@@ -100,7 +104,14 @@ def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
         out = out * non_pad
         out = L.ffn(lp["ffn"], out, dtype=dtype, dropout_rate=dropout_rate,
                     rng=rng)
-        out = out * non_pad
+        return out * non_pad
+
+    for lp in p["layers"]:
+        if remat:
+            out = L.remat(lambda o, e, lp=lp: layer(lp, o, e), rng, out,
+                          enc_out)
+        else:
+            out = layer(lp, out, enc_out)
     return output_logits(p, out, dtype)
 
 

@@ -6,7 +6,8 @@ additive sinusoidal positional encoding at the bottom
 (transformer.py:172-173); per layer: post-LN self-attention → non-pad
 mask multiply → conv-FFN → non-pad mask multiply. In training
 (`rng` given) with dropout, as encoder.py:48-135 of the JAX package;
-remat and sequence / pipeline parallelism are not ported (ROADMAP).
+`remat` checkpoints each layer (encoder.py:123-124). Sequence / pipeline
+parallelism are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ def apply_encoder(p: Params, x: torch.Tensor, input_lengths: torch.Tensor,
                   num_heads: int, dim_key: int, dim_value: int,
                   dtype: torch.dtype = torch.bfloat16,
                   dropout_rate: float = 0.0,
-                  rng: Optional[L.DropoutRng] = None) -> torch.Tensor:
+                  rng: Optional[L.DropoutRng] = None,
+                  remat: bool = False) -> torch.Tensor:
     """x: (B, T, dim_input) post-front-end features; input_lengths (B,).
     Lengths >= T mask nothing (the conv-front-end no-op quirk of the
     reference, see layers.non_pad_mask_from_lengths). `rng` turns on
@@ -37,12 +39,19 @@ def apply_encoder(p: Params, x: torch.Tensor, input_lengths: torch.Tensor,
     out = L.layer_norm(p["ln_input"], L.dense(p["input_linear"], x, dtype)
                        .to(torch.float32))
     out = out + p["pe"].detach()[None, :T]
-    for lp in p["layers"]:
+
+    def layer(lp, out):
         out = L.mha(lp["self_attn"], out, out, out, num_heads, dim_key,
                     dim_value, mask=self_attn_mask, dtype=dtype,
                     dropout_rate=dropout_rate, rng=rng, bias=self_attn_bias)
         out = out * non_pad
         out = L.ffn(lp["ffn"], out, dtype=dtype, dropout_rate=dropout_rate,
                     rng=rng)
-        out = out * non_pad
+        return out * non_pad
+
+    for lp in p["layers"]:
+        if remat:
+            out = L.remat(lambda o, lp=lp: layer(lp, o), rng, out)
+        else:
+            out = layer(lp, out)
     return out

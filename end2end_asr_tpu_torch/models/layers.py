@@ -45,12 +45,22 @@ class DropoutRng:
     `host` (a CPU generator) draws the 64-bit Philox seeds of the
     attention kernel as host ints, with no device round trip; `dev` (a
     generator on the training device) draws the uint16 bits of the plain
-    dropout."""
+    dropout; `spec` (on the device too) draws SpecAugment's bands, so that
+    turning the augmentation on leaves the dropout masks as they were."""
 
     def __init__(self, seed: int, device):
         device = torch.device(device)
         self.host = torch.Generator().manual_seed(seed)
         self.dev = torch.Generator(device=device).manual_seed(seed + 1)
+        self.spec = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def dropout_state(self):
+        """The state of the two dropout streams (for `remat`)."""
+        return self.host.get_state(), self.dev.get_state()
+
+    def set_dropout_state(self, state) -> None:
+        self.host.set_state(state[0])
+        self.dev.set_state(state[1])
 
     def kernel_seed(self) -> int:
         return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
@@ -58,6 +68,34 @@ class DropoutRng:
     def bits16(self, shape, device) -> torch.Tensor:
         return torch.randint(0, 65536, tuple(shape), generator=self.dev,
                              device=device, dtype=torch.int32)
+
+
+def remat(fn, rng: Optional["DropoutRng"], *args):
+    """fn(*args) under activation checkpointing (the JAX package's
+    jax.checkpoint around a layer): the layer's activations are dropped
+    after the forward and recomputed in the backward. The recomputation
+    must draw the SAME dropout masks and must not advance the streams a
+    second time, so it runs with the streams set back to where the first
+    run found them and restores them afterwards."""
+    from torch.utils.checkpoint import checkpoint
+    if rng is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    before = rng.dropout_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        now = rng.dropout_state()
+        rng.set_dropout_state(before)
+        try:
+            return fn(*a)
+        finally:
+            rng.set_dropout_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng] = None,

@@ -4,8 +4,14 @@ Port of the JAX package's ``models/transformer.py`` (reference:
 models/asr/transformer.py:16-124, utils/functions.py:116-162). The params
 are the JAX pytree ``{"frontend", "encoder", "decoder"}`` with tensors
 for leaves. Greedy/beam decoding (decoding/) reuse `encode` and the
-decoder's cached step; training runs `forward` (transformer.py:126-147 of
-the JAX package), whose encoder keeps gradients.
+decoder's cached step; training runs `forward_state` (transformer.py:126-147
+of the JAX package), whose encoder keeps gradients.
+
+The model `state` (the emb_cnn batch norms' running statistics, {} for the
+other front ends) is a tree beside the params, {"frontend": {...}}, as in
+the JAX package. Training passes it in and gets the new one back
+(`forward_state`); the evaluation paths (`encode`, `forward`) read it from
+the params tree's "state" entry, where `with_state` puts it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ class ModelDims(NamedTuple):
     dtype: torch.dtype
     ref_compat_masks: bool
     dropout: float = 0.0
+    remat: bool = False
 
 
 def dims_from_config(cfg: Config) -> ModelDims:
@@ -43,7 +50,8 @@ def dims_from_config(cfg: Config) -> ModelDims:
         emb_trg_sharing=cfg.emb_trg_sharing,
         feat_extractor=cfg.feat_extractor,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-        ref_compat_masks=cfg.ref_compat_masks, dropout=cfg.dropout)
+        ref_compat_masks=cfg.ref_compat_masks, dropout=cfg.dropout,
+        remat=cfg.remat)
 
 
 def encoder_lengths(dims: ModelDims, src_lengths: torch.Tensor
@@ -52,53 +60,82 @@ def encoder_lengths(dims: ModelDims, src_lengths: torch.Tensor
     frame lengths like the reference (transformer.py:78), which makes the
     masks a no-op after conv subsampling; False gives the subsampled
     lengths."""
-    if dims.ref_compat_masks or dims.feat_extractor != "vgg_cnn":
+    if dims.ref_compat_masks or dims.feat_extractor not in ("vgg_cnn",
+                                                            "emb_cnn"):
         return src_lengths
-    return src_lengths // 4
+    if dims.feat_extractor == "vgg_cnn":
+        return src_lengths // 4
+    return (src_lengths + 20 - 11) // 2 + 1 - 11 + 1
 
 
-def encode_train(params: Params, spect: torch.Tensor,
-                 src_lengths: torch.Tensor, dims: ModelDims, train: bool,
+def with_state(params: Params, state: Optional[Params]) -> Params:
+    """The params tree with the model state under "state", for the
+    evaluation paths."""
+    return {**params, "state": state} if state else params
+
+
+def encode_train(params: Params, state: Optional[Params],
+                 spect: torch.Tensor, src_lengths: torch.Tensor,
+                 dims: ModelDims, train: bool,
                  rng: Optional[DropoutRng] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """`encode` that keeps gradients; `train` selects the front end's
-    training kernels and, with `rng`, dropout."""
-    feats = Fe.apply_frontend(params.get("frontend"), spect,
-                              dims.feat_extractor, dtype=dims.dtype,
-                              train=train)
+    training kernels and batch statistics and, with `rng`, dropout.
+    Returns (enc_out, enc_lengths, new state)."""
+    fe_state = state.get("frontend") if state else None
+    feats, new_fe_state = Fe.apply_frontend(
+        params.get("frontend"), fe_state, spect, dims.feat_extractor,
+        train=train, dtype=dims.dtype)
     enc_lens = encoder_lengths(dims, src_lengths)
     enc_out = E.apply_encoder(params["encoder"], feats, enc_lens,
                               dims.num_heads, dims.dim_key, dims.dim_value,
                               dtype=dims.dtype, dropout_rate=dims.dropout,
-                              rng=rng if train else None)
-    return enc_out, enc_lens
+                              rng=rng if train else None,
+                              remat=dims.remat and train)
+    new_state = dict(state or {})
+    if new_fe_state:
+        new_state["frontend"] = new_fe_state
+    return enc_out, enc_lens, new_state
 
 
 @torch.inference_mode()
 def encode(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
            dims: ModelDims) -> Tuple[torch.Tensor, torch.Tensor]:
     """spect: (B, F, T). Returns (enc_out (B, T', H) f32, enc_lengths)."""
-    return encode_train(params, spect, src_lengths, dims, train=False)
+    return encode_train(params, params.get("state"), spect, src_lengths,
+                        dims, train=False)[:2]
 
 
-def forward(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
-            targets: torch.Tensor, dims: ModelDims, train: bool = False,
-            rng: Optional[DropoutRng] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_state(params: Params, state: Optional[Params],
+                  spect: torch.Tensor, src_lengths: torch.Tensor,
+                  targets: torch.Tensor, dims: ModelDims, train: bool = False,
+                  rng: Optional[DropoutRng] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """Teacher-forced forward (transformer.py:59-85 of the reference):
-    (pred logits (B, U, V) f32, gold (B, U)). `train` with `rng` turns
-    on dropout."""
+    (pred logits (B, U, V) f32, gold (B, U), new state). `train` with
+    `rng` turns on dropout; `dims.remat` checkpoints the layers in
+    training."""
     rng = rng if train else None
-    enc_out, enc_lens = encode_train(params, spect, src_lengths, dims,
-                                     train, rng)
+    enc_out, enc_lens, new_state = encode_train(
+        params, state, spect, src_lengths, dims, train, rng)
     seq_in, seq_out = D.preprocess_targets(targets)
     pred = D.apply_decoder(params["decoder"], seq_in, enc_out, enc_lens,
                            dims.num_heads, dims.dim_key, dims.dim_value,
                            dims.dim_model,
                            emb_trg_sharing=dims.emb_trg_sharing,
                            dropout_rate=dims.dropout, rng=rng,
-                           dtype=dims.dtype)
-    return pred, seq_out
+                           dtype=dims.dtype, remat=dims.remat and train)
+    return pred, seq_out, new_state
+
+
+def forward(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
+            targets: torch.Tensor, dims: ModelDims, train: bool = False,
+            rng: Optional[DropoutRng] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`forward_state` with the state read from params["state"] and the
+    new state dropped: (pred, gold)."""
+    return forward_state(params, params.get("state"), spect, src_lengths,
+                         targets, dims, train, rng)[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +181,9 @@ def _ffn(g, cfg: Config, rank: int) -> Params:
             "ln": _ln(cfg.dim_model)}
 
 
-def _conv(g, c_in: int, c_out: int) -> Params:
-    fan_in, fan_out = c_in * 9, c_out * 9
-    return {"w": _xavier(g, (3, 3, c_in, c_out), fan_in, fan_out),
+def _conv(g, c_in: int, c_out: int, kh: int = 3, kw: int = 3) -> Params:
+    fan_in, fan_out = c_in * kh * kw, c_out * kh * kw
+    return {"w": _xavier(g, (kh, kw, c_in, c_out), fan_in, fan_out),
             "b": _uniform(g, (c_out,), 1.0 / math.sqrt(fan_in))}
 
 
@@ -154,9 +191,8 @@ def init_params(cfg: Config, num_vocab: int, g: torch.Generator) -> Params:
     """Random params with the JAX package's init_transformer structure,
     shapes and init laws (xavier-uniform weights, torch-default bias
     bounds, LayerNorm (1, 0)), drawn from `g`. The values differ from a
-    JAX init of the same seed."""
-    if cfg.feat_extractor == "emb_cnn":
-        raise NotImplementedError("emb_cnn front end is not ported yet")
+    JAX init of the same seed. The model state that goes with them is
+    `init_state(cfg)`."""
     rank = cfg.rank if cfg.rank > 0 else 0
     dm = cfg.dim_model
     params: Params = {
@@ -186,7 +222,21 @@ def init_params(cfg: Config, num_vocab: int, g: torch.Generator) -> Params:
                               "conv2": _conv(g, 64, 64),
                               "conv3": _conv(g, 64, 128),
                               "conv4": _conv(g, 128, 128)}
+    elif cfg.feat_extractor == "emb_cnn":
+        params["frontend"] = {"conv1": _conv(g, 1, 32, 41, 11),
+                              "bn1": _ln(32),
+                              "conv2": _conv(g, 32, 32, 21, 11),
+                              "bn2": _ln(32)}
     return params
+
+
+def init_state(cfg: Config) -> Params:
+    """The model state of a fresh model: the emb_cnn batch norms' running
+    statistics (mean 0, variance 1); {} for the other front ends."""
+    if cfg.feat_extractor != "emb_cnn":
+        return {}
+    return {"frontend": {"bn1": Fe.init_bn_state(32),
+                         "bn2": Fe.init_bn_state(32)}}
 
 
 def to_device(tree, device):

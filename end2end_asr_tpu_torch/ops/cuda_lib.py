@@ -129,3 +129,5 @@ class CudaKernel:
 P = ctypes.c_void_p
 I = ctypes.c_int
 U64 = ctypes.c_uint64
+L = ctypes.c_long
+F32 = ctypes.c_float

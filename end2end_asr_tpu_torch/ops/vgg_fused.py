@@ -1,5 +1,7 @@
 """Kernels 2 and 3: the fused vgg block 1 forward and its backward
-(csrc/vgg_block1.cu), and their plain versions.
+(csrc/vgg_block1.cu), and their plain versions; kernels 7 and 8, the fused
+block 2 and its backward (csrc/vgg_block2.cu), in the second half of this
+module, behind `BLOCK2_ENABLED`.
 
     relu(maxpool2x2(conv2_SAME(relu(conv1_SAME(spect) + b1))) + b2)
 
@@ -276,3 +278,257 @@ class VggBlock1(torch.autograd.Function):
         dw1, db1, dw2, db2 = vgg_block1_bwd(spect, w1, b1, w2, out, idx,
                                             g.to(ctx.cdt), ctx.cdt)
         return None, dw1, db1, dw2, db2, None
+
+
+# ---------------------------------------------------------------------------
+# Block 2 (kernels 7 and 8, csrc/vgg_block2.cu)
+#
+#   relu(maxpool2x2(conv4_SAME(relu(conv3_SAME(x) + b3))) + b4)
+#
+# Replaces ``end2end_asr_tpu/ops/vgg_fused.py::_fwd2_kernel`` and
+# ``::_bwd2_kernel``. x is block 1's output as it stands, (B, F, T, 64)
+# channels-last in cdt; out is (B, F//2, T//2, 128). The backward returns the
+# input gradient too (block 1 consumes it). Rounding order: conv3's f32 sum
+# rounds to cdt, + b3 in cdt, relu; conv4's sum rounds to cdt before the pool;
+# best + b4 in cdt, relu. Positions outside the image are zero for conv4 (no
+# relu(0 + b3) in the border). In the backward dx2 and dx are summed in f32
+# and rounded once. Residuals: x, the weights, out and idx; x2 is recomputed.
+#
+# Bound on the H100 at x (12, 80, 400, 64): 169.9 GFLOP forward (0.172 ms on
+# the bf16 tensor cores, 2.54 ms on f32 FMA), 339.7 GFLOP backward (0.343 ms /
+# 5.07 ms).
+# ---------------------------------------------------------------------------
+
+C_IN2, C2 = 64, 128
+
+# The JAX package's default (its ops/vgg_fused.py BLOCK2_ENABLED): the front
+# end keeps the library convolutions for block 2 unless a test or the chip
+# script sets this attribute. The reasons given there are measurements of the
+# TPU's compiler and are not this card's; the card's own times are in PERF.md.
+BLOCK2_ENABLED = False
+
+_FWD2_KERNELS = {
+    dt: cuda_lib.CudaKernel("vgg_block2", sym,
+                            [cuda_lib.P] * 7 + [cuda_lib.I] * 3
+                            + [cuda_lib.P])
+    for dt, sym in ((torch.float32, "vgg_block2_fwd_f32"),
+                    (torch.bfloat16, "vgg_block2_fwd_bf16"))}
+_BWD2_KERNELS = {
+    dt: cuda_lib.CudaKernel("vgg_block2", sym,
+                            [cuda_lib.P] * 12 + [cuda_lib.I] * 3
+                            + [cuda_lib.P])
+    for dt, sym in ((torch.float32, "vgg_block2_bwd_f32"),
+                    (torch.bfloat16, "vgg_block2_bwd_bf16"))}
+BWD2_BLOCKS = 64                                # csrc/vgg_block2.cu
+DW3_SIZE, DW4_SIZE = 9 * C_IN2 * C2, 9 * C2 * C2
+PART2 = DW3_SIZE + C2 + DW4_SIZE + C2           # floats of one block's partials
+
+
+def launches2() -> int:
+    """Launches of the block-2 forward kernel (both compute dtypes)."""
+    return sum(k.launches for k in _FWD2_KERNELS.values())
+
+
+def bwd2_launches() -> int:
+    """Launches of the block-2 backward kernel (both compute dtypes)."""
+    return sum(k.launches for k in _BWD2_KERNELS.values())
+
+
+def reset_launches2() -> None:
+    for k in (*_FWD2_KERNELS.values(), *_BWD2_KERNELS.values()):
+        k.launches = 0
+
+
+def supported2(F: int, T: int) -> bool:
+    """Shapes (of block 2's input) the fused block 2 takes: even F and T,
+    F >= 4. Other shapes go through the composite branch of the front end."""
+    return F % 2 == 0 and T % 2 == 0 and F >= 4 and T >= 2
+
+
+def _nchw(w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    return w.to(cdt).permute(3, 2, 0, 1)
+
+
+def _x2_plain(x, w3, b3, cdt):
+    """conv3 + b3 + relu of NHWC x, as NCHW in cdt."""
+    y3 = Fn.conv2d(x.to(cdt).permute(0, 3, 1, 2), _nchw(w3, cdt), padding=1)
+    return torch.relu(y3 + b3.to(cdt)[None, :, None, None])
+
+
+def vgg_block2_plain(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                     w4: torch.Tensor, b4: torch.Tensor,
+                     cdt: torch.dtype = torch.bfloat16
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch block 2: x (B, F, T, 64) NHWC; w3 (3,3,64,128), w4
+    (3,3,128,128) HWIO; b3/b4 (128,). Returns ((B, F//2, T//2, 128) in cdt,
+    uint8 pool argmax of the same shape)."""
+    y4 = Fn.conv2d(_x2_plain(x, w3, b3, cdt), _nchw(w4, cdt), padding=1)
+    best, idx = pool2_first_wins(y4)
+    out = torch.relu(best + b4.to(cdt)[None, :, None, None])
+    return (out.permute(0, 2, 3, 1).contiguous(),
+            idx.permute(0, 2, 3, 1).contiguous())
+
+
+def vgg_block2_bwd_plain(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                         w4: torch.Tensor, out: torch.Tensor,
+                         idx: torch.Tensor, g: torch.Tensor,
+                         cdt: torch.dtype = torch.bfloat16):
+    """Plain block-2 backward: out/idx/g (B, F//2, T//2, 128) NHWC from the
+    forward. Returns (dx in cdt of x's shape, f32 dW3 (3,3,64,128), db3,
+    dW4 (3,3,128,128), db4); x2 is recomputed as vgg_block2_plain computes
+    it, dx2 and dx are summed in f32 and rounded once."""
+    f32 = torch.float32
+    B, F, T, _ = x.shape
+    Fp, Tp = F // 2, T // 2
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    x2f = _x2_plain(x, w3, b3, cdt).float()
+    gm = torch.where(out.float() > 0, g.to(cdt).float(), zero)
+    db4 = gm.sum(dim=(0, 1, 2))
+    sel = idx[..., None] == torch.arange(4, device=idx.device)
+    dyw = torch.where(sel, gm[..., None], zero)
+    dy4 = (dyw.reshape(B, Fp, Tp, C2, 2, 2).permute(0, 3, 1, 4, 2, 5)
+           .reshape(B, C2, 2 * Fp, 2 * Tp))
+    dy4 = Fn.pad(dy4, (0, T - 2 * Tp, 0, F - 2 * Fp))
+    w4f = _nchw(w4, cdt).float()
+    dw4 = torch.nn.grad.conv2d_weight(x2f, w4f.shape, dy4, padding=1)
+    dx2 = torch.nn.grad.conv2d_input(x2f.shape, w4f, dy4, padding=1)
+    dy3 = torch.where(x2f > 0, dx2, zero).to(cdt).float()
+    db3 = dy3.sum(dim=(0, 2, 3))
+    xf = x.to(cdt).float().permute(0, 3, 1, 2)
+    w3f = _nchw(w3, cdt).float()
+    dw3 = torch.nn.grad.conv2d_weight(xf, w3f.shape, dy3, padding=1)
+    dx = torch.nn.grad.conv2d_input(xf.shape, w3f, dy3, padding=1)
+    return (dx.to(cdt).permute(0, 2, 3, 1).contiguous(),
+            dw3.permute(2, 3, 1, 0).contiguous(), db3,
+            dw4.permute(2, 3, 1, 0).contiguous(), db4)
+
+
+def _check2(name, x, cdt, params, pooled=()):
+    """Validate what the block-2 kernels read through raw pointers: x
+    (B, F, T, 64) in cdt, `params` {name: (tensor, shape)} f32, `pooled`
+    {name: (tensor, dtype)} of the output's shape; all on x's device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if cdt not in _FWD2_KERNELS:
+        raise ValueError(f"{name}: compute dtype {cdt} not supported")
+    if x.dim() != 4 or x.shape[3] != C_IN2 or x.dtype != cdt:
+        raise ValueError(f"{name}: x must be (B, F, T, {C_IN2}) in {cdt}")
+    if not supported2(x.shape[1], x.shape[2]):
+        raise ValueError(f"{name}: needs even F and T, F >= 4; got "
+                         f"F={x.shape[1]}, T={x.shape[2]}")
+    for nm, (t, shape) in params.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != x.device):
+            raise ValueError(f"{name}: {nm} must be f32 {shape} on "
+                             f"{x.device}")
+    out_shape = (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, C2)
+    for nm, (t, dt) in pooled.items():
+        if (tuple(t.shape) != out_shape or t.dtype != dt
+                or t.device != x.device):
+            raise ValueError(f"{name}: {nm} must be {dt} {out_shape} on "
+                             f"{x.device}")
+
+
+def _aligned(name, *tensors):
+    """The kernels read and write 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def _layout(w: torch.Tensor, cdt: torch.dtype, t: bool) -> torch.Tensor:
+    """The weight in cdt as "t" (tap, out, in) or "n" (tap, in, out), the
+    two layouts of csrc/vgg_block2.cu."""
+    w = w.to(cdt)
+    return (w.permute(0, 1, 3, 2) if t else w).contiguous()
+
+
+def vgg_block2(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+               w4: torch.Tensor, b4: torch.Tensor,
+               cdt: torch.dtype = torch.bfloat16,
+               idx_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused conv3+relu+conv4+pool+bias+relu. x (B, F, T, 64) NHWC in cdt;
+    returns (B, F//2, T//2, 128) NHWC in cdt. Kernel 7 on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        out, idx = vgg_block2_plain(x, w3, b3, w4, b4, cdt)
+        if idx_out is not None:
+            idx_out.copy_(idx)
+        return out
+    _check2("vgg_block2", x, cdt,
+            {"w3": (w3, (3, 3, C_IN2, C2)), "b3": (b3, (C2,)),
+             "w4": (w4, (3, 3, C2, C2)), "b4": (b4, (C2,))},
+            {} if idx_out is None else {"idx_out": (idx_out, torch.uint8)})
+    if idx_out is not None and not idx_out.is_contiguous():
+        raise ValueError("vgg_block2: idx_out must be contiguous")
+    B, F, T, _ = x.shape
+    out = torch.empty((B, F // 2, T // 2, C2), dtype=cdt, device=x.device)
+    if out.numel() == 0:
+        return out
+    # the tensor-core kernel reads (tap, out, in), the FMA kernel HWIO
+    w3k, w4k = (_layout(w, cdt, cdt == torch.bfloat16) for w in (w3, w4))
+    x, b3, b4 = x.contiguous(), b3.contiguous(), b4.contiguous()
+    _aligned("vgg_block2", x, *((idx_out,) if idx_out is not None else ()))
+    with torch.cuda.device(x.device):
+        _FWD2_KERNELS[cdt].launch(
+            x.data_ptr(), w3k.data_ptr(), b3.data_ptr(), w4k.data_ptr(),
+            b4.data_ptr(), out.data_ptr(),
+            idx_out.data_ptr() if idx_out is not None else None,
+            B, F, T, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def vgg_block2_bwd(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                   w4: torch.Tensor, out: torch.Tensor, idx: torch.Tensor,
+                   g: torch.Tensor, cdt: torch.dtype = torch.bfloat16):
+    """Kernel 8 on CUDA tensors, the plain version on CPU tensors: (dx in
+    cdt, f32 dW3, db3, dW4, db4) of the fused block 2."""
+    if x.device.type == "cpu":
+        return vgg_block2_bwd_plain(x, w3, b3, w4, out, idx, g, cdt)
+    _check2("vgg_block2_bwd", x, cdt,
+            {"w3": (w3, (3, 3, C_IN2, C2)), "b3": (b3, (C2,)),
+             "w4": (w4, (3, 3, C2, C2))},
+            {"out": (out, cdt), "g": (g, cdt), "idx": (idx, torch.uint8)})
+    B, F, T, _ = x.shape
+    x, b3, out, idx, g = (t.contiguous() for t in (x, b3, out, idx, g))
+    _aligned("vgg_block2_bwd", x, out, idx, g)
+    # the conv3 recompute reads the forward's layout, the two transposed
+    # convolutions (dx2 from w4, dx from w3) the other one
+    bf = cdt == torch.bfloat16
+    w3c, w4d, w3d = (_layout(w3, cdt, bf), _layout(w4, cdt, not bf),
+                     _layout(w3, cdt, not bf))
+    dev = x.device
+    dy3 = torch.empty((B, F, T, C2), dtype=cdt, device=dev)
+    dx = torch.empty_like(x)
+    grads = torch.empty(PART2, dtype=torch.float32, device=dev)
+    part = torch.empty(BWD2_BLOCKS * PART2, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _BWD2_KERNELS[cdt].launch(
+            x.data_ptr(), w3c.data_ptr(), b3.data_ptr(), w4d.data_ptr(),
+            w3d.data_ptr(), g.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            dy3.data_ptr(), dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
+            B, F, T, torch.cuda.current_stream().cuda_stream)
+    o1, o2, o3 = DW3_SIZE, DW3_SIZE + C2, DW3_SIZE + C2 + DW4_SIZE
+    return (dx, grads[:o1].view(3, 3, C_IN2, C2), grads[o1:o2],
+            grads[o2:o3].view(3, 3, C2, C2), grads[o3:])
+
+
+class VggBlock2(torch.autograd.Function):
+    """vgg_block2 with the backward kernel: gradients for x, w3, b3, w4,
+    b4."""
+
+    @staticmethod
+    def forward(ctx, x, w3, b3, w4, b4, cdt):
+        B, F, T, _ = x.shape
+        idx = torch.empty((B, F // 2, T // 2, C2), dtype=torch.uint8,
+                          device=x.device)
+        out = vgg_block2(x, w3, b3, w4, b4, cdt, idx_out=idx)
+        ctx.cdt = cdt
+        ctx.save_for_backward(x, w3, b3, w4, out, idx)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w3, b3, w4, out, idx = ctx.saved_tensors
+        dx, dw3, db3, dw4, db4 = vgg_block2_bwd(
+            x, w3, b3, w4, out, idx, g.to(ctx.cdt).contiguous(), ctx.cdt)
+        return dx, dw3, db3, dw4, db4, None

@@ -61,7 +61,7 @@ def main(argv=None, timings: Optional[list] = None):
                         format="%(asctime)s - %(message)s",
                         level=logging.INFO)
 
-    cfg, _, params, _, _, label2id, id2label, _ = load_checkpoint(
+    cfg, _, params, _, model_state, label2id, id2label, _ = load_checkpoint(
         cli.continue_from)
     overrides = {k: getattr(cli, k)
                  for k in explicit_cli_overrides(argv)
@@ -84,7 +84,8 @@ def main(argv=None, timings: Optional[list] = None):
         test_data, cfg,
         sampler=BucketingSampler(len(test_data), cfg.batch_size,
                                  seed=cfg.seed))
-    params = prepare_params(params, dims_from_config(cfg), device)
+    params = prepare_params(params, dims_from_config(cfg), device,
+                            model_state)
     results = evaluate(params, cfg, test_loader, id2label, device,
                        verbose=cfg.verbose, timings=timings)
     print("TEST CER:{:.2f}% WER:{:.2f}% CER_EN:{:.2f}% CER_ZH:{:.2f}%".format(

@@ -12,9 +12,12 @@ manifest, initialises the model from the seed or resumes from
 ``--continue-from`` / ``--auto-resume`` (checkpoints of either package:
 parameters, optimizer state, epoch, metrics), and runs the Trainer. Logs
 to log/<name>. Without a GPU it raises unless --device cpu is given.
-Data / model parallelism, ZeRO, sequence parallelism, SpecAugment, sox
-and noise augmentation, the emb_cnn front end and CTC are not ported yet
-and raise, naming the ROADMAP item.
+``--spec-augment``, ``--loss ctc``, ``--remat`` and ``--feat_extractor
+emb_cnn`` (whose batch-norm statistics are saved and resumed as the
+checkpoint's model state) are taken as root ``train.py`` takes them. Data /
+model parallelism, ZeRO, sequence parallelism, sox and noise augmentation
+and orbax checkpoints are not ported yet and raise, naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -40,22 +43,15 @@ def refuse_unported(cfg: Config) -> None:
     the port does not have yet."""
     todo = [
         (cfg.parallel or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
-         "--parallel / --mesh-*", "parallelism (ROADMAP queue 1, item 7)"),
+         "--parallel / --mesh-*", "parallelism (ROADMAP queue 1, item 9)"),
         (cfg.zero1 or cfg.fsdp, "--zero1 / --fsdp",
-         "ZeRO (ROADMAP queue 1, item 7)"),
+         "ZeRO (ROADMAP queue 1, item 9)"),
         (cfg.seq_parallel, "--seq-parallel",
-         "sequence parallelism (ROADMAP queue 1, item 7)"),
-        (cfg.spec_augment, "--spec-augment",
-         "ops/specaugment.py (ROADMAP queue 1, item 1)"),
+         "sequence parallelism (ROADMAP queue 1, item 9)"),
         (cfg.noise_dir or cfg.augment, "--noise-dir / --augment",
-         "noise and sox augmentation (ROADMAP queue 1, item 1)"),
-        (cfg.feat_extractor == "emb_cnn", "emb_cnn",
-         "the emb_cnn front end (ROADMAP queue 1, item 2)"),
-        (cfg.loss != "ce", f"--loss {cfg.loss}",
-         "ops/ctc.py (ROADMAP queue 1, item 1)"),
-        (cfg.remat, "--remat", "rematerialisation (ROADMAP queue 1, item 1)"),
+         "noise and sox augmentation (ROADMAP queue 1, item 2)"),
         (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
-         "orbax checkpoints (ROADMAP queue 1, item 8)"),
+         "orbax checkpoints (ROADMAP queue 1, item 10)"),
     ]
     for bad, flag, item in todo:
         if bad:
@@ -88,7 +84,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
                                                    BucketingSampler)
     from end2end_asr_tpu_torch.evaluation import resolve_device
-    from end2end_asr_tpu_torch.models.transformer import init_params
+    from end2end_asr_tpu_torch.models.transformer import (init_params,
+                                                          init_state)
     from end2end_asr_tpu_torch.training import checkpoint as ckpt
     from end2end_asr_tpu_torch.training.trainer import Trainer
 
@@ -116,8 +113,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 cfg = cfg.replace(continue_from=latest)
         if cfg.continue_from:
             logger.info("Continue from checkpoint: %s", cfg.continue_from)
-            (ckpt_cfg, epoch, params, opt_state, _, label2id, id2label,
-             metrics) = ckpt.load_checkpoint(cfg.continue_from)
+            (ckpt_cfg, epoch, params, opt_state, model_state, label2id,
+             id2label, metrics) = ckpt.load_checkpoint(cfg.continue_from)
             if opt_state is None:
                 # converted reference checkpoints carry only the Noam step
                 from end2end_asr_tpu_torch.training.optimizer import \
@@ -148,6 +145,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 raise SystemExit("The model is not supported, check args --h")
             params = init_params(cfg, len(label2id),
                                  torch.Generator().manual_seed(cfg.seed))
+            model_state = init_state(cfg)
 
         train_data = ManifestDataset(list(cfg.train_manifest_list), label2id,
                                      sample_rate=cfg.sample_rate)
@@ -163,7 +161,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                           metrics_every=cfg.metrics_every)
         return trainer.train(params, opt_state, train_loader, valid_loaders,
                              start_epoch=start_epoch, num_epochs=cfg.epochs,
-                             last_metrics=metrics)
+                             last_metrics=metrics, model_state=model_state)
     finally:
         logger.removeHandler(handler)
         handler.close()

@@ -5,16 +5,18 @@ keeps the reference's manual label smoothing: one_hot·(1−ε) + (1−one_hot)
 ·ε/C, so the mass at the target is exactly 1−ε (not 1−ε+ε/C), summed
 against the log-softmax and averaged over the non-PAD positions. With
 ε = 0 it is the standard CE with ignore_index = PAD, mean reduction.
-The CTC loss (``ops/ctc.py``) is not ported yet (ROADMAP).
+``--loss ctc`` is ``ops/ctc.py`` on the f32 log-softmax of the logits,
+blank 0, 'mean' reduction; it has no token accuracy (`calculate_metrics`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from end2end_asr_tpu_torch.config import PAD_TOKEN
+from end2end_asr_tpu_torch.ops.ctc import ctc_loss
 
 
 def cross_entropy_loss(pred: torch.Tensor, gold: torch.Tensor,
@@ -52,7 +54,18 @@ def calculate_loss(pred: torch.Tensor, gold: torch.Tensor,
     if loss_type == "ce":
         return cross_entropy_loss(pred, gold, smoothing)
     if loss_type == "ctc":
-        raise NotImplementedError(
-            "--loss ctc is not ported yet (ROADMAP: ops/ctc.py, a later "
-            "slice of the port)")
+        log_probs = torch.log_softmax(pred.to(torch.float32), dim=-1)
+        return ctc_loss(log_probs, gold, input_lengths, target_lengths,
+                        blank=0, reduction="mean")
     raise ValueError(f"loss is not defined: {loss_type}")
+
+
+def calculate_metrics(pred: torch.Tensor, gold: torch.Tensor,
+                      input_lengths: Optional[torch.Tensor] = None,
+                      target_lengths: Optional[torch.Tensor] = None,
+                      smoothing: float = 0.0, loss_type: str = "ce"
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(loss, number of correct tokens or None for ctc)."""
+    loss = calculate_loss(pred, gold, input_lengths, target_lengths,
+                          smoothing, loss_type)
+    return loss, token_accuracy(pred, gold) if loss_type == "ce" else None

@@ -1,10 +1,13 @@
 """Train and eval steps.
 
 Port of the JAX package's ``training/steps.py``: per batch, PCM → features
-on the device (the STFT kernel, ops/stft.py) → forward (the training
-kernels: vgg block 1 and its backward, the block-2 pool backward, the
-dropout attention) → loss → backward → optional clip → Noam Adam (or
-annealing SGD) update.
+on the device (the STFT kernel, ops/stft.py) → optional SpecAugment
+(ops/specaugment.py, its own random stream) → forward (the training
+kernels: vgg block 1 and its backward, block 2's fused kernels or its pool
+backward, the dropout attention) → loss (cross entropy, or CTC with input
+lengths n_frames / spect_T · U_out) → backward → optional clip → Noam Adam
+(or annealing SGD) update. The model state (the emb_cnn batch norms'
+running statistics) goes in and the new one comes out.
 
 The trainable parameters live in ONE flat f32 buffer (`FlatParams`): the
 model reads views of it, the gradients are concatenated into one buffer
@@ -15,7 +18,8 @@ it: they get no gradient and no update (the JAX package's stop_gradient).
 Reference behaviours kept (steps.py:56-228 of the JAX package):
   * a non-finite loss skips the update: parameters, optimizer state and
     step stay as they were — chosen on the device by `torch.where`, with
-    no host round trip;
+    no host round trip; the model state is NOT held back (steps.py:226
+    returns the new state whatever the loss was);
   * ``--grad-accum K`` splits the batch interleaved (microbatch m = rows
     [m::K]) and re-weights each microbatch's loss and gradients by its
     non-PAD token count, so the result equals the full batch's;
@@ -31,7 +35,9 @@ from typing import Dict, Optional
 import torch
 
 from end2end_asr_tpu_torch.config import PAD_TOKEN, Config
-from end2end_asr_tpu_torch.models.transformer import ModelDims, forward
+from end2end_asr_tpu_torch.models.transformer import (ModelDims, forward,
+                                                      forward_state)
+from end2end_asr_tpu_torch.ops.specaugment import apply_spec_augment
 from end2end_asr_tpu_torch.ops.stft import batched_features
 from end2end_asr_tpu_torch.training.checkpoint import (SEP, flatten_params,
                                                        unflatten)
@@ -109,40 +115,56 @@ def features(cfg: Config, pcm: torch.Tensor, n_frames: torch.Tensor,
                             cfg.window, T_out=spect_T, normalize=True)
 
 
+def ctc_input_lengths(n_frames: torch.Tensor, spect_T: int,
+                      U_out: int) -> torch.Tensor:
+    """The CTC input lengths of steps.py:88-92: the valid share of the
+    spectrogram's frames, scaled to the U_out output positions, computed
+    in f32 and truncated."""
+    return (n_frames.to(torch.float32) / spect_T * U_out).to(torch.int32)
+
+
 def make_train_step_impl(cfg: Config, dims: ModelDims):
     """step(fp, data, opt_state, rng, pcm, n_frames, targets, tgt_lengths,
-    spect_T) → (new_data, new_opt_state, metrics, hyp_seq, gold). `fp`
-    gives the tree structure, `data` the flat parameters; nothing is
-    modified in place. metrics: loss (0 when skipped), finite, lr,
-    num_correct, num_token — device tensors."""
+    spect_T, model_state=None) → (new_data, new_opt_state, new_model_state,
+    metrics, hyp_seq, gold). `fp` gives the tree structure, `data` the flat
+    parameters; nothing is modified in place. metrics: loss (0 when
+    skipped), finite, lr, num_correct, num_token — device tensors."""
     noam = noam_config_from(cfg)
     smoothing, loss_type = cfg.label_smoothing, cfg.loss
     accum = max(1, int(cfg.grad_accum))
-    if cfg.spec_augment:
-        raise NotImplementedError(
-            "--spec-augment is not ported yet (ROADMAP: ops/specaugment.py)")
-    if loss_type != "ce":
-        raise NotImplementedError(
-            f"--loss {loss_type} is not ported yet (ROADMAP: ops/ctc.py)")
+    if loss_type not in ("ce", "ctc"):
+        raise ValueError(f"loss is not defined: {loss_type}")
 
-    def micro(fp, data, rng, pcm, n_frames, targets, tgt_lengths, spect_T):
+    def micro(fp, data, state, rng, pcm, n_frames, targets, tgt_lengths,
+              spect_T):
         # each parameter is its own leaf (a detached view of `data`):
         # gradients of views of ONE leaf would each be scattered into a
         # zero-filled buffer of the whole model before they are summed
         leaves = {k: t.detach().requires_grad_()
                   for k, t in fp.views(data).items()}
         spect = features(cfg, pcm, n_frames, spect_T)
-        pred, gold = forward(fp.assemble(leaves), spect, n_frames, targets,
-                             dims, train=True, rng=rng)
-        loss = calculate_loss(pred, gold, None, tgt_lengths, smoothing,
+        if cfg.spec_augment:
+            if rng is None:
+                raise ValueError("--spec-augment needs the step's random "
+                                 "streams (rng)")
+            spect = apply_spec_augment(
+                rng.spec, spect, n_frames, n_freq_masks=cfg.n_freq_masks,
+                freq_width=cfg.freq_mask_width,
+                n_time_masks=cfg.n_time_masks,
+                time_width=cfg.time_mask_width)
+        pred, gold, new_state = forward_state(
+            fp.assemble(leaves), state, spect, n_frames, targets, dims,
+            train=True, rng=rng)
+        in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
+        loss = calculate_loss(pred, gold, in_lens, tgt_lengths, smoothing,
                               loss_type)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True, materialize_grads=True)
         grad = torch.cat([g.reshape(-1) for g in grads])
-        return loss.detach(), grad, pred.detach(), gold
+        return loss.detach(), grad, pred.detach(), gold, new_state
 
-    def accumulated(fp, data, rng, pcm, n_frames, targets, tgt_lengths,
-                    spect_T):
+    def accumulated(fp, data, state, rng, pcm, n_frames, targets,
+                    tgt_lengths, spect_T):
         B = targets.shape[0]
         if B % accum:
             raise ValueError(f"--grad-accum {accum} must divide the batch "
@@ -152,10 +174,13 @@ def make_train_step_impl(cfg: Config, dims: ModelDims):
         w_acc = torch.zeros((), device=data.device)
         hyps, golds, ncorr = [], [], 0
         for m in range(accum):
-            loss, grad, pred, gold = micro(
-                fp, data, rng, pcm[m::accum], n_frames[m::accum],
+            # the state advances once per microbatch (steps.py:104-105)
+            loss, grad, pred, gold, state = micro(
+                fp, data, state, rng, pcm[m::accum], n_frames[m::accum],
                 targets[m::accum], tgt_lengths[m::accum], spect_T)
-            w = (gold != PAD_TOKEN).sum().to(torch.float32)
+            # CTC 'mean' weights the equal-sized microbatches uniformly
+            w = ((gold != PAD_TOKEN).sum().to(torch.float32)
+                 if loss_type == "ce" else torch.ones((), device=data.device))
             g_acc += grad * w
             loss_acc = loss_acc + loss * w
             w_acc = w_acc + w
@@ -167,16 +192,18 @@ def make_train_step_impl(cfg: Config, dims: ModelDims):
         order = lambda xs: torch.stack(xs, dim=1).reshape(B, -1)
         gold = order(golds)
         return (loss_acc * inv, g_acc * inv, order(hyps), gold, ncorr,
-                (gold != PAD_TOKEN).sum())
+                (gold != PAD_TOKEN).sum(), state)
 
     def step(fp, data, opt_state, rng, pcm, n_frames, targets, tgt_lengths,
-             spect_T):
+             spect_T, model_state=None):
         if accum > 1:
-            loss, grads, hyp_seq, gold, num_correct, num_token = accumulated(
-                fp, data, rng, pcm, n_frames, targets, tgt_lengths, spect_T)
+            (loss, grads, hyp_seq, gold, num_correct, num_token,
+             new_state) = accumulated(fp, data, model_state, rng, pcm,
+                                      n_frames, targets, tgt_lengths, spect_T)
         else:
-            loss, grads, pred, gold = micro(fp, data, rng, pcm, n_frames,
-                                            targets, tgt_lengths, spect_T)
+            loss, grads, pred, gold, new_state = micro(
+                fp, data, model_state, rng, pcm, n_frames, targets,
+                tgt_lengths, spect_T)
             hyp_seq = pred.argmax(dim=-1)
             num_correct = token_accuracy(pred, gold)
             num_token = (gold != PAD_TOKEN).sum()
@@ -199,21 +226,23 @@ def make_train_step_impl(cfg: Config, dims: ModelDims):
                                            torch.zeros_like(loss)),
                        "finite": finite, "lr": pick(upd_lr, skip_lr),
                        "num_correct": num_correct, "num_token": num_token}
-        return new_data, new_opt, metrics, hyp_seq, gold
+        return new_data, new_opt, new_state, metrics, hyp_seq, gold
 
     return step
 
 
 def make_eval_step(cfg: Config, dims: ModelDims):
     """eval_step(params, pcm, n_frames, targets, tgt_lengths, spect_T) →
-    (loss, hyp_seq, gold): the teacher-forced forward, no dropout."""
+    (loss, hyp_seq, gold): the teacher-forced forward, no dropout, the
+    model state read from params["state"] (transformer.with_state)."""
 
     @torch.no_grad()
     def eval_step(params, pcm, n_frames, targets, tgt_lengths, spect_T):
         spect = features(cfg, pcm, n_frames, spect_T)
         pred, gold = forward(params, spect, n_frames, targets, dims,
                              train=False)
-        loss = calculate_loss(pred, gold, None, tgt_lengths,
+        in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
+        loss = calculate_loss(pred, gold, in_lens, tgt_lengths,
                               cfg.label_smoothing, cfg.loss)
         return loss, pred.argmax(dim=-1), gold
 

@@ -24,7 +24,8 @@ from end2end_asr_tpu_torch.config import Config
 from end2end_asr_tpu_torch.evaluation import (ids_to_string_until_pad,
                                               strip_specials)
 from end2end_asr_tpu_torch.models.layers import DropoutRng
-from end2end_asr_tpu_torch.models.transformer import dims_from_config
+from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                      to_device, with_state)
 from end2end_asr_tpu_torch.training import checkpoint as ckpt
 from end2end_asr_tpu_torch.training.optimizer import init_opt_state
 from end2end_asr_tpu_torch.training.steps import (FlatParams,
@@ -81,9 +82,11 @@ class Trainer:
 
     def train(self, params, opt_state, train_loader, valid_loader_list,
               start_epoch: int = 0, num_epochs: Optional[int] = None,
-              last_metrics: Optional[Dict] = None) -> Dict:
-        """Returns {"params", "opt_state" (trees), "metrics", "epochs_run",
-        "opt_step"}."""
+              last_metrics: Optional[Dict] = None,
+              model_state: Optional[Dict] = None) -> Dict:
+        """Returns {"params", "opt_state", "model_state" (trees), "metrics",
+        "epochs_run", "opt_step"}. `model_state` is the emb_cnn batch
+        norms' running statistics ({} or None for the other front ends)."""
         cfg, dev = self.cfg, self.device
         num_epochs = cfg.epochs if num_epochs is None else num_epochs
         history: List[Dict] = list((last_metrics or {}).get("history", []))
@@ -92,6 +95,7 @@ class Trainer:
         data = fp.data
         opt = (init_opt_state(cfg, data) if opt_state is None
                else opt_to_flat(fp, opt_state, dev))
+        state = to_device(model_state or {}, dev)
         rng = DropoutRng(cfg.seed + start_epoch, dev)
         step = make_train_step_impl(cfg, self.dims)
         eval_step = make_eval_step(cfg, self.dims)
@@ -128,9 +132,9 @@ class Trainer:
             for i, batch in enumerate(train_loader):
                 rows = (batch.real_rows if batch.real_rows > 0
                         else len(batch.targets))
-                data, opt, m, hyp, gold = step(
+                data, opt, state, m, hyp, gold = step(
                     fp, data, opt, rng, *batch_tensors(batch, dev),
-                    batch.src_bucket)
+                    batch.src_bucket, model_state=state)
                 pending.append((i, rows, m, hyp, gold))
                 while len(pending) > 2:
                     drain(pending.pop(0))
@@ -154,8 +158,8 @@ class Trainer:
                     rows = (batch.real_rows if batch.real_rows > 0
                             else len(batch.targets))
                     loss, hyp, gold = eval_step(
-                        params_now, *batch_tensors(batch, dev),
-                        batch.src_bucket)
+                        with_state(params_now, state),
+                        *batch_tensors(batch, dev), batch.src_bucket)
                     loss = loss.item()
                     if not np.isfinite(loss):
                         logger.info("Found infinity loss, masking")
@@ -190,7 +194,7 @@ class Trainer:
                             base)
                 ckpt.save_checkpoint(base, cfg, epoch + 1, params_now,
                                      self.label2id, self.id2label,
-                                     metrics=metrics,
+                                     model_state=state, metrics=metrics,
                                      opt_state=opt_to_tree(fp, opt))
 
             if epoch % cfg.save_every == 0:
@@ -203,6 +207,6 @@ class Trainer:
                 train_loader.shuffle(epoch)
 
         return {"params": fp.tree(data), "opt_state": opt_to_tree(fp, opt),
-                "metrics": metrics,
+                "model_state": state, "metrics": metrics,
                 "epochs_run": max(0, num_epochs - start_epoch),
                 "opt_step": int(opt["step"].item())}

@@ -47,13 +47,13 @@ def main(argv=None):
     from end2end_asr_tpu_torch.training.checkpoint import load_checkpoint
 
     device = resolve_device(args.device)
-    cfg, _, params, _, _, _, id2label, _ = load_checkpoint(
+    cfg, _, params, _, model_state, _, id2label, _ = load_checkpoint(
         args.continue_from)
     cfg = cfg.replace(beam_search=args.beam_search,
                       beam_width=args.beam_width,
                       c_weight=args.c_weight)
     dims = dims_from_config(cfg)
-    params = prepare_params(params, dims, device)
+    params = prepare_params(params, dims, device, model_state)
     beam = make_beam(cfg, dims, id2label)
 
     n_fft, hop = cfg.n_fft, cfg.hop_length

@@ -132,8 +132,10 @@ def test_port_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'end2end_asr_tpu')]\n"
+        "       ('jax', 'jaxlib', 'end2end_asr_tpu', 'tools')]\n"
         "assert not bad, bad\n"
+        "for m in ('tools.probe_stream', 'ops.ctc', 'ops.specaugment'):\n"
+        "    assert pkg.__name__ + '.' + m in mods, m\n"
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

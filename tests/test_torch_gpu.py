@@ -247,3 +247,137 @@ def test_vgg_block1_bwd_kernel_matches_plain(dev, cdt, B, F, T):
     again = V.vgg_block1_bwd(*args[:4], out, idx, g, cdt)
     for a, b in zip(got, again):
         assert torch.equal(a, b)          # fixed-order reduction
+
+
+# ---------------------------------------------------------------------------
+# block 2 (kernels 7 and 8) and the streaming probes (kernels 10 and 11)
+# ---------------------------------------------------------------------------
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _block2_args(dev, cdt, B, F, T, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, F, T, 64, generator=g).relu().to(dev, cdt)
+    return [x] + [t.to(dev) for t in (
+        torch.randn(3, 3, 64, 128, generator=g) * (2 / 576) ** 0.5,
+        torch.randn(128, generator=g) * 0.1,
+        torch.randn(3, 3, 128, 128, generator=g) * (2 / 1152) ** 0.5,
+        torch.randn(128, generator=g) * 0.1)]
+
+
+BLOCK2_SHAPES = [(2, 4, 2), (1, 6, 70), (3, 18, 34), (1, 82, 130),
+                 (2, 8, 258)]
+# f32: 576- and 1152-term sums (forward) and sums over B*F*T positions
+# (backward) in another order
+BLOCK2_F32_TOL = 1e-4
+# bf16 backward, relative L2 per tensor against the plain backward on the
+# same out / idx: a dx2 or dx sum by a bf16 rounding boundary rounds to the
+# neighbouring value (one bf16 ulp, 2^-8 relative, on a share of elements)
+BLOCK2_BWD_BF16_TOL = 2 ** -8
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,T", BLOCK2_SHAPES)
+def test_vgg_block2_kernel_matches_plain(dev, cdt, B, F, T):
+    args = _block2_args(dev, cdt, B, F, T, seed=F * T)
+    idx = torch.empty((B, F // 2, T // 2, 128), dtype=torch.uint8, device=dev)
+    V.reset_launches2()
+    got = V.vgg_block2(*args, cdt=cdt, idx_out=idx)
+    assert V.launches2() == 1
+    want, want_idx = V.vgg_block2_plain(*args, cdt=cdt)
+    assert got.dtype == cdt and got.shape == want.shape
+    if cdt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert (idx == want_idx).float().mean() > 0.99
+    got_noidx = V.vgg_block2(*args, cdt=cdt)
+    assert torch.equal(got_noidx, got)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_vgg_block2_border_and_ties(dev, cdt):
+    """Zero input, large b3, negative w4: the border's fewer taps win the
+    pool, so a bias leaking into conv4's padding would show; and all-zero
+    weights tie every window, which the first element wins."""
+    x, w3, b3, w4, b4 = _block2_args(dev, cdt, 1, 8, 70, seed=5)
+    args = (x * 0, w3, b3.abs() + 1.0, -w4.abs(), b4 * 0 + 100.0)
+    got = V.vgg_block2(*args, cdt=cdt)
+    want, _ = V.vgg_block2_plain(*args, cdt=cdt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    assert (got[0, 0, 0].float() - got[0, 1, 3].float()).abs().max() > 1.0
+    idx = torch.full((1, 4, 35, 128), 9, dtype=torch.uint8, device=dev)
+    V.vgg_block2(x, w3 * 0, b3, w4 * 0, b4, cdt=cdt, idx_out=idx)
+    assert not idx.any()
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,T", BLOCK2_SHAPES)
+def test_vgg_block2_bwd_kernel_matches_plain(dev, cdt, B, F, T):
+    args = _block2_args(dev, cdt, B, F, T, seed=F + T)
+    idx = torch.empty((B, F // 2, T // 2, 128), dtype=torch.uint8, device=dev)
+    out = V.vgg_block2(*args, cdt=cdt, idx_out=idx)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(dev, cdt)
+    V.reset_launches2()
+    got = V.vgg_block2_bwd(*args[:4], out, idx, g, cdt)
+    assert V.bwd2_launches() == 1
+    want = V.vgg_block2_bwd_plain(*args[:4], out, idx, g, cdt)
+    tol = BLOCK2_F32_TOL if cdt == torch.float32 else BLOCK2_BWD_BF16_TOL
+    for name, a, b in zip(("dx", "dw3", "db3", "dw4", "db4"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_l2(a, b) < tol, name
+    again = V.vgg_block2_bwd(*args[:4], out, idx, g, cdt)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)          # fixed-order reduction
+
+
+def test_vgg_block2_autograd_function_and_rejections(dev):
+    x, w3, b3, w4, b4 = _block2_args(dev, torch.float32, 1, 6, 10, seed=2)
+    leaves = [t.requires_grad_() for t in (x, w3, b3, w4, b4)]
+    out = V.VggBlock2.apply(*leaves, torch.float32)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, g)
+    want = V.vgg_block2_bwd_plain(x, w3, b3, w4, out.detach(),
+                                  V.vgg_block2_plain(x, w3, b3, w4, b4,
+                                                     torch.float32)[1],
+                                  g, torch.float32)
+    for a, b in zip(got, want):
+        assert _rel_l2(a, b) < BLOCK2_F32_TOL
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="even F and T"):
+            V.vgg_block2(x[:, :5], w3, b3, w4, b4, torch.float32)
+        with pytest.raises(ValueError, match="even F and T"):
+            V.vgg_block2(x[:, :, :9].contiguous(), w3, b3, w4, b4,
+                         torch.float32)
+        with pytest.raises(ValueError, match="b4 must be f32"):
+            V.vgg_block2(x, w3, b3, w4, b4[:64], torch.float32)
+        with pytest.raises(ValueError, match="in torch.bfloat16"):
+            V.vgg_block2(x, w3, b3, w4, b4, torch.bfloat16)
+        with pytest.raises(ValueError, match="not supported"):
+            V.vgg_block2(x.half(), w3, b3, w4, b4, torch.float16)
+
+
+@pytest.mark.parametrize("n", [4, 1023, 4096 * 33 + 5])
+def test_stream_kernels_match_plain(dev, n):
+    from end2end_asr_tpu_torch.tools import probe_stream as PS
+    g = torch.Generator().manual_seed(n)
+    p, m, v, gr = (torch.randn(n + 4, generator=g).to(dev) for _ in range(4))
+    v = v.abs()
+    PS.reset_launches()
+    # n + 4 floats keep every array 16-byte aligned; n odd ends in a tail
+    out = PS.stream_copy(p)
+    assert PS.copy_launches() == 1 and torch.equal(out, p + 1.0)
+    want = PS.adam_plain(p, m, v, gr, 3.0)
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    res = PS.stream_adam(pk, mk, vk, gr, 3.0)
+    assert PS.adam_launches() == 1 and res[0] is pk
+    for a, b in zip((pk, mk, vk), want):
+        assert (a - b).abs().max().item() <= 1e-6
+    with pytest.raises(ValueError, match="16-byte"):
+        PS.stream_copy(p[1:])

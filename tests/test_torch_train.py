@@ -109,9 +109,9 @@ def test_cross_entropy_and_accuracy_match_jax(smoothing):
     assert int(TL.token_accuracy(torch.from_numpy(pred),
                                  torch.from_numpy(gold))) == int(
         JL.token_accuracy(jnp.asarray(pred), jnp.asarray(gold)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="loss is not defined"):
         TL.calculate_loss(torch.from_numpy(pred), torch.from_numpy(gold),
-                          loss_type="ctc")
+                          loss_type="mse")
 
 
 def _tree(seed, shapes=((5, 3), (4,))):
@@ -250,8 +250,8 @@ def _port_steps(cfg, params, batches):
     opt = TO.init_opt_state(tcfg, data)
     out = []
     for b in batches:
-        data, opt, m, hyp, gold = step(fp, data, opt, None, *_port_batch(b),
-                                       T_FRAMES)
+        data, opt, _, m, hyp, gold = step(fp, data, opt, None,
+                                          *_port_batch(b), T_FRAMES)
         out.append((m, hyp, gold))
     return fp, data, opt, out
 
@@ -307,6 +307,119 @@ def test_infinite_loss_skips_the_update(model):
                                rtol=1e-6)
     assert torch.equal(data, fp.data)   # unchanged, bit for bit
     assert not opt["mu"].any() and not opt["nu"].any()
+
+
+# ---------------------------------------------------------------------------
+# remat, the block-2 gate, SpecAugment and CTC in the step
+# ---------------------------------------------------------------------------
+
+def _port_loss_and_grad(cfg, params, batch, seed=11):
+    """Loss and flat gradient of the port's training forward with the
+    dropout streams of `seed`."""
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    tcfg = torch_config(cfg)
+    fp = TS.FlatParams(to_port(params), torch.device("cpu"))
+    leaf = fp.data.clone().requires_grad_()
+    pcm, n_frames, targets, tgt_lengths = _port_batch(batch)
+    rng = DropoutRng(seed, "cpu")
+    spect = TS.features(tcfg, pcm, n_frames, T_FRAMES)
+    pred, gold = TT.forward(fp.tree(leaf), spect, n_frames, targets,
+                            TT.dims_from_config(tcfg), train=True, rng=rng)
+    loss = TL.calculate_loss(pred, gold, None, tgt_lengths,
+                             cfg.label_smoothing)
+    grad, = torch.autograd.grad(loss, leaf)
+    tail = (rng.kernel_seed(), rng.bits16((4,), "cpu").tolist())
+    return loss.detach(), grad, tail
+
+
+def test_remat_equals_no_remat_bit_for_bit_with_dropout(model):
+    """--remat recomputes each layer in the backward with the dropout
+    streams set back, so loss and gradients are the same bits and the
+    streams end where they end without it."""
+    cfg, params = model
+    cfg = cfg.replace(dropout=0.1)
+    l0, g0, tail0 = _port_loss_and_grad(cfg, params, _batch(3))
+    l1, g1, tail1 = _port_loss_and_grad(cfg.replace(remat=True), params,
+                                        _batch(3))
+    assert torch.equal(l0, l1) and torch.equal(g0, g1)
+    assert tail0 == tail1
+    # and dropout is really on: another seed gives another loss
+    l2, _, _ = _port_loss_and_grad(cfg, params, _batch(3), seed=12)
+    assert not torch.equal(l0, l2)
+
+
+def test_gate_on_step_equals_gate_off_step(model, monkeypatch):
+    """One train step with the fused block 2 (its plain version here)
+    against the composite block 2: same loss, same update."""
+    from end2end_asr_tpu_torch.ops import vgg_fused as TV
+    cfg, params = model
+    _, data0, _, out0 = _port_steps(cfg, params, [_batch(4)])
+    monkeypatch.setattr(TV, "BLOCK2_ENABLED", True)
+    calls = []
+    real = TV.vgg_block2_bwd
+    monkeypatch.setattr(TV, "vgg_block2_bwd",
+                        lambda *a: calls.append(1) or real(*a))
+    _, data1, _, out1 = _port_steps(cfg, params, [_batch(4)])
+    assert calls == [1]
+    np.testing.assert_allclose(out1[0][0]["loss"].item(),
+                               out0[0][0]["loss"].item(), rtol=LOSS_TOL)
+    _params_close(data1.numpy(), data0.numpy(), [out0[0][0]["lr"].item()])
+
+
+def test_spec_augment_step_uses_its_own_stream(model):
+    """--spec-augment changes the loss, needs the step's streams, and
+    leaves the dropout streams where they were."""
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    cfg, params = model
+    tcfg = torch_config(cfg.replace(spec_augment=True, freq_mask_width=20,
+                                    time_mask_width=20))
+    fp = TS.FlatParams(to_port(params), torch.device("cpu"))
+    step = TS.make_train_step_impl(tcfg, TT.dims_from_config(tcfg))
+    opt = TO.init_opt_state(tcfg, fp.data)
+    with pytest.raises(ValueError, match="random"):
+        step(fp, fp.data, opt, None, *_port_batch(_batch(5)), T_FRAMES)
+    rng = DropoutRng(3, "cpu")
+    before = rng.dropout_state()
+    _, _, _, m, _, _ = step(fp, fp.data, opt, rng, *_port_batch(_batch(5)),
+                            T_FRAMES)
+    after = rng.dropout_state()
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    _, _, _, out = _port_steps(cfg, params, [_batch(5)])
+    assert bool(m["finite"])
+    assert abs(m["loss"].item() - out[0][0]["loss"].item()) > 1e-4
+
+
+def _ctc_batch(seed, tgt_lengths):
+    pcm, n_frames, targets, _ = _batch(seed)
+    rng = np.random.RandomState(seed)
+    targets[:] = 0
+    for i, L in enumerate(tgt_lengths):
+        # distinct labels (no blank needed between them) while they last
+        targets[i, :L] = (rng.permutation(np.arange(3, VOCAB))[:L]
+                          if L <= VOCAB - 3 else rng.randint(3, VOCAB, L))
+        targets[i, 0], targets[i, L - 1] = 1, 2
+    return pcm, n_frames, targets, np.asarray(tgt_lengths, np.int32)
+
+
+def test_ctc_step_matches_jax_and_an_infeasible_batch_is_skipped(model):
+    cfg, params = model
+    cfg = cfg.replace(loss="ctc")
+    good = _ctc_batch(6, (5, 4, 3, 5))      # fits the 11 output positions
+    bad = _ctc_batch(7, (5, 10, 3, 5))      # row 1: 10 labels on 9 frames
+    jp, jopt, jout = _jax_step(cfg, params, [good, bad])
+    fp, data, opt, tout = _port_steps(cfg, params, [good, bad])
+    (m0, _, _), (m1, _, _) = tout
+    assert bool(m0["finite"]) and bool(jout[0][0]["finite"])
+    np.testing.assert_allclose(m0["loss"].item(), float(jout[0][0]["loss"]),
+                               rtol=LOSS_TOL)
+    # the second batch is infeasible on both sides: nothing moves
+    assert not bool(m1["finite"]) and not bool(jout[1][0]["finite"])
+    assert m1["loss"].item() == 0.0
+    assert int(opt["step"]) == int(jopt["step"]) == 1
+    want = flatten_tree(jp)
+    _params_close(data.numpy(),
+                  np.concatenate([want[k].ravel() for k in fp.train_keys]),
+                  [m0["lr"].item()])
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +510,8 @@ def test_train_entry_point_needs_a_card_or_device_cpu(corpus, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_train.main(_train_argv(corpus, str(tmp_path), ["--epochs", "1"]))
-    for flag in (["--parallel"], ["--spec-augment"], ["--noise-dir", "x"],
-                 ["--zero1"], ["--feat_extractor", "emb_cnn"]):
+    for flag in (["--parallel"], ["--seq-parallel"], ["--noise-dir", "x"],
+                 ["--zero1"], ["--checkpoint-format", "orbax"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_train.main(_train_argv(corpus, str(tmp_path),
                                         ["--device", "cpu", *flag]))
