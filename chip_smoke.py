@@ -9,14 +9,16 @@ Phases (any failure exits non-zero without the final result line):
      limit;
   2. hold each kernel against its plain PyTorch version on the card at
      the shapes the serving and training paths give it (B=12, T=800,
-     F=161; f32 with TF32 off, and bf16): the STFT, the vgg block-1
-     forward and backward, the dropout attention forward and backward
-     (encoder self- and decoder cross-attention, rates 0 and 0.1), the
-     dropout bits (bit-exact), the block-2 pool backward (exact), the
-     fused vgg block-2 forward and backward at (12, 80, 400, 64) and at a
-     second even shape, and the two streaming probes at (38400, 1024);
-     time the kernel, the plain version and one PyTorch library yardstick
-     the port never calls;
+     F=161; f32 with TF32 off, and bf16): the STFT (the FFT kernel that
+     n_fft 320 takes and the direct-sum kernel, and the wrapper's choice
+     at n_fft 322), the vgg block-1 forward and backward, the dropout
+     attention forward and backward in bf16 and in f32 (encoder self- and
+     decoder cross-attention, rates 0 and 0.1), the dropout bits
+     (bit-exact), the block-2 pool backward (exact), the fused vgg block-2
+     forward and backward at (12, 80, 400, 64) and at a second even shape,
+     and the two streaming probes at (38400, 1024); time the kernel, the
+     plain version and one PyTorch library yardstick the port never calls
+     (the STFT also by its device time under the profiler);
   3. serve: the full-width AiShell README model (vgg_cnn, 4 layers,
      8 heads, dim 512, dim_inner 2048, the AiShell vocabulary) with
      seeded random weights, written as a checkpoint in the JAX package's
@@ -35,8 +37,10 @@ Phases (any failure exits non-zero without the final result line):
      epoch with --auto-resume (the optimizer step must continue); then,
      on one fixed batch, the launches per step, the median train step
      time over 10 steps, a profile of one step, 100 overfitting steps
-     (the loss must fall under half its first value) and one f32 step
-     (dropout 0, TF32 off) on the card against the port's CPU path;
+     (the loss must fall under half its first value), one f32 step
+     (dropout 0, TF32 off) on the card against the port's CPU path, and
+     2 steps of --dtype float32 at dropout 0.1 through `train` (the f32
+     attention kernels must have launched, the loss must be finite);
   5. gate on: with ops.vgg_fused.BLOCK2_ENABLED set, the same model serves
      the 12-utterance batch greedy through `test` and trains an epoch
      through `train` with --spec-augment --remat; the block-2 kernels must
@@ -63,6 +67,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 SEED = 1234
 B, SECONDS_MAX = 12, 7.99          # 7.99 s → 800 frames: the 800 bucket
@@ -115,6 +120,10 @@ STREAM_ADAM_TOL = 1e-6   # the probe's own exactness limit
 # bf16 attention: probabilities round to bf16 before (kernel) or after
 # (plain) the normalisation, and the backward rounds dS to bf16
 ATTN_TOL = 2e-2
+# f32 attention, TF32 off on both sides: the same f32 arithmetic summed in
+# another order (scores over d, P.V over 64-key tiles with an online
+# softmax, the backward over query tiles), max |err| / max |plain| per tensor
+ATTN_F32_TOL = 2e-5
 ENC_TOL = 2e-3       # f32 encoder, 4 layers: GPU vs CPU sum order
 DEC_TOL = 2e-3       # f32 decoder logits, 4 layers: GPU vs CPU sum order
 # f32 train step, card vs CPU: loss, and each gradient relative to its
@@ -176,7 +185,27 @@ def phase_build(cuda_lib):
 # phase 2
 # ---------------------------------------------------------------------------
 
+def device_ms(torch, fn, iters=20):
+    """Summed device time of the kernels of one fn() call, mean over
+    `iters` calls under torch.profiler (no host time), or None where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(us) / 1e3 / iters if us else None
+
+
 def check_stft(torch, dev):
+    """Kernel 1 at the main path's shape: the FFT kernel (the path n_fft =
+    320 takes) and the direct-sum kernel, each against the plain version;
+    the wrapper's choice by shape at n_fft = 322 (161 = 7·23)."""
     from end2end_asr_tpu_torch.ops import features as PF
     from end2end_asr_tpu_torch.ops import stft as S
     n_fft, hop, T = 320, 160, 800
@@ -186,36 +215,97 @@ def check_stft(torch, dev):
         32768).to(dev)
     cos, sin = (torch.from_numpy(a).to(dev)
                 for a in PF.dft_matrices(n_fft, "hamming"))
+    win = S.window_vector(n_fft, "hamming", str(dev))
     F = cos.shape[1]
-    got = S.stft_logmag(pcm, cos, sin, hop, T)
     want = PF.stft_logmag_plain(pcm, cos, sin, hop, T)
+    S.reset_launches()
+    got = S.stft_logmag(pcm, n_fft, hop, T, "hamming")
+    routed = (S.FFT.launches, S.DFT.launches)
+    got_dft = S.stft_logmag_dft(pcm, cos, sin, hop, T)
     torch.cuda.synchronize()
-    if got.shape != (B, T, F) or not torch.isfinite(got).all():
-        fail(f"stft_logmag: bad output {tuple(got.shape)}")
-    err = (got - want).abs().max().item()
-    log(f"stft_logmag f32 max_abs_err {err:.3g} (tol {STFT_TOL})")
-    if not err <= STFT_TOL:
-        fail(f"stft_logmag disagrees with its plain version: {err}")
+    errs = {}
+    for name, out in (("fft", got), ("dft", got_dft)):
+        if out.shape != (B, T, F) or not torch.isfinite(out).all():
+            fail(f"stft_logmag {name}: bad output {tuple(out.shape)}")
+        errs[name] = (out - want).abs().max().item()
+    # n_fft 322: no FFT plan, the wrapper takes the direct sum
+    n2, h2, t2 = 322, 161, 50
+    pcm2 = pcm[:2, :(t2 - 1) * h2 + n2].contiguous()
+    c2, s2 = (torch.from_numpy(a).to(dev)
+              for a in PF.dft_matrices(n2, "hamming"))
+    S.reset_launches()
+    got2 = S.stft_logmag(pcm2, n2, h2, t2, "hamming")
+    routed2 = (S.FFT.launches, S.DFT.launches)
+    err2 = (got2 - PF.stft_logmag_plain(pcm2, c2, s2, h2, t2)).abs().max(
+        ).item()
+    log(f"stft_logmag f32 max_abs_err: FFT kernel {errs['fft']:.3g}, "
+        f"direct-sum kernel {errs['dft']:.3g}, direct sum at n_fft 322 "
+        f"{err2:.3g} (tol {STFT_TOL}); launches (fft, dft) at n_fft 320 "
+        f"{routed}, at 322 {routed2}")
+    if not max(errs["fft"], errs["dft"], err2) <= STFT_TOL:
+        fail(f"stft_logmag disagrees with its plain version: {errs}, {err2}")
+    if routed != (1, 0) or routed2 != (0, 1):
+        fail(f"stft_logmag took the wrong path: {routed}, {routed2}")
+
     window = torch.hamming_window(n_fft, periodic=False, device=dev)
-    ms = time_ms(torch, lambda: S.stft_logmag(pcm, cos, sin, hop, T))
-    plain_ms = time_ms(torch, lambda: PF.stft_logmag_plain(
-        pcm, cos, sin, hop, T))
-    lib_ms = time_ms(torch, lambda: torch.stft(
-        pcm, n_fft, hop, window=window, center=False,
-        return_complex=True).abs().log1p())
-    flops = 4 * B * T * n_fft * F
-    nbytes = 4 * (B * N + 2 * n_fft * F + B * T * F)
+    lib = lambda: torch.stft(pcm, n_fft, hop, window=window, center=False,
+                             return_complex=True).abs().log1p()
+    fft = lambda: S.stft_logmag(pcm, n_fft, hop, T, "hamming")
+    dft = lambda: S.stft_logmag_dft(pcm, cos, sin, hop, T)
+    plain = lambda: PF.stft_logmag_plain(pcm, cos, sin, hop, T)
+    # the library and the kernel in turns: lib, fft, fft, lib
+    lib_ms = [time_ms(torch, lib)]
+    ms = [time_ms(torch, fft), time_ms(torch, fft)]
+    lib_ms.append(time_ms(torch, lib))
+    dft_ms, plain_ms = time_ms(torch, dft), time_ms(torch, plain)
+    dev_ms = {k: device_ms(torch, f) for k, f in
+              (("fft", fft), ("dft", dft), ("lib", lib))}
+    # bound: the FFT's operations (the formula of csrc/stft.cu, from the
+    # radix plan) against the bytes (PCM in, window and twiddles, spectrum
+    # out); the direct sum's 4·B·T·n_fft·F operations kept beside it
+    plan = S.fft_plan(n_fft)
+    M = n_fft // 2
+    ops = n_fft + 18 * (M // 2 + 1) + 5 * (M + 1)
+    ns = 1
+    for r in plan:
+        ops += (M // r) * (S.BUTTERFLY_OPS[r] + (6 * (r - 1) if ns > 1 else 0))
+        ns *= r
+    if ops != S.fft_ops_per_frame(n_fft):
+        fail(f"stft op count {ops} != {S.fft_ops_per_frame(n_fft)}")
+    flops = B * T * ops
+    dft_flops = 4 * B * T * n_fft * F
+    nbytes = 4 * (B * N + n_fft + 2 * (M + M // 2 + 1) + B * T * F)
     t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BPS
-    log(f"stft_logmag ms {ms:.4f} plain {plain_ms:.4f} torch.stft "
-        f"{lib_ms:.4f}; bound {1e3 * max(t_ops, t_bytes):.4f} ms "
-        f"({flops / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} MB)")
-    return {"name": "stft_logmag", "route": "cuda",
-            "source": "end2end_asr_tpu_torch/csrc/stft.cu",
-            "replaces": "end2end_asr_tpu/ops/stft_pallas.py:57",
-            "max_abs_err": err, "tol": STFT_TOL, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms}
+    bound = 1e3 * max(t_ops, t_bytes)
+    dft_bound = 1e3 * max(dft_flops / F32_PEAK,
+                          4 * (B * N + 2 * n_fft * F + B * T * F) / HBM_BPS)
+    ms = min(ms)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    log(f"stft_logmag (B {B}, T {T}, n_fft {n_fft}, hop {hop}, plan "
+        f"{plan}): FFT kernel {ms:.4f} ms (device {fmt(dev_ms['fft'])}), "
+        f"direct-sum kernel {dft_ms:.4f} (device {fmt(dev_ms['dft'])}), "
+        f"plain {plain_ms:.4f}, torch.stft+abs+log1p {lib_ms} (device "
+        f"{fmt(dev_ms['lib'])}); bound {bound:.4f} ms = max(ops "
+        f"{B * T} frames x {ops} = {flops / 1e6:.2f} MFLOP -> "
+        f"{1e3 * t_ops:.4f} ms, bytes {nbytes / 1e6:.3f} MB -> "
+        f"{1e3 * t_bytes:.4f} ms); direct-sum bound {dft_bound:.4f} ms "
+        f"({dft_flops / 1e9:.3f} GFLOP)")
+    if dev_ms["fft"]:
+        log(f"stft_logmag FFT kernel: {nbytes / dev_ms['fft'] / 1e9:.2f} "
+            f"TB/s of device time, {bound / dev_ms['fft']:.3f} of its bound")
+    src, rep = "stft.cu", "end2end_asr_tpu/ops/stft_pallas.py:57"
+    return [entry("stft_logmag", src, rep, errs["fft"], ms, plain_ms, t_ops,
+                  t_bytes, min(lib_ms), tol=STFT_TOL, path="fft",
+                  plan=list(plan), device_ms=dev_ms["fft"],
+                  library_device_ms=dev_ms["lib"], library_ms_all=lib_ms,
+                  bound_dft_ms=dft_bound, ops_per_frame=ops),
+            entry("stft_logmag_dft", src, rep, errs["dft"], dft_ms, plain_ms,
+                  dft_flops / F32_PEAK,
+                  4 * (B * N + 2 * n_fft * F + B * T * F) / HBM_BPS,
+                  min(lib_ms), tol=STFT_TOL, path="dft",
+                  device_ms=dev_ms["dft"], max_abs_err_n_fft_322=err2,
+                  note="the path of an n_fft without an FFT plan; timed at "
+                       "n_fft 320 beside the FFT kernel")]
 
 
 def check_vgg(torch, dev):
@@ -499,6 +589,103 @@ def check_attention(torch, dev):
         entry("dropout_bits", "attention.cu",
               "end2end_asr_tpu/ops/attention_fused.py:273", 0.0, bits_ms,
               bits_plain, 0.0, 4 * B * 8 * 200 * 200 / HBM_BPS, None)]
+
+
+def check_attention_f32(torch, dev):
+    """The f32 entry points of kernels 4 and 5 (what --dtype float32
+    training runs) at the same shapes, rates 0 and 0.1, against the plain
+    version in f32 (TF32 off), two runs bit-identical; timed beside SDPA
+    at f32."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops import attention_fused as AF
+    H, D = 8, 64
+    g0 = torch.Generator().manual_seed(SEED + 7)
+    errs, times = {}, {}
+    for label, Tq, Tk in (("enc_self", 200, 200), ("dec_cross", 51, 200)):
+        q, k, v = (torch.randn(B, H, t, D, generator=g0).to(dev)
+                   for t in (Tq, Tk, Tk))
+        mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
+        mask[0, 0] = True                 # a query with every key masked
+        bias = torch.where(mask, -1e9, 0.0).to(dev)
+        dout = torch.randn(B, H, Tq, D, generator=g0).to(dev)
+        for rate in (0.0, 0.1):
+            seed = 0xF32 + int(rate * 10)
+            runs = []
+            for _ in range(2):
+                qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = AF.flash_mha_train(*qkv, bias, seed, rate)
+                runs.append((out, *torch.autograd.grad(out, qkv, dout)))
+            qf = [t.clone().requires_grad_() for t in (q, k, v)]
+            want = AF.flash_mha_train_plain(*qf, bias, seed, rate)
+            want_g = torch.autograd.grad(want, qf, dout)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            out, *grads = runs[0]
+            ef = rel_err(out, want)
+            eb = [rel_err(a, b) for a, b in zip(grads, want_g)]
+            log(f"attention f32 {label} rate {rate}: fwd rel err {ef:.3g}, "
+                f"dq/dk/dv {[float(f'{e:.3g}') for e in eb]} (tol "
+                f"{ATTN_F32_TOL}); two runs bit-identical: {same}")
+            if not (ef <= ATTN_F32_TOL and max(eb) <= ATTN_F32_TOL and same
+                    and out.dtype == torch.float32
+                    and torch.isfinite(out).all()):
+                fail(f"attention f32 {label} rate {rate} disagrees with "
+                     "plain")
+            errs[(label, rate)] = (
+                (out - want).abs().max().item(),
+                max((a - b).abs().max().item()
+                    for a, b in zip(grads, want_g)))
+        rate, seed = 0.1, 78
+        o, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
+        fwd_ms = time_ms(torch, lambda: AF.attn_fwd(q, k, v, bias, seed,
+                                                    rate), iters=50)
+        bwd_ms = time_ms(torch, lambda: AF.attn_bwd(
+            q, k, v, bias, o, stats, dout, seed, rate), iters=50)
+        pf_ms = time_ms(torch, lambda: AF.flash_mha_train_plain(
+            q, k, v, bias, seed, rate), iters=5)
+        qg = [t.clone().requires_grad_() for t in (q, k, v)]
+        pb_ms = time_ms(torch, lambda: torch.autograd.grad(
+            AF.flash_mha_train_plain(*qg, bias, seed, rate), qg, dout),
+            iters=5) - pf_ms
+        ql = [t.clone().requires_grad_() for t in (q, k, v)]
+        bl = bias[:, None]
+        sdpa = lambda: Fn.scaled_dot_product_attention(*ql, attn_mask=bl,
+                                                       dropout_p=rate)
+        lf_ms = time_ms(torch, sdpa, iters=50)
+        lb_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), ql, dout),
+                        iters=50) - lf_ms
+        n = B * H * Tq * Tk * D
+        in_b = 4 * B * H * (Tq + 2 * Tk) * D + 4 * B * Tq * Tk
+        times[label] = dict(
+            fwd=(fwd_ms, pf_ms, 4 * n / F32_PEAK,
+                 (in_b + 4 * B * H * Tq * D + 8 * B * H * Tq) / HBM_BPS,
+                 lf_ms),
+            bwd=(bwd_ms, pb_ms, 10 * n / F32_PEAK,
+                 (in_b + 2 * 4 * B * H * Tq * D + 8 * B * H * Tq
+                  + 4 * B * H * (Tq + 2 * Tk) * D) / HBM_BPS, lb_ms))
+        log(f"attention f32 {label} (rate 0.1): fwd {fwd_ms:.4f} ms (plain "
+            f"{pf_ms:.4f}, SDPA f32 {lf_ms:.4f}, bound "
+            f"{1e3 * max(times[label]['fwd'][2:4]):.4f}); bwd {bwd_ms:.4f} "
+            f"ms (plain {pb_ms:.4f}, SDPA f32 backward ~{lb_ms:.4f}, bound "
+            f"{1e3 * max(times[label]['bwd'][2:4]):.4f})")
+    t, cross = times["enc_self"], times["dec_cross"]
+    rep = "end2end_asr_tpu/ops/attention_fused.py:"
+    shape = "(12,8,200,200,64) f32, rate 0.1"
+    return [
+        entry("attn_fwd_f32", "attention.cu", rep + "78",
+              max(e[0] for e in errs.values()), *t["fwd"], shape=shape,
+              tol_rel=ATTN_F32_TOL, ms_dec_cross=cross["fwd"][0],
+              plain_ms_dec_cross=cross["fwd"][1],
+              library_ms_dec_cross=cross["fwd"][4],
+              bound_ms_dec_cross=1e3 * max(cross["fwd"][2:4])),
+        entry("attn_bwd_f32", "attention.cu", rep + "96",
+              max(e[1] for e in errs.values()), *t["bwd"], shape=shape,
+              tol_rel=ATTN_F32_TOL,
+              library_note="SDPA f32 forward+backward minus forward",
+              ms_dec_cross=cross["bwd"][0],
+              plain_ms_dec_cross=cross["bwd"][1],
+              library_ms_dec_cross=cross["bwd"][4],
+              bound_ms_dec_cross=1e3 * max(cross["bwd"][2:4]))]
 
 
 def check_pool_bwd(torch, dev):
@@ -1018,11 +1205,46 @@ def fixed_batch_step(torch, dev, kernels, cfg, params, batch, steps=10,
             "profile": profile(torch, one, top=10)}
 
 
+def train_f32_dropout(torch, dev, kernels, work, labels_path, manifest):
+    """--dtype float32 at dropout 0.1 through the train entry point: 2
+    epochs of one batch (the same 12 utterances) with the counts of
+    `kernels` set to 0 before and read after; the loss must be finite and
+    the f32 attention kernels (and no bf16 ones) must have launched."""
+    from end2end_asr_tpu_torch import train as port_train
+    cfg = aishell_config(dtype="float32")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_kernels(kernels)
+        t0 = time.time()
+        res = port_train.main(train_argv(
+            cfg, manifest, manifest, labels_path,
+            ["--epochs", "2", "--device", str(dev)], name="f32_dropout"))
+        torch.cuda.synchronize()
+        counts = kernel_counts(kernels)
+    finally:
+        os.chdir(cwd)
+    losses = [h["train_loss"] for h in res["metrics"]["history"]]
+    log(f"train --dtype float32 --dropout 0.1: 2 steps in "
+        f"{time.time() - t0:.1f} s, train loss per step "
+        f"{[round(v, 4) for v in losses]}, launches {counts}")
+    if (res["opt_step"] != 2 or len(losses) != 2
+            or not all(math.isfinite(v) for v in losses)):
+        fail(f"f32 training with dropout: bad result {losses}, step "
+             f"{res['opt_step']}")
+    if min(counts["attn_fwd_f32"], counts["attn_bwd_f32"]) < 1 or max(
+            counts["attn_fwd"], counts["attn_bwd"]) > 0:
+        fail(f"f32 training with dropout did not run the f32 attention "
+             f"kernels alone: {counts}")
+    return counts, losses
+
+
 def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
-                steps=10, overfit_steps=60):
+                steps=10, overfit_steps=60, f32_kernels=None):
     """`kernels`: see kernel_counts. Runs the train entry point at full
     width, then times, profiles, overfits and holds an f32 step on the
-    card against the CPU path."""
+    card against the CPU path; then trains 2 f32 steps with dropout
+    through the entry point, counting `f32_kernels`."""
     import numpy as np
     from end2end_asr_tpu_torch import train as port_train
     from end2end_asr_tpu_torch.data.dataset import ManifestDataset
@@ -1149,7 +1371,9 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         f"grads max rel err {gerr:.2e} (tol {STEP_GRAD_TOL})")
     if not (lerr <= STEP_LOSS_TOL and gerr <= STEP_GRAD_TOL):
         fail("the f32 train step on the card disagrees with the CPU path")
-    return run_counts, manifest, valid, {
+    f32_counts, f32_losses = train_f32_dropout(torch, dev, f32_kernels, work,
+                                               labels_path, valid)
+    return run_counts, f32_counts, manifest, valid, {
         "train_step_ms": step_ms, "train_step_ms_all": times,
         "utterances_per_s": B / step_ms * 1e3,
         "bucket_frames": batch.src_bucket,
@@ -1159,7 +1383,9 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "overfit_first_loss": losses[0], "overfit_last_loss": losses[-1],
         "overfit_half_at_step": half_at,
         "f32_step_card_vs_cpu_loss_rel_err": lerr,
-        "f32_step_card_vs_cpu_grad_rel_err": gerr}
+        "f32_step_card_vs_cpu_grad_rel_err": gerr,
+        "f32_dropout_train_losses": f32_losses,
+        "f32_dropout_launches": f32_counts}
 
 
 # ---------------------------------------------------------------------------
@@ -1452,21 +1678,29 @@ def main():
 
     t0 = time.time()
     phase_build(cuda_lib)
-    entries = [check_stft(torch, dev), check_vgg(torch, dev),
+    entries = [*check_stft(torch, dev), check_vgg(torch, dev),
                check_vgg_bwd(torch, dev), *check_attention(torch, dev),
-               check_pool_bwd(torch, dev), *check_vgg2(torch, dev),
-               *check_stream(torch, dev)]
+               *check_attention_f32(torch, dev), check_pool_bwd(torch, dev),
+               *check_vgg2(torch, dev), *check_stream(torch, dev)]
     log(f"kernel checks done at {time.time() - t0:.1f} s")
-    kernels = {"stft_logmag": stft, "vgg_block1_fwd": vgg_fused}
+    # the serving path's n_fft (320) takes the FFT kernel: its own count
+    fft_count = types.SimpleNamespace(
+        launches=lambda: stft.FFT.launches,
+        reset_launches=stft.reset_launches)
+    kernels = {"stft_logmag": fft_count, "vgg_block1_fwd": vgg_fused}
     AF = attention_fused
     V = vgg_fused
     train_kernels = {
-        "stft_logmag": (stft.reset_launches, stft.launches),
+        "stft_logmag": (stft.reset_launches, lambda: stft.FFT.launches),
         "vgg_block1_fwd": (V.reset_launches, V.launches),
         "vgg_block1_bwd": (V.reset_launches, V.bwd_launches),
         "attn_fwd": (AF.reset_launches, lambda: AF.FWD.launches),
         "attn_bwd": (AF.reset_launches, lambda: AF.BWD.launches),
         "pool_bwd": (pool_vjp.reset_launches, pool_vjp.launches)}
+    f32_kernels = dict(
+        train_kernels,
+        attn_fwd_f32=(AF.reset_launches, lambda: AF.FWD_F32.launches),
+        attn_bwd_f32=(AF.reset_launches, lambda: AF.BWD_F32.launches))
     gate_kernels = dict(train_kernels,
                         vgg_block2_fwd=(V.reset_launches2, V.launches2),
                         vgg_block2_bwd=(V.reset_launches2, V.bwd2_launches))
@@ -1475,8 +1709,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         runs, serve = phase_serve(torch, dev, kernels, work)
         log(f"serving done at {time.time() - t0:.1f} s")
-        train_counts, manifest, valid, train = phase_train(
-            torch, dev, train_kernels, work, labels_path)
+        train_counts, f32_counts, manifest, valid, train = phase_train(
+            torch, dev, train_kernels, work, labels_path,
+            f32_kernels=f32_kernels)
         log(f"training done at {time.time() - t0:.1f} s")
         gate_serve, gate_train, gate = phase_gate_on(
             torch, dev, gate_kernels, work, labels_path,
@@ -1507,6 +1742,12 @@ def main():
             e["launches_serve_greedy"] = gate_serve[e["name"]]
         if e["name"] in probe_counts:
             e["launches"] = probe_counts[e["name"]]
+        if e["name"] in ("attn_fwd_f32", "attn_bwd_f32"):
+            e["launches"] = f32_counts[e["name"]]
+            e["launches_note"] = "the --dtype float32 training run (2 steps)"
+        if e["name"] == "stft_logmag_dft":
+            e["launches_note"] = ("no path at n_fft 320; phase 2 launched "
+                                  "it at n_fft 320 and 322")
         if e["name"] == "dropout_bits":
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "

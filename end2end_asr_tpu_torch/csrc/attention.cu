@@ -30,31 +30,45 @@
 // dropout_bits writes bits[b, h*Tq + q, k] for the (B, H*Tq, Tk) view.
 // ---------------------------------------------------------------------------
 //
-// Layouts: q (B, H, Tq, D), k (B, H, Tk, D), v (B, H, Tk, D) bf16; bias
-// (B, Tq, Tk) f32 (0 or -1e9, shared by the heads); out (B, H, Tq, D) bf16;
-// stats (B, H, Tq, 2) f32 = (m, l) per row. D = 64.
+// Layouts: q (B, H, Tq, D), k (B, H, Tk, D), v (B, H, Tk, D) in the compute
+// type (bf16 or f32); bias (B, Tq, Tk) f32 (0 or -1e9, shared by the heads);
+// out (B, H, Tq, D) in the compute type; stats (B, H, Tq, 2) f32 = (m, l) per
+// row. D = 64.
 //
 // Numerics: scores x = (q.k) * (1/sqrt(dk)) + bias in f32, as the JAX
 // kernel; keys past Tk are -inf (exactly no weight); a row whose real keys
 // all carry -1e9 comes out uniform over them. The forward rounds the
 // unnormalised probabilities exp(x - m) (dropped and scaled by
-// 65536/thresh16) to bf16 for the P.V product and divides by the f32 sum
-// of the UNdropped terms at the end. The backward uses D_i = dO_i . O_i,
-// dS = P o (keep * s * dO V^T - D), dQ = dS K / sqrt(dk), dK = dS^T Q /
-// sqrt(dk), dV = (keep * s * P)^T dO: the JAX kernel's algebra
-// (attention_fused.py:108-134) with P = exp(x - m) / l rebuilt.
+// 65536/thresh16) to the compute type for the P.V product (a no-op in f32)
+// and divides by the f32 sum of the UNdropped terms at the end. The backward
+// uses D_i = dO_i . O_i, dS = P o (keep * s * dO V^T - D), dQ = dS K /
+// sqrt(dk), dK = dS^T Q / sqrt(dk), dV = (keep * s * P)^T dO: the JAX
+// kernel's algebra (attention_fused.py:108-134) with P = exp(x - m) / l
+// rebuilt.
 //
 // What bounds it on the H100: at the flagship (B = 12, H = 8, T = 200,
 // dk = 64) one encoder layer is ~1 GFLOP forward and ~2.5 backward (about
-// 1 and 3 us on the bf16 tensor cores) and reads ~9 MB (~3 us): launch
-// cost, not the card, bounds it. The design keeps it simple: one block of
-// 4 warps per (b, h, 64-query tile) in the forward, each warp owning 16
-// query rows; mma.sync.m16n8k16 (bf16 in, f32 accumulate) for q.k^T and
-// P.v with ldmatrix from XOR-swizzled shared tiles; the P tile goes from the
-// accumulator registers straight into the A operand of P.v. The backward is
-// deterministic: kernel A computes D, kernel B loops over query tiles for
-// one key tile (dK, dV: each warp owns 16 keys), kernel C over key tiles for
-// one query tile (dQ); no atomics.
+// 1 and 3 us on the bf16 tensor cores, 15 and 37 us on f32 FMA) and reads
+// ~9 MB in bf16, ~17 MB in f32 (~3 and ~5 us): launch cost, not the card,
+// bounds the bf16 kernels; f32 FMA bounds the f32 ones. The design keeps it
+// simple: one block of 4 warps per (b, h, 64-query tile) in the forward,
+// each warp owning 16 query rows. The kernels are templates over the compute
+// type and share staging, the softmax, the dropout and the epilogues; only
+// the two products differ, and both keep the accumulators in the m16n8
+// layout of mma.sync (lane holds rows lane/4 and lane/4 + 8, columns
+// 2 (lane % 4) + {0, 1} of each 8-column tile):
+//   * bf16: mma.sync.m16n8k16 (bf16 in, f32 accumulate) for q.k^T and P.v
+//     with ldmatrix from XOR-swizzled shared tiles; the A operand lives in
+//     registers and the P tile goes from the accumulator registers straight
+//     into the A operand of P.v;
+//   * f32: FMA, in f32 throughout (no TF32, no tensor cores): tiles padded
+//     to 68 floats a row (float4 reads from 8 rows hit distinct banks); the
+//     A operand stays in shared memory, and P goes through a per-warp
+//     16 x 64 shared scratch so each lane can read its rows whole. Each
+//     product sums over d (or k) in order.
+// The backward is deterministic: kernel A computes D, kernel B loops over
+// query tiles for one key tile (dK, dV: each warp owns 16 keys), kernel C
+// over key tiles for one query tile (dQ); no atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +77,13 @@
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr int D = 64;          // head width
 constexpr int TILE = 64;       // queries per block / keys per tile
 constexpr int WARPS = 4;       // 16 rows each
 constexpr int THREADS = 32 * WARPS;
+constexpr int LDF = D + 4;     // f32 tile row stride (floats)
 
 struct U4 {
   uint32_t w[4];
@@ -93,6 +110,10 @@ __device__ __forceinline__ U4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
   r.w[3] = c3;
   return r;
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core fragments
+// ---------------------------------------------------------------------------
 
 // Offset (in bf16 elements) of 16-byte chunk `ch` of row `row` of a
 // [rows][64] bf16 tile whose chunks are XOR-swizzled by row.
@@ -130,64 +151,199 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows row0 .. row0+63 of a (T, 64) bf16 matrix into a swizzled tile; rows
-// at or past T are zero
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g, int row0,
-                                          int T, int tid) {
-  for (int e = tid; e < TILE * 8; e += THREADS) {
-    const int r = e >> 3, ch = e & 7;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < T)
-      v = reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D)[ch];
-    *reinterpret_cast<uint4*>(s + swz(r, ch)) = v;
-  }
-}
+// ---------------------------------------------------------------------------
+// per compute type: tiles, the A operand, the two products, stores
+// ---------------------------------------------------------------------------
 
-// A operand (16 rows x 64) of a warp, rows r0 .. r0+15 of a swizzled tile:
-// a[kc] for k-step kc (columns 16kc .. 16kc+15)
-__device__ __forceinline__ void load_a(const __nv_bfloat16* s, int r0,
-                                       int lane, uint32_t (*a)[4]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-    ldsm_x4(s + swz(r0 + (lane & 15), 2 * kc + (lane >> 4)), a[kc]);
-}
+template <typename T> struct Cdt;
 
-// acc[n] (16 x 64: 8 n-tiles) += A (16 x 64) . B^T where B's rows are the
-// 64 rows of a swizzled tile (the "col" operand, no transpose)
-__device__ __forceinline__ void mma_abt(float (*acc)[4], uint32_t (*a)[4],
-                                        const __nv_bfloat16* s, int lane) {
-  const int bn = ((lane >> 4) << 3) + (lane & 7), bkc = (lane >> 3) & 1;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(s + swz(np * 16 + bn, 2 * kc + bkc), b);
-      mma(acc[2 * np], a[kc], b[0], b[1]);
-      mma(acc[2 * np + 1], a[kc], b[2], b[3]);
-    }
-}
+template <> struct Cdt<bf16> {
+  static constexpr int TILE_ELEMS = TILE * D;   // swizzled, unpadded
+  static constexpr bool A_IN_SMEM = false;      // A lives in registers
+  static constexpr int SCRATCH = 0;             // floats of P scratch
+  struct AFrag {
+    uint32_t r[4][4];  // r[kc]: k-step kc (columns 16kc .. 16kc+15)
+  };
 
-// acc[n] (16 x 64) += P (16 x 64, accumulator layout, as bf16) . S where S
-// is a swizzled 64 x 64 tile (rows = the k dimension): ldmatrix.trans
-__device__ __forceinline__ void mma_ps(float (*acc)[4], const float (*p)[4],
-                                       const __nv_bfloat16* s, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t a[4];
-    a[0] = pack(p[2 * j][0], p[2 * j][1]);
-    a[1] = pack(p[2 * j][2], p[2 * j][3]);
-    a[2] = pack(p[2 * j + 1][0], p[2 * j + 1][1]);
-    a[3] = pack(p[2 * j + 1][2], p[2 * j + 1][3]);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(s + swz(16 * j + (lane & 15), 2 * np + (lane >> 4)), b);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
+  // rows row0 .. row0+63 of a (T, 64) matrix into a swizzled tile; rows at
+  // or past Tn are zero
+  static __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                                   int row0, int Tn,
+                                                   int tid) {
+    for (int e = tid; e < TILE * 8; e += THREADS) {
+      const int r = e >> 3, ch = e & 7;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (row0 + r < Tn)
+        v = reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D)[ch];
+      *reinterpret_cast<uint4*>(s + swz(r, ch)) = v;
     }
   }
+
+  // A operand (16 rows x 64) of a warp, rows r0 .. r0+15 of a tile
+  static __device__ __forceinline__ void load_a(AFrag& a, const bf16* s,
+                                                int r0, int lane) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      ldsm_x4(s + swz(r0 + (lane & 15), 2 * kc + (lane >> 4)), a.r[kc]);
+  }
+
+  // acc[n] (16 x 64: 8 n-tiles) += A (16 x 64) . B^T where B's rows are the
+  // 64 rows of a tile (the "col" operand, no transpose)
+  static __device__ __forceinline__ void mma_abt(float (*acc)[4],
+                                                 const AFrag& a,
+                                                 const bf16* s, int lane) {
+    const int bn = ((lane >> 4) << 3) + (lane & 7), bkc = (lane >> 3) & 1;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4(s + swz(np * 16 + bn, 2 * kc + bkc), b);
+        mma(acc[2 * np], a.r[kc], b[0], b[1]);
+        mma(acc[2 * np + 1], a.r[kc], b[2], b[3]);
+      }
+  }
+
+  // acc[n] (16 x 64) += P (16 x 64, accumulator layout, as bf16) . S where S
+  // is a 64 x 64 tile (rows = the k dimension): ldmatrix.trans
+  static __device__ __forceinline__ void mma_ps(float (*acc)[4],
+                                                const float (*p)[4],
+                                                const bf16* s, int lane,
+                                                float*) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t a[4];
+      a[0] = pack(p[2 * j][0], p[2 * j][1]);
+      a[1] = pack(p[2 * j][2], p[2 * j][3]);
+      a[2] = pack(p[2 * j + 1][0], p[2 * j + 1][1]);
+      a[3] = pack(p[2 * j + 1][2], p[2 * j + 1][3]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(s + swz(16 * j + (lane & 15), 2 * np + (lane >> 4)), b);
+        mma(acc[2 * np], a, b[0], b[1]);
+        mma(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ float2 ld2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void st2(bf16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack(a, b);
+  }
+};
+
+template <> struct Cdt<float> {
+  static constexpr int TILE_ELEMS = TILE * LDF;  // rows padded to 68 floats
+  static constexpr bool A_IN_SMEM = true;
+  static constexpr int SCRATCH = WARPS * 16 * LDF;
+  struct AFrag {
+    const float* s;    // the warp's 16 rows in a shared tile
+  };
+
+  static __device__ __forceinline__ void load_tile(float* s, const float* g,
+                                                   int row0, int Tn,
+                                                   int tid) {
+    for (int e = tid; e < TILE * (D / 4); e += THREADS) {
+      const int r = e >> 4, ch = e & 15;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < Tn)
+        v = reinterpret_cast<const float4*>(g + (size_t)(row0 + r) * D)[ch];
+      *reinterpret_cast<float4*>(s + r * LDF + 4 * ch) = v;
+    }
+  }
+
+  static __device__ __forceinline__ void load_a(AFrag& a, const float* s,
+                                                int r0, int) {
+    a.s = s + r0 * LDF;
+  }
+
+  // acc[n][i] += sum_d A[row_i][d] B[col][d], d in order
+  static __device__ __forceinline__ void mma_abt(float (*acc)[4],
+                                                 const AFrag& a,
+                                                 const float* s, int lane) {
+    const float* a0 = a.s + (lane >> 2) * LDF;
+    const float* a1 = a0 + 8 * LDF;
+    const float* b0 = s + 2 * (lane & 3) * LDF;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(a0 + d);
+      const float4 x1 = *reinterpret_cast<const float4*>(a1 + d);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float4 y =
+              *reinterpret_cast<const float4*>(b0 + (n * 8 + j) * LDF + d);
+          float u = acc[n][j], w = acc[n][2 + j];
+          u = fmaf(x0.x, y.x, u); w = fmaf(x1.x, y.x, w);
+          u = fmaf(x0.y, y.y, u); w = fmaf(x1.y, y.y, w);
+          u = fmaf(x0.z, y.z, u); w = fmaf(x1.z, y.z, w);
+          u = fmaf(x0.w, y.w, u); w = fmaf(x1.w, y.w, w);
+          acc[n][j] = u;
+          acc[n][2 + j] = w;
+        }
+    }
+  }
+
+  // acc[n][i] += sum_k P[row_i][k] S[k][col], k in order; P goes through the
+  // warp's scratch pw (16 x LDF floats)
+  static __device__ __forceinline__ void mma_ps(float (*acc)[4],
+                                                const float (*p)[4],
+                                                const float* s, int lane,
+                                                float* pw) {
+    const int r0 = lane >> 2, c0 = 2 * (lane & 3);
+    __syncwarp();  // the previous product's reads of pw are done
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(pw + r0 * LDF + n * 8 + c0) =
+          make_float2(p[n][0], p[n][1]);
+      *reinterpret_cast<float2*>(pw + (r0 + 8) * LDF + n * 8 + c0) =
+          make_float2(p[n][2], p[n][3]);
+    }
+    __syncwarp();
+    const float* p0 = pw + r0 * LDF;
+    const float* p1 = p0 + 8 * LDF;
+#pragma unroll 2
+    for (int k = 0; k < TILE; k += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(p0 + k);
+      const float4 x1 = *reinterpret_cast<const float4*>(p1 + k);
+      const float a0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float a1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* srow = s + (k + kk) * LDF + c0;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 y = *reinterpret_cast<const float2*>(srow + n * 8);
+          acc[n][0] = fmaf(a0[kk], y.x, acc[n][0]);
+          acc[n][1] = fmaf(a0[kk], y.y, acc[n][1]);
+          acc[n][2] = fmaf(a1[kk], y.x, acc[n][2]);
+          acc[n][3] = fmaf(a1[kk], y.y, acc[n][3]);
+        }
+      }
+    }
+  }
+
+  static __device__ __forceinline__ float2 ld2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void st2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+
+// dynamic shared memory of the three tiled kernels: the forward holds Q, K,
+// V tiles; the backward kernels two B tiles, plus their two A tiles where
+// the A operand stays in shared memory; plus the P scratch
+template <typename T> constexpr size_t fwd_smem() {
+  return 3 * Cdt<T>::TILE_ELEMS * sizeof(T) + Cdt<T>::SCRATCH * 4;
+}
+template <typename T> constexpr size_t bwd_smem() {
+  return (Cdt<T>::A_IN_SMEM ? 4 : 2) * Cdt<T>::TILE_ELEMS * sizeof(T) +
+         Cdt<T>::SCRATCH * 4;
 }
 
 __device__ __forceinline__ void zero(float (*acc)[4]) {
@@ -197,8 +353,8 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 }
 
-struct Params {
-  const __nv_bfloat16 *q, *k, *v, *o, *g;
+template <typename T> struct Params {
+  const T *q, *k, *v, *o, *g;
   const float *bias, *stats, *delta;
   int H, Tq, Tk;
   uint32_t thresh32;  // keep below this; 0 = no dropout
@@ -207,7 +363,8 @@ struct Params {
 };
 
 // keep flags of the two adjacent keys key, key+1 (key even) of query q
-__device__ __forceinline__ void keep_pair(const Params& p, int b, int h,
+template <typename T>
+__device__ __forceinline__ void keep_pair(const Params<T>& p, int b, int h,
                                           int q, int key, bool& k0,
                                           bool& k1) {
   const U4 r = philox((uint32_t)key >> 2, q, h, b, p.k0, p.k1);
@@ -216,14 +373,16 @@ __device__ __forceinline__ void keep_pair(const Params& p, int b, int h,
   k1 = r.w[w + 1] < p.thresh32;
 }
 
-__device__ __forceinline__ bool keep_one(const Params& p, int b, int h, int q,
-                                         int key) {
+template <typename T>
+__device__ __forceinline__ bool keep_one(const Params<T>& p, int b, int h,
+                                         int q, int key) {
   const U4 r = philox((uint32_t)key >> 2, q, h, b, p.k0, p.k1);
   return r.w[key & 3] < p.thresh32;
 }
 
-__device__ __forceinline__ float score(const Params& p, float s, int b, int q,
-                                       int key) {
+template <typename T>
+__device__ __forceinline__ float score(const Params<T>& p, float s, int b,
+                                       int q, int key) {
   if (key >= p.Tk) return -INFINITY;
   const float bias = q < p.Tq ? p.bias[((size_t)b * p.Tq + q) * p.Tk + key]
                               : 0.f;
@@ -234,23 +393,27 @@ __device__ __forceinline__ float score(const Params& p, float s, int b, int q,
 // forward: grid (query tiles, H, B)
 // ---------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(Params p, __nv_bfloat16* __restrict__ out,
+attn_fwd_kernel(Params<T> p, T* __restrict__ out,
                 float2* __restrict__ stats) {
-  __shared__ __align__(16) __nv_bfloat16 qs[TILE * D];
-  __shared__ __align__(16) __nv_bfloat16 ks[TILE * D];
-  __shared__ __align__(16) __nv_bfloat16 vs[TILE * D];
+  using C = Cdt<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + C::TILE_ELEMS;
+  T* vs = ks + C::TILE_ELEMS;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* pw = reinterpret_cast<float*>(vs + C::TILE_ELEMS) + warp * 16 * LDF;
   const size_t bh = (size_t)b * p.H + h;
-  const __nv_bfloat16* qg = p.q + bh * p.Tq * D;
-  const __nv_bfloat16* kg = p.k + bh * p.Tk * D;
-  const __nv_bfloat16* vg = p.v + bh * p.Tk * D;
+  const T* qg = p.q + bh * p.Tq * D;
+  const T* kg = p.k + bh * p.Tk * D;
+  const T* vg = p.v + bh * p.Tk * D;
 
-  load_tile(qs, qg, q0, p.Tq, tid);
+  C::load_tile(qs, qg, q0, p.Tq, tid);
   __syncthreads();
-  uint32_t qa[4][4];
-  load_a(qs, warp * 16, lane, qa);
+  typename C::AFrag qa;
+  C::load_a(qa, qs, warp * 16, lane);
 
   const int rq[2] = {q0 + warp * 16 + (lane >> 2),
                      q0 + warp * 16 + (lane >> 2) + 8};
@@ -260,12 +423,12 @@ attn_fwd_kernel(Params p, __nv_bfloat16* __restrict__ out,
 
   for (int k0 = 0; k0 < p.Tk; k0 += TILE) {
     __syncthreads();  // previous tile consumed
-    load_tile(ks, kg, k0, p.Tk, tid);
-    load_tile(vs, vg, k0, p.Tk, tid);
+    C::load_tile(ks, kg, k0, p.Tk, tid);
+    C::load_tile(vs, vg, k0, p.Tk, tid);
     __syncthreads();
     float s[8][4];
     zero(s);
-    mma_abt(s, qa, ks, lane);
+    C::mma_abt(s, qa, ks, lane);
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -307,7 +470,7 @@ attn_fwd_kernel(Params p, __nv_bfloat16* __restrict__ out,
         }
       }
     }
-    mma_ps(o, s, vs, lane);
+    C::mma_ps(o, s, vs, lane, pw);
   }
 
 #pragma unroll
@@ -316,11 +479,11 @@ attn_fwd_kernel(Params p, __nv_bfloat16* __restrict__ out,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rq[r] >= p.Tq) continue;
     const float inv = 1.f / l[r];
-    __nv_bfloat16* og = out + (bh * p.Tq + rq[r]) * D;
+    T* og = out + (bh * p.Tq + rq[r]) * D;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(og + n * 8 + 2 * (lane & 3)) =
-          pack(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      C::st2(og + n * 8 + 2 * (lane & 3), o[n][2 * r] * inv,
+             o[n][2 * r + 1] * inv);
     if ((lane & 3) == 0) stats[bh * p.Tq + rq[r]] = make_float2(m[r], l[r]);
   }
 }
@@ -329,19 +492,18 @@ attn_fwd_kernel(Params p, __nv_bfloat16* __restrict__ out,
 // backward A: delta = rowsum(dO o O), one thread per query row
 // ---------------------------------------------------------------------------
 
-__global__ void attn_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                                  const __nv_bfloat16* __restrict__ g,
+template <typename T>
+__global__ void attn_delta_kernel(const T* __restrict__ o,
+                                  const T* __restrict__ g,
                                   float* __restrict__ delta, int rows) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(
-      o + (size_t)r * D);
-  const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(
-      g + (size_t)r * D);
+  const T* a = o + (size_t)r * D;
+  const T* c = g + (size_t)r * D;
   float acc = 0.f;
 #pragma unroll 8
   for (int i = 0; i < D / 2; ++i) {
-    const float2 x = __bfloat1622float2(a[i]), y = __bfloat1622float2(c[i]);
+    const float2 x = Cdt<T>::ld2(a + 2 * i), y = Cdt<T>::ld2(c + 2 * i);
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
@@ -353,23 +515,31 @@ __global__ void attn_delta_kernel(const __nv_bfloat16* __restrict__ o,
 // 16 keys (rows of S^T); the block walks the query tiles.
 // ---------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attn_dkdv_kernel(Params p, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv) {
-  __shared__ __align__(16) __nv_bfloat16 qs[TILE * D];
-  __shared__ __align__(16) __nv_bfloat16 gs[TILE * D];
+attn_dkdv_kernel(Params<T> p, T* __restrict__ dk, T* __restrict__ dv) {
+  using C = Cdt<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float ms[TILE], linv[TILE], dels[TILE];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* gs = qs + C::TILE_ELEMS;
+  // the K and V tiles (A operands): their own where A stays in shared
+  // memory, else staged through qs / gs into registers
+  T* kt = C::A_IN_SMEM ? gs + C::TILE_ELEMS : qs;
+  T* vt = C::A_IN_SMEM ? gs + 2 * C::TILE_ELEMS : gs;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* pw = reinterpret_cast<float*>(
+                  qs + (C::A_IN_SMEM ? 4 : 2) * C::TILE_ELEMS) +
+              warp * 16 * LDF;
   const size_t bh = (size_t)b * p.H + h;
 
-  // this warp's K and V rows as A operands (staged through qs / gs)
-  uint32_t ka[4][4], va[4][4];
-  load_tile(qs, p.k + bh * p.Tk * D, k0, p.Tk, tid);
-  load_tile(gs, p.v + bh * p.Tk * D, k0, p.Tk, tid);
+  typename C::AFrag ka, va;
+  C::load_tile(kt, p.k + bh * p.Tk * D, k0, p.Tk, tid);
+  C::load_tile(vt, p.v + bh * p.Tk * D, k0, p.Tk, tid);
   __syncthreads();
-  load_a(qs, warp * 16, lane, ka);
-  load_a(gs, warp * 16, lane, va);
+  C::load_a(ka, kt, warp * 16, lane);
+  C::load_a(va, vt, warp * 16, lane);
 
   const int rk[2] = {k0 + warp * 16 + (lane >> 2),
                      k0 + warp * 16 + (lane >> 2) + 8};
@@ -379,8 +549,8 @@ attn_dkdv_kernel(Params p, __nv_bfloat16* __restrict__ dk,
 
   for (int q0 = 0; q0 < p.Tq; q0 += TILE) {
     __syncthreads();  // previous tiles consumed
-    load_tile(qs, p.q + bh * p.Tq * D, q0, p.Tq, tid);
-    load_tile(gs, p.g + bh * p.Tq * D, q0, p.Tq, tid);
+    C::load_tile(qs, p.q + bh * p.Tq * D, q0, p.Tq, tid);
+    C::load_tile(gs, p.g + bh * p.Tq * D, q0, p.Tq, tid);
     if (tid < TILE) {
       const bool in = q0 + tid < p.Tq;
       const float2 st = in ? reinterpret_cast<const float2*>(
@@ -394,8 +564,8 @@ attn_dkdv_kernel(Params p, __nv_bfloat16* __restrict__ dk,
     float st[8][4], dp[8][4];
     zero(st);
     zero(dp);
-    mma_abt(st, ka, qs, lane);  // S^T: keys x queries
-    mma_abt(dp, va, gs, lane);  // (dO V^T)^T
+    C::mma_abt(st, ka, qs, lane);  // S^T: keys x queries
+    C::mma_abt(dp, va, gs, lane);  // (dO V^T)^T
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -412,22 +582,20 @@ attn_dkdv_kernel(Params p, __nv_bfloat16* __restrict__ dk,
         st[n][i] = pr * kp;                           // dropped P^T
         dp[n][i] = pr * (dp[n][i] * kp - dels[ql]);   // dS^T
       }
-    mma_ps(dva, st, gs, lane);  // dV += Pd^T dO
-    mma_ps(dka, dp, qs, lane);  // dK += dS^T Q
+    C::mma_ps(dva, st, gs, lane, pw);  // dV += Pd^T dO
+    C::mma_ps(dka, dp, qs, lane, pw);  // dK += dS^T Q
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rk[r] >= p.Tk) continue;
-    __nv_bfloat16* kg = dk + (bh * p.Tk + rk[r]) * D;
-    __nv_bfloat16* vg = dv + (bh * p.Tk + rk[r]) * D;
+    T* kg = dk + (bh * p.Tk + rk[r]) * D;
+    T* vg = dv + (bh * p.Tk + rk[r]) * D;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int c = n * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(kg + c) =
-          pack(dka[n][2 * r] * p.scale, dka[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(vg + c) =
-          pack(dva[n][2 * r], dva[n][2 * r + 1]);
+      C::st2(kg + c, dka[n][2 * r] * p.scale, dka[n][2 * r + 1] * p.scale);
+      C::st2(vg + c, dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
@@ -436,20 +604,28 @@ attn_dkdv_kernel(Params p, __nv_bfloat16* __restrict__ dk,
 // backward C: dQ for one query tile; grid (query tiles, H, B)
 // ---------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attn_dq_kernel(Params p, __nv_bfloat16* __restrict__ dq) {
-  __shared__ __align__(16) __nv_bfloat16 ks[TILE * D];
-  __shared__ __align__(16) __nv_bfloat16 vs[TILE * D];
+attn_dq_kernel(Params<T> p, T* __restrict__ dq) {
+  using C = Cdt<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + C::TILE_ELEMS;
+  T* qt = C::A_IN_SMEM ? vs + C::TILE_ELEMS : ks;
+  T* gt = C::A_IN_SMEM ? vs + 2 * C::TILE_ELEMS : vs;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* pw = reinterpret_cast<float*>(
+                  ks + (C::A_IN_SMEM ? 4 : 2) * C::TILE_ELEMS) +
+              warp * 16 * LDF;
   const size_t bh = (size_t)b * p.H + h;
 
-  uint32_t qa[4][4], ga[4][4];
-  load_tile(ks, p.q + bh * p.Tq * D, q0, p.Tq, tid);
-  load_tile(vs, p.g + bh * p.Tq * D, q0, p.Tq, tid);
+  typename C::AFrag qa, ga;
+  C::load_tile(qt, p.q + bh * p.Tq * D, q0, p.Tq, tid);
+  C::load_tile(gt, p.g + bh * p.Tq * D, q0, p.Tq, tid);
   __syncthreads();
-  load_a(ks, warp * 16, lane, qa);
-  load_a(vs, warp * 16, lane, ga);
+  C::load_a(qa, qt, warp * 16, lane);
+  C::load_a(ga, gt, warp * 16, lane);
 
   const int rq[2] = {q0 + warp * 16 + (lane >> 2),
                      q0 + warp * 16 + (lane >> 2) + 8};
@@ -469,14 +645,14 @@ attn_dq_kernel(Params p, __nv_bfloat16* __restrict__ dq) {
 
   for (int k0 = 0; k0 < p.Tk; k0 += TILE) {
     __syncthreads();
-    load_tile(ks, p.k + bh * p.Tk * D, k0, p.Tk, tid);
-    load_tile(vs, p.v + bh * p.Tk * D, k0, p.Tk, tid);
+    C::load_tile(ks, p.k + bh * p.Tk * D, k0, p.Tk, tid);
+    C::load_tile(vs, p.v + bh * p.Tk * D, k0, p.Tk, tid);
     __syncthreads();
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
-    mma_abt(s, qa, ks, lane);   // S
-    mma_abt(dp, ga, vs, lane);  // dO V^T
+    C::mma_abt(s, qa, ks, lane);   // S
+    C::mma_abt(dp, ga, vs, lane);  // dO V^T
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int key = k0 + n * 8 + 2 * (lane & 3);
@@ -495,17 +671,17 @@ attn_dq_kernel(Params p, __nv_bfloat16* __restrict__ dq) {
         }
       }
     }
-    mma_ps(dqa, s, ks, lane);  // dQ += dS K
+    C::mma_ps(dqa, s, ks, lane, pw);  // dQ += dS K
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rq[r] >= p.Tq) continue;
-    __nv_bfloat16* qg = dq + (bh * p.Tq + rq[r]) * D;
+    T* qg = dq + (bh * p.Tq + rq[r]) * D;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(qg + n * 8 + 2 * (lane & 3)) =
-          pack(dqa[n][2 * r] * p.scale, dqa[n][2 * r + 1] * p.scale);
+      C::st2(qg + n * 8 + 2 * (lane & 3), dqa[n][2 * r] * p.scale,
+             dqa[n][2 * r + 1] * p.scale);
   }
 }
 
@@ -530,13 +706,14 @@ __global__ void dropout_bits_kernel(uint32_t* __restrict__ out, int B, int H,
   }
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* bias, int H, int Tq, int Tk, int thresh16,
-                   unsigned long long seed) {
-  Params p;
-  p.q = (const __nv_bfloat16*)q;
-  p.k = (const __nv_bfloat16*)k;
-  p.v = (const __nv_bfloat16*)v;
+template <typename T>
+Params<T> make_params(const void* q, const void* k, const void* v,
+                      const void* bias, int H, int Tq, int Tk, int thresh16,
+                      unsigned long long seed) {
+  Params<T> p;
+  p.q = (const T*)q;
+  p.k = (const T*)k;
+  p.v = (const T*)v;
   p.o = p.g = nullptr;
   p.bias = (const float*)bias;
   p.stats = p.delta = nullptr;
@@ -552,6 +729,61 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+template <typename T>
+int attn_fwd(const void* q, const void* k, const void* v, const void* bias,
+             void* out, void* stats, int B, int H, int Tq, int Tk, int d,
+             int thresh16, unsigned long long seed, void* stream) {
+  cudaGetLastError();  // report only this call's error
+  if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
+  constexpr size_t smem = fwd_smem<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const Params<T> p =
+      make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
+  dim3 grid((Tq + TILE - 1) / TILE, H, B);
+  attn_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      p, (T*)out, (float2*)stats);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int attn_bwd(const void* q, const void* k, const void* v, const void* bias,
+             const void* out, const void* stats, const void* g, void* dq,
+             void* dk, void* dv, int B, int H, int Tq, int Tk, int d,
+             int thresh16, unsigned long long seed, void* delta,
+             void* stream) {
+  cudaGetLastError();
+  if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
+  constexpr size_t smem = bwd_smem<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dq_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return e;
+  Params<T> p = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
+  p.o = (const T*)out;
+  p.g = (const T*)g;
+  p.stats = (const float*)stats;
+  p.delta = (const float*)delta;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rows = B * H * Tq;
+  attn_delta_kernel<T><<<(rows + 255) / 256, 256, 0, s>>>(
+      p.o, p.g, (float*)delta, rows);
+  attn_dkdv_kernel<T>
+      <<<dim3((Tk + TILE - 1) / TILE, H, B), THREADS, smem, s>>>(
+          p, (T*)dk, (T*)dv);
+  attn_dq_kernel<T><<<dim3((Tq + TILE - 1) / TILE, H, B), THREADS, smem, s>>>(
+      p, (T*)dq);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int err) {
@@ -559,19 +791,22 @@ extern "C" const char* error_string(int err) {
 }
 
 // Every entry point returns cudaGetLastError() after its launches; a D other
-// than 64 or a thresh16 of 0 is refused (cudaErrorInvalidValue).
+// than 64 or a thresh16 of 0 is refused (cudaErrorInvalidValue). The _bf16
+// entries take bf16 q, k, v, out, g, dq, dk, dv; the _f32 entries f32 ones.
 extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v,
                              const void* bias, void* out, void* stats, int B,
                              int H, int Tq, int Tk, int d, int thresh16,
                              unsigned long long seed, void* stream) {
-  cudaGetLastError();  // report only this call's error
-  if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
-  const Params p = make_params(q, k, v, bias, H, Tq, Tk, thresh16, seed);
-  dim3 grid((Tq + TILE - 1) / TILE, H, B);
-  attn_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      p, (__nv_bfloat16*)out, (float2*)stats);
-  return cudaGetLastError();
+  return attn_fwd<bf16>(q, k, v, bias, out, stats, B, H, Tq, Tk, d, thresh16,
+                        seed, stream);
+}
+
+extern "C" int attn_fwd_f32(const void* q, const void* k, const void* v,
+                            const void* bias, void* out, void* stats, int B,
+                            int H, int Tq, int Tk, int d, int thresh16,
+                            unsigned long long seed, void* stream) {
+  return attn_fwd<float>(q, k, v, bias, out, stats, B, H, Tq, Tk, d, thresh16,
+                         seed, stream);
 }
 
 // g = dL/d(out); delta: (B, H, Tq) f32 scratch
@@ -581,23 +816,18 @@ extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v,
                              void* dk, void* dv, int B, int H, int Tq, int Tk,
                              int d, int thresh16, unsigned long long seed,
                              void* delta, void* stream) {
-  cudaGetLastError();
-  if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
-  Params p = make_params(q, k, v, bias, H, Tq, Tk, thresh16, seed);
-  p.o = (const __nv_bfloat16*)out;
-  p.g = (const __nv_bfloat16*)g;
-  p.stats = (const float*)stats;
-  p.delta = (const float*)delta;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rows = B * H * Tq;
-  attn_delta_kernel<<<(rows + 255) / 256, 256, 0, s>>>(
-      p.o, p.g, (float*)delta, rows);
-  attn_dkdv_kernel<<<dim3((Tk + TILE - 1) / TILE, H, B), THREADS, 0, s>>>(
-      p, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
-  attn_dq_kernel<<<dim3((Tq + TILE - 1) / TILE, H, B), THREADS, 0, s>>>(
-      p, (__nv_bfloat16*)dq);
-  return cudaGetLastError();
+  return attn_bwd<bf16>(q, k, v, bias, out, stats, g, dq, dk, dv, B, H, Tq,
+                        Tk, d, thresh16, seed, delta, stream);
+}
+
+extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v,
+                            const void* bias, const void* out,
+                            const void* stats, const void* g, void* dq,
+                            void* dk, void* dv, int B, int H, int Tq, int Tk,
+                            int d, int thresh16, unsigned long long seed,
+                            void* delta, void* stream) {
+  return attn_bwd<float>(q, k, v, bias, out, stats, g, dq, dk, dv, B, H, Tq,
+                         Tk, d, thresh16, seed, delta, stream);
 }
 
 // out: (B, H*Tq, Tk) uint32

@@ -28,11 +28,17 @@ version and the kernel draw the same bits on the CPU and on the card. The
 TPU's stream (its own hardware PRNG) cannot be reproduced: tests compare
 with the JAX package through keep masks fed from numpy.
 
+Each kernel has two entry points, chosen by q's dtype: bf16 (the
+training default), whose products run on the tensor cores (mma.sync,
+f32 accumulate), and f32 (``--dtype float32``), whose products run in
+full f32 on FMA (no TF32), as the JAX kernel runs in q's dtype
+(``cdt = q.dtype``). Both keep f32 softmax statistics and share the
+tiling, the dropout and the epilogues (see the source).
+
 Bound on the H100: at the flagship (B=12, H=8, T=200, dk=64) one encoder
 self-attention is 4·B·H·Tq·Tk·dk ≈ 1 GFLOP forward (≈1 µs on the bf16
-tensor cores) and reads ≈ 9 MB (≈3 µs): the kernels are bound by launch
-cost at this size. Both use mma.sync bf16 tensor-core products with f32
-softmax statistics; see the source for the tiling.
+tensor cores, ≈15 µs on f32 FMA) and reads ≈ 9 MB in bf16 (≈3 µs): the
+bf16 kernels are bound by launch cost at this size, the f32 ones by FMA.
 
 `flash_mha_train` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernels, and raises if it cannot. `dropout_bits`
@@ -56,9 +62,16 @@ FWD = cuda_lib.CudaKernel("attention", "attn_fwd_bf16",
                           [P] * 6 + [I] * 6 + [U64, P])
 BWD = cuda_lib.CudaKernel("attention", "attn_bwd_bf16",
                           [P] * 10 + [I] * 6 + [U64, P, P])
+FWD_F32 = cuda_lib.CudaKernel("attention", "attn_fwd_f32",
+                              [P] * 6 + [I] * 6 + [U64, P])
+BWD_F32 = cuda_lib.CudaKernel("attention", "attn_bwd_f32",
+                              [P] * 10 + [I] * 6 + [U64, P, P])
 BITS = cuda_lib.CudaKernel("attention", "dropout_bits_u32",
                            [P] + [I] * 4 + [U64, P])
-KERNELS = {"attn_fwd": FWD, "attn_bwd": BWD, "dropout_bits": BITS}
+KERNELS = {"attn_fwd": FWD, "attn_bwd": BWD, "attn_fwd_f32": FWD_F32,
+           "attn_bwd_f32": BWD_F32, "dropout_bits": BITS}
+# the entry points by compute dtype: (forward, backward)
+_BY_DTYPE = {torch.bfloat16: (FWD, BWD), torch.float32: (FWD_F32, BWD_F32)}
 
 HEAD_DIMS = (64,)   # head widths the kernels are built for
 MASK_BIAS = -1e9
@@ -193,10 +206,13 @@ def _check(q, k, v, bias):
     if Dk != Dv or Dk not in HEAD_DIMS:
         raise ValueError(f"flash_mha_train: head widths {Dk}/{Dv}; the "
                          f"kernels take dk = dv in {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_mha_train: {name} must be bf16 on the "
-                             "card (the kernels are bf16 tensor-core)")
+    if q.dtype not in _BY_DTYPE:
+        raise ValueError(f"flash_mha_train: q is {q.dtype}; the kernels "
+                         "take bf16 or f32")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_mha_train: {name} is {t.dtype}, q is "
+                             f"{q.dtype}")
         if t.device != q.device:
             raise ValueError(f"flash_mha_train: {name} on {t.device}")
     if bias.dtype != torch.float32 or bias.device != q.device:
@@ -208,8 +224,8 @@ def _stream():
 
 
 def attn_fwd(q, k, v, bias, seed: int, rate: float):
-    """Kernel 4: (out (B, H, Tq, d) bf16, stats (B, H, Tq, 2) f32: the
-    row max and row sum of the softmax)."""
+    """Kernel 4: (out (B, H, Tq, d) in q's dtype, stats (B, H, Tq, 2)
+    f32: the row max and row sum of the softmax). bf16 or f32."""
     _check(q, k, v, bias)
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
     B, H, Tq, D = q.shape
@@ -219,15 +235,20 @@ def attn_fwd(q, k, v, bias, seed: int, rate: float):
                         device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
-            FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                       B, H, Tq, Tk, D, dropout_thresh16(rate),
-                       seed & (2 ** 64 - 1), _stream())
+            _BY_DTYPE[q.dtype][0].launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                B, H, Tq, Tk, D, dropout_thresh16(rate),
+                seed & (2 ** 64 - 1), _stream())
     return out, stats
 
 
 def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
-    """Kernel 5: (dq, dk, dv) bf16, the forward and its mask recomputed."""
+    """Kernel 5: (dq, dk, dv) in q's dtype, the forward and its mask
+    recomputed."""
+    _check(q, k, v, bias)
+    if out.dtype != q.dtype or g.dtype != q.dtype:
+        raise ValueError("attn_bwd: out and g must be in q's dtype")
     q, k, v, bias, out, stats, g = (
         t.contiguous() for t in (q, k, v, bias, out, stats, g))
     B, H, Tq, D = q.shape
@@ -236,12 +257,13 @@ def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if dq.numel() and dk.numel():
         with torch.cuda.device(q.device):
-            BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                       g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), B, H, Tq, Tk, D,
-                       dropout_thresh16(rate), seed & (2 ** 64 - 1),
-                       delta.data_ptr(), _stream())
+            _BY_DTYPE[q.dtype][1].launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, H, Tq, Tk, D,
+                dropout_thresh16(rate), seed & (2 ** 64 - 1),
+                delta.data_ptr(), _stream())
     return dq, dk, dv
 
 

@@ -24,18 +24,24 @@ import torch
 from end2end_asr_tpu_torch.data.features import get_window
 
 
-@functools.lru_cache(maxsize=8)
-def dft_matrices(n_fft: int, window: str) -> Tuple[np.ndarray, np.ndarray]:
-    """Windowed DFT basis: returns (W_cos, W_sin), each (n_fft, n_freq)
-    float32, built in float64 as the JAX package builds it."""
-    n_freq = n_fft // 2 + 1
+def windowed_bases(window: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """DFT basis with `window` (n_fft,) folded in: (W_cos, W_sin), each
+    (n_fft, n_fft//2 + 1) float32, built in float64 as the JAX package
+    builds it."""
+    n_fft = window.shape[0]
     k = np.arange(n_fft)[:, None]
-    f = np.arange(n_freq)[None, :]
+    f = np.arange(n_fft // 2 + 1)[None, :]
     ang = 2.0 * np.pi * k * f / n_fft
-    w = get_window(window, n_fft).astype(np.float64)[:, None]
+    w = np.asarray(window).astype(np.float64)[:, None]
     cos = (np.cos(ang) * w).astype(np.float32)
     sin = (-np.sin(ang) * w).astype(np.float32)
     return cos, sin
+
+
+@functools.lru_cache(maxsize=8)
+def dft_matrices(n_fft: int, window: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Windowed DFT basis of the named window (`windowed_bases`)."""
+    return windowed_bases(get_window(window, n_fft))
 
 
 def reflect_pad_pcm(y: np.ndarray, n_fft: int, out_len: int) -> np.ndarray:

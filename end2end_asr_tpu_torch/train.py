@@ -43,15 +43,15 @@ def refuse_unported(cfg: Config) -> None:
     the port does not have yet."""
     todo = [
         (cfg.parallel or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
-         "--parallel / --mesh-*", "parallelism (ROADMAP queue 1, item 9)"),
+         "--parallel / --mesh-*", "parallelism (ROADMAP queue 1, item 8)"),
         (cfg.zero1 or cfg.fsdp, "--zero1 / --fsdp",
-         "ZeRO (ROADMAP queue 1, item 9)"),
+         "ZeRO (ROADMAP queue 1, item 8)"),
         (cfg.seq_parallel, "--seq-parallel",
-         "sequence parallelism (ROADMAP queue 1, item 9)"),
+         "sequence parallelism (ROADMAP queue 1, item 8)"),
         (cfg.noise_dir or cfg.augment, "--noise-dir / --augment",
-         "noise and sox augmentation (ROADMAP queue 1, item 2)"),
+         "noise and sox augmentation (ROADMAP queue 1, item 1)"),
         (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
-         "orbax checkpoints (ROADMAP queue 1, item 10)"),
+         "orbax checkpoints (ROADMAP queue 1, item 9)"),
     ]
     for bad, flag, item in todo:
         if bad:

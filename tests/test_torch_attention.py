@@ -129,6 +129,32 @@ def test_dropout_matches_jax_reference_on_the_same_mask():
             np.testing.assert_allclose(a, np.asarray(b), atol=GRAD_TOL)
 
 
+def test_f32_dropout_matches_jax_kernel_on_its_own_mask():
+    """The f32 attention with dropout (what ``--dtype float32`` training
+    runs): the JAX ``flash_mha_train`` kernel at f32 and rate 0.1 in
+    interpret mode, against the port's plain version fed the JAX kernel's
+    own keep mask (its ``dropout_bits``, through numpy), forward and
+    gradients. On the CPU Mosaic's interpret PRNG draws zero bits, so that
+    mask keeps every key and this holds the 65536/thresh16 scale and the
+    kernel path; the dropped pattern is held by the case above."""
+    rate = 0.1
+    thresh16 = AF.dropout_thresh16(rate)
+    q, k, v, bias = _inputs(2)
+    dout = np.random.RandomState(4).randn(B, H, T, D).astype(np.float32)
+    seed = jnp.array([11], jnp.int32)
+    bits = np.asarray(JAF.dropout_bits(seed, B, H, T, S)).reshape(B, H, T, S)
+    keep = bits < np.uint32(thresh16 * 65536)
+    f = lambda q, k, v: JAF.flash_mha_train(q, k, v, jnp.asarray(bias),
+                                            seed, rate)
+    want, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    want_g = vjp(jnp.asarray(dout))
+    assert want.dtype == jnp.float32
+    out, grads = _port(q, k, v, bias, 11, rate, dout, keep=keep)
+    np.testing.assert_allclose(out, np.asarray(want), atol=FWD_TOL)
+    for a, b in zip(grads, want_g):
+        np.testing.assert_allclose(a, np.asarray(b), atol=GRAD_TOL)
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.5, 1.0])
 def test_plain_dropout_on_numpy_bits(rate):
     r = np.random.RandomState(int(rate * 10))

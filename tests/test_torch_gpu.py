@@ -38,18 +38,52 @@ def dev():
 
 
 @pytest.mark.parametrize("n_fft,hop,T", [(320, 160, 800), (320, 160, 37),
-                                         (160, 80, 65), (400, 160, 101)])
+                                         (160, 80, 65), (400, 160, 101),
+                                         (240, 120, 97)])
 def test_stft_kernel_matches_plain(dev, n_fft, hop, T):
+    """The FFT path: every n_fft here is even with n_fft/2 a product of 2s,
+    3s and 5s."""
     g = torch.Generator().manual_seed(T)
     N = (T - 1) * hop + n_fft - 7   # short: the kernel zero-fills past N
     pcm = (torch.randn(3, N, generator=g) * 0.3).to(dev)
     cos, sin = (torch.from_numpy(a).to(dev)
                 for a in PF.dft_matrices(n_fft, "hann"))
     S.reset_launches()
-    got = S.stft_logmag(pcm, cos, sin, hop, T)
-    assert S.launches() == 1
+    got = S.stft_logmag(pcm, n_fft, hop, T, "hann")
+    assert (S.FFT.launches, S.DFT.launches) == (1, 0)
     want = PF.stft_logmag_plain(pcm, cos, sin, hop, T)
     torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    # a row that does not start on a 16-byte boundary (N odd) and a pcm
+    # view that does not either (the wrapper copies it)
+    got = S.stft_logmag(pcm[1:], n_fft, hop, T, "hann")
+    torch.testing.assert_close(got, want[1:], rtol=F32_TOL, atol=F32_TOL)
+    flat = torch.cat([torch.zeros(1, device=dev), pcm.reshape(-1)])
+    got = S.stft_logmag(flat[1:].view(3, N), n_fft, hop, T, "hann")
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("n_fft,hop,T", [(322, 161, 50), (321, 160, 33)])
+def test_stft_dft_path_matches_plain(dev, n_fft, hop, T):
+    """n_fft/2 with a prime factor above 5 (161 = 7·23), or n_fft odd:
+    the wrapper takes the direct-sum kernel."""
+    g = torch.Generator().manual_seed(n_fft)
+    N = (T - 1) * hop + n_fft - 3
+    pcm = (torch.randn(2, N, generator=g) * 0.3).to(dev)
+    cos, sin = (torch.from_numpy(a).to(dev)
+                for a in PF.dft_matrices(n_fft, "hamming"))
+    S.reset_launches()
+    got = S.stft_logmag(pcm, n_fft, hop, T, "hamming")
+    assert (S.FFT.launches, S.DFT.launches) == (0, 1)
+    want = PF.stft_logmag_plain(pcm, cos, sin, hop, T)
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    # the direct sum at the main path's n_fft too
+    cos, sin = (torch.from_numpy(a).to(dev)
+                for a in PF.dft_matrices(320, "hamming"))
+    got = S.stft_logmag_dft(pcm, cos, sin, 160, 20)
+    assert S.DFT.launches == 2
+    torch.testing.assert_close(
+        got, PF.stft_logmag_plain(pcm, cos, sin, 160, 20), rtol=F32_TOL,
+        atol=F32_TOL)
 
 
 def _block_args(dev, B, F, T, seed):
@@ -101,7 +135,10 @@ def test_kernels_reject_what_they_do_not_take(dev):
         V.vgg_block1(args[0], *args[1:], cdt=torch.float16)
     with pytest.raises(ValueError):
         S.stft_logmag(torch.zeros(2, 500, device=dev, dtype=torch.float64),
-                      *(torch.zeros(320, 161, device=dev),) * 2, 160, 2)
+                      320, 160, 2)
+    with pytest.raises(ValueError, match="no FFT plan"):
+        S.stft_logmag_fft(torch.zeros(2, 500, device=dev),
+                          torch.ones(322, device=dev), 161, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +238,61 @@ def test_attention_mask_is_the_bits_mask_and_deterministic(dev):
     assert _rel_err(runs[0][0], want) < ATTN_TOL
     for a, b in zip(runs[0][1:], want_g):
         assert _rel_err(a, b) < ATTN_TOL
+
+
+# f32 attention (TF32 off on both sides): the same f32 arithmetic as the
+# plain version, summed in another order (over d = 64 for the scores, over
+# 64-key tiles with an online softmax for P.V, over query tiles in the
+# backward); relative to the largest value of each tensor a few 1e-6
+ATTN_F32_TOL = 2e-5
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk", [(200, 200), (51, 200), (7, 33), (1, 1)])
+def test_attention_f32_kernels_match_plain(dev, rate, Tq, Tk):
+    """Encoder self-attention (200, 200) and decoder cross-attention
+    (51, 200) shapes, ragged tiles, one query with every key masked; two
+    runs give the same bits."""
+    g = torch.Generator().manual_seed(Tq * 1000 + Tk)
+    q, k, v = (torch.randn(2, 3, T, 64, generator=g).to(dev)
+               for T in (Tq, Tk, Tk))
+    mask = torch.rand(2, Tq, Tk, generator=g) < 0.2
+    mask[1, Tq - 1] = True               # every key masked for this query
+    bias = torch.where(mask, -1e9, 0.0).to(dev)
+    dout = torch.randn(2, 3, Tq, 64, generator=g).to(dev)
+    seed = 0x0F32_5EED
+    runs = []
+    for _ in range(2):
+        AF.reset_launches()
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = AF.flash_mha_train(*qkv, bias, seed, rate)
+        runs.append((out, *torch.autograd.grad(out, qkv, dout)))
+        assert (AF.FWD_F32.launches, AF.BWD_F32.launches) == (1, 1)
+        assert (AF.FWD.launches, AF.BWD.launches) == (0, 0)
+    for a, b in zip(*runs):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = AF.flash_mha_train_plain(*qkv, bias, seed, rate)
+    want_g = torch.autograd.grad(want, qkv, dout)
+    out, *grads = runs[0]
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, want) < ATTN_F32_TOL
+    # at Tk = 1, dq and dk are exactly zero: held relative to the largest
+    # gradient of the three, as the bf16 case
+    floor = max(g.abs().max().item() for g in want_g) if Tk == 1 else 1e-3
+    for a, b in zip(grads, want_g):
+        assert _rel_err(a, b, floor) < ATTN_F32_TOL
+    if rate == 0:   # the fully masked query attends uniformly
+        torch.testing.assert_close(out[1, :, Tq - 1], v[1].mean(dim=1),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_attention_rejects_mixed_and_other_dtypes(dev):
+    q, k, v, bias = _attn_inputs(dev, 1, 1, 4, 4, seed=1)
+    with pytest.raises(ValueError, match="k is torch.float32"):
+        AF.flash_mha_train(q, k.float(), v, bias, 1, 0.1)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        AF.flash_mha_train(q.half(), k.half(), v.half(), bias, 1, 0.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
