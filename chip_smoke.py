@@ -18,7 +18,8 @@ Phases (any failure exits non-zero without the final result line):
      forward and backward at (12, 80, 400, 64) and at a second even shape,
      and the two streaming probes at (38400, 1024); time the kernel, the
      plain version and one PyTorch library yardstick the port never calls
-     (the STFT also by its device time under the profiler);
+     (the STFT also by its device time under the profiler; the vgg block 1
+     also beside cuDNN in f32 with TF32 off);
   3. serve: the full-width AiShell README model (vgg_cnn, 4 layers,
      8 heads, dim 512, dim_inner 2048, the AiShell vocabulary) with
      seeded random weights, written as a checkpoint in the JAX package's
@@ -36,7 +37,9 @@ Phases (any failure exits non-zero without the final result line):
      to 0 before and read after (each must have launched), then one more
      epoch with --auto-resume (the optimizer step must continue); then,
      on one fixed batch, the launches per step, the median train step
-     time over 10 steps, a profile of one step, 100 overfitting steps
+     time over 10 steps, a profile of one step (the block-1 backward's
+     one fused kernel must be among its heaviest; its share of the step's
+     device time is printed), 60 overfitting steps
      (the loss must fall under half its first value), one f32 step
      (dropout 0, TF32 off) on the card against the port's CPU path, and
      2 steps of --dtype float32 at dropout 0.1 through `train` (the f32
@@ -130,6 +133,8 @@ DEC_TOL = 2e-3       # f32 decoder logits, 4 layers: GPU vs CPU sum order
 # largest value (floor 1e-3 of the largest gradient): sums in another
 # order through 8 layers and their backward
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 2e-3
+# the block-1 backward's kernel as the profiler names it (csrc/vgg_block1.cu)
+BWD_KERNEL_NAME = "vgg_block1_bwd_fused_kernel"
 
 
 def fail(msg):
@@ -356,19 +361,23 @@ def check_vgg(torch, dev):
             time_ms(torch, lambda: V.vgg_block1(*args, cdt=cdt), iters=10),
             time_ms(torch, lambda: V.vgg_block1_plain(*args, cdt=cdt),
                     iters=10))
-    xs = spect.to(torch.bfloat16)[:, None]
-    w1c = w1.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
-    w2c = w2.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
-    b1c, b2c = (b.to(torch.bfloat16) for b in (b1, b2))
-    lib_ms = time_ms(torch, lambda: torch.relu(Fn.max_pool2d(Fn.conv2d(
-        torch.relu(Fn.conv2d(xs, w1c, b1c, padding=1)), w2c, padding=1), 2)
-        + b2c[None, :, None, None]), iters=10)
+    lib = {}
+    for cdt in (torch.bfloat16, torch.float32):   # TF32 off (main)
+        xs = spect.to(cdt)[:, None]
+        w1c = w1.to(cdt).permute(3, 2, 0, 1).contiguous()
+        w2c = w2.to(cdt).permute(3, 2, 0, 1).contiguous()
+        b1c, b2c = (b.to(cdt) for b in (b1, b2))
+        lib[cdt] = time_ms(torch, lambda: torch.relu(Fn.max_pool2d(Fn.conv2d(
+            torch.relu(Fn.conv2d(xs, w1c, b1c, padding=1)), w2c, padding=1),
+            2) + b2c[None, :, None, None]), iters=10)
+    lib_ms = lib[torch.bfloat16]
     flops = 2 * B * F * T * 64 * (9 + 576)
     nbytes = 4 * (B * F * T + 9 * 64 + 576 * 64 + 128) + 2 * B * Fp * Tp * 64
     t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_BPS
     for cdt, (k, p) in times.items():
         log(f"vgg_block1 {str(cdt)[6:]} ms {k:.4f} plain {p:.4f}")
-    log(f"vgg_block1 cuDNN bf16 conv2d x2 + max_pool2d {lib_ms:.4f} ms; "
+    log(f"vgg_block1 cuDNN bf16 conv2d x2 + max_pool2d {lib_ms:.4f} ms "
+        f"(f32, TF32 off: {lib[torch.float32]:.4f}); "
         f"bf16 bound {1e3 * max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.1f} "
         f"GFLOP at 989 TFLOP/s; f32 FMA bound "
         f"{1e3 * flops / F32_PEAK:.4f} ms)")
@@ -384,7 +393,7 @@ def check_vgg(torch, dev):
             "plain_ms_f32": times[torch.float32][1],
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "library_ms_f32": lib[torch.float32]}
 
 
 def rel_err(a, b):
@@ -447,33 +456,42 @@ def check_vgg_bwd(torch, dev):
             spect, *ws[:3], out, idx, g, cdt), iters=5)
         res[cdt] = (max(errs), ms, plain,
                     max((a - b).abs().max().item() for a, b in zip(got, want)))
-    xs = spect.to(torch.bfloat16)[:, None]
-    wc = [w.to(torch.bfloat16).requires_grad_() for w in ws]
+    # cuDNN: autograd of conv2d x2 + max_pool2d, less its forward; bf16
+    # and f32 (TF32 off, main)
+    gl = torch.randn(B, 64, F // 2, T // 2, generator=g0).to(dev)
+    lib = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        xs = spect.to(cdt)[:, None]
+        wc = [w.to(cdt).requires_grad_() for w in ws]
+        gc = gl.to(cdt)
 
-    def lib_fwd():
-        y = Fn.conv2d(xs, wc[0].permute(3, 2, 0, 1), wc[1], padding=1)
-        y = Fn.conv2d(torch.relu(y), wc[2].permute(3, 2, 0, 1), padding=1)
-        return torch.relu(Fn.max_pool2d(y, 2) + wc[3][None, :, None, None])
-    gl = torch.randn(B, 64, F // 2, T // 2, generator=g0).to(
-        dev, torch.bfloat16)
-    fwd_ms = time_ms(torch, lib_fwd, iters=5)
-    both_ms = time_ms(torch, lambda: torch.autograd.grad(lib_fwd(), wc, gl),
-                      iters=5)
+        def lib_fwd(xs=xs, wc=wc):
+            y = Fn.conv2d(xs, wc[0].permute(3, 2, 0, 1), wc[1], padding=1)
+            y = Fn.conv2d(torch.relu(y), wc[2].permute(3, 2, 0, 1),
+                          padding=1)
+            return torch.relu(Fn.max_pool2d(y, 2)
+                              + wc[3][None, :, None, None])
+        fwd_ms = time_ms(torch, lib_fwd, iters=5)
+        both_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_fwd(), wc, gc), iters=5)
+        lib[cdt] = both_ms - fwd_ms
     flops = 2 * B * F * T * 64 * (576 + 9) * 2
     nbytes = 4 * B * F * T + B * (F // 2) * (T // 2) * 64 * 5 + 4 * 2 * (
         9 * 64 + 64 + 576 * 64 + 64)
     err, ms, plain, abs_err = res[torch.bfloat16]
     log(f"vgg_block1_bwd bf16 ms {ms:.4f} plain {plain:.4f}; f32 ms "
         f"{res[torch.float32][1]:.4f} plain {res[torch.float32][2]:.4f}; "
-        f"cuDNN conv2d x2 + max_pool2d backward ~{both_ms - fwd_ms:.4f} "
+        f"cuDNN conv2d x2 + max_pool2d backward ~{lib[torch.bfloat16]:.4f} "
+        f"(f32, TF32 off: ~{lib[torch.float32]:.4f}) "
         f"({flops / 1e9:.1f} GFLOP)")
     return entry("vgg_block1_bwd", "vgg_block1.cu",
                  "end2end_asr_tpu/ops/vgg_fused.py:214", abs_err, ms, plain,
-                 flops / BF16_PEAK, nbytes / HBM_BPS, both_ms - fwd_ms,
+                 flops / BF16_PEAK, nbytes / HBM_BPS, lib[torch.bfloat16],
                  rel_err=err, rel_err_f32=res[torch.float32][0],
                  ms_f32=res[torch.float32][1],
                  plain_ms_f32=res[torch.float32][2],
-                 bound_ms_f32=1e3 * flops / F32_PEAK)
+                 bound_ms_f32=1e3 * flops / F32_PEAK,
+                 library_ms_f32=lib[torch.float32])
 
 
 def check_attention(torch, dev):
@@ -1325,6 +1343,14 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
             per_step["attn_bwd"] != 3 * cfg.num_layers:
         fail(f"expected {3 * cfg.num_layers} attention forwards and "
              f"backwards per step, got {per_step}")
+    # the block-1 backward is one fused kernel: its share of the step
+    bwd_ms = [ms for n, ms in prof["top"] if BWD_KERNEL_NAME in n]
+    if prof["device_ms"] is not None and len(bwd_ms) != 1:
+        fail(f"the step's profile does not name {BWD_KERNEL_NAME} among "
+             f"its heaviest kernels: {prof['top']}")
+    bwd_share = (bwd_ms[0] / prof["device_ms"] if bwd_ms else None)
+    log(f"train step device time {prof['device_ms']} ms, of it "
+        f"{BWD_KERNEL_NAME} {bwd_ms} ms (share {bwd_share})")
 
     # overfit one batch: peak lr k·5120^-0.5·warmup^-0.5 ≈ 1e-3
     ocfg = aishell_config(k_lr=0.36, warmup=25)
@@ -1379,6 +1405,8 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "bucket_frames": batch.src_bucket,
         "target_columns": int(batch.targets.shape[1]),
         "launches_per_step": per_step, "profile_step": prof,
+        "vgg_block1_bwd_step_device_ms": bwd_ms[0] if bwd_ms else None,
+        "vgg_block1_bwd_step_device_share": bwd_share,
         "run_2_epochs_s": wall, "opt_step_after_resume": res2["opt_step"],
         "overfit_first_loss": losses[0], "overfit_last_loss": losses[-1],
         "overfit_half_at_step": half_at,

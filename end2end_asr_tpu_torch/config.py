@@ -232,8 +232,8 @@ class Config:
     # quantizing back to int16 matches the reference's sox-tempfile WAV
     # round trip (utils/audio.py:22-45). "float32" = legacy wire.
     pcm_wire_dtype: str = "int16"
-    # capture a jax.profiler trace of the first training epoch into this
-    # directory (view with TensorBoard/xprof); empty = off
+    # capture a torch.profiler trace of the first training epoch into
+    # this directory (view with TensorBoard or chrome://tracing); empty = off
     trace_dir: str = ""
     # checkpoint serialization: "npz" (single-host .npz/.json pair) or
     # "orbax" (sharded multi-host-safe orbax.checkpoint directory)
@@ -463,14 +463,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use properly subsampled encoder pad masks instead "
                         "of the reference's raw-length (no-op) masks")
     p.add_argument("--no-pallas-features", dest="use_pallas_features",
-                   action="store_false")
+                   action="store_false",
+                   help="compute the spectrogram with the plain PyTorch "
+                        "STFT instead of the STFT kernel")
     p.add_argument("--pcm-wire-dtype", default="int16",
                    choices=["int16", "float32"],
                    help="host→device PCM transfer dtype (int16 halves "
                         "the per-batch copy; exact for WAV audio)")
     p.add_argument("--trace-dir", default="", type=str,
-                   help="capture a jax.profiler trace of the first epoch "
-                        "into this directory")
+                   help="capture a torch.profiler trace (Chrome / "
+                        "TensorBoard format) of the first epoch into this "
+                        "directory")
     p.add_argument("--adam-moments-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="Adam moment storage (bfloat16 = less HBM "

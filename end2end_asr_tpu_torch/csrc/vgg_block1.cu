@@ -411,29 +411,60 @@ vgg_block1_fwd_bf16_kernel(const float* __restrict__ x,
 // with x1 recomputed exactly as the forward computes it (so the relu mask
 // is the forward's). The TPU kernel carries the sums across its sequential
 // grid (:222-227); blocks here run in no order, so each of a FIXED number
-// of blocks (BWD_BLOCKS) walks a fixed range of work items, keeps its
-// partial sums in registers and writes them out, and a last kernel adds
-// the partials in block order: two runs give identical bits.
+// of blocks walks a fixed range of work items, keeps its partial sums in
+// registers and writes them out, and a last kernel adds the partials in
+// block order: two runs give identical bits.
 //
-// Work item = (utterance, pair of conv rows 2r, 2r+1, 64 conv columns).
-//   dW2 kernel (grid BWD_BLOCKS x 3): block (i, df) owns dW2[df] (3 taps x
-//     64 x 64); per item it rebuilds x1 at rows 2r-1 .. 2r+2 and the item's
-//     own dy2, and runs dW2[df] += x1_shift^T . dy2 (K = the item's 128
-//     positions). bf16: mma.sync, each warp owning 3 of the 24 (16 ci x 32
-//     co) tiles; f32: FMA, each thread 3 taps x 4 ci x 4 co.
-//   dx kernel (grid BWD_BLOCKS): per item it gathers dy2 at rows 2r-1 ..
-//     2r+2 (the halo comes from the neighbouring items' pool windows, so
-//     every x1 position's dx is complete inside one item: no partial dx
-//     crosses blocks) and runs dx1 = sum_taps dy2_shift . W2_tap^T, the
-//     forward's implicit GEMM with W2 in its natural (tap, ci, co) layout;
-//     then the relu mask, db1, and dW1 from cdt(dx1) and the input tile.
+// Work item = (utterance, pair of conv rows 2r, 2r+1, 64 conv columns c0 ..
+// c0+63), r over the (F + 1) / 2 row pairs so an odd last row is covered.
+// Everything an item needs lies at rows 2r-1 .. 2r+2 and columns c0-1 ..
+// c0+64: x1 there feeds its dW2, dy2 there (the halo comes from the
+// neighbouring items' pool windows) feeds its dx1, so every x1 position's
+// dx1 is complete inside one item and no partial dx1 crosses blocks.
+//
 // Bound on the H100 (B=12, F=161, T=800): dW2 and dx1 are 2 x 114 GFLOP,
 // conv1's recompute and dW1 2 x 1.8: 231.5 GFLOP, 0.234 ms on the bf16
 // tensor cores (3.5 ms at the f32 FMA rate); bytes (~60 MB in) are small
 // beside it.
+//
+// bf16 (vgg_block1_bwd_fused_kernel): ONE pass. FUSED_BLOCKS persistent
+// blocks of 12 warps, one per SM; W2 (72 KB, (tap, ci, co)) stays in shared
+// memory for the block's life. Per item:
+//   * its input tile (f32) and its three pooled rows of g / out / idx arrive
+//     by cp.async while the previous item's dW2 products run;
+//   * x1 (conv1 on f32 FMA, in the forward kernel's order: the same bits)
+//     and dy2 are built ONCE, as bf16 [position][64] tiles of 4 x 66
+//     positions whose 16-byte chunks are XOR-swizzled by position; the
+//     relu mask of the item's own positions is kept as bits;
+//   * dW2 on the tensor cores (mma.sync m16n8k16), all 12 warps:
+//     warpgroup df holds dW2[df] (3 taps x 64 ci x 64 co, 96 f32 a thread)
+//     for the block's life, each warp 16 ci; K = the item's 128 positions;
+//     dy2 fragments are shared by the three taps, x1 fragments by the eight
+//     co tiles;
+//   * then, at once: warps 0-7 run dx1 = sum_taps dy2_shift . W2_tap^T on
+//     the tensor cores (M = 128 positions, N = 64 ci, K = 9 x 64 co; each
+//     SM sub-partition's two warps own 32 positions and 4 ci tiles each),
+//     the relu mask, db1, and write cdt(dx1) to a [position][64] tile,
+//     while warps 8-11 build the NEXT item's x1 and mask on the CUDA cores
+//     (the x1 tile is free once dW2 has read it): the FMA work issues
+//     beside the tensor-core products, and no warp holds both the dx1
+//     accumulators and conv1's registers;
+//   * dW1 (64 ci x 9 taps padded to 16) = cdt(dx1)^T . im2col(cdt(x)), an
+//     mma.sync product over the item's positions (warps 0-7, a tile each).
+//   Three block-wide barriers per item (the two kernels of the earlier
+//   design took six). wgmma is not used: the tap shift of dx1's and dW2's
+//   shifted operand is one 128-byte row, which a shared-memory descriptor
+//   cannot start on, so that operand comes from registers (ldmatrix with
+//   per-lane rows) and only one of each product's two operands could come
+//   from a descriptor.
+// f32: the earlier design, unchanged: a dW2 kernel (grid BWD_BLOCKS x 3,
+//   block (i, df) owns dW2[df], FMA, each thread 3 taps x 4 ci x 4 co) and
+//   a dx kernel (FMA; then the relu mask with x1 recomputed, db1, dW1),
+//   both recomputing x1 from the input tile.
 
-constexpr int BWD_BLOCKS = 256;    // fixed: the reduction order is fixed
-constexpr int BT = 256;            // threads of the backward blocks
+constexpr int BWD_BLOCKS = 256;    // f32 kernels; fixed: the reduction order
+constexpr int FUSED_BLOCKS = 132;  // bf16 kernel (one per SM); fixed too
+constexpr int BT = 256;            // threads of the f32 backward blocks
 constexpr int CW = 64;             // conv columns per work item
 constexpr int XW = CW + 2;         // x1 / dy2 columns held (halo)
 constexpr int XS = CW + 4;         // input columns staged
@@ -453,29 +484,24 @@ __device__ __forceinline__ Item item_of(long it, int rows, int chunks) {
   return w;
 }
 
-// input rows 2r-2 .. 2r+3, columns c0-2 .. c0+65 (rounded to bf16 when
-// `round`), zero outside the image
+// the f32 kernels' helpers: input rows 2r-2 .. 2r+3, columns c0-2 ..
+// c0+65, zero outside the image
 __device__ __forceinline__ void stage_x(const float* x, int F, int T,
-                                        const Item& w, float* xs,
-                                        bool round, int tid) {
+                                        const Item& w, float* xs, int tid) {
   const float* xb = x + (size_t)w.b * F * T;
   for (int e = tid; e < 6 * XS; e += BT) {
     const int i = e / XS, j = e % XS;
     const int g = 2 * w.r - 2 + i, t = w.c0 - 2 + j;
-    float v = 0.f;
-    if (g >= 0 && g < F && t >= 0 && t < T) {
-      v = xb[(size_t)g * T + t];
-      if (round) v = bf16r(v);
-    }
-    xs[e] = v;
+    xs[e] = (g >= 0 && g < F && t >= 0 && t < T) ? xb[(size_t)g * T + t]
+                                                 : 0.f;
   }
 }
 
 // x1 at (row 2r + q, column c0 + j) for conv1 output channel ci, from the
-// staged tile, as the forward computes it (bf16: cdt(conv) + cdt(b1)).
+// staged tile, as the f32 forward computes it
 __device__ __forceinline__ float x1_at(const float* xs, const float* w1s,
-                                       const float* b1s, int q, int j, int ci,
-                                       bool bf16) {
+                                       const float* b1s, int q, int j,
+                                       int ci) {
   float acc = 0.f;
 #pragma unroll
   for (int df = 0; df < 3; ++df)
@@ -483,16 +509,14 @@ __device__ __forceinline__ float x1_at(const float* xs, const float* w1s,
     for (int dt = 0; dt < 3; ++dt)
       acc = fmaf(xs[(q + 1 + df) * XS + j + 1 + dt], w1s[(df * 3 + dt) * C + ci],
                  acc);
-  return bf16 ? fmaxf(bf16r(bf16r(acc) + b1s[ci]), 0.f)
-              : fmaxf(acc + b1s[ci], 0.f);
+  return fmaxf(acc + b1s[ci], 0.f);
 }
 
 // g, out and idx of 8 channels at one pooled position (zeros and an idx
 // that matches no window element when the position is outside the pool)
-__device__ __forceinline__ void load_pooled8(const void* g, const void* out,
+__device__ __forceinline__ void load_pooled8(const float* g, const float* out,
                                              const uint8_t* idx, size_t off,
-                                             bool valid, bool bf16,
-                                             float* gv, float* ov,
+                                             bool valid, float* gv, float* ov,
                                              uint8_t* iv) {
   if (!valid) {
 #pragma unroll
@@ -503,31 +527,15 @@ __device__ __forceinline__ void load_pooled8(const void* g, const void* out,
     }
     return;
   }
-  if (bf16) {
-    const uint4 a = *reinterpret_cast<const uint4*>(
-        reinterpret_cast<const __nv_bfloat16*>(g) + off);
-    const uint4 c = *reinterpret_cast<const uint4*>(
-        reinterpret_cast<const __nv_bfloat16*>(out) + off);
-    const __nv_bfloat16* ap = reinterpret_cast<const __nv_bfloat16*>(&a);
-    const __nv_bfloat16* cp = reinterpret_cast<const __nv_bfloat16*>(&c);
+  const float4* gp = reinterpret_cast<const float4*>(g + off);
+  const float4* op = reinterpret_cast<const float4*>(out + off);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      gv[i] = __bfloat162float(ap[i]);
-      ov[i] = __bfloat162float(cp[i]);
-    }
-  } else {
-    const float4* gp = reinterpret_cast<const float4*>(
-        reinterpret_cast<const float*>(g) + off);
-    const float4* op = reinterpret_cast<const float4*>(
-        reinterpret_cast<const float*>(out) + off);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 a = gp[h], c = op[h];
-      gv[4 * h] = a.x; gv[4 * h + 1] = a.y; gv[4 * h + 2] = a.z;
-      gv[4 * h + 3] = a.w;
-      ov[4 * h] = c.x; ov[4 * h + 1] = c.y; ov[4 * h + 2] = c.z;
-      ov[4 * h + 3] = c.w;
-    }
+  for (int h = 0; h < 2; ++h) {
+    const float4 a = gp[h], c = op[h];
+    gv[4 * h] = a.x; gv[4 * h + 1] = a.y; gv[4 * h + 2] = a.z;
+    gv[4 * h + 3] = a.w;
+    ov[4 * h] = c.x; ov[4 * h + 1] = c.y; ov[4 * h + 2] = c.z;
+    ov[4 * h + 3] = c.w;
   }
   const uint2 u = *reinterpret_cast<const uint2*>(idx + off);
   const uint8_t* up = reinterpret_cast<const uint8_t*>(&u);
@@ -546,164 +554,18 @@ __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t& r0,
 }
 
 __device__ __forceinline__ void stage_w1b1(const float* w1, const float* b1,
-                                           float* w1s, float* b1s, bool bf16,
-                                           int tid) {
-  for (int e = tid; e < 9 * C; e += BT) w1s[e] = bf16 ? bf16r(w1[e]) : w1[e];
-  for (int e = tid; e < C; e += BT) b1s[e] = bf16 ? bf16r(b1[e]) : b1[e];
-}
-
-// ---- dW2 (+ db2), bf16 ----------------------------------------------------
-
-__global__ void __launch_bounds__(BT)
-vgg_block1_dw2_bf16_kernel(const float* __restrict__ x,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ b1,
-                           const __nv_bfloat16* __restrict__ g,
-                           const __nv_bfloat16* __restrict__ out,
-                           const uint8_t* __restrict__ idx,
-                           float* __restrict__ part, int B, int F, int T) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* x1s = reinterpret_cast<__nv_bfloat16*>(smem4);  // 4XW x 64
-  __nv_bfloat16* dys = x1s + 4 * XW * C;                         // 2CW x 64
-  float* xs = reinterpret_cast<float*>(dys + 2 * CW * C);        // 6 x XS
-  float* w1s = xs + 6 * XS;
-  float* b1s = w1s + 9 * C;
-  float* red = b1s + C;                                          // 32 x 64
-
-  const int Fp = F / 2, Tp = T / 2;
-  const int chunks = (2 * Tp + CW - 1) / CW;
-  const long n = (long)B * Fp * chunks;
-  const int blk = blockIdx.x, df = blockIdx.y;
-  const long lo = n * blk / BWD_BLOCKS, hi = n * (blk + 1) / BWD_BLOCKS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  stage_w1b1(w1, b1, w1s, b1s, true, tid);
-
-  float acc[3][4][4];
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[s][nn][i] = 0.f;
-  float db2[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) db2[i] = 0.f;
-  const int tpl = tid >> 3, ch = tid & 7;  // dy fill: pooled column, chunk
-
-  for (long it = lo; it < hi; ++it) {
-    const Item w = item_of(it, Fp, chunks);
-    __syncthreads();  // previous item's tiles consumed
-    stage_x(x, F, T, w, xs, true, tid);
-    {  // this item's dy2: 2 rows x 64 columns
-      const int tp = w.c0 / 2 + tpl;
-      float gv[8], ov[8];
-      uint8_t iv[8];
-      load_pooled8(g, out, idx, (((size_t)w.b * Fp + w.r) * Tp + tp) * C +
-                                    ch * 8,
-                   tp < Tp, true, gv, ov, iv);
-#pragma unroll
-      for (int wp = 0; wp < 4; ++wp) {
-        float d[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] = (iv[i] == wp && ov[i] > 0.f)
-                                               ? gv[i] : 0.f;
-        const int pos = (wp >> 1) * CW + 2 * tpl + (wp & 1);
-        *reinterpret_cast<uint4*>(dys + swz(pos, ch)) =
-            make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]),
-                       pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
-      }
-      if (df == 0)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) db2[i] += ov[i] > 0.f ? gv[i] : 0.f;
-    }
-    __syncthreads();  // xs staged
-    // x1 at rows 2r-1 .. 2r+2, columns c0-1 .. c0+64, bf16 (the forward's)
-    {
-      const int cg = tid & 7;
-      for (int pos = tid >> 3; pos < 4 * XW; pos += BT >> 3) {
-        const int i = pos / XW, j = pos % XW;
-        const int gr = 2 * w.r - 1 + i, t = w.c0 - 1 + j;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (gr >= 0 && gr < F && t >= 0 && t < T) {
-          float o[8];
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            o[k] = x1_at(xs, w1s, b1s, i - 1, j - 1, cg * 8 + k, true);
-          v = make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]),
-                         pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
-        }
-        *reinterpret_cast<uint4*>(x1s + swz(pos, cg)) = v;
-      }
-    }
-    __syncthreads();
-    // dW2[df] += x1_shift^T . dy2 over the item's 128 positions
-#pragma unroll 1
-    for (int q = 0; q < 2; ++q)
-#pragma unroll 1
-      for (int kb = 0; kb < CW / 16; ++kb) {
-        uint32_t bf[2][2][4];
-#pragma unroll
-        for (int nh = 0; nh < 2; ++nh)
-#pragma unroll
-          for (int np = 0; np < 2; ++np)
-            ldsm_x4_t(dys + swz(q * CW + 16 * kb + (lane & 15),
-                                nh * 4 + 2 * np + (lane >> 4)),
-                      bf[nh][np][0], bf[nh][np][1], bf[nh][np][2],
-                      bf[nh][np][3]);
-#pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          const int u = warp * 3 + s, mt = u >> 1, nh = u & 1;
-          const int dt = mt >> 2, c16 = mt & 3;
-          const int pos = (q + df) * XW + 16 * kb + dt + (lane & 7) +
-                          ((lane >> 4) << 3);
-          uint32_t a[4];
-          ldsm_x4_t(x1s + swz(pos, 2 * c16 + ((lane >> 3) & 1)), a[0], a[1],
-                    a[2], a[3]);
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            mma_bf16(acc[s][2 * np], a, bf[nh][np][0], bf[nh][np][1]);
-            mma_bf16(acc[s][2 * np + 1], a, bf[nh][np][2], bf[nh][np][3]);
-          }
-        }
-      }
-  }
-
-  // partial dW2[df] -> part[blk]: layout (dt, ci, co) after 9C + C floats
-  float* pd = part + (size_t)blk * PART + 9 * C + C + df * 3 * C * C;
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const int u = warp * 3 + s, mt = u >> 1, nh = u & 1;
-    const int dt = mt >> 2, c16 = mt & 3;
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ci = c16 * 16 + (lane >> 2) + 8 * (i >> 1);
-        const int co = nh * 32 + nn * 8 + 2 * (lane & 3) + (i & 1);
-        pd[(dt * C + ci) * C + co] = acc[s][nn][i];
-      }
-  }
-  if (df == 0) {  // db2: 32 pooled columns x 8 chunks -> 64 channels
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[tpl * C + ch * 8 + i] = db2[i];
-    __syncthreads();
-    if (tid < C) {
-      float s = 0.f;
-      for (int k = 0; k < 32; ++k) s += red[k * C + tid];
-      part[(size_t)blk * PART + 9 * C + C + DW2_SIZE + tid] = s;
-    }
-  }
+                                           float* w1s, float* b1s, int tid) {
+  for (int e = tid; e < 9 * C; e += BT) w1s[e] = w1[e];
+  for (int e = tid; e < C; e += BT) b1s[e] = b1[e];
 }
 
 // dy2 at rows 2r-1 .. 2r+2 and columns c0-1 .. c0+64 of an item (the
 // positions whose dy2 reaches the item's x1 through conv2), one thread per
 // (position, 8 channels); `put` stores the 8 values of a position.
 template <typename Put>
-__device__ __forceinline__ void gather_dy(const void* g, const void* out,
+__device__ __forceinline__ void gather_dy(const float* g, const float* out,
                                           const uint8_t* idx, const Item& w,
-                                          int Fp, int Tp, bool bf16, int tid,
-                                          Put put) {
+                                          int Fp, int Tp, int tid, Put put) {
   for (int e = tid; e < 4 * XW * 8; e += BT) {
     const int pos = e >> 3, ch = e & 7;
     const int i = pos / XW, j = pos % XW;
@@ -714,7 +576,7 @@ __device__ __forceinline__ void gather_dy(const void* g, const void* out,
     load_pooled8(g, out, idx,
                  in ? (((size_t)w.b * Fp + R / 2) * Tp + Cc / 2) * C + ch * 8
                     : 0,
-                 in, bf16, gv, ov, iv);
+                 in, gv, ov, iv);
     const int wp = 2 * (R & 1) + (Cc & 1);
     float d[8];
 #pragma unroll
@@ -724,23 +586,18 @@ __device__ __forceinline__ void gather_dy(const void* g, const void* out,
   }
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // dW1 partial over an item: thread e (< 576 = 9 taps x 64) accumulates
 // sum_pos dx1[pos][ci] * x[pos + tap]; dxs is the masked dx1 (rounded to
 // cdt) at the item's 2 x 64 positions, [pos][64].
-template <typename Dx>
-__device__ __forceinline__ void accumulate_dw1(const Dx* dxs, const float* xs,
-                                               float* dw1, int tid) {
+__device__ __forceinline__ void accumulate_dw1(const float* dxs,
+                                               const float* xs, float* dw1,
+                                               int tid) {
   const int ci = tid & 63, t0 = tid >> 6;
 #pragma unroll 1
   for (int q = 0; q < 2; ++q)
 #pragma unroll 4
     for (int j = 0; j < CW; ++j) {
-      const float d = to_f(dxs[(q * CW + j) * C + ci]);
+      const float d = dxs[(q * CW + j) * C + ci];
 #pragma unroll
       for (int s = 0; s < 3; ++s) {
         const int tap = t0 + 4 * s;
@@ -759,129 +616,6 @@ __device__ __forceinline__ void store_dw1(float* part, int blk,
   for (int s = 0; s < 3; ++s) {
     const int e = tid + 256 * s;
     if (e < 9 * C) p[e] = dw1[s];
-  }
-}
-
-// ---- dx1 -> dW1, db1, bf16 ------------------------------------------------
-
-__global__ void __launch_bounds__(BT, 1)
-vgg_block1_dx_bf16_kernel(const float* __restrict__ x,
-                          const float* __restrict__ w1,
-                          const float* __restrict__ b1,
-                          const __nv_bfloat16* __restrict__ w2n,
-                          const __nv_bfloat16* __restrict__ g,
-                          const __nv_bfloat16* __restrict__ out,
-                          const uint8_t* __restrict__ idx,
-                          float* __restrict__ part, int B, int F, int T) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);  // 576 x 64
-  __nv_bfloat16* dys = w2s + 9 * C * C;                          // 4XW x 64
-  __nv_bfloat16* dxs = dys + 4 * XW * C;                         // 2CW x 64
-  float* xs = reinterpret_cast<float*>(dxs + 2 * CW * C);        // 6 x XS
-  float* w1s = xs + 6 * XS;
-  float* b1s = w1s + 9 * C;
-  float* red = b1s + C;                                          // 8 x 64
-
-  const int Fp = F / 2, Tp = T / 2;
-  const int rows = (F + 1) / 2, chunks = (T + CW - 1) / CW;
-  const long n = (long)B * rows * chunks;
-  const int blk = blockIdx.x;
-  const long lo = n * blk / BWD_BLOCKS, hi = n * (blk + 1) / BWD_BLOCKS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // conv2's weight in its natural layout: row = tap*64 + ci, 64 co
-  for (int e = tid; e < 9 * C * 8; e += BT)
-    *reinterpret_cast<uint4*>(w2s + swz(e >> 3, e & 7)) =
-        reinterpret_cast<const uint4*>(w2n)[e];
-  stage_w1b1(w1, b1, w1s, b1s, true, tid);
-
-  float dw1[3] = {0.f, 0.f, 0.f};
-  float db1[8][2];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) db1[k][0] = db1[k][1] = 0.f;
-  const int aq = (lane >> 3) & 1, ac = lane & 7, akc = lane >> 4;
-  const int bn = ((lane >> 4) << 3) + (lane & 7), bkc = (lane >> 3) & 1;
-  const int cq = lane >> 2;
-
-  for (long it = lo; it < hi; ++it) {
-    const Item w = item_of(it, rows, chunks);
-    __syncthreads();  // previous item's tiles consumed
-    stage_x(x, F, T, w, xs, true, tid);
-    gather_dy(g, out, idx, w, Fp, Tp, true, tid,
-              [&](int pos, int ch, const float* d) {
-                *reinterpret_cast<uint4*>(dys + swz(pos, ch)) = make_uint4(
-                    pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]),
-                    pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
-              });
-    __syncthreads();
-
-    // dx1 at rows 2r, 2r+1, columns warp*8 .. +7: M = 16, N = 64 ci,
-    // K = 9 taps x 64 co; A = dy2 shifted by the tap, B = W2[tap] (ci x co)
-    float acc[8][4];
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nn][i] = 0.f;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int df = tap / 3, dt = tap % 3;
-      const int apos = (aq + 2 - df) * XW + warp * 8 + ac + 2 - dt;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t a[4];
-        ldsm_x4(dys + swz(apos, 2 * kc + akc), a[0], a[1], a[2], a[3]);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t q0, q1, q2, q3;
-          ldsm_x4(w2s + swz(tap * C + np * 16 + bn, 2 * kc + bkc), q0, q1,
-                  q2, q3);
-          mma_bf16(acc[2 * np], a, q0, q1);
-          mma_bf16(acc[2 * np + 1], a, q2, q3);
-        }
-      }
-    }
-
-    // relu mask with x1 recomputed; db1 from dx1, dxs = cdt(dx1)
-    const int j = warp * 8 + cq;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = i >> 1, ci = 8 * nn + 2 * (lane & 3) + (i & 1);
-        const bool in = 2 * w.r + q < F && w.c0 + j < T;
-        float d = 0.f;
-        if (in && x1_at(xs, w1s, b1s, q, j, ci, true) > 0.f) d = acc[nn][i];
-        db1[nn][i & 1] += d;
-        dxs[(q * CW + j) * C + ci] = __float2bfloat16(d);
-      }
-    __syncthreads();
-    accumulate_dw1(dxs, xs, dw1, tid);
-  }
-
-  store_dw1(part, blk, dw1, tid);
-  // db1: lanes sharing lane & 3 hold the same channels
-#pragma unroll
-  for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      float v = db1[nn][k];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      db1[nn][k] = v;
-    }
-  __syncthreads();
-  if (lane < 4)
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int k = 0; k < 2; ++k) red[warp * C + 8 * nn + 2 * lane + k] =
-          db1[nn][k];
-  __syncthreads();
-  if (tid < C) {
-    float s = 0.f;
-    for (int k = 0; k < BT / 32; ++k) s += red[k * C + tid];
-    part[(size_t)blk * PART + 9 * C + tid] = s;
   }
 }
 
@@ -909,7 +643,7 @@ vgg_block1_dw2_f32_kernel(const float* __restrict__ x,
   const int blk = blockIdx.x, df = blockIdx.y;
   const long lo = n * blk / BWD_BLOCKS, hi = n * (blk + 1) / BWD_BLOCKS;
   const int tid = threadIdx.x;
-  stage_w1b1(w1, b1, w1s, b1s, false, tid);
+  stage_w1b1(w1, b1, w1s, b1s, tid);
 
   const int cg = tid >> 4, og = tid & 15;  // ci 4cg.., co 4og..
   float acc[3][4][4];
@@ -927,14 +661,14 @@ vgg_block1_dw2_f32_kernel(const float* __restrict__ x,
   for (long it = lo; it < hi; ++it) {
     const Item w = item_of(it, Fp, chunks);
     __syncthreads();
-    stage_x(x, F, T, w, xs, false, tid);
+    stage_x(x, F, T, w, xs, tid);
     {
       const int tp = w.c0 / 2 + tpl;
       float gv[8], ov[8];
       uint8_t iv[8];
       load_pooled8(g, out, idx, (((size_t)w.b * Fp + w.r) * Tp + tp) * C +
                                     ch * 8,
-                   tp < Tp, false, gv, ov, iv);
+                   tp < Tp, gv, ov, iv);
 #pragma unroll
       for (int wp = 0; wp < 4; ++wp) {
         const int pos = (wp >> 1) * CW + 2 * tpl + (wp & 1);
@@ -953,7 +687,7 @@ vgg_block1_dw2_f32_kernel(const float* __restrict__ x,
       const int i = pos / XW, j = pos % XW;
       const int gr = 2 * w.r - 1 + i, t = w.c0 - 1 + j;
       x1s[e] = (gr >= 0 && gr < F && t >= 0 && t < T)
-                   ? x1_at(xs, w1s, b1s, i - 1, j - 1, ci, false) : 0.f;
+                   ? x1_at(xs, w1s, b1s, i - 1, j - 1, ci) : 0.f;
     }
     __syncthreads();
 #pragma unroll 1
@@ -1026,7 +760,7 @@ vgg_block1_dx_f32_kernel(const float* __restrict__ x,
   const int blk = blockIdx.x;
   const long lo = n * blk / BWD_BLOCKS, hi = n * (blk + 1) / BWD_BLOCKS;
   const int tid = threadIdx.x;
-  stage_w1b1(w1, b1, w1s, b1s, false, tid);
+  stage_w1b1(w1, b1, w1s, b1s, tid);
 
   const int cgi = tid & 15, colg = tid >> 4;  // ci 4cgi.., cols 4colg..
   float dw1[3] = {0.f, 0.f, 0.f};
@@ -1035,8 +769,8 @@ vgg_block1_dx_f32_kernel(const float* __restrict__ x,
   for (long it = lo; it < hi; ++it) {
     const Item w = item_of(it, rows, chunks);
     __syncthreads();
-    stage_x(x, F, T, w, xs, false, tid);
-    gather_dy(g, out, idx, w, Fp, Tp, false, tid,
+    stage_x(x, F, T, w, xs, tid);
+    gather_dy(g, out, idx, w, Fp, Tp, tid,
               [&](int pos, int ch, const float* d) {
                 const int i = pos / XW, j = pos % XW;
 #pragma unroll
@@ -1092,7 +826,7 @@ vgg_block1_dx_f32_kernel(const float* __restrict__ x,
           const int j = 4 * colg + jj, ci = 4 * cgi + cc;
           const bool in = 2 * w.r + q < F && w.c0 + j < T;
           float d = 0.f;
-          if (in && x1_at(xs, w1s, b1s, q, j, ci, false) > 0.f)
+          if (in && x1_at(xs, w1s, b1s, q, j, ci) > 0.f)
             d = acc[q][jj][cc];
           db1[cc] += d;
           dxs[(q * CW + j) * C + ci] = d;
@@ -1114,34 +848,534 @@ vgg_block1_dx_f32_kernel(const float* __restrict__ x,
   }
 }
 
-// grads[e] = sum over blocks, in block order, of part[blk][e]
+// ---- the fused pass, bf16 --------------------------------------------------
+
+constexpr int FT = 384;                 // threads: 12 warps, 3 warpgroups
+constexpr int PCOLS = CW / 2 + 2;       // pooled columns staged per item
+constexpr int PPOS = 3 * PCOLS;         // pooled positions staged (3 rows)
+constexpr int RAW = PPOS * C * 5;       // bytes: g, out (bf16), idx (u8)
+constexpr int CP = 2 * CW + 8;          // row pitch of the im2col tile
+constexpr int X1_TASKS = 4 * (XW / 2) * 8;  // column pairs x channel groups
+constexpr int DX_WARPS = 8;                 // warps of dx1 and dW1
+constexpr size_t FUSED_SMEM =
+    2 * (size_t)(9 * C * C + 2 * 4 * XW * C + 2 * CW * C + 2 * 16 * CP) +
+    2 * (size_t)(2 * CW * 8) + (size_t)RAW +
+    4 * (size_t)(6 * XS + 9 * C + C + FT * 8 + FT * 8);
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t& r0,
+                                        uint32_t& r1) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+
+// cp.async of an item's inputs: x at rows 2r-2 .. 2r+3, columns c0-2 ..
+// c0+65 (f32, zero outside the image) into xs; the pooled rows r-1 .. r+1,
+// columns c0/2-1 .. c0/2+32 of g, out (16-byte chunks of 8 channels) and
+// idx (16 channels) into raw, zero outside the pool
+__device__ __forceinline__ void issue_item(
+    const float* x, const __nv_bfloat16* g, const __nv_bfloat16* out,
+    const uint8_t* idx, const Item& w, int F, int T, char* raw, float* xs,
+    int tid) {
+  const int Fp = F / 2, Tp = T / 2;
+  const float* xb = x + (size_t)w.b * F * T;
+  for (int e = tid; e < 6 * XS; e += FT) {
+    const int i = e / XS, j = e % XS;
+    const int gr = 2 * w.r - 2 + i, t = w.c0 - 2 + j;
+    const bool ok = gr >= 0 && gr < F && t >= 0 && t < T;
+    cp_async4(xs + e, ok ? xb + (size_t)gr * T + t : x, ok);
+  }
+  for (int e = tid; e < PPOS * 20; e += FT) {
+    const int p = e / 20, k = e % 20;
+    const int R = w.r - 1 + p / PCOLS, P = w.c0 / 2 - 1 + p % PCOLS;
+    const bool ok = R >= 0 && R < Fp && P >= 0 && P < Tp;
+    const size_t off =
+        (((size_t)w.b * Fp + (ok ? R : 0)) * Tp + (ok ? P : 0)) * C;
+    if (k < 8)
+      cp_async16(raw + p * 128 + 16 * k,
+                 reinterpret_cast<const char*>(g + off) + 16 * k, ok);
+    else if (k < 16)
+      cp_async16(raw + (PPOS + p) * 128 + 16 * (k - 8),
+                 reinterpret_cast<const char*>(out + off) + 16 * (k - 8), ok);
+    else
+      cp_async16(raw + 2 * PPOS * 128 + p * 64 + 16 * (k - 16),
+                 idx + off + 16 * (k - 16), ok);
+  }
+}
+
+// dy2 at tile position (i, j) = conv (2r-1+i, c0-1+j), 8 channels a
+// thread; db2 of the item's own pooled positions (tile rows 1-2, columns
+// 1-64) into the thread's own 8 slots of db2s ([8][FT])
+__device__ __forceinline__ void build_dy2(const char* raw,
+                                          __nv_bfloat16* dys, float* db2s,
+                                          int tid) {
+  const int ch = tid & 7;  // fixed: FT % 8 == 0
+  for (int e = tid; e < 4 * XW * 8; e += FT) {
+    const int pos = e >> 3, i = pos / XW, j = pos % XW;
+    const int p = ((i + 1) >> 1) * PCOLS + ((j + 1) >> 1);
+    const int wp = 2 * ((i + 1) & 1) + ((j + 1) & 1);
+    const uint4 gv = *reinterpret_cast<const uint4*>(raw + p * 128 + ch * 16);
+    const uint4 ov =
+        *reinterpret_cast<const uint4*>(raw + (PPOS + p) * 128 + ch * 16);
+    const uint2 iv = *reinterpret_cast<const uint2*>(
+        raw + 2 * PPOS * 128 + p * 64 + ch * 8);
+    const __nv_bfloat16* ga = reinterpret_cast<const __nv_bfloat16*>(&gv);
+    const __nv_bfloat16* oa = reinterpret_cast<const __nv_bfloat16*>(&ov);
+    const uint8_t* ia = reinterpret_cast<const uint8_t*>(&iv);
+    float d[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      d[k] = (ia[k] == wp && __bfloat162float(oa[k]) > 0.f)
+                 ? __bfloat162float(ga[k]) : 0.f;
+    *reinterpret_cast<uint4*>(dys + swz(pos, ch)) =
+        make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]),
+                   pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
+    if (i >= 1 && i <= 2 && j >= 1 && j <= CW)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) db2s[k * FT + tid] += d[k];
+  }
+}
+
+// x1 at tile positions (i, j) and (i, j+1) = conv (2r-1+i, c0-1+j ..) for
+// channel group cg (task e: 8 channels of a column pair), as
+// vgg_block1_fwd_bf16_kernel computes it (the same FMA order and
+// roundings), zero outside the image; and the relu mask of the item's own
+// positions as bits, mask[p][cg] (own position p = (i-1) * CW + j-1). Two
+// columns a task share six of their nine inputs and give the FMA chains
+// twice the independent work
+__device__ __forceinline__ void build_x1_task(const float* xs,
+                                              const float* w1s,
+                                              const float* b1s,
+                                              __nv_bfloat16* x1s,
+                                              uint8_t* mask, const Item& w,
+                                              int F, int T, int e) {
+  const int cg = e & 7, pp = e >> 3;
+  const int i = pp / (XW / 2), j = 2 * (pp % (XW / 2));
+  const float4* w4 = reinterpret_cast<const float4*>(w1s);
+  float xv[3][4];
+#pragma unroll
+  for (int df = 0; df < 3; ++df)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) xv[df][c] = bf16r(xs[(i + df) * XS + j + c]);
+  float o[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[h][k] = 0.f;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const float4 a = w4[tap * 16 + 2 * cg], b = w4[tap * 16 + 2 * cg + 1];
+    const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float xt = xv[tap / 3][tap % 3 + h];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[h][k] = fmaf(xt, wv[k], o[h][k]);
+    }
+  }
+  const int gr = 2 * w.r - 1 + i;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = w.c0 - 1 + j + h;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    uint32_t bits = 0;
+    if (gr >= 0 && gr < F && t >= 0 && t < T) {
+      float r[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        r[k] = fmaxf(bf16r(bf16r(o[h][k]) + b1s[cg * 8 + k]), 0.f);
+        bits |= (r[k] > 0.f ? 1u : 0u) << k;
+      }
+      v = make_uint4(pack_bf16(r[0], r[1]), pack_bf16(r[2], r[3]),
+                     pack_bf16(r[4], r[5]), pack_bf16(r[6], r[7]));
+    }
+    *reinterpret_cast<uint4*>(x1s + swz(i * XW + j + h, cg)) = v;
+    const int jj = j + h - 1;
+    if (i >= 1 && i <= 2 && jj >= 0 && jj < CW)
+      mask[((i - 1) * CW + jj) * 8 + cg] = (uint8_t)bits;
+  }
+}
+
+// im2col of cdt(x) at the item's own positions for dW1: cols[tap][p], p =
+// q * CW + j (rows 9-15 stay zero)
+__device__ __forceinline__ void build_cols(const float* xs,
+                                           __nv_bfloat16* cols, int tid) {
+  for (int e = tid; e < 9 * 2 * CW; e += FT) {
+    const int tap = e / (2 * CW), p = e % (2 * CW);
+    const int q = p / CW, j = p % CW;
+    cols[tap * CP + p] =
+        __float2bfloat16(xs[(q + tap / 3 + 1) * XS + j + tap % 3 + 1]);
+  }
+}
+
+// dW2[df] += x1_shift^T . dy2 over the item's 128 positions: warpgroup df,
+// warp c16 owns ci 16 c16 .. +15 of its three taps
+__device__ __forceinline__ void dw2_products(const __nv_bfloat16* x1s,
+                                             const __nv_bfloat16* dys,
+                                             float (&acc)[3][8][4], int warp,
+                                             int lane) {
+  const int df = warp >> 2, c16 = warp & 3;
+#pragma unroll 1
+  for (int q = 0; q < 2; ++q)
+#pragma unroll 1
+    for (int kb = 0; kb < CW / 16; ++kb) {
+      uint32_t a[3][4];
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) {
+        const int pos = (q + df) * XW + 16 * kb + dt + (lane & 7) +
+                        ((lane >> 4) << 3);
+        ldsm_x4_t(x1s + swz(pos, 2 * c16 + ((lane >> 3) & 1)), a[dt][0],
+                  a[dt][1], a[dt][2], a[dt][3]);
+      }
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {  // co 32 nh .. +31: 8 registers
+        uint32_t b[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldsm_x4_t(dys + swz((q + 1) * XW + 1 + 16 * kb + (lane & 15),
+                              4 * nh + 2 * np + (lane >> 4)),
+                    b[np][0], b[np][1], b[np][2], b[np][3]);
+#pragma unroll
+        for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const int nt = 4 * nh + 2 * np;
+            mma_bf16(acc[dt][nt], a[dt], b[np][0], b[np][1]);
+            mma_bf16(acc[dt][nt + 1], a[dt], b[np][2], b[np][3]);
+          }
+      }
+    }
+}
+
+// the share of dx1 of warp w < DX_WARPS: sub-partition s = w % 4 owns the
+// own positions 32 s .. 32 s + 31 (two m16 tiles of 16 columns of row
+// s / 2), k = w / 4 the ci tiles 4 k .. 4 k + 3
+__device__ __forceinline__ void dx1_products(const __nv_bfloat16* dys,
+                                             const __nv_bfloat16* w2s,
+                                             float (&acc)[2][4][4], int warp,
+                                             int lane) {
+  const int s = warp & 3, k = warp >> 2;
+  const int bn = ((lane >> 4) << 3) + (lane & 7), bkc = (lane >> 3) & 1;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int df = tap / 3, dt = tap % 3;
+    int arow[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int mt = 2 * s + mi;
+      arow[mi] = ((mt >> 2) + 2 - df) * XW + 16 * (mt & 3) + (lane & 15) +
+                 2 - dt;
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(dys + swz(arow[mi], 2 * kc + (lane >> 4)), a[mi][0],
+                a[mi][1], a[mi][2], a[mi][3]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {  // ci tiles 4k + 2np, 4k + 2np + 1
+        uint32_t b[4];
+        ldsm_x4(w2s + swz(tap * C + 32 * k + 16 * np + bn, 2 * kc + bkc),
+                b[0], b[1], b[2], b[3]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// the relu mask from its bits (build_x1_task), and db1 from the masked
+// dx1 into the thread's own 8 slots of db1s ([8][FT]: ci tile ni of the
+// warp's four, channel parity)
+__device__ __forceinline__ void relu_mask(const uint8_t* mask,
+                                          float (&acc)[2][4][4], float* db1s,
+                                          int warp, int lane, int tid) {
+  const int s = warp & 3, k = warp >> 2;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int nt = 4 * k + ni;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int mt = 2 * s + mi, q = mt >> 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 16 * (mt & 3) + (lane >> 2) + 8 * (i >> 1);
+        const int c = 2 * (lane & 3) + (i & 1);
+        const bool on = (mask[(q * CW + j) * 8 + nt] >> c) & 1;
+        const float d = on ? acc[mi][ni][i] : 0.f;
+        acc[mi][ni][i] = d;
+        if (i & 1) s1 += d; else s0 += d;
+      }
+    }
+    db1s[(2 * ni) * FT + tid] += s0;
+    db1s[(2 * ni + 1) * FT + tid] += s1;
+  }
+}
+
+// cdt(dx1) at the own positions, [p][64 ci] swizzled
+__device__ __forceinline__ void store_dx1(__nv_bfloat16* dxs,
+                                          const float (&acc)[2][4][4],
+                                          int warp, int lane) {
+  const int s = warp & 3, k = warp >> 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int mt = 2 * s + mi;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (mt >> 2) * CW + 16 * (mt & 3) + (lane >> 2) + 8 * h;
+        *reinterpret_cast<uint32_t*>(dxs + swz(p, 4 * k + ni) +
+                                     2 * (lane & 3)) =
+            pack_bf16(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+  }
+}
+
+// dW1 (ci x tap) += cdt(dx1)^T . cols^T: warps 0-7, one m16n8 tile each;
+// the item's sum in two chains (even and odd k blocks), then added
+__device__ __forceinline__ void dw1_products(const __nv_bfloat16* dxs,
+                                             const __nv_bfloat16* cols,
+                                             float (&acc)[4], int warp,
+                                             int lane) {
+  const int mt = warp & 3, nt = warp >> 2;
+  float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int kb = 0; kb < 2 * CW / 16; ++kb) {
+    uint32_t a[4], b0, b1;
+    ldsm_x4_t(dxs + swz(16 * kb + (lane & 7) + ((lane >> 4) << 3),
+                        2 * mt + ((lane >> 3) & 1)),
+              a[0], a[1], a[2], a[3]);
+    ldsm_x2(cols + (nt * 8 + (lane & 7)) * CP + 16 * kb +
+                8 * ((lane >> 3) & 1),
+            b0, b1);
+    mma_bf16(part[kb & 1], a, b0, b1);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += part[0][i] + part[1][i];
+}
+
+__global__ void __launch_bounds__(FT, 1)
+vgg_block1_bwd_fused_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w1,
+                            const float* __restrict__ b1,
+                            const __nv_bfloat16* __restrict__ w2n,
+                            const __nv_bfloat16* __restrict__ g,
+                            const __nv_bfloat16* __restrict__ out,
+                            const uint8_t* __restrict__ idx,
+                            float* __restrict__ part, int B, int F, int T) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);  // 576 x 64
+  __nv_bfloat16* x1s = w2s + 9 * C * C;                          // 4XW x 64
+  __nv_bfloat16* dys = x1s + 4 * XW * C;                         // 4XW x 64
+  __nv_bfloat16* dxs = dys + 4 * XW * C;                         // 2CW x 64
+  __nv_bfloat16* cols0 = dxs + 2 * CW * C;                       // 2 x 16CP
+  uint8_t* mask0 = reinterpret_cast<uint8_t*>(cols0 + 2 * 16 * CP);
+  char* raw = reinterpret_cast<char*>(mask0 + 2 * 2 * CW * 8);   // RAW
+  float* xs = reinterpret_cast<float*>(raw + RAW);               // 6 x XS
+  float* w1s = xs + 6 * XS;                                      // 9 x C
+  float* b1s = w1s + 9 * C;                                      // C
+  float* db2s = b1s + C;                                         // 8 x FT
+  float* db1s = db2s + 8 * FT;                                   // 8 x FT
+
+  const int rows = (F + 1) / 2, chunks = (T + CW - 1) / CW;
+  const long n = (long)B * rows * chunks;
+  const int blk = blockIdx.x;
+  const long lo = n * blk / FUSED_BLOCKS, hi = n * (blk + 1) / FUSED_BLOCKS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // W2 with the first item's inputs in the first copy group
+  for (int e = tid; e < 9 * C * 8; e += FT)
+    cp_async16(w2s + swz(e >> 3, e & 7), w2n + 8 * e, true);
+  if (lo < hi)
+    issue_item(x, g, out, idx, item_of(lo, rows, chunks), F, T, raw, xs,
+               tid);
+  cp_async_commit();
+  for (int e = tid; e < 9 * C; e += FT) w1s[e] = bf16r(w1[e]);
+  for (int e = tid; e < C; e += FT) b1s[e] = bf16r(b1[e]);
+  for (int e = tid; e < 7 * CP; e += FT)
+    cols0[9 * CP + e] = cols0[(16 + 9) * CP + e] = __float2bfloat16(0.f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) db2s[k * FT + tid] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) db1s[k * FT + tid] = 0.f;
+
+  float acc2[3][8][4], acc1[4];
+#pragma unroll
+  for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc2[dt][nt][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc1[i] = 0.f;
+
+  // x1 of the first item here; each later item's x1 is built by warps
+  // DX_WARPS.. while warps 0..DX_WARPS-1 run the previous item's dx1
+  // products (the x1 tile is free once dW2 has read it)
+  cp_async_wait_all();
+  __syncthreads();
+  if (lo < hi)
+    for (int e = tid; e < X1_TASKS; e += FT)
+      build_x1_task(xs, w1s, b1s, x1s, mask0, item_of(lo, rows, chunks), F,
+                    T, e);
+
+  for (long it = lo; it < hi; ++it) {
+    const int buf = (int)((it - lo) & 1);
+    __nv_bfloat16* cols = cols0 + buf * 16 * CP;
+    build_dy2(raw, dys, db2s, tid);
+    build_cols(xs, cols, tid);
+    __syncthreads();  // dy2, x1, its mask and cols built; inputs consumed
+    const bool next = it + 1 < hi;
+    const Item wn = item_of(next ? it + 1 : it, rows, chunks);
+    if (next)  // the next item's copies run while this item's products do
+      issue_item(x, g, out, idx, wn, F, T, raw, xs, tid);
+    cp_async_commit();
+    dw2_products(x1s, dys, acc2, warp, lane);
+    cp_async_wait_all();
+    __syncthreads();  // x1 read by every warp; the next item's inputs landed
+    if (warp < DX_WARPS) {
+      float accx[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) accx[mi][ni][i] = 0.f;
+      dx1_products(dys, w2s, accx, warp, lane);
+      relu_mask(mask0 + buf * 2 * CW * 8, accx, db1s, warp, lane, tid);
+      store_dx1(dxs, accx, warp, lane);
+    } else if (next) {
+      for (int e = tid - 32 * DX_WARPS; e < X1_TASKS; e += FT - 32 * DX_WARPS)
+        build_x1_task(xs, w1s, b1s, x1s, mask0 + (buf ^ 1) * 2 * CW * 8, wn,
+                      F, T, e);
+    }
+    __syncthreads();  // cdt(dx1) stored; dy2 and the next x1 done
+    if (warp < DX_WARPS) dw1_products(dxs, cols, acc1, warp, lane);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  float* p = part + (size_t)blk * PART;
+  {  // dW2: warpgroup df, warp c16; layout (df, dt, ci, co) after 9C + C
+    const int df = warp >> 2, c16 = warp & 3;
+    float* pd = p + 9 * C + C + df * 3 * C * C;
+#pragma unroll
+    for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ci = 16 * c16 + (lane >> 2) + 8 * h;
+          const int co = 8 * nt + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(pd + (dt * C + ci) * C + co) =
+              make_float2(acc2[dt][nt][2 * h], acc2[dt][nt][2 * h + 1]);
+        }
+  }
+  if (warp < 8) {  // dW1 (3,3,1,64): tap * 64 + ci
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int tap = 8 * (warp >> 2) + 2 * (lane & 3) + (i & 1);
+      const int ci = 16 * (warp & 3) + (lane >> 2) + 8 * (i >> 1);
+      if (tap < 9) p[tap * C + ci] = acc1[i];
+    }
+  }
+  // db1: lanes that share lane & 3 hold the same channels; then the 12
+  // warps in order. db2: the threads of a channel chunk in order
+  float* red = reinterpret_cast<float*>(raw);  // 12 x 64
+  for (int e = tid; e < 12 * C; e += FT) red[e] = 0.f;
+  float db1[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float v = db1s[(2 * ni + k) * FT + tid];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      db1[ni][k] = v;
+    }
+  __syncthreads();
+  if (lane < 4 && warp < DX_WARPS)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        red[warp * C + 8 * (4 * (warp >> 2) + ni) + 2 * lane + k] =
+            db1[ni][k];
+  __syncthreads();
+  if (tid < C) {
+    float s = 0.f;
+    for (int k = 0; k < FT / 32; ++k) s += red[k * C + tid];
+    p[9 * C + tid] = s;
+  } else if (tid < 2 * C) {
+    const int c = tid - C;
+    float s = 0.f;
+    for (int t = 0; t < FT / 8; ++t) s += db2s[(c % 8) * FT + 8 * t + c / 8];
+    p[9 * C + C + DW2_SIZE + c] = s;
+  }
+}
+
+// grads[e] = sum over the nblocks blocks, in block order, of part[blk][e]
 __global__ void vgg_block1_bwd_reduce_kernel(const float* __restrict__ part,
-                                             float* __restrict__ grads) {
+                                             float* __restrict__ grads,
+                                             int nblocks) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= PART) return;
   float s = 0.f;
-  for (int k = 0; k < BWD_BLOCKS; ++k) s += part[(size_t)k * PART + e];
+  for (int k = 0; k < nblocks; ++k) s += part[(size_t)k * PART + e];
   grads[e] = s;
 }
 
-template <typename Dw2, typename Dx, typename W2, typename G>
-int launch_bwd(Dw2 dw2_kernel, Dx dx_kernel, size_t smem_dw2, size_t smem_dx,
-               const float* x, const float* w1, const float* b1, const W2* w2,
-               const G* g, const G* out, const uint8_t* idx, float* part,
-               float* grads, int B, int F, int T, cudaStream_t s) {
+int launch_bwd_f32(const float* x, const float* w1, const float* b1,
+                   const float* w2, const float* g, const float* out,
+                   const uint8_t* idx, float* part, float* grads, int B,
+                   int F, int T, cudaStream_t s) {
+  const size_t smem_dw2 =
+      sizeof(float) * (size_t)(4 * XW * C + 2 * CW * C + 6 * XS + 9 * C + C +
+                               32 * C);
+  const size_t smem_dx =
+      sizeof(float) * (size_t)(3 * C * C + 4 * C * XP + 2 * CW * C + 6 * XS +
+                               9 * C + C + BT * 4);
   cudaError_t e = cudaFuncSetAttribute(
-      dw2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dw2);
+      vgg_block1_dw2_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_dw2);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(dx_kernel,
+  e = cudaFuncSetAttribute(vgg_block1_dx_f32_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_dx);
   if (e != cudaSuccess) return e;
-  dw2_kernel<<<dim3(BWD_BLOCKS, 3), BT, smem_dw2, s>>>(x, w1, b1, g, out, idx,
-                                                       part, B, F, T);
-  dx_kernel<<<BWD_BLOCKS, BT, smem_dx, s>>>(x, w1, b1, w2, g, out, idx, part,
-                                            B, F, T);
-  vgg_block1_bwd_reduce_kernel<<<(PART + 255) / 256, 256, 0, s>>>(part,
-                                                                  grads);
+  vgg_block1_dw2_f32_kernel<<<dim3(BWD_BLOCKS, 3), BT, smem_dw2, s>>>(
+      x, w1, b1, g, out, idx, part, B, F, T);
+  vgg_block1_dx_f32_kernel<<<BWD_BLOCKS, BT, smem_dx, s>>>(
+      x, w1, b1, w2, g, out, idx, part, B, F, T);
+  vgg_block1_bwd_reduce_kernel<<<(PART + 255) / 256, 256, 0, s>>>(
+      part, grads, BWD_BLOCKS);
   return cudaGetLastError();
 }
 
@@ -1200,9 +1434,10 @@ extern "C" int vgg_block1_fwd_bf16(const void* x, const void* w1,
 
 // Backward. x (B, F, T) f32; w1 (3,3,1,64), b1 (64) f32; w2: bf16 HWIO
 // (3,3,64 ci,64 co) for the bf16 entry, f32 HWIO for the f32 entry; g and
-// out (B, F/2, T/2, 64) NHWC in cdt; idx uint8 of the same shape; part:
-// BWD_BLOCKS x PART f32 scratch; grads: PART f32 = dW1 (3,3,1,64) | db1
-// (64) | dW2 (3,3,64,64) | db2 (64).
+// out (B, F/2, T/2, 64) NHWC in cdt; idx uint8 of the same shape (the bf16
+// entry copies g, out and idx in 16-byte chunks: 16-byte aligned); part:
+// FUSED_BLOCKS (bf16) or BWD_BLOCKS (f32) x PART f32 scratch; grads: PART
+// f32 = dW1 (3,3,1,64) | db1 (64) | dW2 (3,3,64,64) | db2 (64).
 extern "C" int vgg_block1_bwd_bf16(const void* x, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* g, const void* out,
@@ -1212,18 +1447,17 @@ extern "C" int vgg_block1_bwd_bf16(const void* x, const void* w1,
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || F / 2 == 0 || T / 2 == 0)
     return cudaMemsetAsync(grads, 0, sizeof(float) * PART, s);
-  const size_t smem_dw2 =
-      sizeof(__nv_bfloat16) * (size_t)(4 * XW * C + 2 * CW * C) +
-      sizeof(float) * (size_t)(6 * XS + 9 * C + C + 32 * C);
-  const size_t smem_dx =
-      sizeof(__nv_bfloat16) * (size_t)(9 * C * C + 4 * XW * C + 2 * CW * C) +
-      sizeof(float) * (size_t)(6 * XS + 9 * C + C + 8 * C);
-  return launch_bwd(vgg_block1_dw2_bf16_kernel, vgg_block1_dx_bf16_kernel,
-                    smem_dw2, smem_dx, (const float*)x, (const float*)w1,
-                    (const float*)b1, (const __nv_bfloat16*)w2,
-                    (const __nv_bfloat16*)g, (const __nv_bfloat16*)out,
-                    (const uint8_t*)idx, (float*)part, (float*)grads, B, F, T,
-                    s);
+  cudaError_t e = cudaFuncSetAttribute(
+      vgg_block1_bwd_fused_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FUSED_SMEM);
+  if (e != cudaSuccess) return e;
+  vgg_block1_bwd_fused_kernel<<<FUSED_BLOCKS, FT, FUSED_SMEM, s>>>(
+      (const float*)x, (const float*)w1, (const float*)b1,
+      (const __nv_bfloat16*)w2, (const __nv_bfloat16*)g,
+      (const __nv_bfloat16*)out, (const uint8_t*)idx, (float*)part, B, F, T);
+  vgg_block1_bwd_reduce_kernel<<<(PART + 255) / 256, 256, 0, s>>>(
+      (const float*)part, (float*)grads, FUSED_BLOCKS);
+  return cudaGetLastError();
 }
 
 extern "C" int vgg_block1_bwd_f32(const void* x, const void* w1,
@@ -1235,16 +1469,8 @@ extern "C" int vgg_block1_bwd_f32(const void* x, const void* w1,
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || F / 2 == 0 || T / 2 == 0)
     return cudaMemsetAsync(grads, 0, sizeof(float) * PART, s);
-  const size_t smem_dw2 =
-      sizeof(float) * (size_t)(4 * XW * C + 2 * CW * C + 6 * XS + 9 * C + C +
-                               32 * C);
-  const size_t smem_dx =
-      sizeof(float) * (size_t)(3 * C * C + 4 * C * XP + 2 * CW * C + 6 * XS +
-                               9 * C + C + BT * 4);
-  return launch_bwd(vgg_block1_dw2_f32_kernel, vgg_block1_dx_f32_kernel,
-                    smem_dw2, smem_dx, (const float*)x, (const float*)w1,
-                    (const float*)b1, (const float*)w2, (const float*)g,
-                    (const float*)out, (const uint8_t*)idx, (float*)part,
-                    (float*)grads, B, F, T, s);
+  return launch_bwd_f32((const float*)x, (const float*)w1, (const float*)b1,
+                        (const float*)w2, (const float*)g, (const float*)out,
+                        (const uint8_t*)idx, (float*)part, (float*)grads, B,
+                        F, T, s);
 }
-

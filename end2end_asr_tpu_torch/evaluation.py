@@ -48,15 +48,25 @@ def ids_to_string_until_pad(ids, id2label: Dict[int, str]) -> str:
     return s
 
 
+def no_tf32() -> None:
+    """Full f32 on the card: PyTorch lets cuDNN's convolutions run in TF32
+    (about three decimal digits) unless told otherwise, which puts an f32
+    model ~3e-3 off the CPU and the JAX package; both flags go off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def resolve_device(name: str) -> torch.device:
     """The torch device for --device; a CUDA device without a usable
-    GPU is an error, never a silent fall back to the CPU."""
+    GPU is an error, never a silent fall back to the CPU. Every entry
+    point (train, test, transcribe) starts here, so TF32 goes off here."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {name}: no CUDA device is available "
             "(torch.cuda.is_available() is False); pass --device cpu to "
             "run on the CPU")
+    no_tf32()
     return dev
 
 
@@ -72,9 +82,11 @@ def prepare_params(params, dims: ModelDims, device: torch.device,
 def encode_pcm(params, cfg: Config, dims: ModelDims, pcm: torch.Tensor,
                n_frames: torch.Tensor, spect_T: int):
     """(B, N) reflect-padded PCM (int16 wire or f32) on the device →
-    (enc_out (B, T', H), enc_lengths)."""
+    (enc_out (B, T', H), enc_lengths). ``--no-pallas-features`` takes the
+    plain STFT in place of the kernel."""
     spect = batched_features(pcm, n_frames, cfg.n_fft, cfg.hop_length,
-                             cfg.window, T_out=spect_T, normalize=True)
+                             cfg.window, T_out=spect_T, normalize=True,
+                             use_kernel=cfg.use_pallas_features)
     return encode(params, spect, n_frames, dims)
 
 

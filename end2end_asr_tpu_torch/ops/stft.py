@@ -197,11 +197,17 @@ def stft_logmag(pcm: torch.Tensor, n_fft: int, hop: int, T_out: int,
 
 def batched_features(pcm_padded: torch.Tensor, n_valid_frames: torch.Tensor,
                      n_fft: int, hop: int, window: str, T_out: int,
-                     normalize: bool = True) -> torch.Tensor:
+                     normalize: bool = True,
+                     use_kernel: bool = True) -> torch.Tensor:
     """Same contract as ops.features.batched_features, through the
     kernels: (B, N + 2·(n_fft//2)) reflect-padded PCM (int16 wire or f32)
-    → (B, F, T_out) normalized log-spectrograms."""
+    → (B, F, T_out) normalized log-spectrograms. use_kernel=False
+    (``--no-pallas-features``) takes the plain STFT on any device."""
     pcm = pcm_to_f32(pcm_padded).contiguous()
-    spect = stft_logmag(pcm, n_fft, hop, T_out, window)
+    if use_kernel:
+        spect = stft_logmag(pcm, n_fft, hop, T_out, window)
+    else:
+        spect = stft_logmag_plain(pcm, *_bases(n_fft, window,
+                                               str(pcm.device)), hop, T_out)
     return mask_normalize(spect, n_valid_frames, n_fft // 2 + 1, T_out,
                           normalize)

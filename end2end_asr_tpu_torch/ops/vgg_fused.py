@@ -31,7 +31,11 @@ vgg_fused.py:455-468: the featurizer upstream has no parameters; the
 front end detaches the spectrogram). Numerics of vgg_fused.py:238-285:
 dy2 is rounded to cdt, products of cdt values sum in f32, dW1 takes dx1
 rounded to cdt. Bound (B=12, F=161, T=800): 231.5 GFLOP, 0.234 ms on the
-bf16 tensor cores; the f32 variant runs on f32 FMA (≥3.5 ms).
+bf16 tensor cores; the f32 variant runs on f32 FMA (≥3.5 ms). The bf16
+kernel is one fused pass over work items (utterance, conv row pair, 64
+columns): x1 and dy2 built once per item into shared memory, dW2, dx1 and
+dW1 on the tensor cores (tests/test_torch_vgg_block1.py mirrors its
+tiling); the f32 kernels are the earlier two-kernel design.
 
 `vgg_block1` / `vgg_block1_bwd` take the plain version only for a CPU
 tensor; for a CUDA tensor they launch the kernel, and raise if they
@@ -65,7 +69,9 @@ _BWD_KERNELS = {
                             + [cuda_lib.P])
     for dt, sym in ((torch.float32, "vgg_block1_bwd_f32"),
                     (torch.bfloat16, "vgg_block1_bwd_bf16"))}
-BWD_BLOCKS = 256                       # csrc/vgg_block1.cu
+# blocks of the backward, each writing one row of partials (csrc/vgg_block1.cu:
+# FUSED_BLOCKS for the bf16 pass, BWD_BLOCKS for the f32 kernels)
+BWD_BLOCKS = {torch.bfloat16: 132, torch.float32: 256}
 PART = 9 * C + C + 9 * C * C + C       # floats of one block's partials
 
 
@@ -242,10 +248,11 @@ def vgg_block1_bwd(spect: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                              f"{spect.device}")
     spect, w1, b1, out, idx, g = (t.contiguous() for t in
                                   (spect, w1, b1, out, idx, g))
+    _aligned("vgg_block1_bwd", out, idx, g)
     # bf16: conv2's weight as bf16 in its natural (tap, ci, co) layout
     w2k = (w2.to(torch.bfloat16) if cdt == torch.bfloat16 else w2).contiguous()
     grads = torch.empty(PART, dtype=torch.float32, device=spect.device)
-    part = torch.empty(BWD_BLOCKS * PART, dtype=torch.float32,
+    part = torch.empty(BWD_BLOCKS[cdt] * PART, dtype=torch.float32,
                        device=spect.device)
     with torch.cuda.device(spect.device):
         _BWD_KERNELS[cdt].launch(

@@ -11,7 +11,10 @@ shuffled BucketingSampler of the run's seed) and one valid loader per
 manifest, initialises the model from the seed or resumes from
 ``--continue-from`` / ``--auto-resume`` (checkpoints of either package:
 parameters, optimizer state, epoch, metrics), and runs the Trainer. Logs
-to log/<name>. Without a GPU it raises unless --device cpu is given.
+to log/<name> and tees the console output into log/<name>.stdout (both
+appended to on resume). ``--trace-dir`` takes a torch.profiler trace of
+the first epoch. Without a GPU it raises unless --device cpu is given;
+on the card TF32 is off (``evaluation.resolve_device``).
 ``--spec-augment``, ``--loss ctc``, ``--remat`` and ``--feat_extractor
 emb_cnn`` (whose batch-norm statistics are saved and resumed as the
 checkpoint's model state) are taken as root ``train.py`` takes them. Data /
@@ -34,6 +37,7 @@ from end2end_asr_tpu_torch.config import (ARCH_FIELDS, Config,
                                           config_from_args,
                                           explicit_cli_overrides, load_vocab,
                                           resolve_labels_path)
+from end2end_asr_tpu_torch.utils.logger import Logger
 
 logger = logging.getLogger("end2end_asr_tpu_torch")
 
@@ -90,21 +94,24 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from end2end_asr_tpu_torch.training.trainer import Trainer
 
     device = resolve_device(device_name)
-    print("=" * 50)
-    print("THE EXPERIMENT LOG IS SAVED IN: log/" + cfg.name)
-    print("TRAINING MANIFEST: ", list(cfg.train_manifest_list))
-    print("VALID MANIFEST: ", list(cfg.valid_manifest_list))
-    print("=" * 50)
-
     os.makedirs("log", exist_ok=True)
+    # append on resume: a resumed run keeps the history of the runs before
     resuming = bool(cfg.continue_from or cfg.auto_resume)
-    handler = logging.FileHandler("log/" + cfg.name,
-                                  mode="a" if resuming else "w",
+    mode = "a" if resuming else "w"
+    # the console output goes to log/<name>.stdout too (root train.py's tee)
+    tee = Logger("log/" + cfg.name + ".stdout", mode=mode)
+    sys.stdout = tee
+    handler = logging.FileHandler("log/" + cfg.name, mode=mode,
                                   encoding="utf-8")
     handler.setFormatter(logging.Formatter("%(asctime)s - %(message)s"))
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
     try:
+        print("=" * 50)
+        print("THE EXPERIMENT LOG IS SAVED IN: log/" + cfg.name)
+        print("TRAINING MANIFEST: ", list(cfg.train_manifest_list))
+        print("VALID MANIFEST: ", list(cfg.valid_manifest_list))
+        print("=" * 50)
         start_epoch, metrics, opt_state = 0, None, None
         if cfg.auto_resume and not cfg.continue_from:
             latest = ckpt.find_latest_checkpoint(cfg.save_folder, cfg.name)
@@ -165,6 +172,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     finally:
         logger.removeHandler(handler)
         handler.close()
+        sys.stdout = tee.terminal
+        tee.close()
 
 
 if __name__ == "__main__":

@@ -111,8 +111,11 @@ def noam_config_from(cfg: Config) -> NoamConfig:
 
 def features(cfg: Config, pcm: torch.Tensor, n_frames: torch.Tensor,
              spect_T: int) -> torch.Tensor:
+    """The normalised spectrogram of a batch: the STFT kernel, or its
+    plain version under ``--no-pallas-features`` (steps.py:43-53)."""
     return batched_features(pcm, n_frames, cfg.n_fft, cfg.hop_length,
-                            cfg.window, T_out=spect_T, normalize=True)
+                            cfg.window, T_out=spect_T, normalize=True,
+                            use_kernel=cfg.use_pallas_features)
 
 
 def ctc_input_lengths(n_frames: torch.Tensor, spect_T: int,

@@ -32,6 +32,7 @@ from end2end_asr_tpu_torch.training.steps import (FlatParams,
                                                   make_eval_step,
                                                   make_train_step_impl)
 from end2end_asr_tpu_torch.utils.metrics import calculate_cer, calculate_wer
+from end2end_asr_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger("end2end_asr_tpu_torch")
 
@@ -129,17 +130,19 @@ class Trainer:
                         totals["loss"] / max(totals["batches"], 1),
                         totals["cer"] * 100 / totals["char"], lr)
 
-            for i, batch in enumerate(train_loader):
-                rows = (batch.real_rows if batch.real_rows > 0
-                        else len(batch.targets))
-                data, opt, state, m, hyp, gold = step(
-                    fp, data, opt, rng, *batch_tensors(batch, dev),
-                    batch.src_bucket, model_state=state)
-                pending.append((i, rows, m, hyp, gold))
-                while len(pending) > 2:
-                    drain(pending.pop(0))
-            for entry in pending:
-                drain(entry)
+            # --trace-dir: a torch.profiler trace of the first epoch's steps
+            with trace(cfg.trace_dir if epoch == start_epoch else "", dev):
+                for i, batch in enumerate(train_loader):
+                    rows = (batch.real_rows if batch.real_rows > 0
+                            else len(batch.targets))
+                    data, opt, state, m, hyp, gold = step(
+                        fp, data, opt, rng, *batch_tensors(batch, dev),
+                        batch.src_bucket, model_state=state)
+                    pending.append((i, rows, m, hyp, gold))
+                    while len(pending) > 2:
+                        drain(pending.pop(0))
+                for entry in pending:
+                    drain(entry)
             wall = time.time() - t0
             train_loss = totals["loss"] / max(totals["batches"], 1)
             logger.info("(Epoch %d) TRAIN LOSS:%.4f CER:%.2f%% LR:%.7f "

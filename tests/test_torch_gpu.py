@@ -127,6 +127,26 @@ def test_vgg_block1_ties_go_to_first_window_element(dev, cdt):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_no_pallas_features_launches_no_stft_kernel(dev):
+    """--no-pallas-features: the train step's features take the plain STFT
+    on the card (no launch) and agree with the kernel's."""
+    from end2end_asr_tpu_torch.config import Config
+    from end2end_asr_tpu_torch.training import steps as TS
+    cfg = Config(use_pallas_features=False)
+    T = 101
+    g = torch.Generator().manual_seed(3)
+    pcm = (torch.randn(2, (T - 1) * cfg.hop_length + cfg.n_fft, generator=g)
+           * 3000).to(torch.int16).to(dev)
+    n_frames = torch.tensor([T, 60], device=dev)
+    S.reset_launches()
+    plain = TS.features(cfg, pcm, n_frames, T)
+    assert S.launches() == 0
+    kern = TS.features(cfg.replace(use_pallas_features=True), pcm, n_frames,
+                       T)
+    assert S.launches() == 1
+    torch.testing.assert_close(plain, kern, rtol=F32_TOL, atol=F32_TOL)
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     args = _block_args(dev, 1, 8, 8, seed=1)
     with pytest.raises(ValueError):

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as Fn
 
 from end2end_asr_tpu.ops.pool_vjp import max_pool2
 from end2end_asr_tpu.ops.vgg_fused import _block1_fwd, vgg_block1
@@ -233,3 +234,97 @@ def test_bf16_card_tolerance_catches_unrounded_dx1():
                                           padding=1).permute(2, 3, 1, 0)
         rel = ((got - dw1).abs().max() / dw1.abs().max()).item()
         assert (rel < 1e-5) if close else (rel > 1e-3), rel
+
+
+# ---------------------------------------------------------------------------
+# the tiling of the bf16 backward kernel (csrc/vgg_block1.cu,
+# vgg_block1_bwd_fused_kernel), mirrored here so that its index math is held
+# against the plain backward before the card: work items (utterance, conv
+# row pair r, 64 columns c0), the input tile (rows 2r-2 .. 2r+3, columns
+# c0-2 .. c0+65), the three staged pooled rows (r-1 .. r+1, columns
+# c0/2-1 .. c0/2+32, zero outside the pool), the 4 x 66 x1 and dy2 tiles
+# (position (i, j) = conv (2r-1+i, c0-1+j), dy2 routed by the parities of
+# i+1 and j+1), per-item dW2 / dx1 / mask / db1 / dW1 / db2 over the 2 x 64
+# own positions, FUSED_BLOCKS fixed item ranges summed in block order
+# ---------------------------------------------------------------------------
+
+FUSED_BLOCKS, CW = 132, 64
+PCOLS = CW // 2 + 2           # pooled columns staged per item
+
+
+def _fused_mirror(spect, w1, b1, w2, out, idx, g, cdt):
+    f32 = torch.float32
+    B, F, T = spect.shape
+    Fp, Tp = F // 2, T // 2
+    rows, chunks = (F + 1) // 2, -(-T // CW)
+    n = B * rows * chunks
+    rnd = lambda t: t.to(cdt).to(f32)
+    w1c = rnd(w1).reshape(9, 64)                          # (tap, ci)
+    b1c = rnd(b1)
+    w2c = rnd(w2).reshape(9, 64, 64)                      # (tap, ci, co)
+    gm = torch.where(out.float() > 0, g.float(), torch.zeros(()))
+    # zero-padded sources: x by 2 on each side, the pool by one window
+    xp = Fn.pad(spect.float(), (2, CW + 2, 2, 4))
+    gp = Fn.pad(gm, (0, 0, 1, PCOLS, 1, 2))
+    ip = Fn.pad(idx.long(), (0, 0, 1, PCOLS, 1, 2), value=-1)
+    ii, jj = torch.arange(4)[:, None], torch.arange(CW + 2)[None, :]
+    pr, pc = (ii + 1) // 2, (jj + 1) // 2
+    wp = (2 * ((ii + 1) % 2) + (jj + 1) % 2)[..., None]
+    total = torch.zeros(9 * 64 + 64 + 9 * 64 * 64 + 64)
+    for blk in range(FUSED_BLOCKS):
+        lo, hi = n * blk // FUSED_BLOCKS, n * (blk + 1) // FUSED_BLOCKS
+        dw1, db1 = torch.zeros(9, 64), torch.zeros(64)
+        dw2, db2 = torch.zeros(9, 64, 64), torch.zeros(64)
+        for it in range(lo, hi):
+            c0, r, b = (it % chunks) * CW, (it // chunks) % rows, \
+                it // (chunks * rows)
+            xs = rnd(xp[b, 2 * r:2 * r + 6, c0:c0 + CW + 4])      # 6 x 68
+            graw = gp[b, r:r + 3, c0 // 2:c0 // 2 + PCOLS]        # 3 x 34 x 64
+            iraw = ip[b, r:r + 3, c0 // 2:c0 // 2 + PCOLS]
+            dy2 = torch.where(iraw[pr, pc] == wp, graw[pr, pc],
+                              torch.zeros(()))                     # 4 x 66 x 64
+            y1 = sum(xs[df:df + 4, dt:dt + CW + 2, None] * w1c[3 * df + dt]
+                     for df in range(3) for dt in range(3))
+            inside = ((2 * r - 1 + ii >= 0) & (2 * r - 1 + ii < F)
+                      & (c0 - 1 + jj >= 0) & (c0 - 1 + jj < T))[..., None]
+            x1 = torch.where(inside, torch.relu(rnd(rnd(y1) + b1c)),
+                             torch.zeros(()))
+            own = dy2[1:3, 1:CW + 1].reshape(2 * CW, 64)
+            db2 += own.sum(0)
+            dx = torch.zeros(2 * CW, 64)
+            for tap in range(9):
+                df, dt = divmod(tap, 3)
+                dw2[tap] += x1[df:df + 2, dt:dt + CW].reshape(-1, 64).T @ own
+                dx += (dy2[2 - df:4 - df, 2 - dt:2 - dt + CW].reshape(-1, 64)
+                       @ w2c[tap].T)
+            dx = torch.where(x1[1:3, 1:CW + 1].reshape(-1, 64) > 0, dx,
+                             torch.zeros(()))
+            db1 += dx.sum(0)
+            cols = torch.stack([xs[df + 1:df + 3, dt + 1:dt + 1 + CW]
+                                .reshape(-1) for df in range(3)
+                                for dt in range(3)])       # 9 x 128
+            dw1 += cols @ rnd(dx)
+        total += torch.cat([dw1.reshape(-1), db1, dw2.reshape(-1), db2])
+    o1, o2, o3 = 9 * 64, 10 * 64, 10 * 64 + 9 * 64 * 64
+    return (total[:o1].view(3, 3, 1, 64), total[o1:o2],
+            total[o2:o3].view(3, 3, 64, 64), total[o3:])
+
+
+@pytest.mark.parametrize("cdt,tol", [(torch.float32, 2e-5),
+                                     (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("shape", [(1, 17, 9), (2, 161, 129), (1, 9, 801)])
+def test_fused_bwd_tiling_equals_the_plain_backward(shape, cdt, tol):
+    """Odd F (the last row pair half outside the image), odd T, T not a
+    multiple of the item width, one item row (F = 9 at T = 801), items at
+    every border; bf16 at the card's tolerance (a conv1 sum by a rounding
+    boundary may round the other way)."""
+    B, F, T = shape
+    args = [torch.from_numpy(a) for a in _mk(B, F, T, seed=F + T)]
+    out, idx = TV.vgg_block1_plain(*args, cdt=cdt)
+    g = torch.from_numpy(np.random.RandomState(T).randn(
+        B, F // 2, T // 2, 64).astype(np.float32)).to(cdt)
+    want = TV.vgg_block1_bwd_plain(*args[:4], out, idx, g, cdt)
+    got = _fused_mirror(*args[:4], out, idx, g, cdt)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= tol * b.abs().max()
