@@ -135,6 +135,8 @@ DEC_TOL = 2e-3       # f32 decoder logits, 4 layers: GPU vs CPU sum order
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 2e-3
 # the block-1 backward's kernel as the profiler names it (csrc/vgg_block1.cu)
 BWD_KERNEL_NAME = "vgg_block1_bwd_fused_kernel"
+# the attention backward's one kernel (csrc/attention.cu), bf16 and f32
+ATTN_BWD_KERNEL_NAME = "attn_bwd_kernel"
 
 
 def fail(msg):
@@ -159,6 +161,14 @@ def time_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def backward_ms(torch, out, inputs, g, iters):
+    """Mean time of the backward alone: autograd through one retained
+    graph (a difference of forward+backward and forward times can come
+    out negative where both are host-bound)."""
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, g, retain_graph=True), iters=iters)
 
 
 def gpu_line():
@@ -512,18 +522,23 @@ def check_attention(torch, dev):
         dout = torch.randn(B, H, Tq, D, generator=g0).to(dev, torch.bfloat16)
         for rate in (0.0, 0.1):
             seed = 0x5EED + int(rate * 10)
-            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-            out = AF.flash_mha_train(*qkv, bias, seed, rate)
-            grads = torch.autograd.grad(out, qkv, dout)
+            runs = []
+            for _ in range(2):
+                qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = AF.flash_mha_train(*qkv, bias, seed, rate)
+                runs.append((out, *torch.autograd.grad(out, qkv, dout)))
             qf = [t.float().requires_grad_() for t in (q, k, v)]
             want = AF.flash_mha_train_plain(*qf, bias, seed, rate)
             want_g = torch.autograd.grad(want, qf, dout.float())
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            out, *grads = runs[0]
             ef = rel_err(out, want)
             eb = [rel_err(a, b) for a, b in zip(grads, want_g)]
             log(f"attention {label} rate {rate}: fwd rel err {ef:.3g}, "
-                f"dq/dk/dv {[round(e, 6) for e in eb]} (tol {ATTN_TOL})")
-            if not (ef <= ATTN_TOL and max(eb) <= ATTN_TOL
+                f"dq/dk/dv {[round(e, 6) for e in eb]} (tol {ATTN_TOL}); "
+                f"two runs bit-identical: {same}")
+            if not (ef <= ATTN_TOL and max(eb) <= ATTN_TOL and same
                     and torch.isfinite(out.float()).all()):
                 fail(f"attention {label} rate {rate} disagrees with plain")
             out_entries[(label, rate)] = (
@@ -532,24 +547,22 @@ def check_attention(torch, dev):
                     for a, b in zip(grads, want_g)))
         rate, seed = 0.1, 77
         o, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
-        fwd_ms = time_ms(torch, lambda: AF.attn_fwd(q, k, v, bias, seed,
-                                                    rate), iters=50)
-        bwd_ms = time_ms(torch, lambda: AF.attn_bwd(
-            q, k, v, bias, o, stats, dout, seed, rate), iters=50)
+        fwd = lambda: AF.attn_fwd(q, k, v, bias, seed, rate)
+        bwd = lambda: AF.attn_bwd(q, k, v, bias, o, stats, dout, seed, rate)
+        fwd_ms, bwd_ms = (time_ms(torch, f, iters=50) for f in (fwd, bwd))
+        fwd_dev, bwd_dev = (device_ms(torch, f) for f in (fwd, bwd))
         qf = [t.float() for t in (q, k, v)]
         pf_ms = time_ms(torch, lambda: AF.flash_mha_train_plain(
             *qf, bias, seed, rate), iters=5)
         qg = [t.float().requires_grad_() for t in (q, k, v)]
-        pb_ms = time_ms(torch, lambda: torch.autograd.grad(
-            AF.flash_mha_train_plain(*qg, bias, seed, rate), qg,
-            dout.float()), iters=5) - pf_ms
+        pb_ms = backward_ms(torch, AF.flash_mha_train_plain(
+            *qg, bias, seed, rate), qg, dout.float(), iters=5)
         ql = [t.clone().requires_grad_() for t in (q, k, v)]
         bl = bias[:, None].to(torch.bfloat16)
         sdpa = lambda: Fn.scaled_dot_product_attention(*ql, attn_mask=bl,
                                                        dropout_p=rate)
         lf_ms = time_ms(torch, sdpa, iters=50)
-        lb_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), ql, dout),
-                        iters=50) - lf_ms
+        lb_ms = backward_ms(torch, sdpa(), ql, dout, iters=50)
         n = B * H * Tq * Tk * D
         in_b = 2 * B * H * (Tq + 2 * Tk) * D + 4 * B * Tq * Tk
         times[label] = dict(
@@ -558,10 +571,12 @@ def check_attention(torch, dev):
                  lf_ms),
             bwd=(bwd_ms, pb_ms, 10 * n / BF16_PEAK,
                  (in_b + 2 * 2 * B * H * Tq * D + 8 * B * H * Tq
-                  + 2 * B * H * (Tq + 2 * Tk) * D) / HBM_BPS, lb_ms))
-        log(f"attention {label} (rate 0.1): fwd {fwd_ms:.4f} ms (plain "
-            f"{pf_ms:.4f}, SDPA {lf_ms:.4f}); bwd {bwd_ms:.4f} ms (plain "
-            f"{pb_ms:.4f}, SDPA backward ~{lb_ms:.4f})")
+                  + 2 * B * H * (Tq + 2 * Tk) * D) / HBM_BPS, lb_ms),
+            dev=(fwd_dev, bwd_dev))
+        log(f"attention {label} (rate 0.1): fwd {fwd_ms:.4f} ms, device "
+            f"{fwd_dev} (plain {pf_ms:.4f}, SDPA {lf_ms:.4f}); bwd "
+            f"{bwd_ms:.4f} ms, device {bwd_dev} (plain {pb_ms:.4f}, SDPA "
+            f"backward ~{lb_ms:.4f})")
 
     # kernel 9: bit-exact with the plain Philox, and deterministic
     seed = 0xDEADBEEF_00C0FFEE
@@ -587,6 +602,7 @@ def check_attention(torch, dev):
               "end2end_asr_tpu/ops/attention_fused.py:78", fwd_err,
               t["fwd"][0], t["fwd"][1], t["fwd"][2], t["fwd"][3],
               t["fwd"][4], shape="(12,8,200,200,64) bf16, rate 0.1",
+              device_ms=t["dev"][0], device_ms_dec_cross=cross["dev"][0],
               ms_dec_cross=cross["fwd"][0],
               plain_ms_dec_cross=cross["fwd"][1],
               library_ms_dec_cross=cross["fwd"][4],
@@ -596,7 +612,8 @@ def check_attention(torch, dev):
               "end2end_asr_tpu/ops/attention_fused.py:96", bwd_err,
               t["bwd"][0], t["bwd"][1], t["bwd"][2], t["bwd"][3],
               t["bwd"][4], shape="(12,8,200,200,64) bf16, rate 0.1",
-              library_note="SDPA forward+backward minus forward",
+              library_note="SDPA's backward alone, on a retained graph",
+              device_ms=t["dev"][1], device_ms_dec_cross=cross["dev"][1],
               ms_dec_cross=cross["bwd"][0],
               plain_ms_dec_cross=cross["bwd"][1],
               library_ms_dec_cross=cross["bwd"][4],
@@ -655,23 +672,21 @@ def check_attention_f32(torch, dev):
                     for a, b in zip(grads, want_g)))
         rate, seed = 0.1, 78
         o, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
-        fwd_ms = time_ms(torch, lambda: AF.attn_fwd(q, k, v, bias, seed,
-                                                    rate), iters=50)
-        bwd_ms = time_ms(torch, lambda: AF.attn_bwd(
-            q, k, v, bias, o, stats, dout, seed, rate), iters=50)
+        fwd = lambda: AF.attn_fwd(q, k, v, bias, seed, rate)
+        bwd = lambda: AF.attn_bwd(q, k, v, bias, o, stats, dout, seed, rate)
+        fwd_ms, bwd_ms = (time_ms(torch, f, iters=50) for f in (fwd, bwd))
+        fwd_dev, bwd_dev = (device_ms(torch, f) for f in (fwd, bwd))
         pf_ms = time_ms(torch, lambda: AF.flash_mha_train_plain(
             q, k, v, bias, seed, rate), iters=5)
         qg = [t.clone().requires_grad_() for t in (q, k, v)]
-        pb_ms = time_ms(torch, lambda: torch.autograd.grad(
-            AF.flash_mha_train_plain(*qg, bias, seed, rate), qg, dout),
-            iters=5) - pf_ms
+        pb_ms = backward_ms(torch, AF.flash_mha_train_plain(
+            *qg, bias, seed, rate), qg, dout, iters=5)
         ql = [t.clone().requires_grad_() for t in (q, k, v)]
         bl = bias[:, None]
         sdpa = lambda: Fn.scaled_dot_product_attention(*ql, attn_mask=bl,
                                                        dropout_p=rate)
         lf_ms = time_ms(torch, sdpa, iters=50)
-        lb_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), ql, dout),
-                        iters=50) - lf_ms
+        lb_ms = backward_ms(torch, sdpa(), ql, dout, iters=50)
         n = B * H * Tq * Tk * D
         in_b = 4 * B * H * (Tq + 2 * Tk) * D + 4 * B * Tq * Tk
         times[label] = dict(
@@ -680,26 +695,31 @@ def check_attention_f32(torch, dev):
                  lf_ms),
             bwd=(bwd_ms, pb_ms, 10 * n / F32_PEAK,
                  (in_b + 2 * 4 * B * H * Tq * D + 8 * B * H * Tq
-                  + 4 * B * H * (Tq + 2 * Tk) * D) / HBM_BPS, lb_ms))
-        log(f"attention f32 {label} (rate 0.1): fwd {fwd_ms:.4f} ms (plain "
-            f"{pf_ms:.4f}, SDPA f32 {lf_ms:.4f}, bound "
+                  + 4 * B * H * (Tq + 2 * Tk) * D) / HBM_BPS, lb_ms),
+            dev=(fwd_dev, bwd_dev))
+        log(f"attention f32 {label} (rate 0.1): fwd {fwd_ms:.4f} ms, device "
+            f"{fwd_dev} (plain {pf_ms:.4f}, SDPA f32 {lf_ms:.4f}, bound "
             f"{1e3 * max(times[label]['fwd'][2:4]):.4f}); bwd {bwd_ms:.4f} "
-            f"ms (plain {pb_ms:.4f}, SDPA f32 backward ~{lb_ms:.4f}, bound "
-            f"{1e3 * max(times[label]['bwd'][2:4]):.4f})")
+            f"ms, device {bwd_dev} (plain {pb_ms:.4f}, SDPA f32 backward "
+            f"~{lb_ms:.4f}, bound {1e3 * max(times[label]['bwd'][2:4]):.4f})")
     t, cross = times["enc_self"], times["dec_cross"]
     rep = "end2end_asr_tpu/ops/attention_fused.py:"
     shape = "(12,8,200,200,64) f32, rate 0.1"
     return [
         entry("attn_fwd_f32", "attention.cu", rep + "78",
               max(e[0] for e in errs.values()), *t["fwd"], shape=shape,
-              tol_rel=ATTN_F32_TOL, ms_dec_cross=cross["fwd"][0],
+              tol_rel=ATTN_F32_TOL, device_ms=t["dev"][0],
+              device_ms_dec_cross=cross["dev"][0],
+              ms_dec_cross=cross["fwd"][0],
               plain_ms_dec_cross=cross["fwd"][1],
               library_ms_dec_cross=cross["fwd"][4],
               bound_ms_dec_cross=1e3 * max(cross["fwd"][2:4])),
         entry("attn_bwd_f32", "attention.cu", rep + "96",
               max(e[1] for e in errs.values()), *t["bwd"], shape=shape,
-              tol_rel=ATTN_F32_TOL,
-              library_note="SDPA f32 forward+backward minus forward",
+              tol_rel=ATTN_F32_TOL, device_ms=t["dev"][1],
+              device_ms_dec_cross=cross["dev"][1],
+              library_note="SDPA f32's backward alone, on a retained "
+                           "graph",
               ms_dec_cross=cross["bwd"][0],
               plain_ms_dec_cross=cross["bwd"][1],
               library_ms_dec_cross=cross["bwd"][4],
@@ -1349,8 +1369,16 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         fail(f"the step's profile does not name {BWD_KERNEL_NAME} among "
              f"its heaviest kernels: {prof['top']}")
     bwd_share = (bwd_ms[0] / prof["device_ms"] if bwd_ms else None)
+    attn = prof["sums"][ATTN_BWD_KERNEL_NAME]
     log(f"train step device time {prof['device_ms']} ms, of it "
-        f"{BWD_KERNEL_NAME} {bwd_ms} ms (share {bwd_share})")
+        f"{BWD_KERNEL_NAME} {bwd_ms} ms (share {bwd_share}); the attention "
+        f"backward {attn['device_ms']} ms in {attn['launches']} launches; "
+        f"{prof['kernel_launches']} launches in the step")
+    if prof["device_ms"] is not None and \
+            attn["launches"] != per_step["attn_bwd"]:
+        fail(f"the step's profile shows {attn['launches']} launches of "
+             f"{ATTN_BWD_KERNEL_NAME}, not one per attention backward "
+             f"({per_step['attn_bwd']})")
 
     # overfit one batch: peak lr k·5120^-0.5·warmup^-0.5 ≈ 1e-3
     ocfg = aishell_config(k_lr=0.36, warmup=25)
@@ -1407,6 +1435,9 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "launches_per_step": per_step, "profile_step": prof,
         "vgg_block1_bwd_step_device_ms": bwd_ms[0] if bwd_ms else None,
         "vgg_block1_bwd_step_device_share": bwd_share,
+        "attn_bwd_step_device_ms": attn["device_ms"],
+        "attn_bwd_step_kernel_launches": attn["launches"],
+        "step_kernel_launches": prof["kernel_launches"],
         "run_2_epochs_s": wall, "opt_step_after_resume": res2["opt_step"],
         "overfit_first_loss": losses[0], "overfit_last_loss": losses[-1],
         "overfit_half_at_step": half_at,
@@ -1649,11 +1680,12 @@ def phase_probe(torch):
     return c
 
 
-def profile(torch, fn, top=6):
+def profile(torch, fn, top=6, sums=(ATTN_BWD_KERNEL_NAME,)):
     """One warm call of fn under torch.profiler: wall ms, summed device
     time of its kernels, their share of the wall time (the device's busy
-    share; the rest is idle, waiting on the host), launches, and the
-    kernels with the most device time."""
+    share; the rest is idle, waiting on the host), launches, the kernels
+    with the most device time, and the device ms and launches of the
+    kernels whose names hold each of `sums`."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -1675,7 +1707,11 @@ def profile(torch, fn, top=6):
     out = {"wall_ms": wall, "device_ms": dev_ms,
            "device_busy_share": dev_ms / wall if kernels else None,
            "kernel_launches": len(kernels),
-           "top": [[n[:60], ms] for n, ms in heavy]}
+           "top": [[n[:60], ms] for n, ms in heavy],
+           "sums": {p: {"device_ms": sum(ms for n, ms in by_name.items()
+                                         if p in n),
+                        "launches": sum(p in e.name for e in kernels)}
+                    for p in sums}}
     log(f"profile: {json.dumps(out)}")
     return out
 

@@ -30,10 +30,13 @@
 // dropout_bits writes bits[b, h*Tq + q, k] for the (B, H*Tq, Tk) view.
 // ---------------------------------------------------------------------------
 //
-// Layouts: q (B, H, Tq, D), k (B, H, Tk, D), v (B, H, Tk, D) in the compute
-// type (bf16 or f32); bias (B, Tq, Tk) f32 (0 or -1e9, shared by the heads);
-// out (B, H, Tq, D) in the compute type; stats (B, H, Tq, 2) f32 = (m, l) per
-// row. D = 64.
+// Layouts: the forward takes q (B, H, Tq, D), k (B, H, Tk, D), v (B, H,
+// Tk, D) contiguous, in the compute type (bf16 or f32); bias (B, Tq, Tk) f32
+// (0 or -1e9, shared by the heads); out (B, H, Tq, D) in the compute type;
+// stats (B, H, Tq, 2) f32 = (m, l) per row. D = 64. The backward reads q, k,
+// v, g and writes dq, dk, dv through (batch, head, row) strides, so the
+// (B, T, H, D) layout of the projections needs no copy; rows are contiguous
+// and 16-byte aligned.
 //
 // Numerics: scores x = (q.k) * (1/sqrt(dk)) + bias in f32, as the JAX
 // kernel; keys past Tk are -inf (exactly no weight); a row whose real keys
@@ -44,31 +47,60 @@
 // uses D_i = dO_i . O_i, dS = P o (keep * s * dO V^T - D), dQ = dS K /
 // sqrt(dk), dK = dS^T Q / sqrt(dk), dV = (keep * s * P)^T dO: the JAX
 // kernel's algebra (attention_fused.py:108-134) with P = exp(x - m) / l
-// rebuilt.
+// rebuilt; the dropped P and dS are rounded to the compute type before
+// their products, as there (1/sqrt(dk) = 1/8 is a power of two, so rounding
+// dS or dS/8 is the same).
 //
 // What bounds it on the H100: at the flagship (B = 12, H = 8, T = 200,
 // dk = 64) one encoder layer is ~1 GFLOP forward and ~2.5 backward (about
 // 1 and 3 us on the bf16 tensor cores, 15 and 37 us on f32 FMA) and reads
 // ~9 MB in bf16, ~17 MB in f32 (~3 and ~5 us): launch cost, not the card,
-// bounds the bf16 kernels; f32 FMA bounds the f32 ones. The design keeps it
-// simple: one block of 4 warps per (b, h, 64-query tile) in the forward,
-// each warp owning 16 query rows. The kernels are templates over the compute
-// type and share staging, the softmax, the dropout and the epilogues; only
-// the two products differ, and both keep the accumulators in the m16n8
-// layout of mma.sync (lane holds rows lane/4 and lane/4 + 8, columns
-// 2 (lane % 4) + {0, 1} of each 8-column tile):
-//   * bf16: mma.sync.m16n8k16 (bf16 in, f32 accumulate) for q.k^T and P.v
-//     with ldmatrix from XOR-swizzled shared tiles; the A operand lives in
-//     registers and the P tile goes from the accumulator registers straight
-//     into the A operand of P.v;
+// bounds the bf16 forward; f32 FMA bounds the f32 kernels. The forward is
+// simple: one block of 4 warps per (b, h, 64-query tile), each warp owning
+// 16 query rows. The kernels are templates over the compute type and share
+// staging, the dropout and the epilogues; only the products differ, and all
+// keep the accumulators in the m16n8 layout of mma.sync (lane holds rows
+// lane/4 and lane/4 + 8, columns 2 (lane % 4) + {0, 1} of each 8-column
+// tile):
+//   * bf16: mma.sync.m16n8k16 (bf16 in, f32 accumulate) with ldmatrix from
+//     XOR-swizzled shared tiles; the A operand lives in registers and a P
+//     tile goes from the accumulator registers straight into the A operand
+//     of the next product;
 //   * f32: FMA, in f32 throughout (no TF32, no tensor cores): tiles padded
 //     to 68 floats a row (float4 reads from 8 rows hit distinct banks); the
 //     A operand stays in shared memory, and P goes through a per-warp
 //     16 x 64 shared scratch so each lane can read its rows whole. Each
 //     product sums over d (or k) in order.
-// The backward is deterministic: kernel A computes D, kernel B loops over
-// query tiles for one key tile (dK, dV: each warp owns 16 keys), kernel C
-// over key tiles for one query tile (dQ); no atomics.
+//
+// The backward is one deterministic pass (attn_bwd_kernel), grid (key
+// tiles, H, B), 8 warps a block. The keys are cut into 16-key chunks, and
+// the chunks into ceil(chunks / 8) tiles as even as they come (Tk = 200:
+// 13 chunks in tiles of 6 and 7; Tk = 51: one tile of 4); each warp owns
+// one chunk, so a warp past Tk has no work until the dQ product. A block
+// walks the 64-query tiles once: S^T = K Q^T and dP^T = V dO^T on the
+// tensor cores, P rebuilt from the saved (m, l), the dropout mask and dS
+// formed once per element, then dV += Pd^T dO and dK += dS^T Q in
+// registers, and dS^T through shared memory (in the compute type) for this
+// key tile's share of dQ = dS K, 16 queries x 32 columns a warp.
+// D = rowsum(dO o O) is computed in the block for the query tile it holds.
+// Products over 16-query chunks past Tq are skipped. The next query tile's
+// Q, dO and bias tiles come in by cp.async while the current one's
+// products run (bf16: two stages, 132 KB; f32 keeps one stage, 170 KB,
+// whose copies overlap the dQ product only). Tiles of 128 keys, not 64,
+// halve what every key tile reads again (Q, dO, bias, O) and the dQ shares.
+// dQ's shares go to an f32 scratch (B, H, key tiles, Tq, 64); the last
+// block of each (b, h) to arrive (an arrival counter behind __threadfence,
+// reset by that block) adds them up in key-tile order, so two runs give the
+// same bits. With one key tile (Tk <= 128) the block writes dQ itself. No
+// atomics touch the data.
+//
+// The mask: the 4 words of one Philox call are keys 4c..4c+3 of one (q, h,
+// b); in the S^T layout those are rows of 4 lanes (lane bits 2-3). Each
+// lane draws one call per 8-query tile (its key group hh + 2 (wd >> 1),
+// query 2 (lane % 4) + (wd & 1), wd = lane bits 2-3, hh = lane bit 4), and
+// three __shfl_xor_sync rounds (lane ^ 4x) hand every lane word wd of the
+// four calls its elements need: one call per four elements, each used
+// whole.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +115,11 @@ constexpr int D = 64;          // head width
 constexpr int TILE = 64;       // queries per block / keys per tile
 constexpr int WARPS = 4;       // 16 rows each
 constexpr int THREADS = 32 * WARPS;
+// the backward: 8 warps of 16 keys, key tiles of up to 128 keys
+constexpr int BWD_WARPS = 8;
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int KT = 16 * BWD_WARPS;
+constexpr int LDB = KT + 4;    // bias tile row stride (floats)
 constexpr int LDF = D + 4;     // f32 tile row stride (floats)
 
 struct U4 {
@@ -151,6 +188,26 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// cp.async: 16 or 4 bytes, zero-filled where !valid (no byte is read)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // per compute type: tiles, the A operand, the two products, stores
 // ---------------------------------------------------------------------------
@@ -161,6 +218,8 @@ template <> struct Cdt<bf16> {
   static constexpr int TILE_ELEMS = TILE * D;   // swizzled, unpadded
   static constexpr bool A_IN_SMEM = false;      // A lives in registers
   static constexpr int SCRATCH = 0;             // floats of P scratch
+  static constexpr int STAGES = 2;              // backward query tiles
+  static constexpr int OV = 2;                  // uint4 in 16 elements
   struct AFrag {
     uint32_t r[4][4];  // r[kc]: k-step kc (columns 16kc .. 16kc+15)
   };
@@ -179,6 +238,18 @@ template <> struct Cdt<bf16> {
     }
   }
 
+  // `rows` rows the same way by cp.async, rows `rs` elements apart, by
+  // BWD_THREADS threads
+  static __device__ __forceinline__ void load_tile_async(
+      bf16* s, const bf16* g, long long rs, int row0, int Tn, int tid,
+      int rows = TILE) {
+    for (int e = tid; e < rows * 8; e += BWD_THREADS) {
+      const int r = e >> 3, ch = e & 7;
+      const bool in = row0 + r < Tn;
+      cp_async16(s + swz(r, ch), in ? g + (row0 + r) * rs + ch * 8 : g, in);
+    }
+  }
+
   // A operand (16 rows x 64) of a warp, rows r0 .. r0+15 of a tile
   static __device__ __forceinline__ void load_a(AFrag& a, const bf16* s,
                                                 int r0, int lane) {
@@ -189,29 +260,35 @@ template <> struct Cdt<bf16> {
 
   // acc[n] (16 x 64: 8 n-tiles) += A (16 x 64) . B^T where B's rows are the
   // 64 rows of a tile (the "col" operand, no transpose)
+  // n-tile pairs np < nj only (the rest stay as they are)
   static __device__ __forceinline__ void mma_abt(float (*acc)[4],
                                                  const AFrag& a,
-                                                 const bf16* s, int lane) {
+                                                 const bf16* s, int lane,
+                                                 int nj = 4) {
     const int bn = ((lane >> 4) << 3) + (lane & 7), bkc = (lane >> 3) & 1;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
+    for (int np = 0; np < 4; ++np) {
+      if (np >= nj) break;
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int kc = 0; kc < 4; ++kc) {
         uint32_t b[4];
         ldsm_x4(s + swz(np * 16 + bn, 2 * kc + bkc), b);
         mma(acc[2 * np], a.r[kc], b[0], b[1]);
         mma(acc[2 * np + 1], a.r[kc], b[2], b[3]);
       }
+    }
   }
 
   // acc[n] (16 x 64) += P (16 x 64, accumulator layout, as bf16) . S where S
-  // is a 64 x 64 tile (rows = the k dimension): ldmatrix.trans
+  // is a 64 x 64 tile (rows = the k dimension): ldmatrix.trans; k-chunks of
+  // 16 below 16 nj only
   static __device__ __forceinline__ void mma_ps(float (*acc)[4],
                                                 const float (*p)[4],
                                                 const bf16* s, int lane,
-                                                float*) {
+                                                float*, int nj = 4) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      if (j >= nj) break;
       uint32_t a[4];
       a[0] = pack(p[2 * j][0], p[2 * j][1]);
       a[1] = pack(p[2 * j][2], p[2 * j][3]);
@@ -227,6 +304,72 @@ template <> struct Cdt<bf16> {
     }
   }
 
+  // dS^T (the warp's 16 key rows, accumulator layout) into the [key][query]
+  // tile as bf16: the rounding the dK product's A operand gets too
+  static __device__ __forceinline__ void store_ds(bf16* s,
+                                                  const float (*ds)[4],
+                                                  int warp, int lane) {
+    const int r = 16 * warp + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<uint32_t*>(s + swz(r, n) + c) = pack(ds[n][0],
+                                                             ds[n][1]);
+      *reinterpret_cast<uint32_t*>(s + swz(r + 8, n) + c) = pack(ds[n][2],
+                                                                 ds[n][3]);
+    }
+  }
+
+  // acc (query rows qr0 .. qr0+15 x columns 32 dh .. 32 dh + 31) += dS . K
+  // over the first nk keys: A = dS from the [key][query] tile ds by
+  // ldmatrix.trans, B = the [key][d] K tile by ldmatrix.trans
+  static __device__ __forceinline__ void mma_dq(float (*acc)[4],
+                                                const bf16* ds,
+                                                const bf16* ks, int qr0,
+                                                int dh, int nk, int lane) {
+    const int nkc = (nk + 15) >> 4;
+#pragma unroll
+    for (int kc = 0; kc < BWD_WARPS; ++kc) {
+      if (kc >= nkc) break;
+      uint32_t a[4];
+      ldsm_x4_t(ds + swz(16 * kc + (lane & 7) + ((lane >> 4) << 3),
+                         (qr0 >> 3) + ((lane >> 3) & 1)),
+                a);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(ks + swz(16 * kc + (lane & 15),
+                           4 * dh + 2 * np + (lane >> 4)),
+                  b);
+        mma(acc[2 * np], a, b[0], b[1]);
+        mma(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+  // sum over quarter qr of row r of a tile times the same quarter of an
+  // O row
+  static __device__ __forceinline__ float dot_quarter(const bf16* s, int r,
+                                                      int qr,
+                                                      const uint4* o) {
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < OV; ++c) {
+      const uint4 x = *reinterpret_cast<const uint4*>(s + swz(r, 2 * qr + c));
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t os[4] = {o[c].x, o[c].y, o[c].z, o[c].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[j]));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&os[j]));
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+      }
+    }
+    return acc;
+  }
+
   static __device__ __forceinline__ float2 ld2(const bf16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   }
@@ -239,6 +382,9 @@ template <> struct Cdt<float> {
   static constexpr int TILE_ELEMS = TILE * LDF;  // rows padded to 68 floats
   static constexpr bool A_IN_SMEM = true;
   static constexpr int SCRATCH = WARPS * 16 * LDF;
+  // one stage: the backward's tiles then fit an SM's shared memory
+  static constexpr int STAGES = 1;
+  static constexpr int OV = 4;
   struct AFrag {
     const float* s;    // the warp's 16 rows in a shared tile
   };
@@ -255,15 +401,27 @@ template <> struct Cdt<float> {
     }
   }
 
+  static __device__ __forceinline__ void load_tile_async(
+      float* s, const float* g, long long rs, int row0, int Tn, int tid,
+      int rows = TILE) {
+    for (int e = tid; e < rows * (D / 4); e += BWD_THREADS) {
+      const int r = e >> 4, ch = e & 15;
+      const bool in = row0 + r < Tn;
+      cp_async16(s + r * LDF + 4 * ch, in ? g + (row0 + r) * rs + 4 * ch : g,
+                 in);
+    }
+  }
+
   static __device__ __forceinline__ void load_a(AFrag& a, const float* s,
                                                 int r0, int) {
     a.s = s + r0 * LDF;
   }
 
-  // acc[n][i] += sum_d A[row_i][d] B[col][d], d in order
+  // acc[n][i] += sum_d A[row_i][d] B[col][d], d in order; n < 2 nj
   static __device__ __forceinline__ void mma_abt(float (*acc)[4],
                                                  const AFrag& a,
-                                                 const float* s, int lane) {
+                                                 const float* s, int lane,
+                                                 int nj = 4) {
     const float* a0 = a.s + (lane >> 2) * LDF;
     const float* a1 = a0 + 8 * LDF;
     const float* b0 = s + 2 * (lane & 3) * LDF;
@@ -272,7 +430,8 @@ template <> struct Cdt<float> {
       const float4 x0 = *reinterpret_cast<const float4*>(a0 + d);
       const float4 x1 = *reinterpret_cast<const float4*>(a1 + d);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 8; ++n) {
+        if (n >= 2 * nj) continue;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const float4 y =
@@ -285,15 +444,16 @@ template <> struct Cdt<float> {
           acc[n][j] = u;
           acc[n][2 + j] = w;
         }
+      }
     }
   }
 
-  // acc[n][i] += sum_k P[row_i][k] S[k][col], k in order; P goes through the
-  // warp's scratch pw (16 x LDF floats)
+  // acc[n][i] += sum_k P[row_i][k] S[k][col], k < 16 nj in order; P goes
+  // through the warp's scratch pw (16 x LDF floats), where it stays
   static __device__ __forceinline__ void mma_ps(float (*acc)[4],
                                                 const float (*p)[4],
                                                 const float* s, int lane,
-                                                float* pw) {
+                                                float* pw, int nj = 4) {
     const int r0 = lane >> 2, c0 = 2 * (lane & 3);
     __syncwarp();  // the previous product's reads of pw are done
 #pragma unroll
@@ -307,7 +467,7 @@ template <> struct Cdt<float> {
     const float* p0 = pw + r0 * LDF;
     const float* p1 = p0 + 8 * LDF;
 #pragma unroll 2
-    for (int k = 0; k < TILE; k += 4) {
+    for (int k = 0; k < 16 * nj; k += 4) {
       const float4 x0 = *reinterpret_cast<const float4*>(p0 + k);
       const float4 x1 = *reinterpret_cast<const float4*>(p1 + k);
       const float a0[4] = {x0.x, x0.y, x0.z, x0.w};
@@ -327,6 +487,51 @@ template <> struct Cdt<float> {
     }
   }
 
+  // dS^T is already in the warps' scratch, which together is the [key]
+  // [query] tile (the dK product put it there)
+  static __device__ __forceinline__ void store_ds(float*, const float (*)[4],
+                                                  int, int) {}
+
+  // acc (query rows qr0 .. qr0+15 x columns 32 dh .. 32 dh + 31) += dS . K
+  // over the first nk keys in order; ds = the [key][query] tile, ks the
+  // [key][d] K tile
+  static __device__ __forceinline__ void mma_dq(float (*acc)[4],
+                                                const float* ds,
+                                                const float* ks, int qr0,
+                                                int dh, int nk, int lane) {
+    const int r0 = qr0 + (lane >> 2), c0 = 32 * dh + 2 * (lane & 3);
+#pragma unroll 4
+    for (int k = 0; k < nk; ++k) {
+      const float a0 = ds[k * LDF + r0], a1 = ds[k * LDF + r0 + 8];
+      const float* krow = ks + k * LDF + c0;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(krow + n * 8);
+        acc[n][0] = fmaf(a0, y.x, acc[n][0]);
+        acc[n][1] = fmaf(a0, y.y, acc[n][1]);
+        acc[n][2] = fmaf(a1, y.x, acc[n][2]);
+        acc[n][3] = fmaf(a1, y.y, acc[n][3]);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ float dot_quarter(const float* s, int r,
+                                                      int qr,
+                                                      const uint4* o) {
+    float acc = 0.f;
+    const float* x = s + r * LDF + 16 * qr;
+#pragma unroll
+    for (int c = 0; c < OV; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(x + 4 * c);
+      const float4 b = *reinterpret_cast<const float4*>(&o[c]);
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+    return acc;
+  }
+
   static __device__ __forceinline__ float2 ld2(const float* p) {
     return *reinterpret_cast<const float2*>(p);
   }
@@ -335,15 +540,17 @@ template <> struct Cdt<float> {
   }
 };
 
-// dynamic shared memory of the three tiled kernels: the forward holds Q, K,
-// V tiles; the backward kernels two B tiles, plus their two A tiles where
-// the A operand stays in shared memory; plus the P scratch
+// dynamic shared memory: the forward holds Q, K, V tiles plus the P
+// scratch; the backward Q and dO tiles per stage, the K and V tiles of KT
+// rows (bf16: V staged there once, then the dS^T tile), bias tiles [64][LDB]
+// f32 and (m, 1/l, D) rows per stage, plus the P scratch of its 8 warps
 template <typename T> constexpr size_t fwd_smem() {
   return 3 * Cdt<T>::TILE_ELEMS * sizeof(T) + Cdt<T>::SCRATCH * 4;
 }
 template <typename T> constexpr size_t bwd_smem() {
-  return (Cdt<T>::A_IN_SMEM ? 4 : 2) * Cdt<T>::TILE_ELEMS * sizeof(T) +
-         Cdt<T>::SCRATCH * 4;
+  return (2 * Cdt<T>::STAGES + 4) * Cdt<T>::TILE_ELEMS * sizeof(T) +
+         Cdt<T>::STAGES * (TILE * LDB * 4 + TILE * 16) +
+         (Cdt<T>::A_IN_SMEM ? BWD_WARPS * 16 * LDF * 4 : 0);
 }
 
 __device__ __forceinline__ void zero(float (*acc)[4]) {
@@ -354,12 +561,28 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
 }
 
 template <typename T> struct Params {
-  const T *q, *k, *v, *o, *g;
-  const float *bias, *stats, *delta;
+  const T *q, *k, *v;
+  const float* bias;
   int H, Tq, Tk;
   uint32_t thresh32;  // keep below this; 0 = no dropout
   float keep_scale, scale;
   uint32_t k0, k1;
+};
+
+struct Strides {
+  long long b, h, t;  // elements between batches, heads, rows
+};
+
+template <typename T> struct BwdParams {
+  Params<T> f;  // q, k, v: row 0 of (b, h) at b * s.b + h * s.h
+  const T *o, *g;
+  const float* stats;
+  T *dq, *dk, *dv;
+  Strides sq, sk, sv, sg, sdq, sdk, sdv;
+  float* part;        // (B, H, key tiles, Tq, D) f32 shares of dQ
+  unsigned* arrive;   // (B * H) arrival counters, 0 between launches
+  int nch, nkt;       // 16-key chunks, key tiles
+  bool bias16;        // bias rows 16-byte aligned: 16-byte copies
 };
 
 // keep flags of the two adjacent keys key, key+1 (key even) of query q
@@ -371,13 +594,6 @@ __device__ __forceinline__ void keep_pair(const Params<T>& p, int b, int h,
   const int w = key & 3;
   k0 = r.w[w] < p.thresh32;
   k1 = r.w[w + 1] < p.thresh32;
-}
-
-template <typename T>
-__device__ __forceinline__ bool keep_one(const Params<T>& p, int b, int h,
-                                         int q, int key) {
-  const U4 r = philox((uint32_t)key >> 2, q, h, b, p.k0, p.k1);
-  return r.w[key & 3] < p.thresh32;
 }
 
 template <typename T>
@@ -489,200 +705,297 @@ attn_fwd_kernel(Params<T> p, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// backward A: delta = rowsum(dO o O), one thread per query row
+// backward: one pass; grid (key tiles, H, B)
 // ---------------------------------------------------------------------------
 
+// keep flags of the 32 elements a lane holds in one 64-query tile of the
+// S^T layout (queries q0 ..), as bits 4 n + i (n: 8-query tile, i = 2 * row
+// half + column). Every lane draws one Philox call per 8-query tile, all
+// eight in straight-line code, and the four lanes of a key group swap
+// words with branch-free selects (see the top)
 template <typename T>
-__global__ void attn_delta_kernel(const T* __restrict__ o,
-                                  const T* __restrict__ g,
-                                  float* __restrict__ delta, int rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const T* a = o + (size_t)r * D;
-  const T* c = g + (size_t)r * D;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int i = 0; i < D / 2; ++i) {
-    const float2 x = Cdt<T>::ld2(a + 2 * i), y = Cdt<T>::ld2(c + 2 * i);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
+__device__ __forceinline__ uint32_t keep_bits(const BwdParams<T>& p, int b,
+                                              int h, int key0, int q0,
+                                              int lane) {
+  const int wd = (lane >> 2) & 3;
+  const bool a = wd & 1, c = wd & 2;
+  const uint32_t grp = (uint32_t)key0 / 4 + (lane >> 4) + (wd & 2);
+  const uint32_t q = q0 + 2 * (lane & 3) + (wd & 1);
+  U4 r[8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    r[n] = philox(grp, q + 8 * n, h, b, p.f.k0, p.f.k1);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    // u[x] = word wd ^ x of this lane's call: what round x sends
+    const uint32_t t0 = a ? r[n].w[1] : r[n].w[0];
+    const uint32_t t1 = a ? r[n].w[0] : r[n].w[1];
+    const uint32_t t2 = a ? r[n].w[3] : r[n].w[2];
+    const uint32_t t3 = a ? r[n].w[2] : r[n].w[3];
+    const uint32_t u[4] = {c ? t2 : t0, c ? t3 : t1, c ? t0 : t2,
+                           c ? t1 : t3};
+    // bit x: the flag round x brings, that of element wd ^ x
+    uint32_t f = u[0] < p.f.thresh32;
+#pragma unroll
+    for (int x = 1; x < 4; ++x)
+      f |= (uint32_t)(__shfl_xor_sync(0xffffffffu, u[x], x << 2) <
+                      p.f.thresh32) << x;
+    f = a ? ((f & 5u) << 1) | ((f >> 1) & 5u) : f;  // to bit wd ^ x
+    f = c ? ((f & 3u) << 2) | ((f >> 2) & 3u) : f;
+    bits |= f << (4 * n);
   }
-  delta[r] = acc;
+  return bits;
 }
 
-// ---------------------------------------------------------------------------
-// backward B: dK, dV for one key tile; grid (key tiles, H, B). Each warp owns
-// 16 keys (rows of S^T); the block walks the query tiles.
-// ---------------------------------------------------------------------------
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-attn_dkdv_kernel(Params<T> p, T* __restrict__ dk, T* __restrict__ dv) {
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+attn_bwd_kernel(const BwdParams<T> p) {
   using C = Cdt<T>;
+  constexpr int ST = C::STAGES, TE = C::TILE_ELEMS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float ms[TILE], linv[TILE], dels[TILE];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* gs = qs + C::TILE_ELEMS;
-  // the K and V tiles (A operands): their own where A stays in shared
-  // memory, else staged through qs / gs into registers
-  T* kt = C::A_IN_SMEM ? gs + C::TILE_ELEMS : qs;
-  T* vt = C::A_IN_SMEM ? gs + 2 * C::TILE_ELEMS : gs;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TILE;
+  __shared__ int last_block;
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [ST] Q tiles
+  T* gs = qs + ST * TE;                      // [ST] dO tiles
+  T* ks = gs + ST * TE;                      // the K tile (KT rows)
+  T* vs = ks + 2 * TE;  // the V tile; bf16: then the dS^T tile
+  float* bs = reinterpret_cast<float*>(vs + 2 * TE);  // [ST][64][LDB] bias
+  float4* rowp = reinterpret_cast<float4*>(bs + ST * TILE * LDB);
+  float* pw_all = reinterpret_cast<float*>(rowp + ST * TILE);
+  const Params<T>& f = p.f;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* pw = reinterpret_cast<float*>(
-                  qs + (C::A_IN_SMEM ? 4 : 2) * C::TILE_ELEMS) +
-              warp * 16 * LDF;
-  const size_t bh = (size_t)b * p.H + h;
+  float* pw = pw_all + warp * 16 * LDF;
+  const size_t bh = (size_t)b * f.H + h;
+  // this block's chunks c_lo .. c_hi - 1: keys k0 .. k0 + nk - 1
+  const int c_lo = kt * p.nch / p.nkt, c_hi = (kt + 1) * p.nch / p.nkt;
+  const int k0 = 16 * c_lo, nk = min(16 * (c_hi - c_lo), f.Tk - k0);
+  const int krows = 16 * (c_hi - c_lo);  // key rows any product reads
+  const bool kwarp = warp < c_hi - c_lo;  // this warp owns keys
+  const T* qg = f.q + b * p.sq.b + h * p.sq.h;
+  const T* gg = p.g + b * p.sg.b + h * p.sg.h;
+  const int nqt = (f.Tq + TILE - 1) / TILE;
 
-  typename C::AFrag ka, va;
-  C::load_tile(kt, p.k + bh * p.Tk * D, k0, p.Tk, tid);
-  C::load_tile(vt, p.v + bh * p.Tk * D, k0, p.Tk, tid);
+  // Q, dO and bias tiles of query tile `it` into stage `buf`: one group
+  auto fetch = [&](int it, int buf) {
+    const int q0 = it * TILE;
+    C::load_tile_async(qs + buf * TE, qg, p.sq.t, q0, f.Tq, tid);
+    C::load_tile_async(gs + buf * TE, gg, p.sg.t, q0, f.Tq, tid);
+    float* bb = bs + buf * TILE * LDB;
+    const float* bg = f.bias + ((size_t)b * f.Tq + q0) * f.Tk + k0;
+    // bias columns past nk are never read: not even zero-filled
+    if (p.bias16) {
+      const int cw = nk / 4;  // nk is a multiple of 4 here
+      for (int e = tid; e < TILE * cw; e += BWD_THREADS) {
+        const int r = e / cw, c = 4 * (e % cw);
+        const bool in = q0 + r < f.Tq && c < nk;
+        cp_async16(bb + r * LDB + c, in ? bg + (size_t)r * f.Tk + c : f.bias,
+                   in);
+      }
+    } else {
+      for (int e = tid; e < TILE * nk; e += BWD_THREADS) {
+        const int r = e / nk, c = e % nk;
+        const bool in = q0 + r < f.Tq && c < nk;
+        cp_async4(bb + r * LDB + c, in ? bg + (size_t)r * f.Tk + c : f.bias,
+                  in);
+      }
+    }
+    cp_async_commit();
+  };
+  // a quarter of an O row and the row's (m, l) of query tile `it`, into
+  // registers
+  uint4 orow[C::OV];
+  float2 ml = make_float2(INFINITY, 1.f);
+  auto load_rows = [&](int it) {
+    const int q = it * TILE + (tid >> 2);
+    const bool in = q < f.Tq;
+    const uint4* src = reinterpret_cast<const uint4*>(
+                           p.o + (bh * f.Tq + (in ? q : 0)) * D) +
+                       (tid & 3) * C::OV;
+#pragma unroll
+    for (int c = 0; c < C::OV; ++c)
+      orow[c] = in ? src[c] : make_uint4(0, 0, 0, 0);
+    ml = in ? reinterpret_cast<const float2*>(p.stats)[bh * f.Tq + q]
+             : make_float2(INFINITY, 1.f);
+  };
+  // (m, 1/l, D = dO . O) of query tile `it` (its dO in stage buf): four
+  // threads a row; past Tq (+inf, 0, 0), so P is exactly 0 there
+  auto d_phase = [&](int it, int buf) {
+    const int r = tid >> 2;
+    float d = C::dot_quarter(gs + buf * TE, r, tid & 3, orow);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if ((tid & 3) == 0) {
+      const bool in = it * TILE + r < f.Tq;
+      rowp[buf * TILE + r] =
+          make_float4(ml.x, in ? 1.f / ml.y : 0.f, in ? d : 0.f, 0.f);
+    }
+  };
+
+  // the K and V tiles, the first query tile, its (m, 1/l, D)
+  C::load_tile_async(ks, f.k + b * p.sk.b + h * p.sk.h, p.sk.t, k0, k0 + nk,
+                     tid, krows);
+  C::load_tile_async(vs, f.v + b * p.sv.b + h * p.sv.h, p.sv.t, k0, k0 + nk,
+                     tid, krows);
+  fetch(0, 0);
+  load_rows(0);
+  cp_async_wait_all();
   __syncthreads();
-  C::load_a(ka, kt, warp * 16, lane);
-  C::load_a(va, vt, warp * 16, lane);
+  typename C::AFrag ka, va;
+  C::load_a(ka, ks, warp * 16, lane);
+  C::load_a(va, vs, warp * 16, lane);
+  d_phase(0, 0);
 
-  const int rk[2] = {k0 + warp * 16 + (lane >> 2),
-                     k0 + warp * 16 + (lane >> 2) + 8};
+  const int kw0 = k0 + 16 * warp;                  // the warp's first key
+  const int rk[2] = {kw0 + (lane >> 2), kw0 + (lane >> 2) + 8};
   float dka[8][4], dva[8][4];
   zero(dka);
   zero(dva);
+  // bf16: the dS^T tile takes the V tile's place once its A operand is out
+  const T* dsrc = C::A_IN_SMEM ? reinterpret_cast<const T*>(pw_all) : vs;
 
-  for (int q0 = 0; q0 < p.Tq; q0 += TILE) {
-    __syncthreads();  // previous tiles consumed
-    C::load_tile(qs, p.q + bh * p.Tq * D, q0, p.Tq, tid);
-    C::load_tile(gs, p.g + bh * p.Tq * D, q0, p.Tq, tid);
-    if (tid < TILE) {
-      const bool in = q0 + tid < p.Tq;
-      const float2 st = in ? reinterpret_cast<const float2*>(
-                                 p.stats)[bh * p.Tq + q0 + tid]
-                           : make_float2(INFINITY, 1.f);
-      ms[tid] = st.x;
-      linv[tid] = in ? 1.f / st.y : 0.f;
-      dels[tid] = in ? p.delta[bh * p.Tq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    float st[8][4], dp[8][4];
-    zero(st);
-    zero(dp);
-    C::mma_abt(st, ka, qs, lane);  // S^T: keys x queries
-    C::mma_abt(dp, va, gs, lane);  // (dO V^T)^T
+  for (int it = 0; it < nqt; ++it) {
+    const int cur = ST == 2 ? (it & 1) : 0, nxt = ST == 2 ? cur ^ 1 : 0;
+    const int q0 = it * TILE, nq = min(TILE, f.Tq - q0);
+    const int nj = (nq + 15) >> 4;  // 16-query chunks with a real query
+    __syncthreads();  // stage cur, its rows, and the last dQ reads are done
+    if (ST == 2 && it + 1 < nqt) fetch(it + 1, nxt);
+    if (kwarp) {
+      const T* qt = qs + cur * TE;
+      const T* gt = gs + cur * TE;
+      const float* bt = bs + cur * TILE * LDB;
+      const float4* rp = rowp + cur * TILE;
+      // the keep flags first (4 bits an 8-query tile): integer work the
+      // scheduler can put beside the products
+      const uint32_t kbits =
+          f.thresh32 ? keep_bits(p, b, h, kw0, q0, lane) : 0xffffffffu;
+      float st[8][4], dp[8][4];
+      zero(st);
+      zero(dp);
+      C::mma_abt(st, ka, qt, lane, nj);  // S^T: keys x queries
+      C::mma_abt(dp, va, gt, lane, nj);  // (dO V^T)^T
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 8; ++n) {
+        if (n >= 2 * nj) break;
+        const int qc = n * 8 + 2 * (lane & 3);
+        const uint32_t kb = kbits >> (4 * n);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ql = n * 8 + 2 * (lane & 3) + (i & 1);
-        const int key = rk[i >> 1];
-        const float x = key < p.Tk ? score(p, st[n][i], b, q0 + ql, key)
-                                   : -INFINITY;
-        const float pr = expf(x - ms[ql]) * linv[ql];
-        float kp = p.keep_scale;  // keep * 65536/thresh16 (1 at rate 0)
-        if (p.thresh32 && !(key < p.Tk && q0 + ql < p.Tq &&
-                            keep_one(p, b, h, q0 + ql, key)))
-          kp = 0.f;
-        st[n][i] = pr * kp;                           // dropped P^T
-        dp[n][i] = pr * (dp[n][i] * kp - dels[ql]);   // dS^T
+        for (int i = 0; i < 4; ++i) {
+          const int ql = qc + (i & 1), key = rk[i >> 1];
+          const float4 r = rp[ql];  // (m, 1/l, D)
+          const float x =
+              key < f.Tk ? st[n][i] * f.scale + bt[ql * LDB + key - k0]
+                         : -INFINITY;
+          const float pr = expf(x - r.x) * r.y;
+          const float kp = (kb >> i) & 1 ? f.keep_scale : 0.f;
+          st[n][i] = pr * kp;                      // dropped P^T
+          dp[n][i] = pr * (dp[n][i] * kp - r.z);   // dS^T
+        }
       }
-    C::mma_ps(dva, st, gs, lane, pw);  // dV += Pd^T dO
-    C::mma_ps(dka, dp, qs, lane, pw);  // dK += dS^T Q
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rk[r] >= p.Tk) continue;
-    T* kg = dk + (bh * p.Tk + rk[r]) * D;
-    T* vg = dv + (bh * p.Tk + rk[r]) * D;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * (lane & 3);
-      C::st2(kg + c, dka[n][2 * r] * p.scale, dka[n][2 * r + 1] * p.scale);
-      C::st2(vg + c, dva[n][2 * r], dva[n][2 * r + 1]);
+      C::mma_ps(dva, st, gt, lane, pw, nj);  // dV += Pd^T dO
+      C::mma_ps(dka, dp, qt, lane, pw, nj);  // dK += dS^T Q
+      C::store_ds(vs, dp, warp, lane);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward C: dQ for one query tile; grid (query tiles, H, B)
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-attn_dq_kernel(Params<T> p, T* __restrict__ dq) {
-  using C = Cdt<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);
-  T* vs = ks + C::TILE_ELEMS;
-  T* qt = C::A_IN_SMEM ? vs + C::TILE_ELEMS : ks;
-  T* gt = C::A_IN_SMEM ? vs + 2 * C::TILE_ELEMS : vs;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* pw = reinterpret_cast<float*>(
-                  ks + (C::A_IN_SMEM ? 4 : 2) * C::TILE_ELEMS) +
-              warp * 16 * LDF;
-  const size_t bh = (size_t)b * p.H + h;
-
-  typename C::AFrag qa, ga;
-  C::load_tile(qt, p.q + bh * p.Tq * D, q0, p.Tq, tid);
-  C::load_tile(gt, p.g + bh * p.Tq * D, q0, p.Tq, tid);
-  __syncthreads();
-  C::load_a(qa, qt, warp * 16, lane);
-  C::load_a(ga, gt, warp * 16, lane);
-
-  const int rq[2] = {q0 + warp * 16 + (lane >> 2),
-                     q0 + warp * 16 + (lane >> 2) + 8};
-  float mr[2], li[2], de[2];
+    if (ST == 2) cp_async_wait_all();
+    __syncthreads();  // dS^T complete (bf16: stage nxt landed)
+    if (ST == 1 && it + 1 < nqt) fetch(it + 1, 0);
+    if (it + 1 < nqt) load_rows(it + 1);
+    // this key tile's share of dQ: a warp takes 16 queries x 32 columns
+    const int qw = 16 * (warp & 3), dh = warp >> 2;
+    if (qw < nq) {
+      float dqa[4][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = rq[r] < p.Tq;
-    const float2 st = in ? reinterpret_cast<const float2*>(
-                               p.stats)[bh * p.Tq + rq[r]]
-                         : make_float2(INFINITY, 1.f);
-    mr[r] = st.x;
-    li[r] = in ? 1.f / st.y : 0.f;
-    de[r] = in ? p.delta[bh * p.Tq + rq[r]] : 0.f;
-  }
-  float dqa[8][4];
-  zero(dqa);
-
-  for (int k0 = 0; k0 < p.Tk; k0 += TILE) {
-    __syncthreads();
-    C::load_tile(ks, p.k + bh * p.Tk * D, k0, p.Tk, tid);
-    C::load_tile(vs, p.v + bh * p.Tk * D, k0, p.Tk, tid);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    C::mma_abt(s, qa, ks, lane);   // S
-    C::mma_abt(dp, ga, vs, lane);  // dO V^T
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int key = k0 + n * 8 + 2 * (lane & 3);
+        for (int i = 0; i < 4; ++i) dqa[n][i] = 0.f;
+      C::mma_dq(dqa, dsrc, ks, qw, dh, nk, lane);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        bool kp[2] = {true, true};
-        if (p.thresh32 && rq[r] < p.Tq) keep_pair(p, b, h, rq[r], key,
-                                                  kp[0], kp[1]);
+        const int q = q0 + qw + (lane >> 2) + 8 * r;
+        if (q >= f.Tq) continue;
+        const int c = 32 * dh + 2 * (lane & 3);
+        if (p.nkt == 1) {
+          T* o = p.dq + b * p.sdq.b + h * p.sdq.h + q * p.sdq.t + c;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int i = 2 * r + j;
-          const float pr =
-              expf(score(p, s[n][i], b, rq[r], key + j) - mr[r]) * li[r];
-          const float ks_ = kp[j] ? p.keep_scale : 0.f;
-          s[n][i] = pr * (dp[n][i] * ks_ - de[r]);  // dS
+          for (int n = 0; n < 4; ++n)
+            C::st2(o + n * 8, dqa[n][2 * r] * f.scale,
+                   dqa[n][2 * r + 1] * f.scale);
+        } else {
+          float* o = p.part + ((bh * p.nkt + kt) * f.Tq + q) * D + c;
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            *reinterpret_cast<float2*>(o + n * 8) =
+                make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]);
         }
       }
     }
-    C::mma_ps(dqa, s, ks, lane, pw);  // dQ += dS K
+    if (it + 1 < nqt) {
+      if (ST == 1) {
+        cp_async_wait_all();
+        __syncthreads();  // stage 0 holds query tile it + 1
+      }
+      d_phase(it + 1, nxt);
+    }
   }
 
+  if (kwarp) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rq[r] >= p.Tq) continue;
-    T* qg = dq + (bh * p.Tq + rq[r]) * D;
+    for (int r = 0; r < 2; ++r) {
+      if (rk[r] >= f.Tk) continue;
+      T* kg = p.dk + b * p.sdk.b + h * p.sdk.h + rk[r] * p.sdk.t;
+      T* vg = p.dv + b * p.sdv.b + h * p.sdv.h + rk[r] * p.sdv.t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      C::st2(qg + n * 8 + 2 * (lane & 3), dqa[n][2 * r] * p.scale,
-             dqa[n][2 * r + 1] * p.scale);
+      for (int n = 0; n < 8; ++n) {
+        const int c = n * 8 + 2 * (lane & 3);
+        C::st2(kg + c, dka[n][2 * r] * f.scale, dka[n][2 * r + 1] * f.scale);
+        C::st2(vg + c, dva[n][2 * r], dva[n][2 * r + 1]);
+      }
+    }
   }
+  if (p.nkt == 1) return;
+
+  // the last block of (b, h) to arrive adds the shares in key-tile order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last_block = atomicAdd(p.arrive + bh, 1u) == (unsigned)(p.nkt - 1);
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const float* src = p.part + bh * p.nkt * f.Tq * D;
+  T* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
+  // U float4 a thread at a time, all their loads in flight together
+  constexpr int U = 8;
+  const int n4 = f.Tq * (D / 4);
+  for (int e0 = tid; e0 < n4; e0 += U * BWD_THREADS) {
+    float4 acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = min(e0 + u * BWD_THREADS, n4 - 1);
+      acc[u] = __ldcg(reinterpret_cast<const float4*>(src) + e);
+    }
+    for (int t = 1; t < p.nkt; ++t) {
+      const float4* st = reinterpret_cast<const float4*>(
+          src + (size_t)t * f.Tq * D);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float4 x = __ldcg(st + min(e0 + u * BWD_THREADS, n4 - 1));
+        acc[u].x += x.x;
+        acc[u].y += x.y;
+        acc[u].z += x.z;
+        acc[u].w += x.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * BWD_THREADS;
+      if (e >= n4) break;
+      T* o = dqb + (e >> 4) * p.sdq.t + 4 * (e & 15);
+      C::st2(o, acc[u].x * f.scale, acc[u].y * f.scale);
+      C::st2(o + 2, acc[u].z * f.scale, acc[u].w * f.scale);
+    }
+  }
+  if (tid == 0) p.arrive[bh] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -714,9 +1027,7 @@ Params<T> make_params(const void* q, const void* k, const void* v,
   p.q = (const T*)q;
   p.k = (const T*)k;
   p.v = (const T*)v;
-  p.o = p.g = nullptr;
   p.bias = (const float*)bias;
-  p.stats = p.delta = nullptr;
   p.H = H;
   p.Tq = Tq;
   p.Tk = Tk;
@@ -749,38 +1060,41 @@ int attn_fwd(const void* q, const void* k, const void* v, const void* bias,
   return cudaGetLastError();
 }
 
+// strides: (batch, head, row) element strides of q, k, v, g, dq, dk, dv
 template <typename T>
 int attn_bwd(const void* q, const void* k, const void* v, const void* bias,
              const void* out, const void* stats, const void* g, void* dq,
-             void* dk, void* dv, int B, int H, int Tq, int Tk, int d,
-             int thresh16, unsigned long long seed, void* delta,
-             void* stream) {
+             void* dk, void* dv, const long long* strides, int B, int H,
+             int Tq, int Tk, int d, int thresh16, unsigned long long seed,
+             void* part, void* arrive, void* stream) {
   cudaGetLastError();
   if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
-  constexpr size_t smem = bwd_smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_dq_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e != cudaSuccess) return e;
-  Params<T> p = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
+  BwdParams<T> p;
+  p.f = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
   p.o = (const T*)out;
   p.g = (const T*)g;
   p.stats = (const float*)stats;
-  p.delta = (const float*)delta;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rows = B * H * Tq;
-  attn_delta_kernel<T><<<(rows + 255) / 256, 256, 0, s>>>(
-      p.o, p.g, (float*)delta, rows);
-  attn_dkdv_kernel<T>
-      <<<dim3((Tk + TILE - 1) / TILE, H, B), THREADS, smem, s>>>(
-          p, (T*)dk, (T*)dv);
-  attn_dq_kernel<T><<<dim3((Tq + TILE - 1) / TILE, H, B), THREADS, smem, s>>>(
-      p, (T*)dq);
+  p.dq = (T*)dq;
+  p.dk = (T*)dk;
+  p.dv = (T*)dv;
+  Strides* ss[7] = {&p.sq, &p.sk, &p.sv, &p.sg, &p.sdq, &p.sdk, &p.sdv};
+  for (int i = 0; i < 7; ++i)
+    *ss[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  p.part = (float*)part;
+  p.arrive = (unsigned*)arrive;
+  p.nch = (Tk + 15) / 16;
+  p.nkt = (p.nch + BWD_WARPS - 1) / BWD_WARPS;
+  if (p.nkt > 1 && (part == nullptr || arrive == nullptr))
+    return cudaErrorInvalidValue;
+  p.bias16 = Tk % 4 == 0 && ((uintptr_t)bias & 15) == 0;
+  constexpr size_t smem = bwd_smem<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  attn_bwd_kernel<T><<<dim3(p.nkt, H, B), BWD_THREADS, smem,
+                       (cudaStream_t)stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -809,25 +1123,33 @@ extern "C" int attn_fwd_f32(const void* q, const void* k, const void* v,
                          seed, stream);
 }
 
-// g = dL/d(out); delta: (B, H, Tq) f32 scratch
+// g = dL/d(out); strides: 21 int64, (batch, head, row) element strides of
+// q, k, v, g, dq, dk, dv (rows contiguous, 16-byte aligned); out and stats
+// as the forward wrote them; part: (B, H, key tiles, Tq, 64) f32 scratch and
+// arrive: B * H uint32 counters that are 0 (the kernel leaves them 0), both
+// unused (may be null) when Tk <= 128 (one key tile: key tiles =
+// ceil(ceil(Tk / 16) / 8))
 extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* bias, const void* out,
                              const void* stats, const void* g, void* dq,
-                             void* dk, void* dv, int B, int H, int Tq, int Tk,
-                             int d, int thresh16, unsigned long long seed,
-                             void* delta, void* stream) {
-  return attn_bwd<bf16>(q, k, v, bias, out, stats, g, dq, dk, dv, B, H, Tq,
-                        Tk, d, thresh16, seed, delta, stream);
+                             void* dk, void* dv, const long long* strides,
+                             int B, int H, int Tq, int Tk, int d,
+                             int thresh16, unsigned long long seed,
+                             void* part, void* arrive, void* stream) {
+  return attn_bwd<bf16>(q, k, v, bias, out, stats, g, dq, dk, dv, strides, B,
+                        H, Tq, Tk, d, thresh16, seed, part, arrive, stream);
 }
 
 extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v,
                             const void* bias, const void* out,
                             const void* stats, const void* g, void* dq,
-                            void* dk, void* dv, int B, int H, int Tq, int Tk,
-                            int d, int thresh16, unsigned long long seed,
-                            void* delta, void* stream) {
-  return attn_bwd<float>(q, k, v, bias, out, stats, g, dq, dk, dv, B, H, Tq,
-                         Tk, d, thresh16, seed, delta, stream);
+                            void* dk, void* dv, const long long* strides,
+                            int B, int H, int Tq, int Tk, int d,
+                            int thresh16, unsigned long long seed,
+                            void* part, void* arrive, void* stream) {
+  return attn_bwd<float>(q, k, v, bias, out, stats, g, dq, dk, dv, strides,
+                         B, H, Tq, Tk, d, thresh16, seed, part, arrive,
+                         stream);
 }
 
 // out: (B, H*Tq, Tk) uint32

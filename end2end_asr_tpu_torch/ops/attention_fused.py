@@ -10,7 +10,10 @@ As there, nothing (Tq, Tk)-sized reaches device memory: the forward keeps
 two f32 softmax statistics per query row (the max and the sum; one
 log-sum-exp loses the sum under the −1e9 mask, see the source) besides
 its output, and the backward recomputes the scores and regenerates the
-same dropout mask from the seed.
+same dropout mask from the seed. The backward is one launch: one pass
+over every (query, key) element, dQ's per-key-tile shares summed in a
+fixed order (two runs give the same bits); `attn_bwd_emulated` is its
+algorithm in torch, for the CPU tests.
 
 Semantics kept from the JAX package:
   * keep = bits < thresh16·65536 on uint32 bits, thresh16 =
@@ -48,10 +51,12 @@ uint32 tensors).
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as Fn
 
 from end2end_asr_tpu_torch.ops import cuda_lib
 
@@ -60,12 +65,14 @@ U64 = cuda_lib.U64
 
 FWD = cuda_lib.CudaKernel("attention", "attn_fwd_bf16",
                           [P] * 6 + [I] * 6 + [U64, P])
+# q k v bias out stats g dq dk dv strides, B H Tq Tk d thresh16, seed,
+# part arrive stream
 BWD = cuda_lib.CudaKernel("attention", "attn_bwd_bf16",
-                          [P] * 10 + [I] * 6 + [U64, P, P])
+                          [P] * 11 + [I] * 6 + [U64, P, P, P])
 FWD_F32 = cuda_lib.CudaKernel("attention", "attn_fwd_f32",
                               [P] * 6 + [I] * 6 + [U64, P])
 BWD_F32 = cuda_lib.CudaKernel("attention", "attn_bwd_f32",
-                              [P] * 10 + [I] * 6 + [U64, P, P])
+                              [P] * 11 + [I] * 6 + [U64, P, P, P])
 BITS = cuda_lib.CudaKernel("attention", "dropout_bits_u32",
                            [P] + [I] * 4 + [U64, P])
 KERNELS = {"attn_fwd": FWD, "attn_bwd": BWD, "attn_fwd_f32": FWD_F32,
@@ -75,6 +82,9 @@ _BY_DTYPE = {torch.bfloat16: (FWD, BWD), torch.float32: (FWD_F32, BWD_F32)}
 
 HEAD_DIMS = (64,)   # head widths the kernels are built for
 MASK_BIAS = -1e9
+TILE = 64           # queries per tile of the backward (and the forward)
+CHUNK = 16          # keys a warp of the backward owns
+WARPS = 8           # chunks per key tile at most: the backward's warps
 
 
 def dropout_thresh16(rate: float) -> int:
@@ -189,6 +199,133 @@ def flash_mha_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The backward kernel's algorithm in torch (the CPU tests hold it against
+# the plain backward and the JAX kernel; the card holds the kernel against
+# the plain version)
+# ---------------------------------------------------------------------------
+
+def key_tiles(Tk: int) -> List[Tuple[int, int]]:
+    """The backward's key tiles [(k0, k1)]: ceil(Tk/16) chunks of 16 keys
+    (one a warp) spread over ceil(chunks/8) tiles as evenly as they come
+    (the kernel's c_lo, c_hi)."""
+    nch = -(-Tk // CHUNK)
+    nkt = -(-nch // WARPS)
+    return [(CHUNK * (t * nch // nkt),
+             min(CHUNK * ((t + 1) * nch // nkt), Tk)) for t in range(nkt)]
+
+
+def attn_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """(B, H, Tq, 2) f32: what the forward kernel saves, the row max m of
+    x = q·kᵀ/√dk + bias and the row sum l of exp(x − m)."""
+    x = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+         * (1.0 / math.sqrt(q.shape[-1])) + bias.float()[:, None])
+    m = x.amax(-1)
+    return torch.stack([m, torch.exp(x - m[..., None]).sum(-1)], -1)
+
+
+def keep_mask_by_lanes(seed: int, B: int, H: int, Tq: int, Tk: int,
+                       thresh16: int, device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) bool: the keep mask as the backward kernel's lanes
+    draw it (csrc/attention.cu, keep_bits). In a warp's 16-key chunk c and
+    8-query tile n, lane L (wd = L bits 2-3, hh = L bit 4, p = L % 4)
+    draws the call for key group 4c + hh + 2·(wd >> 1) and query 8n + 2p +
+    (wd & 1); in round x it sends word wd ^ x to lane L ^ 4x, and the word
+    it receives is the keep flag of its element wd ^ x (element i: key row
+    16c + L/4 + 8·(i >> 1), query 8n + 2p + (i & 1)). Equal to `keep_mask`
+    when the exchange is right."""
+    s = seed & 0xFFFFFFFFFFFFFFFF
+    nch, nnt = -(-Tk // CHUNK), -(-Tq // 8)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    lane = ar(32)
+    wd, hh, pp = (lane >> 2) & 3, lane >> 4, lane & 3
+    shape = (B, H, nch, nnt, 32)
+    c0 = 4 * ar(nch).view(1, 1, nch, 1, 1) + (hh + 2 * (wd >> 1))
+    c1 = 8 * ar(nnt).view(1, 1, 1, nnt, 1) + (2 * pp + (wd & 1))
+    words = torch.stack(philox4x32_10(
+        c0.expand(shape), c1.expand(shape),
+        ar(H).view(1, H, 1, 1, 1).expand(shape),
+        ar(B).view(B, 1, 1, 1, 1).expand(shape), s & _MASK32, s >> 32), -1)
+    bits = torch.zeros(shape, dtype=torch.int64, device=device)
+    for x in range(4):
+        src = lane ^ (x << 2)
+        sel = (wd[src] ^ x).view(1, 1, 1, 1, 32, 1).expand(*shape, 1)
+        got = words[..., src, :].gather(-1, sel).squeeze(-1)
+        bits |= (got < thresh16 * 65536).long() << (wd ^ x)
+    keep = torch.zeros(B, H, CHUNK * nch, 8 * nnt, dtype=torch.bool,
+                       device=device)
+    for i in range(4):
+        key = (CHUNK * ar(nch).view(nch, 1, 1) + (lane >> 2) + 8 * (i >> 1))
+        qry = 8 * ar(nnt).view(1, nnt, 1) + 2 * pp + (i & 1)
+        keep[:, :, key.expand(nch, nnt, 32), qry.expand(nch, nnt, 32)] = (
+            (bits >> i) & 1).bool()
+    return keep[:, :, :Tk, :Tq].transpose(-1, -2)
+
+
+def attn_bwd_emulated(q, k, v, bias, out, stats, g, seed: int, rate: float,
+                      keep: Optional[torch.Tensor] = None):
+    """The backward kernel's algorithm in torch (tests only): (dq, dk, dv)
+    in q's dtype. Key tiles of `key_tiles`, keys padded to whole 16-key
+    chunks (score −inf), queries to whole 64-query tiles (m = +inf,
+    1/l = 0, D = 0); P = exp(x − m)·(1/l) from `stats`; D = Σ dO·O with O
+    the output in the compute type; the dropped P and dS rounded to the
+    compute type before their products; dK, dV summed over the query tiles
+    in order, and dQ's per-key-tile shares (f32) added in key-tile order.
+    `keep` (B, H, Tq, Tk) bool overrides the lanes' Philox mask."""
+    cdt = q.dtype
+    B, H, Tq, Dk = q.shape
+    Tk = k.shape[2]
+    scale = 1.0 / math.sqrt(Dk)
+    thresh16 = dropout_thresh16(rate)
+    if keep is None and thresh16 < 65536:
+        keep = keep_mask_by_lanes(seed, B, H, Tq, Tk, thresh16, q.device)
+    kscale = 65536.0 / thresh16 if keep is not None else 1.0
+    rnd = lambda t: t.to(cdt).float()
+    Tqp = -(-Tq // TILE) * TILE
+    rows = lambda t, n: Fn.pad(t.float(), (0, 0, 0, n - t.shape[2]))
+    qp, gp = rows(q, Tqp), rows(g, Tqp)
+    pad_q = lambda t, fill: torch.cat(
+        [t, torch.full((B, H, Tqp - Tq), fill, device=q.device)], -1)
+    m = pad_q(stats[..., 0].float(), math.inf)
+    linv = pad_q(1.0 / stats[..., 1].float(), 0.0)
+    d = pad_q((g.float() * out.to(cdt).float()).sum(-1), 0.0)
+    # bias and keep as (B, 1, Tqp, Tk + 64): zero / kept past the edges
+    bias_p = Fn.pad(bias.float(), (0, TILE, 0, Tqp - Tq))[:, None]
+    keep_p = (Fn.pad(keep.float(), (0, TILE, 0, Tqp - Tq)) if keep is not None
+              else None)
+    shares, dks, dvs = [], [], []
+    for k0, k1 in key_tiles(Tk):
+        c = -(-(k1 - k0) // CHUNK) * CHUNK
+        kk, vv = rows(k[:, :, k0:k1], c), rows(v[:, :, k0:k1], c)
+        real = (torch.arange(c, device=q.device) < k1 - k0)[:, None]
+        dka = torch.zeros(B, H, c, Dk, device=q.device)
+        dva = torch.zeros_like(dka)
+        share = torch.zeros(B, H, Tqp, Dk, device=q.device)
+        for q0 in range(0, Tqp, TILE):
+            sl = slice(q0, q0 + TILE)
+            st = kk @ qp[:, :, sl].transpose(-1, -2)       # S^T: keys x q
+            dpt = vv @ gp[:, :, sl].transpose(-1, -2)
+            x = torch.where(real, st * scale + bias_p[:, :, sl, k0:k0 + c]
+                            .transpose(-1, -2), -math.inf)
+            pr = torch.exp(x - m[:, :, None, sl]) * linv[:, :, None, sl]
+            kp = (keep_p[:, :, sl, k0:k0 + c].transpose(-1, -2) * kscale
+                  if keep_p is not None else 1.0)
+            pd = rnd(pr * kp)
+            ds = rnd(pr * (dpt * kp - d[:, :, None, sl]))
+            dva += pd @ gp[:, :, sl]
+            dka += ds @ qp[:, :, sl]
+            share[:, :, sl] = ds.transpose(-1, -2) @ kk
+        shares.append(share)
+        dks.append(dka[:, :, :k1 - k0])
+        dvs.append(dva[:, :, :k1 - k0])
+    dq = shares[0]
+    for sh in shares[1:]:
+        dq = dq + sh
+    return ((dq[:, :, :Tq] * scale).to(cdt),
+            (torch.cat(dks, 2) * scale).to(cdt), torch.cat(dvs, 2).to(cdt))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -243,32 +380,68 @@ def attn_fwd(q, k, v, bias, seed: int, rate: float):
     return out, stats
 
 
+# arrival counters of the backward, one set per (device, stream): the
+# kernel's last block of each (b, h) sets its counter back to 0
+_ARRIVE = {}
+
+
+def _arrive(device, n: int) -> torch.Tensor:
+    key = (device.index, _stream())
+    t = _ARRIVE.get(key)
+    if t is None or t.numel() < n:
+        t = _ARRIVE[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def _strided_ok(t: torch.Tensor) -> bool:
+    """The backward reads t through its strides: rows contiguous, every
+    row 16-byte aligned."""
+    e, (sb, sh, st, sd) = 16 // t.element_size(), t.stride()
+    return sd == 1 and not (sb % e or sh % e or st % e or t.data_ptr() % 16)
+
+
 def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
     """Kernel 5: (dq, dk, dv) in q's dtype, the forward and its mask
-    recomputed."""
+    recomputed, in one launch. q, k, v and g are read through their
+    strides (the (B, T, H, D) layout of the projections, transposed, needs
+    no copy), and dq, dk, dv come back in the layouts of q, k, v."""
     _check(q, k, v, bias)
     if out.dtype != q.dtype or g.dtype != q.dtype:
         raise ValueError("attn_bwd: out and g must be in q's dtype")
-    q, k, v, bias, out, stats, g = (
-        t.contiguous() for t in (q, k, v, bias, out, stats, g))
+    bias, out, stats = (t.contiguous() for t in (bias, out, stats))
+    q, k, v, g = (t if _strided_ok(t) else t.contiguous()
+                  for t in (q, k, v, g))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
+    # empty_like keeps the layout of q, k, v (dense, 16-byte aligned rows)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if dq.numel() and dk.numel():
+        nkt = len(key_tiles(Tk))
         with torch.cuda.device(q.device):
+            part = arrive = None
+            if nkt > 1:
+                part = torch.empty(B * H * nkt * Tq * D, dtype=torch.float32,
+                                   device=q.device)
+                arrive = _arrive(q.device, B * H)
+            strides = (ctypes.c_longlong * 21)(
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+                *dv.stride()[:3])
             _BY_DTYPE[q.dtype][1].launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, H, Tq, Tk, D,
+                dv.data_ptr(), ctypes.addressof(strides), B, H, Tq, Tk, D,
                 dropout_thresh16(rate), seed & (2 ** 64 - 1),
-                delta.data_ptr(), _stream())
+                part.data_ptr() if part is not None else None,
+                arrive.data_ptr() if arrive is not None else None, _stream())
     return dq, dk, dv
 
 
 class FlashMhaTrain(torch.autograd.Function):
-    """Forward kernel 4, backward kernel 5 on CUDA tensors; the plain
+    """Forward kernel 4, backward kernel 5 on CUDA tensors (the backward
+    takes q, k, v and g as they come, transposed views of the
+    projections, and hands back gradients in their layouts); the plain
     version and its autograd on CPU tensors."""
 
     @staticmethod

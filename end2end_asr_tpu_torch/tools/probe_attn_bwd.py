@@ -1,0 +1,270 @@
+"""Where the training attention's backward (``attn_bwd``) spends its time.
+
+    python -m end2end_asr_tpu_torch.tools.probe_attn_bwd
+        [--source path/to/attention.cu ...] [--no-package] [--batch 12]
+        [--dtype bf16|f32]
+
+Builds ``csrc/attention.cu`` and every file ``--source`` names (another
+design of the same entry points, e.g. an earlier commit's file unpacked
+with ``git show``) into libraries of their own, and calls each one's
+backward entry through ctypes at the training path's shapes: the encoder
+self-attention (B, 8, 200, 200, 64), the decoder cross-attention (B, 8, 51,
+200, 64) and the causal decoder self-attention (B, 8, 51, 51, 64), rate 0.1,
+on the same inputs (q, k, v, g contiguous; out and stats from the
+package's forward). For each design and shape: the device time of each
+kernel the call launches (torch.profiler, by kernel name), their sum, and
+CUDA events around back-to-back ctypes calls (the C call and its launches,
+no Python wrapper); the designs are timed in turns (a, b, ..., b, a) and
+the smaller of the two readings is kept. The first design's gradients are
+compared with each other's. One JSON line, with the card's name and power
+limit. The two signatures are told apart by the source: the earlier design
+(three kernels, ``attn_delta_kernel``) takes a (B, H, Tq) f32 scratch; the
+fused one takes strides, a dQ scratch and arrival counters.
+``--no-package`` times the ``--source`` files alone. ``--cuts`` adds
+copies of the package's file with one part of the fused kernel taken out
+each (``CUTS``; ``a+b`` cuts both): a part's cost is the full kernel's
+time less the copy's (the copies compute wrong gradients; only their times
+are kept). Needs a
+CUDA
+card and ``nvcc``; imports nothing at import time that needs either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+from typing import Dict, List, Tuple
+
+SOURCE = "attention.cu"
+SHAPES = {"enc_self": (200, 200, False), "dec_cross": (51, 200, False),
+          "dec_self": (51, 51, True)}
+
+
+# the fused design's parts, each cut by replacing lines of the source
+CUTS = {
+    # the last block's sum of the dQ shares
+    "dq_sum": [("  for (int e0 = tid; e0 < n4; e0 += U * BWD_THREADS) {",
+                "  for (int e0 = tid; e0 < 0; e0 += U * BWD_THREADS) {")],
+    # the dQ share's product
+    "dq_product": [("      C::mma_dq(dqa, dsrc, ks, qw, dh, nk, lane);\n", "")],
+    # dV += Pd^T dO and dK += dS^T Q
+    "dkdv_products": [
+        ("      C::mma_ps(dva, st, gt, lane, pw, nj);  // dV += Pd^T dO\n", ""),
+        ("      C::mma_ps(dka, dp, qt, lane, pw, nj);  // dK += dS^T Q\n", "")],
+    # S^T and dP^T
+    "sdp_products": [
+        ("      C::mma_abt(st, ka, qt, lane, nj);  // S^T: keys x queries\n",
+         ""),
+        ("      C::mma_abt(dp, va, gt, lane, nj);  // (dO V^T)^T\n", "")],
+    # the Philox draw and exchange (every element kept)
+    "philox": [("f.thresh32 ? keep_bits(p, b, h, kw0, q0, lane)",
+                "false ? keep_bits(p, b, h, kw0, q0, lane)")],
+    # the rebuilt P and dS: the exp and the bias, (m, 1/l, D) reads
+    "softmax": [("          const float pr = expf(x - r.x) * r.y;",
+                 "          const float pr = st[n][i];")],
+    # the bias tiles' copies (16-byte path)
+    "bias_load": [("        cp_async16(bb + r * LDB + c, in ? bg + (size_t)r * f.Tk + c "
+                   ": f.bias,\n                   in);\n", "")],
+    # the dQ shares' stores to the scratch
+    "share_store": [("            *reinterpret_cast<float2*>(o + n * 8) =\n"
+                     "                make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]);\n",
+                     "            ;\n")],
+    # (m, 1/l, D) of the next query tile
+    "d_phase": [("      d_phase(it + 1, nxt);\n", "")],
+}
+
+
+def cut(src: str, names: str) -> str:
+    """`names`: parts of CUTS joined by '+', all cut."""
+    for old, new in (c for name in names.split("+") for c in CUTS[name]):
+        if old not in src:
+            raise RuntimeError(f"probe_attn_bwd: {old.strip()!r} is not in "
+                               "the source; update the probe")
+        src = src.replace(old, new)
+    return src
+
+
+def design_of(src: str) -> str:
+    return "three_kernel" if "attn_delta_kernel" in src else "fused"
+
+
+def build(paths: List[str]) -> Dict[str, Tuple[str, List[str]]]:
+    """One nvcc per source, all started together; {path: (library, ptxas
+    lines on registers and spills)}."""
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    nvcc, procs = cuda_lib._nvcc(), {}
+    for i, path in enumerate(paths):
+        so = os.path.join(cuda_lib.BUILD_DIR,
+                          f"probe_attn_bwd_{os.path.basename(path)}_{i}.so")
+        procs[path] = (subprocess.Popen(
+            [nvcc, *cuda_lib.NVCC_FLAGS, "-o", so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    out = {}
+    for path, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"probe_attn_bwd: nvcc failed for {path}:\n"
+                               f"{log}")
+        out[path] = (so, [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln])
+    return out
+
+
+def kernel_ms(torch, fn, iters=20, tries=3) -> Dict[str, float]:
+    """Mean device ms of one fn() call, by kernel name. Every kernel of a
+    call runs once per call, so a profile that did not see each one
+    `iters` times (the profiler drops events now and then) is taken
+    again."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by, seen = {}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if by and all(c == iters for c in seen.values()):
+            return {n: us / 1e3 / iters for n, us in by.items()}
+    raise RuntimeError("probe_attn_bwd: the profiler missed kernel events "
+                       f"in {tries} profiles")
+
+
+def events_ms(torch, fn, iters=50) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--source", action="append", default=[],
+                   help="another attention.cu (repeatable)")
+    p.add_argument("--no-package", action="store_true",
+                   help="leave the package's csrc/attention.cu out")
+    p.add_argument("--cuts", default=None,
+                   help="comma-separated parts of CUTS to time without "
+                        "(default: none)")
+    p.add_argument("--batch", type=int, default=12)
+    p.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    p.add_argument("--rate", type=float, default=0.1)
+    args = p.parse_args(argv)
+    import torch
+    from end2end_asr_tpu_torch.ops import attention_fused as AF
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_attn_bwd: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cdt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    paths = ([] if args.no_package
+             else [os.path.join(cuda_lib.CSRC_DIR, SOURCE)]) + args.source
+    if args.cuts:
+        with open(os.path.join(cuda_lib.CSRC_DIR, SOURCE)) as f:
+            src = f.read()
+        os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+        for name in args.cuts.split(","):
+            path = os.path.join(cuda_lib.BUILD_DIR,
+                                f"cut_{name.replace('+', '_')}.cu")
+            with open(path, "w") as f:
+                f.write(cut(src, name))
+            paths.append(path)
+    if not paths:
+        raise SystemExit("probe_attn_bwd: no source to time")
+    libs = build(paths)
+    symbol = "attn_bwd_" + args.dtype
+    B, H, D, rate, seed = args.batch, 8, 64, args.rate, 77
+    thresh16 = AF.dropout_thresh16(rate)
+    stream = torch.cuda.current_stream().cuda_stream
+    out_json = {"shapes": {}, "designs": {}}
+    for path in paths:
+        with open(path) as f:
+            out_json["designs"][path] = design_of(f.read())
+    for label, (Tq, Tk, causal) in SHAPES.items():
+        g0 = torch.Generator().manual_seed(Tq * 1000 + Tk)
+        q, k, v = (torch.randn(B, H, t, D, generator=g0).to(dev, cdt)
+                   for t in (Tq, Tk, Tk))
+        mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
+        if causal:
+            mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
+        bias = torch.where(mask, -1e9, 0.0).to(dev)
+        g = torch.randn(B, H, Tq, D, generator=g0).to(dev, cdt)
+        o, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
+        # dQ shares: room for any design's key tiles (16 keys at least)
+        delta = torch.empty(B * H * Tq, device=dev)
+        part = torch.empty(B * H * -(-Tk // 16) * Tq * D, device=dev)
+        arrive = torch.zeros(B * H, dtype=torch.int32, device=dev)
+        calls, grads, alive = {}, {}, []
+        for path in paths:
+            fn = getattr(ctypes.CDLL(libs[path][0]), symbol)
+            fn.restype = ctypes.c_int
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            grads[path] = (dq, dk, dv)
+            head = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    bias.data_ptr(), o.data_ptr(), stats.data_ptr(),
+                    g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr()]
+            dims = [B, H, Tq, Tk, D, thresh16]
+            if out_json["designs"][path] == "three_kernel":
+                fn.argtypes = AF.BWD.argtypes[:10] + AF.BWD.argtypes[11:18] \
+                    + [ctypes.c_void_p, ctypes.c_void_p]
+                a = head + dims + [seed, delta.data_ptr(), stream]
+            else:
+                fn.argtypes = AF.BWD.argtypes
+                strides = (ctypes.c_longlong * 21)(*(
+                    s for t in (q, k, v, g, dq, dk, dv)
+                    for s in t.stride()[:3]))
+                alive.append(strides)
+                a = head + [ctypes.addressof(strides)] + dims + [
+                    seed, part.data_ptr(), arrive.data_ptr(), stream]
+
+            def call(fn=fn, a=a):
+                if fn(*a):
+                    raise RuntimeError("probe_attn_bwd: launch failed")
+            calls[path] = call
+        res = {path: {"kernels_ms": [], "events_ms": []} for path in paths}
+        for order in (paths, paths[::-1]):
+            for path in order:
+                res[path]["kernels_ms"].append(kernel_ms(torch, calls[path]))
+                res[path]["events_ms"].append(events_ms(torch, calls[path]))
+        torch.cuda.synchronize()
+        ref = grads[paths[0]]
+        for path in paths:
+            r = res[path]
+            best = min(range(2), key=lambda i: sum(r["kernels_ms"][i]
+                                                   .values()))
+            r["kernels_ms"] = r["kernels_ms"][best]
+            r["device_ms"] = sum(r["kernels_ms"].values())
+            r["events_ms"] = min(r["events_ms"])
+            r["max_abs_diff_to_first"] = max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(grads[path], ref))
+        out_json["shapes"][label] = {"shape": [B, H, Tq, Tk, D],
+                                     "causal": causal, "results": res}
+    out_json["gpu"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    out_json.update(dtype=args.dtype, rate=rate,
+                    ptxas={path: lines for path, (_, lines) in libs.items()})
+    print(json.dumps(out_json))
+
+
+if __name__ == "__main__":
+    main()

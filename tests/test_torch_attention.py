@@ -42,7 +42,8 @@ def _inputs(seed=0):
 
 
 def _jax_ref(q, k, v, bias, keep=None, scale=None):
-    s = jnp.einsum("bhtd,bhsd->bhts", q, k) / math.sqrt(D) + bias[:, None]
+    s = (jnp.einsum("bhtd,bhsd->bhts", q, k) / math.sqrt(q.shape[-1])
+         + bias[:, None])
     p = jax.nn.softmax(s, -1)
     if keep is not None:
         p = jnp.where(keep, p * scale, jnp.zeros_like(p))
@@ -202,3 +203,148 @@ def test_training_mha_routes_masked_attention_through_the_kernel(
            dropout_rate=0.1, rng=rng)
     TL.mha(p, x, x, x, H, D, D, mask=mask, dtype=torch.float32)
     assert len(calls) == 1
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's algorithm (`attn_bwd_emulated`): one pass over key
+# tiles of 16-key chunks, 64-query tiles with padding, dQ's per-key-tile
+# shares added in key-tile order, the mask drawn by the lanes' exchange
+# ---------------------------------------------------------------------------
+
+# f32 against the plain autograd backward: the same f32 arithmetic summed
+# in another order (over key tiles, then query tiles), relative to the
+# largest value of each gradient: a few 1e-7 (observed <= 4e-7)
+EMU_F32_TOL = 2e-6
+# bf16: the dropped P and dS round to bf16 (2^-8 relative) before their
+# products, the output O of D = dO.O too; relative to the largest value of
+# each gradient, as the card's ATTN_TOL (observed <= 5.3e-3)
+EMU_BF16_TOL = 2e-2
+# (Tq, Tk, causal): ragged tiles both ways, the decoder self-attention
+# (causal bias), the decoder cross-attention (two key tiles), three key
+# tiles of uneven width (6, 6, 7 chunks)
+EMU_SHAPES = [(7, 33, False), (33, 7, False), (51, 51, True),
+              (51, 200, False), (17, 300, False)]
+
+
+def _emu_inputs(Tq, Tk, causal, seed, Dk=64):
+    r = np.random.RandomState(seed)
+    q = r.randn(B, H, Tq, Dk).astype(np.float32)
+    k = r.randn(B, H, Tk, Dk).astype(np.float32)
+    v = r.randn(B, H, Tk, Dk).astype(np.float32)
+    mask = r.rand(B, Tq, Tk) < 0.2
+    if causal:
+        mask |= np.triu(np.ones((Tq, Tk), bool), 1)
+    mask[1, Tq - 1] = True                 # a query with every key masked
+    bias = np.where(mask, np.float32(-1e9), np.float32(0.0))
+    dout = r.randn(B, H, Tq, Dk).astype(np.float32)
+    return q, k, v, bias, dout
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (floor 1e-3); torch tensors."""
+    b = b.float()
+    return ((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-3)
+            ).item()
+
+
+def _emulate(q, k, v, bias, dout, rate, keep=None, cdt=torch.float32,
+             seed=5):
+    """The emulated backward on the inputs rounded to cdt, with the plain
+    forward's output and the forward kernel's statistics."""
+    qt, kt, vt, gt = (torch.from_numpy(a).to(cdt) for a in (q, k, v, dout))
+    bt = torch.from_numpy(bias)
+    kp = None if keep is None else torch.from_numpy(keep)
+    out = AF.flash_mha_train_plain(qt, kt, vt, bt, seed, rate, keep=kp)
+    stats = AF.attn_stats_plain(qt, kt, bt)
+    return AF.attn_bwd_emulated(qt, kt, vt, bt, out, stats, gt, seed, rate,
+                                keep=kp)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(7, 33), (33, 7), (51, 51), (51, 200),
+                                   (1, 1), (65, 257)])
+@pytest.mark.parametrize("seed", [0, 2 ** 64 - 1])
+def test_backward_lanes_draw_the_spec_bits(Tq, Tk, seed):
+    """The backward kernel draws one Philox call per four keys and the
+    four lanes of a key group swap words: the mask that gives is the
+    spec's, bit for bit."""
+    thresh16 = AF.dropout_thresh16(0.3)
+    got = AF.keep_mask_by_lanes(seed, 2, 3, Tq, Tk, thresh16)
+    assert torch.equal(got, AF.keep_mask(seed, 2, 3, Tq, Tk, thresh16))
+
+
+def test_backward_key_tiles_cover_the_keys_in_chunks():
+    assert AF.key_tiles(200) == [(0, 96), (96, 200)]
+    assert AF.key_tiles(51) == [(0, 51)]
+    for Tk in (1, 16, 17, 128, 129, 200, 257, 1000):
+        t = AF.key_tiles(Tk)
+        assert t[0][0] == 0 and t[-1][1] == Tk and len(t) == -(-Tk // 128)
+        assert all(a[1] == b[0] for a, b in zip(t, t[1:]))
+        assert all(a % 16 == 0 and 0 < b - a <= 128 for a, b in t)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk,causal", EMU_SHAPES)
+def test_backward_emulation_equals_the_plain_backward(Tq, Tk, causal, rate):
+    """f32: the kernel's algorithm against autograd of the plain version
+    (the same Philox mask), tight; bf16: against the plain f32 backward of
+    the same bf16 inputs, within the card's tolerance."""
+    q, k, v, bias, dout = _emu_inputs(Tq, Tk, causal, Tq * 1000 + Tk)
+    seed = 0x5EED
+    qkv = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = AF.flash_mha_train_plain(*qkv, torch.from_numpy(bias), seed, rate)
+    want = torch.autograd.grad(out, qkv, torch.from_numpy(dout))
+    got = _emulate(q, k, v, bias, dout, rate, seed=seed)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) < EMU_F32_TOL
+    got = _emulate(q, k, v, bias, dout, rate, cdt=torch.bfloat16, seed=seed)
+    qkv = [torch.from_numpy(a).to(torch.bfloat16).float().requires_grad_()
+           for a in (q, k, v)]
+    out = AF.flash_mha_train_plain(*qkv, torch.from_numpy(bias), seed, rate)
+    want = torch.autograd.grad(
+        out, qkv, torch.from_numpy(dout).to(torch.bfloat16).float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _rel(a, b) < EMU_BF16_TOL
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk,causal", EMU_SHAPES)
+def test_backward_emulation_matches_jax(Tq, Tk, causal, rate):
+    """f32, against the JAX package: its ``flash_mha_train`` kernel
+    (interpret mode) at rate 0, its reference on a keep mask fed from
+    numpy at rate 0.1 (the TPU's bits cannot be reproduced); the fully
+    masked query's gradients too. Sums in another order: GRAD_TOL."""
+    q, k, v, bias, dout = _emu_inputs(Tq, Tk, causal, Tq + 7 * Tk)
+    qkv = [jnp.asarray(a) for a in (q, k, v)]
+    if rate == 0.0:
+        keep = None
+        f = lambda q, k, v: JAF.flash_mha_train(
+            q, k, v, jnp.asarray(bias), jnp.array([3], jnp.int32), 0.0)
+    else:
+        keep = np.random.RandomState(Tq).rand(B, H, Tq, Tk) < 0.9
+        scale = np.float32(65536.0 / AF.dropout_thresh16(rate))
+        f = lambda q, k, v: _jax_ref(q, k, v, jnp.asarray(bias),
+                                     jnp.asarray(keep), scale)
+    _, vjp = jax.vjp(f, *qkv)
+    want = vjp(jnp.asarray(dout))
+    got = _emulate(q, k, v, bias, dout, rate, keep=keep)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL)
+
+
+def test_backward_probe_cuts_apply_to_the_source():
+    """tools/probe_attn_bwd.py times the backward kernel's parts by cutting
+    lines out of csrc/attention.cu: each cut must still find its lines and
+    change the source, and the earlier design's file is told apart."""
+    import os
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_attn_bwd as PA
+    with open(os.path.join(cuda_lib.CSRC_DIR, PA.SOURCE)) as f:
+        src = f.read()
+    assert PA.design_of(src) == "fused"
+    assert PA.design_of("... attn_delta_kernel ...") == "three_kernel"
+    copies = {name: PA.cut(src, name) for name in PA.CUTS}
+    assert src not in copies.values()
+    assert len(set(copies.values())) == len(PA.CUTS)
+    assert PA.cut(src, "philox+softmax") == PA.cut(copies["philox"],
+                                                   "softmax")

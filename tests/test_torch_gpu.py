@@ -182,23 +182,27 @@ def _rel_err(got, want, floor=1e-3):
             / want.abs().max().clamp_min(floor)).item()
 
 
-def _attn_inputs(dev, B, H, Tq, Tk, seed, mask_row=False):
+def _attn_inputs(dev, B, H, Tq, Tk, seed, mask_row=False, causal=False):
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(B, H, T, 64, generator=g).to(dev, torch.bfloat16)
                for T in (Tq, Tk, Tk))
     mask = torch.rand(B, Tq, Tk, generator=g) < 0.2
+    if causal:
+        mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
     if mask_row:
         mask[0, Tq - 1] = True         # every key masked for this query
     bias = torch.where(mask, -1e9, 0.0).to(dev)
     return q, k, v, bias
 
 
+# (257, 257): three key tiles, the dQ shares summed by the last block;
+# (51, 51): the decoder self-attention, whose bias carries the causal mask
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("Tq,Tk", [(1, 1), (7, 33), (33, 7), (201, 201),
-                                   (51, 200)])
+                                   (51, 200), (257, 257), (51, 51)])
 def test_attention_kernels_match_plain(dev, rate, Tq, Tk):
     q, k, v, bias = _attn_inputs(dev, 2, 3, Tq, Tk, seed=Tq * 1000 + Tk,
-                                 mask_row=True)
+                                 mask_row=True, causal=(Tq, Tk) == (51, 51))
     g = torch.Generator().manual_seed(7)
     dout = torch.randn(2, 3, Tq, 64, generator=g).to(dev, torch.bfloat16)
     seed = 0x1234_5678_9ABC_DEF0
@@ -218,6 +222,54 @@ def test_attention_kernels_match_plain(dev, rate, Tq, Tk):
     floor = max(g.abs().max().item() for g in want_g) if Tk == 1 else 1e-3
     for a, b in zip(grads, want_g):
         assert _rel_err(a, b, floor) < ATTN_TOL
+
+
+def _grads_of(q, k, v, bias, dout, seed, rate):
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = AF.flash_mha_train(*qkv, bias, seed, rate)
+    return (out, *torch.autograd.grad(out, qkv, dout))
+
+
+def test_attention_bf16_backward_is_bit_identical(dev):
+    """Two runs of the bf16 backward give the same bits: two key tiles,
+    dQ's shares added in key-tile order whichever block comes last."""
+    q, k, v, bias = _attn_inputs(dev, 2, 3, 201, 201, seed=21, mask_row=True)
+    dout = torch.randn(2, 3, 201, 64, generator=torch.Generator()
+                       .manual_seed(8)).to(dev, torch.bfloat16)
+    a = _grads_of(q, k, v, bias, dout, 0xB1, 0.1)
+    b = _grads_of(q, k, v, bias, dout, 0xB1, 0.1)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_backward_is_one_kernel_on_the_projections_layout(dev,
+                                                                    dtype):
+    """q, k, v and g as the training path hands them over (transposed
+    (B, T, H, D) views): the backward launches exactly one kernel (no
+    copies), and its gradients come back in the projections' layout, equal
+    to those of contiguous inputs."""
+    from torch.profiler import ProfilerActivity, profile
+    B, H, Tq, Tk = 2, 8, 51, 200
+    g0 = torch.Generator().manual_seed(4)
+    qp, kp, vp, gp = (torch.randn(B, T, H, 64, generator=g0).to(dev, dtype)
+                      for T in (Tq, Tk, Tk, Tq))
+    q, k, v, g = (t.transpose(1, 2) for t in (qp, kp, vp, gp))
+    bias = torch.where(torch.rand(B, Tq, Tk, generator=g0) < 0.2, -1e9,
+                       0.0).to(dev)
+    out, stats = AF.attn_fwd(q, k, v, bias, 9, 0.1)
+    want = AF.attn_bwd(*(t.contiguous() for t in (q, k, v)), bias, out,
+                       stats, g.contiguous(), 9, 0.1)
+    AF.attn_bwd(q, k, v, bias, out, stats, g, 9, 0.1)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = AF.attn_bwd(q, k, v, bias, out, stats, g, 9, 0.1)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "attn_bwd_kernel" in names[0], names
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.stride() == t.stride() and torch.equal(a, b)
 
 
 def test_attention_fully_masked_row_is_uniform(dev):
