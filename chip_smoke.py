@@ -133,8 +133,9 @@ DEC_TOL = 2e-3       # f32 decoder logits, 4 layers: GPU vs CPU sum order
 # largest value (floor 1e-3 of the largest gradient): sums in another
 # order through 8 layers and their backward
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 2e-3
-# the block-1 backward's kernel as the profiler names it (csrc/vgg_block1.cu)
+# the block-1 kernels as the profiler names them (csrc/vgg_block1.cu)
 BWD_KERNEL_NAME = "vgg_block1_bwd_fused_kernel"
+FWD_KERNEL_NAME = "vgg_block1_fwd_wgmma_kernel"   # the bf16 forward
 # the attention backward's one kernel (csrc/attention.cu), bf16 and f32
 ATTN_BWD_KERNEL_NAME = "attn_bwd_kernel"
 
@@ -200,10 +201,11 @@ def phase_build(cuda_lib):
 # phase 2
 # ---------------------------------------------------------------------------
 
-def device_ms(torch, fn, iters=20):
-    """Summed device time of the kernels of one fn() call, mean over
-    `iters` calls under torch.profiler (no host time), or None where the
-    profiler saw no device time."""
+def device_ms(torch, fn, iters=20, name=None):
+    """Summed device time of the kernels of one fn() call (those whose
+    names hold `name`, where given), mean over `iters` calls under
+    torch.profiler (no host time), or None where the profiler saw no
+    device time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -213,7 +215,8 @@ def device_ms(torch, fn, iters=20):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and (name is None or name in e.name)]
     return sum(us) / 1e3 / iters if us else None
 
 
@@ -371,6 +374,12 @@ def check_vgg(torch, dev):
             time_ms(torch, lambda: V.vgg_block1(*args, cdt=cdt), iters=10),
             time_ms(torch, lambda: V.vgg_block1_plain(*args, cdt=cdt),
                     iters=10))
+    # the bf16 kernel's own device time (the wrapper also packs W2):
+    # with the pool argmax (training) and without (serving)
+    idx = torch.empty((B, Fp, Tp, 64), dtype=torch.uint8, device=dev)
+    dev_ms = {mode: device_ms(torch, lambda: V.vgg_block1(
+        *args, cdt=torch.bfloat16, idx_out=ix), name=FWD_KERNEL_NAME)
+        for mode, ix in (("idx", idx), ("no_idx", None))}
     lib = {}
     for cdt in (torch.bfloat16, torch.float32):   # TF32 off (main)
         xs = spect.to(cdt)[:, None]
@@ -382,10 +391,14 @@ def check_vgg(torch, dev):
             2) + b2c[None, :, None, None]), iters=10)
     lib_ms = lib[torch.bfloat16]
     flops = 2 * B * F * T * 64 * (9 + 576)
-    nbytes = 4 * (B * F * T + 9 * 64 + 576 * 64 + 128) + 2 * B * Fp * Tp * 64
+    # x and the weights in; out (bf16) and idx (uint8) out
+    nbytes = (4 * (B * F * T + 9 * 64 + 576 * 64 + 128)
+              + (2 + 1) * B * Fp * Tp * 64)
     t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_BPS
     for cdt, (k, p) in times.items():
         log(f"vgg_block1 {str(cdt)[6:]} ms {k:.4f} plain {p:.4f}")
+    log(f"vgg_block1 bf16 {FWD_KERNEL_NAME} device ms {dev_ms['idx']} "
+        f"with idx, {dev_ms['no_idx']} without")
     log(f"vgg_block1 cuDNN bf16 conv2d x2 + max_pool2d {lib_ms:.4f} ms "
         f"(f32, TF32 off: {lib[torch.float32]:.4f}); "
         f"bf16 bound {1e3 * max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.1f} "
@@ -398,6 +411,7 @@ def check_vgg(torch, dev):
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_f32": errs[torch.float32],
             "ms": times[torch.bfloat16][0],
+            "device_ms": dev_ms["idx"], "device_ms_no_idx": dev_ms["no_idx"],
             "plain_ms": times[torch.bfloat16][1],
             "ms_f32": times[torch.float32][0],
             "plain_ms_f32": times[torch.float32][1],
@@ -505,18 +519,22 @@ def check_vgg_bwd(torch, dev):
 
 
 def check_attention(torch, dev):
-    """Kernels 4, 5 at the encoder self-attention (T = 200) and decoder
-    cross-attention (U + 1 = 51 queries) shapes, rates 0 and 0.1; kernel 9
-    bit-exact against the plain Philox."""
+    """Kernels 4, 5 at the encoder self-attention (T = 200), decoder
+    cross-attention (U + 1 = 51 queries) and causal decoder self-attention
+    (51 x 51) shapes, rates 0 and 0.1; kernel 9 bit-exact against the plain
+    Philox."""
     import torch.nn.functional as Fn
     from end2end_asr_tpu_torch.ops import attention_fused as AF
     H, D = 8, 64
     g0 = torch.Generator().manual_seed(SEED + 3)
     out_entries, times = {}, {}
-    for label, Tq, Tk in (("enc_self", 200, 200), ("dec_cross", 51, 200)):
+    for label, Tq, Tk in (("enc_self", 200, 200), ("dec_cross", 51, 200),
+                          ("dec_self", 51, 51)):
         q, k, v = (torch.randn(B, H, t, D, generator=g0).to(
             dev, torch.bfloat16) for t in (Tq, Tk, Tk))
         mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
+        if label == "dec_self":
+            mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
         mask[0, 0] = True                 # a query with every key masked
         bias = torch.where(mask, -1e9, 0.0).to(dev)
         dout = torch.randn(B, H, Tq, D, generator=g0).to(dev, torch.bfloat16)
@@ -596,7 +614,7 @@ def check_attention(torch, dev):
     t = times["enc_self"]
     fwd_err = max(v[0] for v in out_entries.values())
     bwd_err = max(v[1] for v in out_entries.values())
-    cross = times["dec_cross"]
+    cross, dself = times["dec_cross"], times["dec_self"]
     return [
         entry("attn_fwd", "attention.cu",
               "end2end_asr_tpu/ops/attention_fused.py:78", fwd_err,
@@ -607,7 +625,10 @@ def check_attention(torch, dev):
               plain_ms_dec_cross=cross["fwd"][1],
               library_ms_dec_cross=cross["fwd"][4],
               bound_ms_dec_cross=1e3 * max(cross["fwd"][2],
-                                           cross["fwd"][3])),
+                                           cross["fwd"][3]),
+              device_ms_dec_self=dself["dev"][0], ms_dec_self=dself["fwd"][0],
+              library_ms_dec_self=dself["fwd"][4],
+              bound_ms_dec_self=1e3 * max(dself["fwd"][2], dself["fwd"][3])),
         entry("attn_bwd", "attention.cu",
               "end2end_asr_tpu/ops/attention_fused.py:96", bwd_err,
               t["bwd"][0], t["bwd"][1], t["bwd"][2], t["bwd"][3],
@@ -618,7 +639,10 @@ def check_attention(torch, dev):
               plain_ms_dec_cross=cross["bwd"][1],
               library_ms_dec_cross=cross["bwd"][4],
               bound_ms_dec_cross=1e3 * max(cross["bwd"][2],
-                                           cross["bwd"][3])),
+                                           cross["bwd"][3]),
+              device_ms_dec_self=dself["dev"][1], ms_dec_self=dself["bwd"][0],
+              library_ms_dec_self=dself["bwd"][4],
+              bound_ms_dec_self=1e3 * max(dself["bwd"][2], dself["bwd"][3])),
         # the bound counts the bytes written; Philox is integer work with
         # no peak rate in the table, so operations are not counted
         entry("dropout_bits", "attention.cu",
@@ -1096,6 +1120,11 @@ def phase_serve(torch, dev, kernels, work):
             prepared, cfg, dims, pcm, frames, batch.src_bucket)),
         "greedy_64_steps": profile(torch, lambda: greedy_decode_progressive(
             prepared, enc, dims, max_len=64, stage_len=64))}
+    fwd = breakdown["encode"]["sums"][FWD_KERNEL_NAME]
+    if breakdown["encode"]["device_ms"] is not None and \
+            fwd["launches"] != 1:
+        fail(f"the encode's profile shows {fwd['launches']} launches of "
+             f"{FWD_KERNEL_NAME}, not one per batch")
 
     # encoder on the card (f32, TF32 off) vs the port's CPU path
     cfg32 = cfg.replace(dtype="float32")
@@ -1370,15 +1399,21 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
              f"its heaviest kernels: {prof['top']}")
     bwd_share = (bwd_ms[0] / prof["device_ms"] if bwd_ms else None)
     attn = prof["sums"][ATTN_BWD_KERNEL_NAME]
+    fwd = prof["sums"][FWD_KERNEL_NAME]
     log(f"train step device time {prof['device_ms']} ms, of it "
-        f"{BWD_KERNEL_NAME} {bwd_ms} ms (share {bwd_share}); the attention "
-        f"backward {attn['device_ms']} ms in {attn['launches']} launches; "
-        f"{prof['kernel_launches']} launches in the step")
+        f"{BWD_KERNEL_NAME} {bwd_ms} ms (share {bwd_share}), "
+        f"{FWD_KERNEL_NAME} {fwd['device_ms']} ms in {fwd['launches']} "
+        f"launches; the attention backward {attn['device_ms']} ms in "
+        f"{attn['launches']} launches; {prof['kernel_launches']} launches "
+        f"in the step")
     if prof["device_ms"] is not None and \
             attn["launches"] != per_step["attn_bwd"]:
         fail(f"the step's profile shows {attn['launches']} launches of "
              f"{ATTN_BWD_KERNEL_NAME}, not one per attention backward "
              f"({per_step['attn_bwd']})")
+    if prof["device_ms"] is not None and fwd["launches"] != 1:
+        fail(f"the step's profile shows {fwd['launches']} launches of "
+             f"{FWD_KERNEL_NAME}, not one")
 
     # overfit one batch: peak lr k·5120^-0.5·warmup^-0.5 ≈ 1e-3
     ocfg = aishell_config(k_lr=0.36, warmup=25)
@@ -1436,6 +1471,8 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "vgg_block1_bwd_step_device_ms": bwd_ms[0] if bwd_ms else None,
         "vgg_block1_bwd_step_device_share": bwd_share,
         "attn_bwd_step_device_ms": attn["device_ms"],
+        "vgg_block1_fwd_step_device_ms": fwd["device_ms"],
+        "vgg_block1_fwd_step_kernel_launches": fwd["launches"],
         "attn_bwd_step_kernel_launches": attn["launches"],
         "step_kernel_launches": prof["kernel_launches"],
         "run_2_epochs_s": wall, "opt_step_after_resume": res2["opt_step"],
@@ -1680,7 +1717,7 @@ def phase_probe(torch):
     return c
 
 
-def profile(torch, fn, top=6, sums=(ATTN_BWD_KERNEL_NAME,)):
+def profile(torch, fn, top=6, sums=(ATTN_BWD_KERNEL_NAME, FWD_KERNEL_NAME)):
     """One warm call of fn under torch.profiler: wall ms, summed device
     time of its kernels, their share of the wall time (the device's busy
     share; the rest is idle, waiting on the host), launches, the kernels

@@ -32,21 +32,39 @@
 // What bounds it on the H100: conv2, 2*B*F*T*64*576 FLOP (~114 GFLOP at
 // B=12, F=161, T=800): ~0.12 ms at the 989 TFLOP/s of the bf16 tensor
 // cores (the serving path's compute type), ~1.7 ms at the 67 TFLOP/s of
-// f32 FMA. Bytes are small beside it (~30 MB in and out).
+// f32 FMA. Bytes are small beside it (~80 MB in and out with idx).
 //
-// bf16 (vgg_block1_fwd_bf16_kernel): one block per (utterance, pooled row,
-// 4 chunks of 64 conv columns), 8 warps. The whole packed conv2 weight
-// (72 KB bf16) is loaded into shared memory once per block. Per chunk, conv1
-// (f32 FMA) writes the 4 x 66 positions x 64 channels it needs into shared
-// memory as bf16, and conv2 runs as an implicit GEMM on the tensor cores:
-// each warp owns 2 conv rows x 8 conv columns (M = 16) x 64 output channels
-// (N = 64) and walks K = 9 taps x 64 input channels in steps of 16 with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate), its A and B fragments read
-// by ldmatrix from shared memory whose 16-byte chunks are XOR-swizzled by
-// row, so the 8 rows of each 8x8 matrix hit distinct banks. The mma's row m
-// and row m+8 are the two conv rows of one column, so a thread holds both
-// rows of its column; one shuffle with the neighbouring column's lane
-// completes each 2x2 pool window in registers.
+// bf16 (vgg_block1_fwd_wgmma_kernel): one persistent pass, a block of four
+// warpgroups on each SM. Work item = (utterance, pair of pooled rows = 4
+// conv rows, 31 pooled = 62 conv columns); each block walks a fixed range
+// of items, and each output is written by exactly one item.
+//   * W2 (72 KB bf16, (tap, co, ci)) is copied into shared memory once for
+//     the block's life;
+//   * warpgroups 2-3 (conv1) stage each item's input one item ahead, in
+//     registers, store it rounded to bf16, and build the item's x1 (f32 FMA,
+//     6 rows x 64 positions x 64 channels) into one of two buffers while
+//     warpgroups 0-1 run the previous item's products: conv1's FMA issues
+//     beside the tensor cores. Its roundings run on packed bf16 pairs (a
+//     conversion costs eight FMAs' issue slots);
+//   * warpgroup c (0, 1) runs conv2 of conv rows 2c, 2c+1 as 36
+//     wgmma.m64n128k16 (M = the 64 output channels, A = W2's tap slice; N =
+//     2 conv rows x 64 positions, B = the x1 tile). A row of 64 x1 positions
+//     holds the item's 62 columns and their halo, so tap (df, dt)'s operand
+//     is the same tile read from position 64 (2c + df) + dt on (a descriptor
+//     may start on any 128-byte row of the swizzled tile: the swizzle
+//     follows the address bits): no shifted copies. The last two columns of
+//     each row of the product read the next row: garbage, never stored. The
+//     two warpgroups take turns on the tensor cores, so one's epilogue runs
+//     while the other's products do;
+//   * the epilogue: a thread's accumulators hold both columns and both rows
+//     of each of its windows (its fragment pair, and the block 8 further
+//     on), so pool, argmax, b2 and relu run in registers; out and idx leave
+//     through a swizzled shared-memory tile as 16-byte stores;
+//   * setmaxnreg moves registers from the products' warpgroups (64 sums a
+//     thread) to conv1's (72 weights and 32 sums a thread).
+// The products sum in the order of the mma.sync kernel this one replaced
+// (taps, then 16-channel steps); at the main path's shape the two gave the
+// same bits.
 //
 // f32 (vgg_block1_fwd_f32_kernel): f32 FMA on the CUDA cores, one block per
 // (utterance, pooled row, 16 pooled columns); conv2's weights stream through
@@ -207,19 +225,13 @@ vgg_block1_fwd_f32_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16: one persistent pass, conv2 on wgmma (sm_90a), conv1 beside it
 // ---------------------------------------------------------------------------
 
-constexpr int MWARPS = 8;              // warps per block
-constexpr int MTHREADS = 32 * MWARPS;
-constexpr int WCOLS = 8;               // conv columns per warp
-constexpr int CHUNK = MWARPS * WCOLS;  // conv columns per chunk (64)
-constexpr int CHUNKS = 4;              // chunks per block
-constexpr int MXC = CHUNK + 2;         // conv1 columns held (66)
-constexpr int MSC = CHUNK + 4;         // input columns staged (68)
-
 // Offset (in bf16 elements) of 16-byte chunk `ch` (8 channels) of row
-// `row` in a [rows][64] bf16 tile whose chunks are XOR-swizzled by row.
+// `row` in a [rows][64] bf16 tile whose chunks are XOR-swizzled by row: on
+// a 1024-byte boundary this is the 128-byte swizzle of wgmma's shared-
+// memory descriptors (and of ldmatrix tiles without bank conflicts).
 __device__ __forceinline__ int swz(int row, int ch) {
   return row * C + ((ch ^ (row & 7)) << 3);
 }
@@ -243,154 +255,418 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(MTHREADS, 2)
-vgg_block1_fwd_bf16_kernel(const float* __restrict__ x,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ b1,
-                           const __nv_bfloat16* __restrict__ w2p,
-                           const float* __restrict__ b2,
-                           __nv_bfloat16* __restrict__ out,
-                           uint8_t* __restrict__ idx, int F, int T) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bf16x2_bits(__floats2bfloat162_rn(lo, hi));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// named barriers of the forward: `count` threads take part, those that
+// only signal arrive, those that must wait sync
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// generic-proxy shared-memory writes made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// (rows of 64 bf16, 8-row groups 1024 bytes apart); the start may lie any
+// whole number of 16-byte units past a 1024-byte boundary: the swizzle is
+// taken from the address bits, as swz() writes it
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (64 x 128, f32) += A (64 x 16) . B (16 x 128), both from shared memory
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// keeps the compiler from moving accumulator accesses across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+constexpr int FW_THREADS = 512;   // warpgroups 0-1: products; 2-3: conv1
+constexpr int FW_PTHREADS = 256;  // conv1's threads
+// registers a thread after setmaxnreg, 65536 in all: the products (64
+// sums), conv1 (72 weights, 32 sums); neither spills
+constexpr int FW_CREGS = 112;
+constexpr int FW_PREGS = 144;
+constexpr int FW_COLS = 62;       // conv columns per item
+constexpr int FW_PCOLS = FW_COLS / 2;  // pooled columns per item
+constexpr int FW_X1POS = 6 * 64 + 8;  // x1 positions a buffer holds
+constexpr int FW_XC = 68;         // row pitch of the staged input tile
+constexpr int FW_XS = 8 * FW_XC;  // floats of one staged input tile
+constexpr size_t FW_SMEM =
+    1024 +                                  // room to align to 1024 bytes
+    2 * (size_t)(9 * C * C) +               // W2, (tap, co, ci)
+    2 * 2 * (size_t)(FW_X1POS * C) +        // two x1 buffers
+    2 * (size_t)(2 * 32 * C) +              // out staging, bf16
+    (size_t)(2 * 32 * C) +                  // idx staging
+    4 * (size_t)(2 * FW_XS + 9 * C + 2 * C);  // inputs, w1, b1, b2
+// named barriers: the producers' own; x1 buffer s built, for consumer
+// warpgroup c (BAR_FULL + 2c + s); buffer s read by both (BAR_EMPTY + s);
+// consumer c's turn on the tensor cores (BAR_ORDER + c); c's staging tile
+enum { BAR_PROD = 1, BAR_FULL = 2, BAR_EMPTY = 6, BAR_ORDER = 8,
+       BAR_EPI = 10 };
+
+struct FwdItem {
+  int b, rp, chunk;  // utterance, pooled row pair, FW_PCOLS-column chunk
+};
+
+__device__ __forceinline__ FwdItem fwd_item(long it, int rps, int chunks) {
+  FwdItem w;
+  w.chunk = (int)(it % chunks);
+  it /= chunks;
+  w.rp = (int)(it % rps);
+  w.b = (int)(it / rps);
+  return w;
+}
+
+// an item's input, rows 4rp-2 .. 4rp+5, columns c0-2 .. c0+63 (zero
+// outside the image): producer thread ptid loads elements ptid + 256 m into
+// registers one item ahead, and stores them rounded to bf16 (once per
+// element: a conversion costs eight FMAs' issue) after the current x1
+__device__ __forceinline__ void load_x(const float* x, const FwdItem& w,
+                                       int F, int T, int ptid,
+                                       float (&v)[3]) {
+  const float* xb = x + (size_t)w.b * F * T;
+  const int c0 = FW_COLS * w.chunk;
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int e = ptid + FW_PTHREADS * m, i = e / 66, j = e % 66;
+    const int g = 4 * w.rp - 2 + i, t = c0 - 2 + j;
+    v[m] = (e < 8 * 66 && g >= 0 && g < F && t >= 0 && t < T)
+               ? __ldg(xb + (size_t)g * T + t) : 0.f;
+  }
+}
+__device__ __forceinline__ void store_x(const float (&v)[3], float* xs,
+                                        int ptid) {
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int e = ptid + FW_PTHREADS * m;
+    if (e < 8 * 66) xs[(e / 66) * FW_XC + e % 66] = bf16r(v[m]);
+  }
+}
+
+// x1 = relu(bf16(bf16(conv1) + b1)) at the item's 6 x 64 positions,
+// position i * 64 + j = conv (4rp-1+i, c0-1+j), zero outside the image, as
+// bf16 [position][64] swizzled by position. Task e: channels 8cg .. 8cg+7
+// of four columns (their 3 x 6 inputs in six 16- and 8-byte loads); the
+// thread's channel group is fixed, so its weights live in registers. FMA
+// over the
+// taps 0..8 in order: the backward's build_x1_task computes the same bits.
+// The roundings run on packed pairs: one conversion rounds two sums, and
+// bf16 add and max give bf16(bf16(s) + b1) and the relu exactly (a sum of
+// two bf16 values is exact in f32 or rounds to the larger one either way;
+// `probe_vgg_fwd.py --bf16-ops` checks both over every bf16 pair).
+__device__ __forceinline__ void build_x1(const float* xs,
+                                         const float (&wr)[9][8],
+                                         const __nv_bfloat162 (&bp)[4],
+                                         __nv_bfloat16* x1, const FwdItem& w,
+                                         int F, int T, int ptid) {
+  const int cg = ptid & 7;
+  const int c0 = FW_COLS * w.chunk;
+  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll 1
+  for (int e = ptid; e < 6 * 16 * 8; e += FW_PTHREADS) {
+    const int pq = e >> 3, i = pq >> 4, j = 4 * (pq & 15);
+    float xv[3][6];
+#pragma unroll
+    for (int df = 0; df < 3; ++df) {
+      const float* row = xs + (i + df) * FW_XC + j;
+      const float4 a = *reinterpret_cast<const float4*>(row);
+      const float2 b = *reinterpret_cast<const float2*>(row + 4);
+      xv[df][0] = a.x; xv[df][1] = a.y; xv[df][2] = a.z; xv[df][3] = a.w;
+      xv[df][4] = b.x; xv[df][5] = b.y;
+    }
+    float o[4][8];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[h][k] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[h][k] = fmaf(xv[tap / 3][tap % 3 + h], wr[tap][k], o[h][k]);
+    const int g = 4 * w.rp - 1 + i;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int t = c0 - 1 + j + h;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (g >= 0 && g < F && t >= 0 && t < T) {
+        uint32_t r[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          r[k] = bf16x2_bits(__hmax2(
+              __hadd2(__floats2bfloat162_rn(o[h][2 * k], o[h][2 * k + 1]),
+                      bp[k]),
+              zero2));
+        v = make_uint4(r[0], r[1], r[2], r[3]);
+      }
+      *reinterpret_cast<uint4*>(x1 + swz(i * 64 + j + h, cg)) = v;
+    }
+  }
+}
+
+// conv2 of a consumer warpgroup's half item: 64 output channels x 128
+// positions (2 conv rows x 64 columns) over K = 9 taps x 64 input channels,
+// issued and committed. Tap (df, dt) reads the x1 tile from position
+// df * 64 + dt past the half's own first row (x1d): the 128 positions it
+// gives are the conv outputs' own; the last two columns of each row read
+// the next row (garbage, never stored).
+__device__ __forceinline__ void conv2_products(float (&acc)[64],
+                                               uint64_t w2d, uint64_t x1d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)  // descriptors count 16-byte units
+      wgmma_m64n128k16(acc, w2d + tap * (C * C * 2 / 16) + kc * 2,
+                       x1d + ((tap / 3) * 64 + tap % 3) * 8 + kc * 2);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait(float (&acc)[64]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+// the pool window of the thread's channels co (h = 0) and co + 8 (h = 1) in
+// the n8 block bi of the half's first conv row (its second row is block
+// bi + 8): columns {0, 1} of the block's fragment pair are the window's two
+// columns. v = relu(bf16(max + b2)) of the two channels, rounded in pairs
+// as in build_x1
+__device__ __forceinline__ void pool_window(const float (&acc)[64], int bi,
+                                            const float (&b2v)[2],
+                                            __nv_bfloat162& v,
+                                            uint8_t (&id)[2]) {
+  float t[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const __nv_bfloat162 r0 =
+        __floats2bfloat162_rn(acc[4 * bi + 2 * h], acc[4 * bi + 2 * h + 1]);
+    const __nv_bfloat162 r1 = __floats2bfloat162_rn(
+        acc[4 * (bi + 8) + 2 * h], acc[4 * (bi + 8) + 2 * h + 1]);
+    const float e[4] = {__low2float(r0), __high2float(r0), __low2float(r1),
+                        __high2float(r1)};
+    float best = e[0];
+    uint8_t k = 0;
+#pragma unroll
+    for (int m = 1; m < 4; ++m)
+      if (e[m] > best) { best = e[m]; k = m; }
+    t[h] = best + b2v[h];
+    id[h] = k;
+  }
+  v = __hmax2(__floats2bfloat162_rn(t[0], t[1]),
+              __floats2bfloat162_rn(0.f, 0.f));
+}
+
+__global__ void __launch_bounds__(FW_THREADS, 1)
+vgg_block1_fwd_wgmma_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w1,
+                            const float* __restrict__ b1,
+                            const __nv_bfloat16* __restrict__ w2p,
+                            const float* __restrict__ b2,
+                            __nv_bfloat16* __restrict__ out,
+                            uint8_t* __restrict__ idx, int B, int F, int T) {
   extern __shared__ float4 smem4[];
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);  // 576 x 64
-  __nv_bfloat16* x1s = w2s + 9 * C * C;                 // 4*MXC x 64
-  float* xs = reinterpret_cast<float*>(x1s + 4 * MXC * C);  // 6 x MSC
-  float* w1s = xs + 6 * MSC;                            // 9 x C
-  float* b1s = w1s + 9 * C;                             // C
-  float* b2s = b1s + C;                                 // C
+  char* base = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~(uintptr_t)1023);
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(base);  // 576 x 64
+  __nv_bfloat16* x1s = w2s + 9 * C * C;           // 2 x FW_X1POS x 64
+  __nv_bfloat16* outs = x1s + 2 * FW_X1POS * C;   // 2 x 32 x 64
+  uint8_t* idxs = reinterpret_cast<uint8_t*>(outs + 2 * 32 * C);  // same
+  float* xs = reinterpret_cast<float*>(idxs + 2 * 32 * C);  // 2 x FW_XS
+  float* w1s = xs + 2 * FW_XS;                              // 9 x C
+  float* b1s = w1s + 9 * C;                                 // C
+  float* b2s = b1s + C;                                     // C
 
   const int Fp = F / 2, Tp = T / 2;
-  const int b = blockIdx.z;
-  const int fp = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rps = (Fp + 1) / 2, chunks = (Tp + FW_PCOLS - 1) / FW_PCOLS;
+  const long n = (long)B * rps * chunks;
+  const long lo = n * blockIdx.x / gridDim.x;
+  const long hi = n * (blockIdx.x + 1) / gridDim.x;
+  const int tid = threadIdx.x;
 
-  // packed conv2 weight: row = tap*64 + out channel, 64 input channels
-  for (int e = tid; e < 9 * C * 8; e += MTHREADS)
-    *reinterpret_cast<uint4*>(w2s + swz(e >> 3, e & 7)) =
-        reinterpret_cast<const uint4*>(w2p)[e];
-  for (int e = tid; e < 9 * C; e += MTHREADS) w1s[e] = bf16r(w1[e]);
-  for (int e = tid; e < C; e += MTHREADS) {
+  // W2 once for the block's life; w1, b1, b2 rounded to bf16; the x1
+  // buffers' pad positions (read only for garbage columns) zeroed
+  for (int e = tid; e < 9 * C * 8; e += FW_THREADS)
+    cp_async16(w2s + swz(e >> 3, e & 7), w2p + 8 * e, true);
+  cp_async_commit();
+  for (int e = tid; e < 9 * C; e += FW_THREADS) w1s[e] = bf16r(w1[e]);
+  for (int e = tid; e < C; e += FW_THREADS) {
     b1s[e] = bf16r(b1[e]);
     b2s[e] = bf16r(b2[e]);
   }
+  for (int e = tid; e < 2 * 8 * 8; e += FW_THREADS)
+    *reinterpret_cast<uint4*>(x1s + ((e >> 6) * FW_X1POS + 6 * 64) * C +
+                              8 * (e & 63)) = make_uint4(0, 0, 0, 0);
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
 
-  const float* xb = x + (size_t)b * F * T;
-  // per-lane ldmatrix rows: A = (conv row q, column c) x 8 channels of
-  // chunk akc; B = output channel bn of an n-tile pair x chunk bkc
-  const int aq = (lane >> 3) & 1, ac = lane & 7, akc = lane >> 4;
-  const int bn = ((lane >> 4) << 3) + (lane & 7), bkc = (lane >> 3) & 1;
-
-  for (int chunk = 0; chunk < CHUNKS; ++chunk) {
-    const int c0 = (blockIdx.x * CHUNKS + chunk) * CHUNK;
-    if (c0 >= 2 * Tp) break;  // uniform across the block
-    __syncthreads();  // weights staged / previous chunk's tiles consumed
-
-    // input tile: rows 2fp-2 .. 2fp+3, columns c0-2 .. c0+65, bf16-rounded
-    for (int e = tid; e < 6 * MSC; e += MTHREADS) {
-      const int r = e / MSC, j = e % MSC;
-      const int g = 2 * fp - 2 + r, t = c0 - 2 + j;
-      xs[e] = (g >= 0 && g < F && t >= 0 && t < T)
-                  ? bf16r(xb[(size_t)g * T + t]) : 0.f;
+  if (tid >= 256) {
+    // conv1: stage each item's input, build its x1 into the free buffer;
+    // the products' warpgroups hand over registers they do not use
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FW_PREGS));
+    const int ptid = tid - 256, cg = ptid & 7;
+    float wr[9][8], xr[3];
+    __nv_bfloat162 bp[4];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) wr[k][i] = w1s[k * C + cg * 8 + i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      bp[k] = __floats2bfloat162_rn(b1s[cg * 8 + 2 * k],
+                                    b1s[cg * 8 + 2 * k + 1]);
+    if (lo < hi) {
+      load_x(x, fwd_item(lo, rps, chunks), F, T, ptid, xr);
+      store_x(xr, xs, ptid);
     }
-    __syncthreads();
+    for (long it = lo; it < hi; ++it) {
+      const int k = (int)(it - lo), s = k & 1;
+      const FwdItem w = fwd_item(it, rps, chunks);
+      const bool next = it + 1 < hi;
+      bar_sync(BAR_PROD, FW_PTHREADS);  // this item's input stored; the
+                                        // other tile's readers are done
+      if (next) load_x(x, fwd_item(it + 1, rps, chunks), F, T, ptid, xr);
+      if (k >= 2) bar_sync(BAR_EMPTY + s, FW_THREADS);  // item k-2 read
+      {
+        const float* xs_cur = xs + s * FW_XS;
+        __nv_bfloat16* x1b = x1s + s * FW_X1POS * C;
+        build_x1(xs_cur, wr, bp, x1b, w, F, T, ptid);
+      }
+      fence_proxy_async();
+      bar_arrive(BAR_FULL + s, FW_PTHREADS + 128);      // consumer 0
+      bar_arrive(BAR_FULL + 2 + s, FW_PTHREADS + 128);  // consumer 1
+      if (next) store_x(xr, xs + (s ^ 1) * FW_XS, ptid);
+    }
+  } else {
+    // consumer warpgroup c: conv2 of conv rows 2c, 2c+1 of each item on the
+    // tensor cores, then pooled row c's epilogue. The two take turns on the
+    // tensor cores (BAR_ORDER), so one's epilogue runs beside the other's
+    // products
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(FW_CREGS));
+    const int c = tid >> 7, lane = tid & 31, warp = (tid >> 5) & 3;
+    const int coa = 16 * warp + (lane >> 2);   // and coa + 8
+    const float b2v[2] = {b2s[coa], b2s[coa + 8]};
+    const uint64_t w2d = smem_desc(w2s);
+    __nv_bfloat16* outc = outs + c * 32 * C;
+    uint8_t* idxc = idxs + c * 32 * C;
+    for (long it = lo; it < hi; ++it) {
+      const int k = (int)(it - lo), s = k & 1;
+      const FwdItem w = fwd_item(it, rps, chunks);
+      float acc[64];
+      bar_sync(BAR_FULL + 2 * c + s, FW_PTHREADS + 128);
+      if (c == 1 || k > 0) bar_sync(BAR_ORDER + c, 256);
+      {
+        const uint64_t x1d =
+            smem_desc(x1s + (s * FW_X1POS + 2 * c * 64) * C);
+        conv2_products(acc, w2d, x1d);
+      }
+      if (c == 0 || it + 1 < hi) bar_arrive(BAR_ORDER + (c ^ 1), 256);
+      wgmma_wait(acc);
+      if (k + 2 < hi - lo) bar_arrive(BAR_EMPTY + s, FW_THREADS);
 
-    // conv1 + b1 + relu at rows 2fp-1 .. 2fp+2, columns c0-1 .. c0+64, as
-    // bf16; zero outside the image. Each item: one position x 8 channels
-    // (the thread's channel group is fixed: MTHREADS % 8 == 0).
-    {
-      const int cg = tid & 7;
-      float wr[9][8], br[8];
+      bar_sync(BAR_EPI + c, 128);  // the previous item's stores read staging
 #pragma unroll
-      for (int k = 0; k < 9; ++k)
+      for (int b0 = 0; b0 < 8; ++b0) {
+        __nv_bfloat162 v;
+        uint8_t id[2];
+        pool_window(acc, b0, b2v, v, id);
+        const int kk = 4 * b0 + (lane & 3);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) wr[k][i] = w1s[k * C + cg * 8 + i];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) br[i] = b1s[cg * 8 + i];
-      for (int pos = tid >> 3; pos < 4 * MXC; pos += MTHREADS >> 3) {
-        const int r = pos / MXC, j = pos % MXC;
-        const int g = 2 * fp - 1 + r, t = c0 - 1 + j;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (g >= 0 && g < F && t >= 0 && t < T) {
-          float xv[9];
-#pragma unroll
-          for (int df = 0; df < 3; ++df)
-#pragma unroll
-            for (int dt = 0; dt < 3; ++dt)
-              xv[df * 3 + dt] = xs[(r + df) * MSC + j + dt];
-          float o[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            float acc = 0.f;
-#pragma unroll
-            for (int k = 0; k < 9; ++k) acc = fmaf(xv[k], wr[k][i], acc);
-            o[i] = fmaxf(bf16r(bf16r(acc) + br[i]), 0.f);
+        for (int h = 0; h < 2; ++h) {
+          outc[kk * C + (((2 * warp + h) ^ (kk & 7)) << 3) + (lane >> 2)] =
+              h ? __high2bfloat16(v) : __low2bfloat16(v);
+          idxc[kk * C + coa + 8 * h] = id[h];
+        }
+      }
+      bar_sync(BAR_EPI + c, 128);
+      const int tp0 = FW_PCOLS * w.chunk, np = min(FW_PCOLS, Tp - tp0);
+      const int fp = 2 * w.rp + c;
+      if (fp < Fp) {
+        const size_t row = ((size_t)w.b * Fp + fp) * Tp + tp0;
+        for (int e = tid & 127; e < FW_PCOLS * 8; e += 128) {
+          const int kk = e >> 3, q = e & 7;
+          if (kk < np)
+            *reinterpret_cast<uint4*>(out + (row + kk) * C + 8 * q) =
+                *reinterpret_cast<const uint4*>(outc + kk * C +
+                                                ((q ^ (kk & 7)) << 3));
+        }
+        if (idx != nullptr)
+          for (int e = tid & 127; e < FW_PCOLS * 4; e += 128) {
+            const int kk = e >> 2, q = e & 3;
+            if (kk < np)
+              *reinterpret_cast<uint4*>(idx + (row + kk) * C + 16 * q) =
+                  *reinterpret_cast<const uint4*>(idxc + kk * C + 16 * q);
           }
-          v = make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]),
-                         pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
-        }
-        *reinterpret_cast<uint4*>(x1s + swz(pos, cg)) = v;
-      }
-    }
-    __syncthreads();
-
-    // conv2: per warp M = 16 (2 rows x 8 columns), N = 64, K = 9 x 64
-    float acc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int df = tap / 3, dt = tap % 3;
-      const int apos = (aq + df) * MXC + warp * WCOLS + ac + dt;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t a[4];
-        ldsm_x4(x1s + swz(apos, 2 * kc + akc), a[0], a[1], a[2], a[3]);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t q0, q1, q2, q3;
-          ldsm_x4(w2s + swz(tap * C + np * 16 + bn, 2 * kc + bkc), q0, q1,
-                  q2, q3);
-          mma_bf16(acc[2 * np], a, q0, q1);
-          mma_bf16(acc[2 * np + 1], a, q2, q3);
-        }
-      }
-    }
-
-    // epilogue: this lane holds rows (2fp, 2fp+1) of conv column cq for
-    // channels 8n + 2(lane%4) + {0,1}; lane^4 holds the neighbouring
-    // column. The even column's lane writes channel +0, the odd's +1.
-    const int cq = lane >> 2;
-    const bool odd = cq & 1;
-    const int tp = (c0 + warp * WCOLS + cq) >> 1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float nb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        nb[i] = __shfl_xor_sync(0xffffffffu, acc[n][i], 4);
-      const float own0 = bf16r(odd ? acc[n][1] : acc[n][0]);  // row 2fp
-      const float own1 = bf16r(odd ? acc[n][3] : acc[n][2]);  // row 2fp+1
-      const float nb0 = bf16r(odd ? nb[1] : nb[0]);
-      const float nb1 = bf16r(odd ? nb[3] : nb[2]);
-      const float v[4] = {odd ? nb0 : own0, odd ? own0 : nb0,
-                          odd ? nb1 : own1, odd ? own1 : nb1};
-      float best = v[0];
-      uint8_t id = 0;
-#pragma unroll
-      for (int m = 1; m < 4; ++m)
-        if (v[m] > best) { best = v[m]; id = m; }
-      const int co = 8 * n + 2 * (lane & 3) + (odd ? 1 : 0);
-      if (tp < Tp) {
-        const size_t off = (((size_t)b * Fp + fp) * Tp + tp) * C + co;
-        out[off] = __float2bfloat16(fmaxf(bf16r(best + b2s[co]), 0.f));
-        if (idx != nullptr) idx[off] = id;
       }
     }
   }
@@ -452,11 +728,10 @@ vgg_block1_fwd_bf16_kernel(const float* __restrict__ x,
 //   * dW1 (64 ci x 9 taps padded to 16) = cdt(dx1)^T . im2col(cdt(x)), an
 //     mma.sync product over the item's positions (warps 0-7, a tile each).
 //   Three block-wide barriers per item (the two kernels of the earlier
-//   design took six). wgmma is not used: the tap shift of dx1's and dW2's
-//   shifted operand is one 128-byte row, which a shared-memory descriptor
-//   cannot start on, so that operand comes from registers (ldmatrix with
-//   per-lane rows) and only one of each product's two operands could come
-//   from a descriptor.
+//   design took six). The products run on mma.sync with the tap-shifted
+//   operand from registers (ldmatrix with per-lane rows). A wgmma
+//   descriptor can start on any 128-byte row of a swizzled tile (the
+//   forward's products rely on it), so a wgmma design is open.
 // f32: the earlier design, unchanged: a dW2 kernel (grid BWD_BLOCKS x 3,
 //   block (i, df) owns dW2[df], FMA, each thread 3 taps x 4 ci x 4 co) and
 //   a dx kernel (FMA; then the relu mask with x1 recomputed, db1, dW1),
@@ -862,25 +1137,6 @@ constexpr size_t FUSED_SMEM =
     2 * (size_t)(2 * CW * 8) + (size_t)RAW +
     4 * (size_t)(6 * XS + 9 * C + C + FT * 8 + FT * 8);
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void ldsm_x2(const void* p, uint32_t& r0,
                                         uint32_t& r1) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -958,7 +1214,7 @@ __device__ __forceinline__ void build_dy2(const char* raw,
 
 // x1 at tile positions (i, j) and (i, j+1) = conv (2r-1+i, c0-1+j ..) for
 // channel group cg (task e: 8 channels of a column pair), as
-// vgg_block1_fwd_bf16_kernel computes it (the same FMA order and
+// vgg_block1_fwd_wgmma_kernel computes it (the same FMA order and
 // roundings), zero outside the image; and the relu mask of the item's own
 // positions as bits, mask[p][cg] (own position p = (i-1) * CW + j-1). Two
 // columns a task share six of their nine inputs and give the FMA chains
@@ -1408,7 +1664,7 @@ extern "C" int vgg_block1_fwd_f32(const void* x, const void* w1,
 }
 
 // As above with w2p the bf16 conv2 weight packed as (3,3,64 out,64 in) and
-// out bf16.
+// out bf16; out and idx 16-byte aligned (they leave as 16-byte stores).
 extern "C" int vgg_block1_fwd_bf16(const void* x, const void* w1,
                                    const void* b1, const void* w2p,
                                    const void* b2, void* out, void* idx,
@@ -1416,19 +1672,24 @@ extern "C" int vgg_block1_fwd_bf16(const void* x, const void* w1,
   cudaGetLastError();  // report only this launch's error
   const int Fp = F / 2, Tp = T / 2;
   if (Fp == 0 || Tp == 0 || B == 0) return cudaSuccess;
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(9 * C * C +
-                                                       4 * MXC * C) +
-                      sizeof(float) * (size_t)(6 * MSC + 9 * C + 2 * C);
-  cudaError_t e = cudaFuncSetAttribute(
-      vgg_block1_fwd_bf16_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const int chunks = (2 * Tp + CHUNK - 1) / CHUNK;
-  dim3 grid((chunks + CHUNKS - 1) / CHUNKS, Fp, B);
-  vgg_block1_fwd_bf16_kernel<<<grid, MTHREADS, smem, (cudaStream_t)stream>>>(
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(vgg_block1_fwd_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)FW_SMEM);
+  if (e != cudaSuccess) return e;
+  // one block per SM, or one per item where there are fewer items
+  const long items =
+      (long)B * ((Fp + 1) / 2) * ((Tp + FW_PCOLS - 1) / FW_PCOLS);
+  const int grid = (int)(items < sms ? items : sms);
+  vgg_block1_fwd_wgmma_kernel<<<grid, FW_THREADS, FW_SMEM,
+                                (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w1, (const float*)b1,
       (const __nv_bfloat16*)w2p, (const float*)b2, (__nv_bfloat16*)out,
-      (uint8_t*)idx, F, T);
+      (uint8_t*)idx, B, F, T);
   return cudaGetLastError();
 }
 

@@ -19,10 +19,12 @@ composite path's order (round conv1 to ``cdt``, then add b1 in ``cdt``),
 not the Pallas kernel's f32 add; in f32 the two are the same.
 
 Bound on the H100 (B=12, F=161, T=800): conv2's 2·B·F·T·64·576 ≈
-114 GFLOP: ≈0.12 ms at the 989 TFLOP/s of the bf16 tensor cores, which
-the bf16 kernel (the serving path's) uses through mma.sync; the f32
-kernel runs on f32 FMA (67 TFLOP/s, ≥1.7 ms). See the source for the
-tiling.
+114 GFLOP: ≈0.12 ms at the 989 TFLOP/s of the bf16 tensor cores. The
+bf16 kernel (the serving and training paths') is one persistent pass
+that keeps conv2's weight in shared memory, runs conv2 on ``wgmma`` and
+builds conv1's activations beside the products
+(tests/test_torch_vgg_block1.py mirrors its tiling); the f32 kernel runs
+on f32 FMA (67 TFLOP/s, ≥1.7 ms). See the source for the tiling.
 
 The backward (kernel 3) replaces ``_bwd_kernel``: from the forward's
 uint8 pool argmax and g = dL/d(out) it computes dW1, db1, dW2, db2 with
@@ -161,10 +163,11 @@ def vgg_block1(spect: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if idx_out is not None:
         if (idx_out.shape != out.shape or idx_out.dtype != torch.uint8
                 or not idx_out.is_contiguous()
-                or idx_out.device != spect.device):
-            raise ValueError("vgg_block1: idx_out must be a contiguous "
-                             f"uint8 {tuple(out.shape)} tensor on "
-                             f"{spect.device}")
+                or idx_out.device != spect.device
+                or idx_out.data_ptr() % 16):
+            raise ValueError("vgg_block1: idx_out must be a contiguous, "
+                             f"16-byte aligned uint8 {tuple(out.shape)} "
+                             f"tensor on {spect.device}")
     if out.numel() == 0:
         return out
     if cdt == torch.bfloat16:

@@ -35,8 +35,8 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
-from typing import Dict, List, Tuple
+
+from end2end_asr_tpu_torch.tools import probe_lib as P
 
 SOURCE = "attention.cu"
 SHAPES = {"enc_self": (200, 200, False), "dec_cross": (51, 200, False),
@@ -91,67 +91,6 @@ def design_of(src: str) -> str:
     return "three_kernel" if "attn_delta_kernel" in src else "fused"
 
 
-def build(paths: List[str]) -> Dict[str, Tuple[str, List[str]]]:
-    """One nvcc per source, all started together; {path: (library, ptxas
-    lines on registers and spills)}."""
-    from end2end_asr_tpu_torch.ops import cuda_lib
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    nvcc, procs = cuda_lib._nvcc(), {}
-    for i, path in enumerate(paths):
-        so = os.path.join(cuda_lib.BUILD_DIR,
-                          f"probe_attn_bwd_{os.path.basename(path)}_{i}.so")
-        procs[path] = (subprocess.Popen(
-            [nvcc, *cuda_lib.NVCC_FLAGS, "-o", so, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    out = {}
-    for path, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"probe_attn_bwd: nvcc failed for {path}:\n"
-                               f"{log}")
-        out[path] = (so, [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln])
-    return out
-
-
-def kernel_ms(torch, fn, iters=20, tries=3) -> Dict[str, float]:
-    """Mean device ms of one fn() call, by kernel name. Every kernel of a
-    call runs once per call, so a profile that did not see each one
-    `iters` times (the profiler drops events now and then) is taken
-    again."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by, seen = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
-                seen[e.name] = seen.get(e.name, 0) + 1
-        if by and all(c == iters for c in seen.values()):
-            return {n: us / 1e3 / iters for n, us in by.items()}
-    raise RuntimeError("probe_attn_bwd: the profiler missed kernel events "
-                       f"in {tries} profiles")
-
-
-def events_ms(torch, fn, iters=50) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--source", action="append", default=[],
@@ -178,16 +117,12 @@ def main(argv=None):
     if args.cuts:
         with open(os.path.join(cuda_lib.CSRC_DIR, SOURCE)) as f:
             src = f.read()
-        os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
         for name in args.cuts.split(","):
-            path = os.path.join(cuda_lib.BUILD_DIR,
-                                f"cut_{name.replace('+', '_')}.cu")
-            with open(path, "w") as f:
-                f.write(cut(src, name))
-            paths.append(path)
+            paths.append(P.write_source(f"cut_{name.replace('+', '_')}",
+                                        cut(src, name)))
     if not paths:
         raise SystemExit("probe_attn_bwd: no source to time")
-    libs = build(paths)
+    libs = P.build({path: path for path in paths}, "probe_attn_bwd")
     symbol = "attn_bwd_" + args.dtype
     B, H, D, rate, seed = args.batch, 8, 64, args.rate, 77
     thresh16 = AF.dropout_thresh16(rate)
@@ -241,8 +176,8 @@ def main(argv=None):
         res = {path: {"kernels_ms": [], "events_ms": []} for path in paths}
         for order in (paths, paths[::-1]):
             for path in order:
-                res[path]["kernels_ms"].append(kernel_ms(torch, calls[path]))
-                res[path]["events_ms"].append(events_ms(torch, calls[path]))
+                res[path]["kernels_ms"].append(P.kernel_ms(torch, calls[path]))
+                res[path]["events_ms"].append(P.events_ms(torch, calls[path]))
         torch.cuda.synchronize()
         ref = grads[paths[0]]
         for path in paths:
@@ -257,10 +192,7 @@ def main(argv=None):
                 for a, b in zip(grads[path], ref))
         out_json["shapes"][label] = {"shape": [B, H, Tq, Tk, D],
                                      "causal": causal, "results": res}
-    out_json["gpu"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()
+    out_json["gpu"] = P.gpu_line()
     out_json.update(dtype=args.dtype, rate=rate,
                     ptxas={path: lines for path, (_, lines) in libs.items()})
     print(json.dumps(out_json))

@@ -29,8 +29,9 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
-from typing import Dict, List, Tuple
+from typing import List, Tuple
+
+from end2end_asr_tpu_torch.tools import probe_lib as P
 
 SOURCE = "stft.cu"
 # (line of csrc/stft.cu, what the cut-down copy has there); every line must
@@ -70,42 +71,8 @@ def variant(src: str, cuts) -> str:
     return src
 
 
-def build(names_srcs: Dict[str, str]) -> Dict[str, str]:
-    """One nvcc per variant, all started together; {name: library}."""
-    from end2end_asr_tpu_torch.ops import cuda_lib
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    nvcc, procs = cuda_lib._nvcc(), {}
-    for name, src in names_srcs.items():
-        cu = os.path.join(cuda_lib.BUILD_DIR, f"probe_stft_{name}.cu")
-        so = cu[:-3] + ".so"
-        with open(cu, "w") as f:
-            f.write(src)
-        procs[name] = (subprocess.Popen(
-            [nvcc, *cuda_lib.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    out = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"probe_stft: nvcc failed for {name}:\n{log}")
-        out[name] = so
-    return out
-
-
-def device_us(torch, fn, iters=100) -> float:
-    """Mean device time of one fn() call (its kernels summed)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not us:
-        raise RuntimeError("probe_stft: the profiler saw no device time")
-    return sum(us) / iters
+def device_us(torch, fn) -> float:
+    return 1e3 * P.device_ms(torch, fn, iters=100)
 
 
 def main(argv=None):
@@ -120,7 +87,9 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     with open(os.path.join(cuda_lib.CSRC_DIR, SOURCE)) as f:
         src = f.read()
-    libs = build({name: variant(src, cuts) for name, cuts in PARTS})
+    libs = P.build({name: P.write_source(f"probe_stft_{name}",
+                                         variant(src, cuts))
+                    for name, cuts in PARTS}, "probe_stft")
 
     B, T, n_fft, hop = args.batch, 800, 320, 160
     N = (T - 1) * hop + n_fft
@@ -132,7 +101,7 @@ def main(argv=None):
     code = sum(r << (4 * i) for i, r in enumerate(S.fft_plan(n_fft)))
     stream = torch.cuda.current_stream().cuda_stream
     calls = {}
-    for name, so in libs.items():
+    for name, (so, _) in libs.items():
         fn = getattr(ctypes.CDLL(so), S.FFT.symbol)
         fn.argtypes, fn.restype = S.FFT.argtypes, ctypes.c_int
 
@@ -147,9 +116,7 @@ def main(argv=None):
         for name in order:
             times[name].append(device_us(torch, calls[name]))
     flat = out.view(-1)[:pcm.numel()]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = P.gpu_line()
     print(json.dumps({
         "shape": [B, T, n_fft, hop], "gpu": smi,
         "device_us": {n: min(v) for n, v in times.items()},

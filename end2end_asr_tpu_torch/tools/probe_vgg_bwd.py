@@ -37,8 +37,9 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 from typing import Dict, List, Tuple
+
+from end2end_asr_tpu_torch.tools import probe_lib as P
 
 SOURCE = "vgg_block1.cu"
 
@@ -109,46 +110,6 @@ def variant(src: str, cuts) -> str:
     return src
 
 
-def build(names_srcs: Dict[str, str]) -> Dict[str, Tuple[str, str]]:
-    """One nvcc per variant, all started together; {name: (library,
-    ptxas report)}."""
-    from end2end_asr_tpu_torch.ops import cuda_lib
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    nvcc, procs = cuda_lib._nvcc(), {}
-    for name, src in names_srcs.items():
-        cu = os.path.join(cuda_lib.BUILD_DIR, f"probe_vgg_bwd_{name}.cu")
-        so = cu[:-3] + ".so"
-        with open(cu, "w") as f:
-            f.write(src)
-        procs[name] = (subprocess.Popen(
-            [nvcc, *cuda_lib.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    out = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"probe_vgg_bwd: nvcc failed for {name}:\n"
-                               f"{log}")
-        out[name] = (so, log)
-    return out
-
-
-def device_us(torch, fn, iters=20) -> float:
-    """Mean device time of one fn() call (its kernels summed)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not us:
-        raise RuntimeError("probe_vgg_bwd: the profiler saw no device time")
-    return sum(us) / iters
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=12)
@@ -169,9 +130,10 @@ def main(argv=None):
         src = f.read()
     design = design_of(src)
     parts = args.parts.split(",") if args.parts else None
-    libs = build({name: variant(src, cuts)
-                  for name, cuts in DESIGNS[design][1]
-                  if parts is None or name in parts})
+    libs = P.build({name: P.write_source(f"probe_vgg_bwd_{name}",
+                                         variant(src, cuts))
+                    for name, cuts in DESIGNS[design][1]
+                    if parts is None or name in parts}, "probe_vgg_bwd")
 
     B, F, T = args.batch, 161, 800
     g0 = torch.Generator().manual_seed(0)
@@ -189,11 +151,9 @@ def main(argv=None):
     stream = torch.cuda.current_stream().cuda_stream
     kernel = V._BWD_KERNELS[torch.bfloat16]
     calls, regs = {}, {}
-    for name, (so, log) in libs.items():
+    for name, (so, regs[name]) in libs.items():
         fn = getattr(ctypes.CDLL(so), kernel.symbol)
         fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
-        regs[name] = [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]
 
         def call(fn=fn):
             if fn(spect.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
@@ -205,10 +165,8 @@ def main(argv=None):
     times = {name: [] for name in calls}
     for order in (list(calls), list(calls)[::-1]):   # in turns
         for name in order:
-            times[name].append(device_us(torch, calls[name]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+            times[name].append(1e3 * P.device_ms(torch, calls[name]))
+    smi = P.gpu_line()
     best = {n: min(v) for n, v in times.items()}
     names = list(best)
     print(json.dumps({

@@ -127,6 +127,94 @@ def test_vgg_block1_ties_go_to_first_window_element(dev, cdt):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,F,T", [(12, 161, 800), (1, 9, 70)])
+def test_vgg_block1_bf16_forward_runs_and_modes(dev, B, F, T):
+    """The bf16 forward at the main path's shape (6240 work items on the
+    persistent grid) and at one with fewer items than SMs (4): within the
+    card's tolerance of the plain version, one launch a call, two runs
+    bit-identical, and the same out with and without the pool argmax."""
+    args = _block_args(dev, B, F, T, seed=F + T)
+    pooled = (B, F // 2, T // 2, 64)
+    idx = torch.empty(pooled, dtype=torch.uint8, device=dev)
+    idx2 = torch.empty_like(idx)
+    V.reset_launches()
+    got = V.vgg_block1(*args, cdt=torch.bfloat16, idx_out=idx)
+    assert V.launches() == 1
+    want, want_idx = V.vgg_block1_plain(*args, cdt=torch.bfloat16)
+    diff = (got.float() - want.float()).abs()
+    assert (diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()
+    assert (idx == want_idx).float().mean().item() > 0.99
+    again = V.vgg_block1(*args, cdt=torch.bfloat16, idx_out=idx2)
+    assert torch.equal(got, again) and torch.equal(idx, idx2)
+    serve = V.vgg_block1(*args, cdt=torch.bfloat16)
+    assert torch.equal(got, serve) and V.launches() == 3
+    # idx leaves as 16-byte stores: a misaligned idx_out is refused
+    flat = torch.empty(idx.numel() + 1, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        V.vgg_block1(*args, cdt=torch.bfloat16,
+                     idx_out=flat[1:].view(pooled))
+
+
+# every finite bf16 pair (a, b): the packed bf16 add against the f32 sum
+# rounded to bf16, and (b = 0) the packed max against fmaxf, by bits;
+# bad[0] counts add mismatches, bad[1] relu mismatches
+BF16_OPS_SRC = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void bf16_ops_kernel(unsigned long long* bad) {
+  const unsigned short a = (unsigned short)blockIdx.x;
+  const __nv_bfloat16 ba = __ushort_as_bfloat16(a);
+  const float fa = __bfloat162float(ba);
+  if (((a >> 7) & 0xFF) == 0xFF) return;  // inf or NaN
+  unsigned long long n = 0;
+  for (uint32_t b = threadIdx.x; b < 65536; b += blockDim.x) {
+    if (((b >> 7) & 0xFF) == 0xFF) continue;
+    const __nv_bfloat16 bb = __ushort_as_bfloat16((unsigned short)b);
+    const __nv_bfloat162 r =
+        __hadd2(__halves2bfloat162(ba, bb), __halves2bfloat162(bb, ba));
+    const unsigned short want =
+        __bfloat16_as_ushort(__float2bfloat16(fa + __bfloat162float(bb)));
+    n += (__bfloat16_as_ushort(__low2bfloat16(r)) != want) +
+         (__bfloat16_as_ushort(__high2bfloat16(r)) != want);
+  }
+  if (n) atomicAdd(bad, n);
+  if (threadIdx.x == 0) {
+    const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+    const __nv_bfloat16 r =
+        __low2bfloat16(__hmax2(__halves2bfloat162(ba, ba), z));
+    if (__bfloat16_as_ushort(r) !=
+        __bfloat16_as_ushort(__float2bfloat16(fmaxf(fa, 0.f))))
+      atomicAdd(bad + 1, 1ull);
+  }
+}
+
+extern "C" int bf16_ops(void* bad) {
+  bf16_ops_kernel<<<65536, 256>>>((unsigned long long*)bad);
+  return cudaGetLastError();
+}
+"""
+
+
+def test_vgg_block1_forward_x1_roundings_match_the_backwards(dev):
+    """The bf16 forward rounds conv1 (+ b1, relu) with packed bf16 add and
+    max; the backward recomputes x1 through the f32 path (the f32 sum
+    rounded to bf16, fmaxf with 0). Its relu mask and dW2 see the
+    forward's x1 only while the two give the same bits for every finite
+    bf16 pair, as built by this toolchain."""
+    import ctypes
+    from end2end_asr_tpu_torch.tools import probe_lib as P
+    path = P.write_source("test_bf16_ops", BF16_OPS_SRC)
+    so = P.build({"bf16_ops": path}, "test_bf16_ops")["bf16_ops"][0]
+    fn = ctypes.CDLL(so).bf16_ops
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    assert fn(bad.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert bad.tolist() == [0, 0]
+
+
 def test_no_pallas_features_launches_no_stft_kernel(dev):
     """--no-pallas-features: the train step's features take the plain STFT
     on the card (no launch) and agree with the kernel's."""

@@ -328,3 +328,129 @@ def test_fused_bwd_tiling_equals_the_plain_backward(shape, cdt, tol):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the tiling of the bf16 forward kernel (csrc/vgg_block1.cu,
+# vgg_block1_fwd_wgmma_kernel), mirrored here so that its index math is held
+# against the plain forward before the card: work items (utterance, pooled
+# row pair rp, 31-column chunk) in min(items, 132) fixed block ranges; the
+# input tile (rows 4rp-2 .. 4rp+5, columns c0-2 .. c0+63, c0 = 62 chunk);
+# the x1 tile of 6 rows x 64 positions (position 64 i + j = conv (4rp-1+i,
+# c0-1+j)) and 8 zero pad positions; consumer half c's products, tap (df,
+# dt) reading 128 positions of the flat tile from 64 (2c + df) + dt on; the
+# pool windows of accumulator columns (n, n+1, n+64, n+65), n even < 62;
+# every output written by exactly one item
+# ---------------------------------------------------------------------------
+
+FWD_BLOCKS, FWD_COLS = 132, 62
+
+
+def _fused_fwd_mirror(spect, w1, b1, w2, b2, cdt):
+    f32 = torch.float32
+    B, F, T = spect.shape
+    Fp, Tp = F // 2, T // 2
+    rps, chunks = (Fp + 1) // 2, -(-Tp // (FWD_COLS // 2))
+    n = B * rps * chunks
+    grid = min(n, FWD_BLOCKS)
+    rnd = lambda t: t.to(cdt).to(f32)
+    w1c, b1c, b2c = rnd(w1).reshape(9, 64), rnd(b1), rnd(b2)
+    w2c = rnd(w2).reshape(9, 64, 64)                      # (tap, ci, co)
+    # x zero-padded: rows 4rp-2 .. 4rp+5 and columns c0-2 .. c0+63 of any
+    # item lie inside
+    xp = Fn.pad(rnd(spect.float()), (2, FWD_COLS + 4, 2, 6))
+    ii, jj = torch.arange(6)[:, None], torch.arange(64)[None, :]
+    n_even = torch.arange(0, FWD_COLS, 2)                 # window columns
+    out = torch.zeros(B, Fp, Tp, 64, dtype=cdt)
+    idx = torch.zeros(B, Fp, Tp, 64, dtype=torch.uint8)
+    written = torch.zeros(B, Fp, Tp, dtype=torch.int32)
+    for blk in range(grid):
+        for it in range(n * blk // grid, n * (blk + 1) // grid):
+            chunk, rp, b = it % chunks, (it // chunks) % rps, \
+                it // (chunks * rps)
+            c0 = FWD_COLS * chunk
+            xs = xp[b, 4 * rp:4 * rp + 8, c0:c0 + 66]          # 8 x 66
+            y1 = sum(xs[df:df + 6, dt:dt + 64, None] * w1c[3 * df + dt]
+                     for df in range(3) for dt in range(3))
+            inside = ((4 * rp - 1 + ii >= 0) & (4 * rp - 1 + ii < F)
+                      & (c0 - 1 + jj >= 0) & (c0 - 1 + jj < T))[..., None]
+            x1 = torch.where(inside, torch.relu(rnd(rnd(y1) + b1c)),
+                             torch.zeros(()))
+            x1 = torch.cat([x1.reshape(6 * 64, 64), torch.zeros(8, 64)])
+            for c in range(2):
+                acc = torch.zeros(128, 64)                    # (n, co)
+                for tap in range(9):
+                    df, dt = divmod(tap, 3)
+                    s = 64 * (2 * c + df) + dt
+                    acc += x1[s:s + 128] @ w2c[tap]
+                y = rnd(acc)
+                cands = (y[n_even], y[n_even + 1], y[n_even + 64],
+                         y[n_even + 65])
+                best, arg = cands[0], torch.zeros(31, 64, dtype=torch.uint8)
+                for m in (1, 2, 3):
+                    take = cands[m] > best
+                    best = torch.where(take, cands[m], best)
+                    arg = torch.where(take, torch.full_like(arg, m), arg)
+                o = torch.relu(rnd(best + b2c))
+                fp, tp = 2 * rp + c, 31 * chunk + torch.arange(31)
+                keep = tp < Tp
+                if fp < Fp:
+                    out[b, fp, tp[keep]] = o[keep].to(cdt)
+                    idx[b, fp, tp[keep]] = arg[keep]
+                    written[b, fp, tp[keep]] += 1
+    assert bool((written == 1).all())
+    return out, idx
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 17, 9), (2, 161, 129), (1, 9, 801),
+                                   (1, 3, 4), (4, 32, 250)])
+def test_fused_fwd_tiling_equals_the_plain_forward(shape, cdt):
+    """Odd F and T, T not a multiple of the 62-column item, one pooled
+    row (F = 3), fewer items than blocks ((1, 9, 801): 26 items), more
+    items than blocks ((2, 161, 129): 240; (4, 32, 250): 160, where the
+    JAX fused kernel runs too). f32 tight; bf16 at the card's tolerance
+    (tests/test_torch_gpu.py: one bf16 ulp where a sum rounds the other
+    way, a near-tied pool choice may flip)."""
+    B, F, T = shape
+    args = _mk(B, F, T, seed=F * T)
+    t = [torch.from_numpy(a) for a in args]
+    out, idx = _fused_fwd_mirror(*t, cdt)
+    want, want_idx = TV.vgg_block1_plain(*t, cdt=cdt)
+    jdt = jnp.float32 if cdt == torch.float32 else jnp.bfloat16
+    c_out = np.asarray(composite(*[jnp.asarray(a) for a in args],
+                                 jdt).astype(jnp.float32))
+    got = out.float().numpy()
+    assert got.shape == c_out.shape == (B, F // 2, T // 2, 64)
+    if cdt == torch.float32:
+        np.testing.assert_allclose(got, want.numpy(), rtol=F32_TOL,
+                                   atol=F32_TOL)
+        np.testing.assert_allclose(got, c_out, rtol=F32_TOL, atol=F32_TOL)
+        assert (idx == want_idx).float().mean().item() > 0.999
+    else:
+        w = want.float()
+        assert bool(((out.float() - w).abs()
+                     <= 2 ** -6 + 2 ** -6 * w.abs()).all())
+        np.testing.assert_allclose(got, c_out, rtol=BF16_TOL, atol=BF16_TOL)
+        assert (idx == want_idx).float().mean().item() > 0.99
+    if T % 2 == 0 and F >= 8:           # the JAX fused kernel's domain
+        f_out, f_idx = _jax_fused(args, jdt)
+        tol = F32_TOL if cdt == torch.float32 else BF16_TOL
+        np.testing.assert_allclose(got, f_out, rtol=tol, atol=tol)
+        assert (idx.numpy() == f_idx).mean() > (
+            0.999 if cdt == torch.float32 else 0.97)
+
+
+def test_fwd_probe_cuts_apply_to_the_source():
+    """tools/probe_vgg_fwd.py times the forward kernel's parts by cutting
+    lines out of csrc/vgg_block1.cu: each cut must find its lines, and the
+    copies must differ from the source and from each other."""
+    import os
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_vgg_fwd as PF
+    with open(os.path.join(cuda_lib.CSRC_DIR, PF.SOURCE)) as f:
+        src = f.read()
+    copies = {name: PF.cut(src, name) for name in PF.CUTS}
+    assert src not in copies.values()
+    assert len(set(copies.values())) == len(PF.CUTS)
+    assert set(PF.CHAIN) <= set(PF.CUTS)
