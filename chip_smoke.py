@@ -13,8 +13,11 @@ Phases (any failure exits non-zero without the final result line):
      n_fft 320 takes and the direct-sum kernel, and the wrapper's choice
      at n_fft 322), the vgg block-1 forward and backward, the dropout
      attention forward and backward in bf16 and in f32 (encoder self- and
-     decoder cross-attention, rates 0 and 0.1), the dropout bits
-     (bit-exact), the block-2 pool backward (exact), the fused vgg block-2
+     decoder cross-attention, rates 0 and 0.1) on the step's layout
+     (transposed views of (B, T, H, D) tensors; out must come back in
+     (B, Tq, H, D) memory, bit-equal to contiguous inputs), the dropout
+     bits (bit-exact), the block-2 pool backward (exact, channels-last as
+     in the step and NCHW), the fused vgg block-2
      forward and backward at (12, 80, 400, 64) and at a second even shape,
      and the two streaming probes at (38400, 1024); time the kernel, the
      plain version and one PyTorch library yardstick the port never calls
@@ -39,7 +42,10 @@ Phases (any failure exits non-zero without the final result line):
      on one fixed batch, the launches per step, the median train step
      time over 10 steps, a profile of one step (the block-1 backward's
      one fused kernel must be among its heaviest; its share of the step's
-     device time is printed), 60 overfitting steps
+     device time is printed), a traced step (tools/probe_step.py: each
+     attention forward and backward and each pool backward must launch
+     its one kernel and no copy; the launches and copy kernels per step
+     and the pool's layouts are printed), 60 overfitting steps
      (the loss must fall under half its first value), one f32 step
      (dropout 0, TF32 off) on the card against the port's CPU path, and
      2 steps of --dtype float32 at dropout 0.1 through `train` (the f32
@@ -136,7 +142,8 @@ STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 2e-3
 # the block-1 kernels as the profiler names them (csrc/vgg_block1.cu)
 BWD_KERNEL_NAME = "vgg_block1_bwd_fused_kernel"
 FWD_KERNEL_NAME = "vgg_block1_fwd_wgmma_kernel"   # the bf16 forward
-# the attention backward's one kernel (csrc/attention.cu), bf16 and f32
+# the attention's kernels (csrc/attention.cu), bf16 and f32
+ATTN_FWD_KERNEL_NAME = "attn_fwd_kernel"
 ATTN_BWD_KERNEL_NAME = "attn_bwd_kernel"
 
 
@@ -518,6 +525,27 @@ def check_vgg_bwd(torch, dev):
                  library_ms_f32=lib[torch.float32])
 
 
+def attention_runs(torch, AF, qkv, bias, dout, seed, rate):
+    """flash_mha_train forward and backward twice on q, k, v and dout as
+    given (transposed views of (B, T, H, D) tensors, the step's layout)
+    and once on contiguous copies: the two runs, and whether out lies in
+    (B, Tq, H, D) memory, the gradients in the layouts of q, k, v, and the
+    contiguous inputs give the same bits."""
+    def run(ts, g):
+        leaves = [t.detach().requires_grad_() for t in ts]
+        out = AF.flash_mha_train(*leaves, bias, seed, rate)
+        return (out, *torch.autograd.grad(out, leaves, g))
+    runs = [run(qkv, dout) for _ in range(2)]
+    dense = run([t.contiguous() for t in qkv], dout.contiguous())
+    out, *grads = runs[0]
+    return runs, {
+        "out_in_BTHD_memory": out.transpose(1, 2).is_contiguous(),
+        "grads_in_input_layouts": all(
+            a.stride() == t.stride() for a, t in zip(grads, qkv)),
+        "equal_to_contiguous_inputs": all(
+            torch.equal(a, b) for a, b in zip(runs[0], dense))}
+
+
 def check_attention(torch, dev):
     """Kernels 4, 5 at the encoder self-attention (T = 200), decoder
     cross-attention (U + 1 = 51 queries) and causal decoder self-attention
@@ -527,24 +555,24 @@ def check_attention(torch, dev):
     from end2end_asr_tpu_torch.ops import attention_fused as AF
     H, D = 8, 64
     g0 = torch.Generator().manual_seed(SEED + 3)
-    out_entries, times = {}, {}
+    out_entries, times, key_splits = {}, {}, {}
     for label, Tq, Tk in (("enc_self", 200, 200), ("dec_cross", 51, 200),
                           ("dec_self", 51, 51)):
-        q, k, v = (torch.randn(B, H, t, D, generator=g0).to(
-            dev, torch.bfloat16) for t in (Tq, Tk, Tk))
+        # the step's layout: transposed views of the (B, T, H, D)
+        # projections; and contiguous copies of them
+        q, k, v = (torch.randn(B, t, H, D, generator=g0).to(
+            dev, torch.bfloat16).transpose(1, 2) for t in (Tq, Tk, Tk))
         mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
         if label == "dec_self":
             mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
         mask[0, 0] = True                 # a query with every key masked
         bias = torch.where(mask, -1e9, 0.0).to(dev)
-        dout = torch.randn(B, H, Tq, D, generator=g0).to(dev, torch.bfloat16)
+        dout = torch.randn(B, Tq, H, D, generator=g0).to(
+            dev, torch.bfloat16).transpose(1, 2)
         for rate in (0.0, 0.1):
             seed = 0x5EED + int(rate * 10)
-            runs = []
-            for _ in range(2):
-                qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-                out = AF.flash_mha_train(*qkv, bias, seed, rate)
-                runs.append((out, *torch.autograd.grad(out, qkv, dout)))
+            runs, layout = attention_runs(torch, AF, (q, k, v), bias, dout,
+                                          seed, rate)
             qf = [t.float().requires_grad_() for t in (q, k, v)]
             want = AF.flash_mha_train_plain(*qf, bias, seed, rate)
             want_g = torch.autograd.grad(want, qf, dout.float())
@@ -555,8 +583,9 @@ def check_attention(torch, dev):
             eb = [rel_err(a, b) for a, b in zip(grads, want_g)]
             log(f"attention {label} rate {rate}: fwd rel err {ef:.3g}, "
                 f"dq/dk/dv {[round(e, 6) for e in eb]} (tol {ATTN_TOL}); "
-                f"two runs bit-identical: {same}")
+                f"two runs bit-identical: {same}; {layout}")
             if not (ef <= ATTN_TOL and max(eb) <= ATTN_TOL and same
+                    and all(layout.values())
                     and torch.isfinite(out.float()).all()):
                 fail(f"attention {label} rate {rate} disagrees with plain")
             out_entries[(label, rate)] = (
@@ -583,6 +612,9 @@ def check_attention(torch, dev):
         lb_ms = backward_ms(torch, sdpa(), ql, dout, iters=50)
         n = B * H * Tq * Tk * D
         in_b = 2 * B * H * (Tq + 2 * Tk) * D + 4 * B * Tq * Tk
+        key_splits[label] = AF.fwd_key_split(
+            B, H, Tq, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
         times[label] = dict(
             fwd=(fwd_ms, pf_ms, 4 * n / BF16_PEAK,
                  (in_b + 2 * B * H * Tq * D + 8 * B * H * Tq) / HBM_BPS,
@@ -620,6 +652,8 @@ def check_attention(torch, dev):
               "end2end_asr_tpu/ops/attention_fused.py:78", fwd_err,
               t["fwd"][0], t["fwd"][1], t["fwd"][2], t["fwd"][3],
               t["fwd"][4], shape="(12,8,200,200,64) bf16, rate 0.1",
+              layout="q, k, v transposed (B, T, H, D) views; out in "
+                     "(B, Tq, H, D) memory", key_splits=key_splits,
               device_ms=t["dev"][0], device_ms_dec_cross=cross["dev"][0],
               ms_dec_cross=cross["fwd"][0],
               plain_ms_dec_cross=cross["fwd"][1],
@@ -661,19 +695,16 @@ def check_attention_f32(torch, dev):
     g0 = torch.Generator().manual_seed(SEED + 7)
     errs, times = {}, {}
     for label, Tq, Tk in (("enc_self", 200, 200), ("dec_cross", 51, 200)):
-        q, k, v = (torch.randn(B, H, t, D, generator=g0).to(dev)
-                   for t in (Tq, Tk, Tk))
+        q, k, v = (torch.randn(B, t, H, D, generator=g0).to(dev)
+                   .transpose(1, 2) for t in (Tq, Tk, Tk))
         mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
         mask[0, 0] = True                 # a query with every key masked
         bias = torch.where(mask, -1e9, 0.0).to(dev)
-        dout = torch.randn(B, H, Tq, D, generator=g0).to(dev)
+        dout = torch.randn(B, Tq, H, D, generator=g0).to(dev).transpose(1, 2)
         for rate in (0.0, 0.1):
             seed = 0xF32 + int(rate * 10)
-            runs = []
-            for _ in range(2):
-                qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-                out = AF.flash_mha_train(*qkv, bias, seed, rate)
-                runs.append((out, *torch.autograd.grad(out, qkv, dout)))
+            runs, layout = attention_runs(torch, AF, (q, k, v), bias, dout,
+                                          seed, rate)
             qf = [t.clone().requires_grad_() for t in (q, k, v)]
             want = AF.flash_mha_train_plain(*qf, bias, seed, rate)
             want_g = torch.autograd.grad(want, qf, dout)
@@ -684,9 +715,9 @@ def check_attention_f32(torch, dev):
             eb = [rel_err(a, b) for a, b in zip(grads, want_g)]
             log(f"attention f32 {label} rate {rate}: fwd rel err {ef:.3g}, "
                 f"dq/dk/dv {[float(f'{e:.3g}') for e in eb]} (tol "
-                f"{ATTN_F32_TOL}); two runs bit-identical: {same}")
+                f"{ATTN_F32_TOL}); two runs bit-identical: {same}; {layout}")
             if not (ef <= ATTN_F32_TOL and max(eb) <= ATTN_F32_TOL and same
-                    and out.dtype == torch.float32
+                    and all(layout.values()) and out.dtype == torch.float32
                     and torch.isfinite(out).all()):
                 fail(f"attention f32 {label} rate {rate} disagrees with "
                      "plain")
@@ -751,30 +782,60 @@ def check_attention_f32(torch, dev):
 
 
 def check_pool_bwd(torch, dev):
-    """Kernel 6 at conv4's output (12, 128, 80, 400) bf16: exact."""
+    """Kernel 6 at conv4's output (12, 128, 80, 400) bf16, exact, in the
+    train step's layout (channels-last y and g: the JAX kernel's NHWC)
+    and in NCHW; dy must come back in y's layout. Timed in the step's
+    layout beside the NCHW kernel, the NCHW kernel with the copies the
+    step would need around it (y and g to NCHW, dy back), the plain
+    version and max_pool2d's backward on the same inputs."""
     from end2end_asr_tpu_torch.ops import pool_vjp as PV
     g0 = torch.Generator().manual_seed(SEED + 4)
-    y = torch.randn(B, 128, 80, 400, generator=g0).to(dev, torch.bfloat16)
-    g = torch.randn(B, 128, 40, 200, generator=g0).to(dev, torch.bfloat16)
-    got = PV.pool_bwd(y, g)
+    cl = torch.channels_last
+    y = torch.randn(B, 128, 80, 400, generator=g0).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    g = torch.randn(B, 128, 40, 200, generator=g0).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    yn, gn = y.contiguous(), g.contiguous()
+    PV.reset_launches()
+    got, got_n = PV.pool_bwd(y, g), PV.pool_bwd(yn, gn)
     want = PV.pool_bwd_plain(y, g)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    log(f"pool_bwd (12,128,80,400) bf16 max_abs_err {err} (tol 0: exact)")
-    if err != 0.0:
+    err_n = (got_n.float() - want.float()).abs().max().item()
+    layouts = {"dy_channels_last": got.is_contiguous(memory_format=cl),
+               "dy_nchw": got_n.is_contiguous(), "launches":
+               PV.launches()}
+    log(f"pool_bwd (12,128,80,400) bf16 max_abs_err channels-last {err}, "
+        f"NCHW {err_n} (tol 0: exact); {layouts}")
+    if err != 0.0 or err_n != 0.0 or not (
+            layouts["dy_channels_last"] and layouts["dy_nchw"]
+            and layouts["launches"] == 2):
         fail("pool_bwd disagrees with its plain version")
-    ms = time_ms(torch, lambda: PV.pool_bwd(y, g), iters=20)
+    step = lambda: PV.pool_bwd(y, g)
+    nchw_in_step = lambda: PV.pool_bwd(y.contiguous(), g.contiguous()
+                                       ).contiguous(memory_format=cl)
+    ms = time_ms(torch, step, iters=20)
+    dev_ms = device_ms(torch, step, name="pool_bwd")
+    ms_n = time_ms(torch, lambda: PV.pool_bwd(yn, gn), iters=20)
+    dev_n = device_ms(torch, lambda: PV.pool_bwd(yn, gn), name="pool_bwd")
+    copies_ms = device_ms(torch, nchw_in_step)
     plain = time_ms(torch, lambda: PV.pool_bwd_plain(y, g), iters=5)
     _, ind = torch.nn.functional.max_pool2d(y, 2, 2, return_indices=True)
     lib = time_ms(torch, lambda: torch.ops.aten.max_pool2d_with_indices_backward(
         g, y, [2, 2], [2, 2], [0, 0], [1, 1], False, ind), iters=20)
     nbytes = 2 * (2 * y.numel() + g.numel())
-    log(f"pool_bwd ms {ms:.4f} plain {plain:.4f} max_pool2d backward "
+    log(f"pool_bwd channels-last ms {ms:.4f} device {dev_ms}; NCHW ms "
+        f"{ms_n:.4f} device {dev_n}; NCHW with the step's copies around it "
+        f"device {copies_ms}; plain {plain:.4f}; max_pool2d backward "
         f"{lib:.4f}; bound {1e3 * nbytes / HBM_BPS:.4f} ms "
         f"({nbytes / 1e6:.1f} MB)")
     return entry("pool_bwd", "pool_bwd.cu",
                  "end2end_asr_tpu/ops/pool_vjp.py:39", err, ms, plain, 0.0,
-                 nbytes / HBM_BPS, lib)
+                 nbytes / HBM_BPS, lib,
+                 shape="(12,128,80,400) bf16, channels-last (the step's)",
+                 device_ms=dev_ms, ms_nchw=ms_n, device_ms_nchw=dev_n,
+                 max_abs_err_nchw=err_n,
+                 device_ms_nchw_with_copies=copies_ms)
 
 
 def rel_l2(a, b):
@@ -1227,10 +1288,12 @@ def reset_kernels(kernels):
 
 
 def fixed_batch_step(torch, dev, kernels, cfg, params, batch, steps=10,
-                     model_state=None, label="train step"):
+                     model_state=None, label="train step", trace=False):
     """The train step of `cfg` on one fixed batch: our kernels' launches
     in one step, the median host time over `steps` steps (each ending in a
-    synchronize), and a profile of one step."""
+    synchronize), and a profile of one step; with `trace`, also what
+    tools/probe_step.py reads in one more profiled step (the kernels inside
+    each attention forward and backward and each pool backward)."""
     from end2end_asr_tpu_torch.models.layers import DropoutRng
     from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
                                                           to_device)
@@ -1267,9 +1330,13 @@ def fixed_batch_step(torch, dev, kernels, cfg, params, batch, steps=10,
     log(f"{label}: median {step_ms:.2f} ms over {steps} steps "
         f"(min {min(times):.2f}, max {max(times):.2f}); "
         f"{B / step_ms * 1e3:.1f} utterances/s")
-    return {"step_ms": step_ms, "step_ms_all": times,
-            "launches_per_step": per_step,
-            "profile": profile(torch, one, top=10)}
+    res = {"step_ms": step_ms, "step_ms_all": times,
+           "launches_per_step": per_step,
+           "profile": profile(torch, one, top=10)}
+    if trace:
+        from end2end_asr_tpu_torch.tools import probe_step
+        res["trace"] = probe_step.profile_step(torch, one)
+    return res
 
 
 def train_f32_dropout(torch, dev, kernels, work, labels_path, manifest):
@@ -1384,7 +1451,7 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
                                        cfg)))
     tensors = batch_tensors(batch, dev)
     fixed = fixed_batch_step(torch, dev, kernels, cfg, params, batch,
-                             steps=steps)
+                             steps=steps, trace=True)
     per_step, times, step_ms, prof = (fixed["launches_per_step"],
                                       fixed["step_ms_all"], fixed["step_ms"],
                                       fixed["profile"])
@@ -1399,13 +1466,17 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
              f"its heaviest kernels: {prof['top']}")
     bwd_share = (bwd_ms[0] / prof["device_ms"] if bwd_ms else None)
     attn = prof["sums"][ATTN_BWD_KERNEL_NAME]
+    attn_f = prof["sums"][ATTN_FWD_KERNEL_NAME]
+    pool = prof["sums"]["pool_bwd"]
     fwd = prof["sums"][FWD_KERNEL_NAME]
     log(f"train step device time {prof['device_ms']} ms, of it "
         f"{BWD_KERNEL_NAME} {bwd_ms} ms (share {bwd_share}), "
         f"{FWD_KERNEL_NAME} {fwd['device_ms']} ms in {fwd['launches']} "
-        f"launches; the attention backward {attn['device_ms']} ms in "
-        f"{attn['launches']} launches; {prof['kernel_launches']} launches "
-        f"in the step")
+        f"launches; the attention forward {attn_f['device_ms']} ms in "
+        f"{attn_f['launches']} launches, backward {attn['device_ms']} ms in "
+        f"{attn['launches']} launches; pool_bwd {pool['device_ms']} ms in "
+        f"{pool['launches']}; {prof['kernel_launches']} launches in the "
+        f"step")
     if prof["device_ms"] is not None and \
             attn["launches"] != per_step["attn_bwd"]:
         fail(f"the step's profile shows {attn['launches']} launches of "
@@ -1414,6 +1485,7 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
     if prof["device_ms"] is not None and fwd["launches"] != 1:
         fail(f"the step's profile shows {fwd['launches']} launches of "
              f"{FWD_KERNEL_NAME}, not one")
+    check_step_copies(fixed["trace"], per_step)
 
     # overfit one batch: peak lr k·5120^-0.5·warmup^-0.5 ≈ 1e-3
     ocfg = aishell_config(k_lr=0.36, warmup=25)
@@ -1471,6 +1543,10 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "vgg_block1_bwd_step_device_ms": bwd_ms[0] if bwd_ms else None,
         "vgg_block1_bwd_step_device_share": bwd_share,
         "attn_bwd_step_device_ms": attn["device_ms"],
+        "attn_fwd_step_device_ms": attn_f["device_ms"],
+        "attn_fwd_step_kernel_launches": attn_f["launches"],
+        "pool_bwd_step_device_ms": pool["device_ms"],
+        "step_trace": fixed["trace"],
         "vgg_block1_fwd_step_device_ms": fwd["device_ms"],
         "vgg_block1_fwd_step_kernel_launches": fwd["launches"],
         "attn_bwd_step_kernel_launches": attn["launches"],
@@ -1482,6 +1558,34 @@ def phase_train(torch, dev, kernels, work, labels_path, epochs=2,
         "f32_step_card_vs_cpu_grad_rel_err": gerr,
         "f32_dropout_train_losses": f32_losses,
         "f32_dropout_launches": f32_counts}
+
+
+def check_step_copies(tr, per_step):
+    """The default step's trace (tools/probe_step.py): each attention
+    forward (with the layer's reshape of its output) and each attention
+    backward launches one kernel, its own, and each pool backward only
+    its kernel: no copy of q, k, v, out, y or g."""
+    af, ab, pb = (tr["attention_forward"], tr["attention_backward"],
+                  tr["pool_backward"])
+    log(f"default step: {tr['kernel_launches']} launches, "
+        f"{tr['copy_kernels']} copy kernels in all "
+        f"({tr['copies_by_name']}); attention forward {af}; attention "
+        f"backward {ab}; pool backward {pb}; pool layouts "
+        f"{tr['pool_formats']}")
+    n = per_step["attn_fwd"]
+    if not (af["calls"] == n and af["kernels_per_call"] == [1]
+            and af["copy_kernels"] == 0
+            and all(ATTN_FWD_KERNEL_NAME in x for x in af["names"])):
+        fail(f"the step's attention forwards are not one {ATTN_FWD_KERNEL_NAME}"
+             f" launch each with no copy: {af}")
+    if not (ab["calls"] == n and ab["kernels_per_call"] == [1]
+            and ab["copy_kernels"] == 0
+            and all(ATTN_BWD_KERNEL_NAME in x for x in ab["names"])):
+        fail(f"the step's attention backwards are not one "
+             f"{ATTN_BWD_KERNEL_NAME} launch each with no copy: {ab}")
+    if not (pb["calls"] == per_step["pool_bwd"] and pb["copy_kernels"] == 0
+            and pb["kernels_per_call"] == [1]):
+        fail(f"the step's pool backward is not its kernel alone: {pb}")
 
 
 # ---------------------------------------------------------------------------
@@ -1717,7 +1821,8 @@ def phase_probe(torch):
     return c
 
 
-def profile(torch, fn, top=6, sums=(ATTN_BWD_KERNEL_NAME, FWD_KERNEL_NAME)):
+def profile(torch, fn, top=6, sums=(ATTN_FWD_KERNEL_NAME, ATTN_BWD_KERNEL_NAME,
+                                   FWD_KERNEL_NAME, "pool_bwd")):
     """One warm call of fn under torch.profiler: wall ms, summed device
     time of its kernels, their share of the wall time (the device's busy
     share; the rest is idle, waiting on the host), launches, the kernels

@@ -30,13 +30,12 @@
 // dropout_bits writes bits[b, h*Tq + q, k] for the (B, H*Tq, Tk) view.
 // ---------------------------------------------------------------------------
 //
-// Layouts: the forward takes q (B, H, Tq, D), k (B, H, Tk, D), v (B, H,
-// Tk, D) contiguous, in the compute type (bf16 or f32); bias (B, Tq, Tk) f32
-// (0 or -1e9, shared by the heads); out (B, H, Tq, D) in the compute type;
-// stats (B, H, Tq, 2) f32 = (m, l) per row. D = 64. The backward reads q, k,
-// v, g and writes dq, dk, dv through (batch, head, row) strides, so the
-// (B, T, H, D) layout of the projections needs no copy; rows are contiguous
-// and 16-byte aligned.
+// Layouts: q (B, H, Tq, D), k and v (B, H, Tk, D), out and g (B, H, Tq, D)
+// and the gradients are read and written through (batch, head, row)
+// strides, so the (B, T, H, D) layout of the projections, transposed,
+// needs no copy either way; rows are contiguous and 16-byte aligned; in
+// the compute type (bf16 or f32). bias (B, Tq, Tk) f32 (0 or -1e9, shared
+// by the heads); stats (B, H, Tq, 2) f32 = (m, l) per row. D = 64.
 //
 // Numerics: scores x = (q.k) * (1/sqrt(dk)) + bias in f32, as the JAX
 // kernel; keys past Tk are -inf (exactly no weight); a row whose real keys
@@ -54,10 +53,9 @@
 // What bounds it on the H100: at the flagship (B = 12, H = 8, T = 200,
 // dk = 64) one encoder layer is ~1 GFLOP forward and ~2.5 backward (about
 // 1 and 3 us on the bf16 tensor cores, 15 and 37 us on f32 FMA) and reads
-// ~9 MB in bf16, ~17 MB in f32 (~3 and ~5 us): launch cost, not the card,
-// bounds the bf16 forward; f32 FMA bounds the f32 kernels. The forward is
-// simple: one block of 4 warps per (b, h, 64-query tile), each warp owning
-// 16 query rows. The kernels are templates over the compute type and share
+// ~9 MB in bf16, ~17 MB in f32 (~3 and ~5 us): latency and issue slots,
+// not the card's peaks, bound the bf16 kernels; f32 FMA bounds the f32
+// ones. The kernels are templates over the compute type and share
 // staging, the dropout and the epilogues; only the products differ, and all
 // keep the accumulators in the m16n8 layout of mma.sync (lane holds rows
 // lane/4 and lane/4 + 8, columns 2 (lane % 4) + {0, 1} of each 8-column
@@ -71,6 +69,23 @@
 //     A operand stays in shared memory, and P goes through a per-warp
 //     16 x 64 shared scratch so each lane can read its rows whole. Each
 //     product sums over d (or k) in order.
+//
+// The forward (attn_fwd_kernel<T, WK>): a block of 4 warps takes QT = 64 /
+// WK query rows of one (b, h) and walks the 64-key tiles; its warps are
+// 4 / WK query groups of 16 rows times WK key groups, and key group wk
+// takes keys 64 / WK * wk .. of every tile with its own online softmax
+// (m, l, o in registers). With WK > 1 the groups' partial rows meet in
+// shared memory after the loop and are added in group order (m the max of
+// the groups', l and o rescaled to it). The wrapper takes WK = 1 where
+// ceil(Tq / 64) blocks a (b, h) give every SM two blocks, else the
+// smallest WK that does (else 4): at the decoder's Tq = 51, WK = 4 makes
+// 384 blocks of 16 rows for 132 SMs instead of 96 of 64 rows. f32 keeps WK
+// = 1: its FMA products, not latency, bound it. K, V and the bias tile of
+// the next key tile come in by cp.async while the current one's products
+// run (bf16: two stages; f32: one, which keeps three blocks an SM); key
+// tiles and 16-key chunks past Tk, and warps whose 16 rows are past Tq,
+// are skipped. The mask: one Philox call per four elements, each word
+// used (keep_bits_fwd).
 //
 // The backward is one deterministic pass (attn_bwd_kernel), grid (key
 // tiles, H, B), 8 warps a block. The keys are cut into 16-key chunks, and
@@ -112,8 +127,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int D = 64;          // head width
-constexpr int TILE = 64;       // queries per block / keys per tile
-constexpr int WARPS = 4;       // 16 rows each
+constexpr int TILE = 64;       // keys per tile; queries per tile
+constexpr int WARPS = 4;       // the forward's warps
 constexpr int THREADS = 32 * WARPS;
 // the backward: 8 warps of 16 keys, key tiles of up to 128 keys
 constexpr int BWD_WARPS = 8;
@@ -215,35 +230,24 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <typename T> struct Cdt;
 
 template <> struct Cdt<bf16> {
-  static constexpr int TILE_ELEMS = TILE * D;   // swizzled, unpadded
+  static constexpr int ROW = D;                 // swizzled, unpadded rows
+  static constexpr int TILE_ELEMS = TILE * ROW;
   static constexpr bool A_IN_SMEM = false;      // A lives in registers
-  static constexpr int SCRATCH = 0;             // floats of P scratch
   static constexpr int STAGES = 2;              // backward query tiles
+  static constexpr int FWD_STAGES = 2;          // forward key tiles
   static constexpr int OV = 2;                  // uint4 in 16 elements
   struct AFrag {
     uint32_t r[4][4];  // r[kc]: k-step kc (columns 16kc .. 16kc+15)
   };
 
-  // rows row0 .. row0+63 of a (T, 64) matrix into a swizzled tile; rows at
-  // or past Tn are zero
-  static __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                                   int row0, int Tn,
-                                                   int tid) {
-    for (int e = tid; e < TILE * 8; e += THREADS) {
-      const int r = e >> 3, ch = e & 7;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < Tn)
-        v = reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D)[ch];
-      *reinterpret_cast<uint4*>(s + swz(r, ch)) = v;
-    }
-  }
-
-  // `rows` rows the same way by cp.async, rows `rs` elements apart, by
-  // BWD_THREADS threads
+  // `rows` rows row0 .. of a (T, 64) matrix, rows `rs` elements apart,
+  // into a swizzled tile by cp.async, by NT threads; rows at or past Tn
+  // are zero-filled
+  template <int NT = BWD_THREADS>
   static __device__ __forceinline__ void load_tile_async(
       bf16* s, const bf16* g, long long rs, int row0, int Tn, int tid,
       int rows = TILE) {
-    for (int e = tid; e < rows * 8; e += BWD_THREADS) {
+    for (int e = tid; e < rows * 8; e += NT) {
       const int r = e >> 3, ch = e & 7;
       const bool in = row0 + r < Tn;
       cp_async16(s + swz(r, ch), in ? g + (row0 + r) * rs + ch * 8 : g, in);
@@ -379,32 +383,23 @@ template <> struct Cdt<bf16> {
 };
 
 template <> struct Cdt<float> {
-  static constexpr int TILE_ELEMS = TILE * LDF;  // rows padded to 68 floats
+  static constexpr int ROW = LDF;                // rows padded to 68 floats
+  static constexpr int TILE_ELEMS = TILE * ROW;
   static constexpr bool A_IN_SMEM = true;
-  static constexpr int SCRATCH = WARPS * 16 * LDF;
-  // one stage: the backward's tiles then fit an SM's shared memory
+  // one stage: the backward's tiles then fit an SM's shared memory, and
+  // the forward keeps three blocks an SM
   static constexpr int STAGES = 1;
+  static constexpr int FWD_STAGES = 1;
   static constexpr int OV = 4;
   struct AFrag {
     const float* s;    // the warp's 16 rows in a shared tile
   };
 
-  static __device__ __forceinline__ void load_tile(float* s, const float* g,
-                                                   int row0, int Tn,
-                                                   int tid) {
-    for (int e = tid; e < TILE * (D / 4); e += THREADS) {
-      const int r = e >> 4, ch = e & 15;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < Tn)
-        v = reinterpret_cast<const float4*>(g + (size_t)(row0 + r) * D)[ch];
-      *reinterpret_cast<float4*>(s + r * LDF + 4 * ch) = v;
-    }
-  }
-
+  template <int NT = BWD_THREADS>
   static __device__ __forceinline__ void load_tile_async(
       float* s, const float* g, long long rs, int row0, int Tn, int tid,
       int rows = TILE) {
-    for (int e = tid; e < rows * (D / 4); e += BWD_THREADS) {
+    for (int e = tid; e < rows * (D / 4); e += NT) {
       const int r = e >> 4, ch = e & 15;
       const bool in = row0 + r < Tn;
       cp_async16(s + r * LDF + 4 * ch, in ? g + (row0 + r) * rs + 4 * ch : g,
@@ -540,12 +535,18 @@ template <> struct Cdt<float> {
   }
 };
 
-// dynamic shared memory: the forward holds Q, K, V tiles plus the P
-// scratch; the backward Q and dO tiles per stage, the K and V tiles of KT
-// rows (bf16: V staged there once, then the dS^T tile), bias tiles [64][LDB]
-// f32 and (m, 1/l, D) rows per stage, plus the P scratch of its 8 warps
-template <typename T> constexpr size_t fwd_smem() {
-  return 3 * Cdt<T>::TILE_ELEMS * sizeof(T) + Cdt<T>::SCRATCH * 4;
+// dynamic shared memory. The forward: the Q tile (QT rows), FWD_STAGES
+// stages of the K and V tiles and of the bias tile [QT][LDF] f32 (f32: a
+// warp's P scratch is its own 16 rows of the current bias tile, which it
+// has read before it writes P); after the key loop, the K and V stages
+// take the key groups' partial rows for the combine. The backward: Q and
+// dO tiles per stage, the K and V tiles of KT rows (bf16: V staged there
+// once, then the dS^T tile), bias tiles [64][LDB] f32 and (m, 1/l, D)
+// rows per stage, plus the P scratch of its 8 warps
+template <typename T, int WK> constexpr size_t fwd_smem() {
+  return (16 * (WARPS / WK) + 2 * Cdt<T>::FWD_STAGES * TILE) * Cdt<T>::ROW *
+             sizeof(T) +
+         Cdt<T>::FWD_STAGES * 16 * (WARPS / WK) * LDF * 4;
 }
 template <typename T> constexpr size_t bwd_smem() {
   return (2 * Cdt<T>::STAGES + 4) * Cdt<T>::TILE_ELEMS * sizeof(T) +
@@ -561,7 +562,7 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
 }
 
 template <typename T> struct Params {
-  const T *q, *k, *v;
+  const T *q, *k, *v;  // row 0 of (b, h) at b * s.b + h * s.h
   const float* bias;
   int H, Tq, Tk;
   uint32_t thresh32;  // keep below this; 0 = no dropout
@@ -573,92 +574,169 @@ struct Strides {
   long long b, h, t;  // elements between batches, heads, rows
 };
 
+template <typename T> struct FwdParams {
+  Params<T> f;
+  T* o;              // row 0 of (b, h) at b * so.b + h * so.h
+  float2* stats;     // (B, H, Tq): (m, l)
+  Strides sq, sk, sv, so;
+  bool bias16;       // bias rows 16-byte aligned: 16-byte copies
+};
+
 template <typename T> struct BwdParams {
-  Params<T> f;  // q, k, v: row 0 of (b, h) at b * s.b + h * s.h
+  Params<T> f;
   const T *o, *g;
   const float* stats;
   T *dq, *dk, *dv;
-  Strides sq, sk, sv, sg, sdq, sdk, sdv;
+  Strides sq, sk, sv, sg, sdq, sdk, sdv, so;
   float* part;        // (B, H, key tiles, Tq, D) f32 shares of dQ
   unsigned* arrive;   // (B * H) arrival counters, 0 between launches
   int nch, nkt;       // 16-key chunks, key tiles
   bool bias16;        // bias rows 16-byte aligned: 16-byte copies
 };
 
-// keep flags of the two adjacent keys key, key+1 (key even) of query q
-template <typename T>
-__device__ __forceinline__ void keep_pair(const Params<T>& p, int b, int h,
-                                          int q, int key, bool& k0,
-                                          bool& k1) {
-  const U4 r = philox((uint32_t)key >> 2, q, h, b, p.k0, p.k1);
-  const int w = key & 3;
-  k0 = r.w[w] < p.thresh32;
-  k1 = r.w[w + 1] < p.thresh32;
-}
-
-template <typename T>
-__device__ __forceinline__ float score(const Params<T>& p, float s, int b,
-                                       int q, int key) {
-  if (key >= p.Tk) return -INFINITY;
-  const float bias = q < p.Tq ? p.bias[((size_t)b * p.Tq + q) * p.Tk + key]
-                              : 0.f;
-  return s * p.scale + bias;
-}
-
 // ---------------------------------------------------------------------------
-// forward: grid (query tiles, H, B)
+// forward: grid (query tiles of QT = 16 WQ rows, H, B); 4 warps, WQ query
+// groups of 16 rows times WK key groups (warp = wq * WK + wk)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// keep flags of a warp's elements in n-tiles n < 2 nj of one key tile
+// (keys key0 + 8n + 2 (lane % 4) + {0, 1} of rows r0 and r0 + 8, r0 the
+// query row of lane / 4), as bits 4n + i (i = 2 * row half + column).
+// Lanes 2j and 2j + 1 of a quad hold the same group of four keys for both
+// rows: the even lane draws the call of row r0, the odd lane that of row
+// r0 + 8; each keeps the two words of its own elements and sends the two
+// its partner needs, as flags, in one __shfl_xor_sync for the whole tile
+template <int NJ, typename T>
+__device__ __forceinline__ uint32_t keep_bits_fwd(const Params<T>& f, int b,
+                                                  int h, int key0, int r0,
+                                                  int lane, int nj) {
+  const bool odd = lane & 1;
+  const uint32_t g0 = ((uint32_t)key0 >> 2) + ((lane & 3) >> 1);
+  const uint32_t row = (uint32_t)r0 + (odd ? 8u : 0u);
+  uint32_t own = 0, snd = 0;
+#pragma unroll
+  for (int n = 0; n < 2 * NJ; ++n) {
+    if (n >= 2 * nj) break;
+    const U4 r = philox(g0 + 2 * n, row, h, b, f.k0, f.k1);
+    const uint32_t lo = (uint32_t)(r.w[0] < f.thresh32) |
+                        (uint32_t)(r.w[1] < f.thresh32) << 1;
+    const uint32_t hi = (uint32_t)(r.w[2] < f.thresh32) |
+                        (uint32_t)(r.w[3] < f.thresh32) << 1;
+    own |= (odd ? hi : lo) << (2 * n);
+    snd |= (odd ? lo : hi) << (2 * n);
+  }
+  const uint32_t got = __shfl_xor_sync(0xffffffffu, snd, 1);
+  const uint32_t top = odd ? got : own, bot = odd ? own : got;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < 2 * NJ; ++n)
+    bits |= ((top >> (2 * n)) & 3u) << (4 * n) |
+            ((bot >> (2 * n)) & 3u) << (4 * n + 2);
+  return bits;
+}
+
+template <typename T, int WK>
 __global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(Params<T> p, T* __restrict__ out,
-                float2* __restrict__ stats) {
+attn_fwd_kernel(const FwdParams<T> p) {
   using C = Cdt<T>;
+  constexpr int WQ = WARPS / WK, QT = 16 * WQ;
+  constexpr int KC = TILE / WK, NJ = KC / 16;  // a warp's keys of a tile
+  constexpr int ST = C::FWD_STAGES, TE = C::TILE_ELEMS;
+  static_assert(WK == 1 || !C::A_IN_SMEM,
+                "f32: a warp's P scratch is its own bias rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + C::TILE_ELEMS;
-  T* vs = ks + C::TILE_ELEMS;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
+  T* qs = reinterpret_cast<T*>(smem_raw);              // the Q tile
+  T* ks = qs + QT * C::ROW;                             // [ST] K tiles
+  T* vs = ks + ST * TE;                                 // [ST] V tiles
+  float* bs = reinterpret_cast<float*>(vs + ST * TE);  // [ST][QT][LDF]
+  const Params<T>& f = p.f;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* pw = reinterpret_cast<float*>(vs + C::TILE_ELEMS) + warp * 16 * LDF;
-  const size_t bh = (size_t)b * p.H + h;
-  const T* qg = p.q + bh * p.Tq * D;
-  const T* kg = p.k + bh * p.Tk * D;
-  const T* vg = p.v + bh * p.Tk * D;
+  const int wq = warp / WK, wk = warp % WK;
+  const bool qwarp = q0 + 16 * wq < f.Tq;  // the warp holds a real query
+  const T* kg = f.k + b * p.sk.b + h * p.sk.h;
+  const T* vg = f.v + b * p.sv.b + h * p.sv.h;
+  const int nkt = (f.Tk + TILE - 1) / TILE;
 
-  C::load_tile(qs, qg, q0, p.Tq, tid);
-  __syncthreads();
+  // the K, V and bias tiles of key tile `it` into stage `buf`: one group
+  auto fetch = [&](int it, int buf) {
+    const int k0 = it * TILE, nk = min(TILE, f.Tk - k0);
+    const int rows = (nk + 15) & ~15;  // the rows the products read
+    C::template load_tile_async<THREADS>(ks + buf * TE, kg, p.sk.t, k0,
+                                         f.Tk, tid, rows);
+    C::template load_tile_async<THREADS>(vs + buf * TE, vg, p.sv.t, k0,
+                                         f.Tk, tid, rows);
+    float* bb = bs + buf * QT * LDF;
+    const float* bg = f.bias + ((size_t)b * f.Tq + q0) * f.Tk + k0;
+    // bias columns past nk are never read: not even zero-filled
+    if (p.bias16) {
+      const int cw = nk >> 2;  // nk is a multiple of 4 here
+      for (int e = tid; e < QT * cw; e += THREADS) {
+        const int r = e / cw, c = 4 * (e - r * cw);
+        const bool in = q0 + r < f.Tq;
+        cp_async16(bb + r * LDF + c, in ? bg + (size_t)r * f.Tk + c : f.bias,
+                   in);
+      }
+    } else {
+      for (int e = tid; e < QT * nk; e += THREADS) {
+        const int r = e / nk, c = e - r * nk;
+        const bool in = q0 + r < f.Tq;
+        cp_async4(bb + r * LDF + c, in ? bg + (size_t)r * f.Tk + c : f.bias,
+                  in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the Q tile goes in the first tile's group
+  C::template load_tile_async<THREADS>(qs, f.q + b * p.sq.b + h * p.sq.h,
+                                       p.sq.t, q0, f.Tq, tid, QT);
+  fetch(0, 0);
   typename C::AFrag qa;
-  C::load_a(qa, qs, warp * 16, lane);
-
-  const int rq[2] = {q0 + warp * 16 + (lane >> 2),
-                     q0 + warp * 16 + (lane >> 2) + 8};
+  const int r0 = q0 + 16 * wq + (lane >> 2);  // the lane's rows r0, r0 + 8
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float o[8][4];
   zero(o);
 
-  for (int k0 = 0; k0 < p.Tk; k0 += TILE) {
-    __syncthreads();  // previous tile consumed
-    C::load_tile(ks, kg, k0, p.Tk, tid);
-    C::load_tile(vs, vg, k0, p.Tk, tid);
-    __syncthreads();
+  for (int it = 0; it < nkt; ++it) {
+    const int cur = ST == 2 ? (it & 1) : 0;
+    if (ST == 1 && it > 0) {
+      __syncthreads();  // the last tile is consumed
+      fetch(it, 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile it landed; the other stage is consumed
+    if (ST == 2 && it + 1 < nkt) fetch(it + 1, cur ^ 1);
+    if (it == 0) C::load_a(qa, qs, 16 * wq, lane);
+    const int kw = it * TILE + KC * wk;  // the warp's first key
+    const int nkw = min(KC, f.Tk - kw);  // and how many are real
+    if (!qwarp || nkw <= 0) continue;
+    const int nj = NJ == 1 ? 1 : min(NJ, (nkw + 15) >> 4);
+    const T* kt = ks + cur * TE + KC * wk * C::ROW;
+    const T* vt = vs + cur * TE + KC * wk * C::ROW;
+    float* bt = bs + (cur * QT + 16 * wq) * LDF;  // the warp's 16 rows
     float s[8][4];
     zero(s);
-    C::mma_abt(s, qa, ks, lane);
+    C::mma_abt(s, qa, kt, lane, nj);
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 2 * NJ; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * (lane & 3) + (i & 1);
-        s[n][i] = score(p, s[n][i], b, rq[i >> 1], key);
-        tmax[i >> 1] = fmaxf(tmax[i >> 1], s[n][i]);
+      for (int r = 0; r < 2; ++r) {
+        const int c = KC * wk + n * 8 + 2 * (lane & 3);  // tile column
+        const float2 x = *reinterpret_cast<const float2*>(
+            bt + ((lane >> 2) + 8 * r) * LDF + c);
+        const int key = it * TILE + c;
+        s[n][2 * r] = key < f.Tk ? s[n][2 * r] * f.scale + x.x : -INFINITY;
+        s[n][2 * r + 1] =
+            key + 1 < f.Tk ? s[n][2 * r + 1] * f.scale + x.y : -INFINITY;
+        tmax[r] = fmaxf(tmax[r], fmaxf(s[n][2 * r], s[n][2 * r + 1]));
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
       tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float mn = fmaxf(m[r], tmax[r]);  // finite: key k0 is real
+      const float mn = fmaxf(m[r], tmax[r]);  // finite: key kw is real
       const float c = expf(m[r] - mn);
       l[r] *= c;
 #pragma unroll
@@ -668,39 +746,95 @@ attn_fwd_kernel(Params<T> p, T* __restrict__ out,
       }
       m[r] = mn;
     }
+    // rate 0: every flag set and keep_scale 1
+    const uint32_t kb =
+        f.thresh32 ? keep_bits_fwd<NJ>(f, b, h, kw, r0, lane, nj)
+                   : 0xffffffffu;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 2 * NJ; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[n][i] = expf(s[n][i] - m[i >> 1]);
-        l[i >> 1] += s[n][i];
+        const float e = expf(s[n][i] - m[i >> 1]);
+        l[i >> 1] += e;
+        s[n][i] = (kb >> (4 * n + i)) & 1u ? e * f.keep_scale : 0.f;
       }
-      if (p.thresh32) {
-        const int key = k0 + n * 8 + 2 * (lane & 3);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          bool ka, kb;
-          keep_pair(p, b, h, rq[r], key, ka, kb);
-          s[n][2 * r] = ka ? s[n][2 * r] * p.keep_scale : 0.f;
-          s[n][2 * r + 1] = kb ? s[n][2 * r + 1] * p.keep_scale : 0.f;
-        }
-      }
-    }
-    C::mma_ps(o, s, vs, lane, pw);
+    C::mma_ps(o, s, vt, lane, bt, nj);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (rq[r] >= p.Tq) continue;
-    const float inv = 1.f / l[r];
-    T* og = out + (bh * p.Tq + rq[r]) * D;
+  }
+  const size_t bh = (size_t)b * f.H + h;
+  T* ob = p.o + b * p.so.b + h * p.so.h;
+  if (WK == 1) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      C::st2(og + n * 8 + 2 * (lane & 3), o[n][2 * r] * inv,
-             o[n][2 * r + 1] * inv);
-    if ((lane & 3) == 0) stats[bh * p.Tq + rq[r]] = make_float2(m[r], l[r]);
+    for (int r = 0; r < 2; ++r) {
+      const int q = r0 + 8 * r;
+      if (q >= f.Tq) continue;
+      const float inv = 1.f / l[r];
+      T* og = ob + q * p.so.t + 2 * (lane & 3);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        C::st2(og + n * 8, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      if ((lane & 3) == 0) p.stats[bh * f.Tq + q] = make_float2(m[r], l[r]);
+    }
+    return;
+  }
+
+  // WK > 1: every key group's partial rows through shared memory, added
+  // in key-group order (a group with no real key has m = -inf, l = 0)
+  __syncthreads();  // every warp is done with the stages
+  float* po = reinterpret_cast<float*>(ks);                        // o
+  float2* pml = reinterpret_cast<float2*>(po + WARPS * 16 * LDF);  // (m, l)
+  {
+    float* pr = po + (warp * 16 + (lane >> 2)) * LDF + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(pr + n * 8) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(pr + 8 * LDF + n * 8) =
+          make_float2(o[n][2], o[n][3]);
+    }
+    if ((lane & 3) == 0) {
+      pml[warp * 16 + (lane >> 2)] = make_float2(m[0], l[0]);
+      pml[warp * 16 + (lane >> 2) + 8] = make_float2(m[1], l[1]);
+    }
+  }
+  __syncthreads();
+  // a thread a row's 8-column chunk
+  for (int e = tid; e < QT * 8; e += THREADS) {
+    const int r = e >> 3, ch = e & 7, q = q0 + r;
+    if (q >= f.Tq) continue;
+    const int w0 = (r >> 4) * WK, rr = r & 15;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WK; ++w) mx = fmaxf(mx, pml[(w0 + w) * 16 + rr].x);
+    float sum = 0.f, acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int w = 0; w < WK; ++w) {
+      const float2 ml = pml[(w0 + w) * 16 + rr];
+      const float c = expf(ml.x - mx);  // finite mx: key 0 is in group 0
+      sum += ml.y * c;
+      const float4* src = reinterpret_cast<const float4*>(
+          po + ((w0 + w) * 16 + rr) * LDF + 8 * ch);
+      const float4 u = src[0], v = src[1];
+      acc[0] += c * u.x;
+      acc[1] += c * u.y;
+      acc[2] += c * u.z;
+      acc[3] += c * u.w;
+      acc[4] += c * v.x;
+      acc[5] += c * v.y;
+      acc[6] += c * v.z;
+      acc[7] += c * v.w;
+    }
+    const float inv = 1.f / sum;
+    T* og = ob + q * p.so.t + 8 * ch;
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) C::st2(og + j, acc[j] * inv, acc[j + 1] * inv);
+    if (ch == 0) p.stats[bh * f.Tq + q] = make_float2(mx, sum);
   }
 }
 
@@ -809,9 +943,10 @@ attn_bwd_kernel(const BwdParams<T> p) {
   auto load_rows = [&](int it) {
     const int q = it * TILE + (tid >> 2);
     const bool in = q < f.Tq;
-    const uint4* src = reinterpret_cast<const uint4*>(
-                           p.o + (bh * f.Tq + (in ? q : 0)) * D) +
-                       (tid & 3) * C::OV;
+    const uint4* src =
+        reinterpret_cast<const uint4*>(p.o + b * p.so.b + h * p.so.h +
+                                       (in ? q : 0) * p.so.t) +
+        (tid & 3) * C::OV;
 #pragma unroll
     for (int c = 0; c < C::OV; ++c)
       orow[c] = in ? src[c] : make_uint4(0, 0, 0, 0);
@@ -1040,27 +1175,46 @@ Params<T> make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-template <typename T>
-int attn_fwd(const void* q, const void* k, const void* v, const void* bias,
-             void* out, void* stats, int B, int H, int Tq, int Tk, int d,
-             int thresh16, unsigned long long seed, void* stream) {
-  cudaGetLastError();  // report only this call's error
-  if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
-  constexpr size_t smem = fwd_smem<T>();
+template <typename T, int WK>
+int launch_fwd(const FwdParams<T>& p, int B, void* stream) {
+  constexpr size_t smem = fwd_smem<T, WK>();
+  constexpr int QT = 16 * (WARPS / WK);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_kernel<T, WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const Params<T> p =
-      make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
-  dim3 grid((Tq + TILE - 1) / TILE, H, B);
-  attn_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      p, (T*)out, (float2*)stats);
+  dim3 grid((p.f.Tq + QT - 1) / QT, p.f.H, B);
+  attn_fwd_kernel<T, WK><<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);
   return cudaGetLastError();
 }
 
-// strides: (batch, head, row) element strides of q, k, v, g, dq, dk, dv
+// strides: (batch, head, row) element strides of q, k, v, out
+template <typename T>
+int attn_fwd(const void* q, const void* k, const void* v, const void* bias,
+             void* out, void* stats, const long long* strides, int B, int H,
+             int Tq, int Tk, int d, int thresh16, unsigned long long seed,
+             int wk, void* stream) {
+  cudaGetLastError();  // report only this call's error
+  if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
+  FwdParams<T> p;
+  p.f = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
+  p.o = (T*)out;
+  p.stats = (float2*)stats;
+  Strides* ss[4] = {&p.sq, &p.sk, &p.sv, &p.so};
+  for (int i = 0; i < 4; ++i)
+    *ss[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  p.bias16 = Tk % 4 == 0 && ((uintptr_t)bias & 15) == 0;
+  if (wk == 1) return launch_fwd<T, 1>(p, B, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (wk == 2) return launch_fwd<T, 2>(p, B, stream);
+    if (wk == 4) return launch_fwd<T, 4>(p, B, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// strides: (batch, head, row) element strides of q, k, v, g, dq, dk, dv,
+// out
 template <typename T>
 int attn_bwd(const void* q, const void* k, const void* v, const void* bias,
              const void* out, const void* stats, const void* g, void* dq,
@@ -1078,8 +1232,9 @@ int attn_bwd(const void* q, const void* k, const void* v, const void* bias,
   p.dq = (T*)dq;
   p.dk = (T*)dk;
   p.dv = (T*)dv;
-  Strides* ss[7] = {&p.sq, &p.sk, &p.sv, &p.sg, &p.sdq, &p.sdk, &p.sdv};
-  for (int i = 0; i < 7; ++i)
+  Strides* ss[8] = {&p.sq, &p.sk,  &p.sv,  &p.sg,
+                    &p.sdq, &p.sdk, &p.sdv, &p.so};
+  for (int i = 0; i < 8; ++i)
     *ss[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   p.part = (float*)part;
   p.arrive = (unsigned*)arrive;
@@ -1107,27 +1262,34 @@ extern "C" const char* error_string(int err) {
 // Every entry point returns cudaGetLastError() after its launches; a D other
 // than 64 or a thresh16 of 0 is refused (cudaErrorInvalidValue). The _bf16
 // entries take bf16 q, k, v, out, g, dq, dk, dv; the _f32 entries f32 ones.
+// q, k, v, out, g, dq, dk, dv are read and written through (batch, head,
+// row) element strides: rows contiguous and 16-byte aligned.
+
+// strides: 12 int64, those of q, k, v, out; stats (B, H, Tq, 2) f32; wk:
+// the key groups of a block, 1 (64 query rows a block) or, bf16 only, 2
+// (32 rows) or 4 (16 rows)
 extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v,
-                             const void* bias, void* out, void* stats, int B,
-                             int H, int Tq, int Tk, int d, int thresh16,
-                             unsigned long long seed, void* stream) {
-  return attn_fwd<bf16>(q, k, v, bias, out, stats, B, H, Tq, Tk, d, thresh16,
-                        seed, stream);
+                             const void* bias, void* out, void* stats,
+                             const long long* strides, int B, int H, int Tq,
+                             int Tk, int d, int thresh16,
+                             unsigned long long seed, int wk, void* stream) {
+  return attn_fwd<bf16>(q, k, v, bias, out, stats, strides, B, H, Tq, Tk, d,
+                        thresh16, seed, wk, stream);
 }
 
 extern "C" int attn_fwd_f32(const void* q, const void* k, const void* v,
-                            const void* bias, void* out, void* stats, int B,
-                            int H, int Tq, int Tk, int d, int thresh16,
-                            unsigned long long seed, void* stream) {
-  return attn_fwd<float>(q, k, v, bias, out, stats, B, H, Tq, Tk, d, thresh16,
-                         seed, stream);
+                            const void* bias, void* out, void* stats,
+                            const long long* strides, int B, int H, int Tq,
+                            int Tk, int d, int thresh16,
+                            unsigned long long seed, int wk, void* stream) {
+  return attn_fwd<float>(q, k, v, bias, out, stats, strides, B, H, Tq, Tk, d,
+                         thresh16, seed, wk, stream);
 }
 
-// g = dL/d(out); strides: 21 int64, (batch, head, row) element strides of
-// q, k, v, g, dq, dk, dv (rows contiguous, 16-byte aligned); out and stats
-// as the forward wrote them; part: (B, H, key tiles, Tq, 64) f32 scratch and
-// arrive: B * H uint32 counters that are 0 (the kernel leaves them 0), both
-// unused (may be null) when Tk <= 128 (one key tile: key tiles =
+// g = dL/d(out); strides: 24 int64, those of q, k, v, g, dq, dk, dv, out;
+// stats as the forward wrote them; part: (B, H, key tiles, Tq, 64) f32
+// scratch and arrive: B * H uint32 counters that are 0 (the kernel leaves
+// them 0), both unused (may be null) when Tk <= 128 (one key tile: key tiles =
 // ceil(ceil(Tk / 16) / 8))
 extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* bias, const void* out,

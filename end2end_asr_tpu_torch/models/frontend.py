@@ -131,6 +131,9 @@ def apply_frontend(params: Optional[Params], state: Optional[Params],
         block2 = VggBlock2.apply if train else vgg_block2
         y = block2(x, c3["w"], c3["b"], c4["w"], c4["b"], dtype)
         return _features(y.permute(0, 3, 1, 2)), state
+    # x.permute is the NHWC block-1 output seen as NCHW: the convolutions
+    # return channels-last tensors, and max_pool2's backward reads and
+    # writes conv4's output in that layout with no copy
     x = torch.relu(_conv(x.permute(0, 3, 1, 2), c3, dtype))
     y = torch.relu(max_pool2(_conv(x, c4, dtype, bias=False))
                    + c4["b"].to(dtype)[None, :, None, None])

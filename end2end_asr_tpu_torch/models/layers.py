@@ -25,6 +25,7 @@ checkpoint loads without renaming (training/checkpoint.py).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional
 
@@ -38,6 +39,11 @@ from end2end_asr_tpu_torch.ops.attention_fused import dropout_thresh16
 Params = Dict[str, object]
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
+
+# The name of a profiler range around each fused attention call in `mha`
+# and the reshape of its output, or None for no range (tools/probe_step.py
+# names one to find the kernels and copies there).
+ATTN_RANGE: Optional[str] = None
 
 
 class DropoutRng:
@@ -246,10 +252,14 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
             and mask is not None):
         if bias is None:
             bias = attn_bias(mask)
-        out = AF.flash_mha_train(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), bias,
-                                 rng.kernel_seed(), dropout_rate)
-        out = out.transpose(1, 2)
+        # the kernels read the projections through their strides, and
+        # the card's out lies in (B, Tq, H, D) memory: no copy either way
+        with (torch.profiler.record_function(ATTN_RANGE) if ATTN_RANGE
+              else contextlib.nullcontext()):
+            out = AF.flash_mha_train(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), bias,
+                                     rng.kernel_seed(), dropout_rate)
+            out = out.transpose(1, 2).reshape(B, Tq, num_heads * dim_value)
     else:
         scale = 1.0 / math.sqrt(dim_key)  # temperature = sqrt(dim_key)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
@@ -258,8 +268,8 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
         attn = torch.softmax(attn, dim=-1).to(dtype)
         if training:
             attn = dropout(attn, dropout_rate, rng)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-    out = out.reshape(B, Tq, num_heads * dim_value)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(
+            B, Tq, num_heads * dim_value)
     out = dense(p["out"], out.to(dtype), dtype).to(torch.float32)
     if training:
         out = dropout(out, dropout_rate, rng)

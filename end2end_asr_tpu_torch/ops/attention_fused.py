@@ -10,10 +10,13 @@ As there, nothing (Tq, Tk)-sized reaches device memory: the forward keeps
 two f32 softmax statistics per query row (the max and the sum; one
 log-sum-exp loses the sum under the −1e9 mask, see the source) besides
 its output, and the backward recomputes the scores and regenerates the
-same dropout mask from the seed. The backward is one launch: one pass
-over every (query, key) element, dQ's per-key-tile shares summed in a
-fixed order (two runs give the same bits); `attn_bwd_emulated` is its
-algorithm in torch, for the CPU tests.
+same dropout mask from the seed. The forward is one launch that reads
+q, k, v and writes out in the projections' (B, T, H, D) layout, with the
+keys of each tile split among a block's warps where Tq is short
+(`fwd_key_split`); `attn_fwd_emulated` is its algorithm in torch, for the
+CPU tests. The backward is one launch: one pass over every (query, key)
+element, dQ's per-key-tile shares summed in a fixed order (two runs give
+the same bits); `attn_bwd_emulated` is its algorithm in torch.
 
 Semantics kept from the JAX package:
   * keep = bits < thresh16·65536 on uint32 bits, thresh16 =
@@ -63,14 +66,16 @@ from end2end_asr_tpu_torch.ops import cuda_lib
 P, I = cuda_lib.P, cuda_lib.I
 U64 = cuda_lib.U64
 
+# q k v bias out stats strides, B H Tq Tk d thresh16, seed, key groups,
+# stream
 FWD = cuda_lib.CudaKernel("attention", "attn_fwd_bf16",
-                          [P] * 6 + [I] * 6 + [U64, P])
+                          [P] * 7 + [I] * 6 + [U64, I, P])
 # q k v bias out stats g dq dk dv strides, B H Tq Tk d thresh16, seed,
 # part arrive stream
 BWD = cuda_lib.CudaKernel("attention", "attn_bwd_bf16",
                           [P] * 11 + [I] * 6 + [U64, P, P, P])
 FWD_F32 = cuda_lib.CudaKernel("attention", "attn_fwd_f32",
-                              [P] * 6 + [I] * 6 + [U64, P])
+                              [P] * 7 + [I] * 6 + [U64, I, P])
 BWD_F32 = cuda_lib.CudaKernel("attention", "attn_bwd_f32",
                               [P] * 11 + [I] * 6 + [U64, P, P, P])
 BITS = cuda_lib.CudaKernel("attention", "dropout_bits_u32",
@@ -82,9 +87,10 @@ _BY_DTYPE = {torch.bfloat16: (FWD, BWD), torch.float32: (FWD_F32, BWD_F32)}
 
 HEAD_DIMS = (64,)   # head widths the kernels are built for
 MASK_BIAS = -1e9
-TILE = 64           # queries per tile of the backward (and the forward)
+TILE = 64           # queries per tile of the backward; keys per tile
 CHUNK = 16          # keys a warp of the backward owns
 WARPS = 8           # chunks per key tile at most: the backward's warps
+KEY_SPLITS = (1, 2, 4)   # the forward's key groups a block (bf16)
 
 
 def dropout_thresh16(rate: float) -> int:
@@ -196,6 +202,110 @@ def flash_mha_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         torch.zeros((), dtype=p.dtype, device=p.device))
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's algorithm in torch (the CPU tests hold it against
+# the plain version and the JAX kernel)
+# ---------------------------------------------------------------------------
+
+def fwd_key_split(B: int, H: int, Tq: int, sms: int) -> int:
+    """The forward's key groups a block: 1 (64 query rows a block) where
+    the ceil(Tq/64)·B·H blocks give each of `sms` SMs two, else the
+    smallest split (2: 32 rows, 4: 16 rows) that does, else 4."""
+    for wk in KEY_SPLITS:
+        if -(-Tq // (TILE // wk)) * B * H >= 2 * sms:
+            return wk
+    return KEY_SPLITS[-1]
+
+
+def keep_mask_by_fwd_lanes(seed: int, B: int, H: int, Tq: int, Tk: int,
+                           thresh16: int, device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) bool: the keep mask as the forward kernel's lanes
+    draw it (csrc/attention.cu, keep_bits_fwd). In 16-query group g and
+    8-key tile t, lane L (r0 = 16g + L/4, odd = L & 1) draws the call for
+    key group 2t + (L % 4)/2 and query r0 + 8·odd; it keeps words 2·odd +
+    {0, 1} (its own elements: row r0 + 8·odd) and sends the other two as
+    flags to lane L ^ 1, whose elements of that row they are. Element
+    (row r0 + 8·hr, key 8t + 2 (L % 4) + j) is bit j of the row's pair.
+    Equal to `keep_mask` when the exchange is right."""
+    s = seed & 0xFFFFFFFFFFFFFFFF
+    ng, nt = -(-Tq // 16), -(-Tk // 8)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    lane = ar(32)
+    odd = lane & 1
+    shape = (B, H, ng, nt, 32)
+    c0 = 2 * ar(nt).view(1, 1, 1, nt, 1) + ((lane & 3) >> 1)
+    c1 = 16 * ar(ng).view(1, 1, ng, 1, 1) + (lane >> 2) + 8 * odd
+    w = torch.stack(philox4x32_10(
+        c0.expand(shape), c1.expand(shape),
+        ar(H).view(1, H, 1, 1, 1).expand(shape),
+        ar(B).view(B, 1, 1, 1, 1).expand(shape), s & _MASK32, s >> 32), -1)
+    f = (w < thresh16 * 65536).long()
+    lo, hi = f[..., 0] | f[..., 1] << 1, f[..., 2] | f[..., 3] << 1
+    own = torch.where(odd.bool(), hi, lo)
+    got = torch.where(odd.bool(), lo, hi)[..., lane ^ 1]  # the partner's
+    pair = (torch.where(odd.bool(), got, own),     # row r0
+            torch.where(odd.bool(), own, got))     # row r0 + 8
+    keep = torch.zeros(B, H, 16 * ng, 8 * nt, dtype=torch.bool,
+                       device=device)
+    for hr in range(2):
+        for j in range(2):
+            row = (16 * ar(ng).view(ng, 1, 1) + (lane >> 2) + 8 * hr)
+            key = 8 * ar(nt).view(1, nt, 1) + 2 * (lane & 3) + j
+            keep[:, :, row.expand(ng, nt, 32), key.expand(ng, nt, 32)] = (
+                (pair[hr] >> j) & 1).bool()
+    return keep[:, :, :Tq, :Tk]
+
+
+def attn_fwd_emulated(q, k, v, bias, seed: int, rate: float,
+                      key_split: int = 1,
+                      keep: Optional[torch.Tensor] = None):
+    """The forward kernel's algorithm in torch (tests only): (out in q's
+    dtype, stats (B, H, Tq, 2) f32). Key group wk of `key_split` takes
+    keys 64/key_split·wk .. of every 64-key tile with its own online
+    softmax (running max m, sum l of the undropped exp(x − m), o = Σ P·V
+    with the dropped P rounded to the compute type); the groups' rows are
+    then added in group order: m the max of theirs, l and o rescaled to
+    it, out = o / l. `keep` (B, H, Tq, Tk) bool overrides the lanes'
+    Philox mask."""
+    cdt = q.dtype
+    B, H, Tq, Dk = q.shape
+    Tk = k.shape[2]
+    thresh16 = dropout_thresh16(rate)
+    if keep is None and thresh16 < 65536:
+        keep = keep_mask_by_fwd_lanes(seed, B, H, Tq, Tk, thresh16, q.device)
+    kscale = 65536.0 / thresh16 if keep is not None else 1.0
+    x = (q.float() @ k.float().transpose(-1, -2) * (1.0 / math.sqrt(Dk))
+         + bias.float()[:, None])
+    kc = TILE // key_split
+    groups = []
+    for wk in range(key_split):
+        m = torch.full((B, H, Tq), -math.inf, device=q.device)
+        l = torch.zeros(B, H, Tq, device=q.device)
+        o = torch.zeros(B, H, Tq, Dk, device=q.device)
+        for k0 in range(kc * wk, Tk, TILE):
+            k1 = min(k0 + kc, Tk)
+            xs = x[..., k0:k1]
+            mn = torch.maximum(m, xs.amax(-1))
+            c = torch.exp(m - mn)
+            e = torch.exp(xs - mn[..., None])
+            l = l * c + e.sum(-1)
+            if keep is not None:
+                e = torch.where(keep[..., k0:k1], e * kscale,
+                                torch.zeros((), device=q.device))
+            o = o * c[..., None] + e.to(cdt).float() @ v[:, :, k0:k1].float()
+            m = mn
+        groups.append((m, l, o))
+    mx = torch.stack([g[0] for g in groups]).amax(0)
+    lsum = torch.zeros_like(mx)
+    acc = torch.zeros(B, H, Tq, Dk, device=q.device)
+    for m, l, o in groups:
+        c = torch.exp(m - mx)
+        lsum = lsum + l * c
+        acc = acc + o * c[..., None]
+    return (acc * (1.0 / lsum)[..., None]).to(cdt), torch.stack([mx, lsum],
+                                                                -1)
 
 
 # ---------------------------------------------------------------------------
@@ -360,23 +470,58 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+# SMs by device index: the forward's grid rule
+_SMS = {}
+
+
+def _sms(device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _strided_ok(t: torch.Tensor) -> bool:
+    """The kernels read t through its strides: rows contiguous, every
+    row 16-byte aligned."""
+    e, (sb, sh, st, sd) = 16 // t.element_size(), t.stride()
+    return sd == 1 and not (sb % e or sh % e or st % e or t.data_ptr() % 16)
+
+
+def _strides(*ts) -> "ctypes.Array":
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *(s for t in ts for s in t.stride()[:3]))
+
+
 def attn_fwd(q, k, v, bias, seed: int, rate: float):
     """Kernel 4: (out (B, H, Tq, d) in q's dtype, stats (B, H, Tq, 2)
-    f32: the row max and row sum of the softmax). bf16 or f32."""
+    f32: the row max and row sum of the softmax). bf16 or f32. q, k and v
+    are read through their strides (the transposed (B, T, H, D) views of
+    the projections need no copy); out is written into (B, Tq, H, D)
+    memory and returned as its (B, H, Tq, D) view, so the caller's
+    transpose back is a view too. The kernel's key groups a block:
+    `fwd_key_split`'s for bf16, 1 for f32."""
     _check(q, k, v, bias)
-    q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
+    bias = bias.contiguous()
+    q, k, v = (t if _strided_ok(t) else t.contiguous() for t in (q, k, v))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    out = torch.empty_like(q)
+    out = torch.empty((B, Tq, H, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     stats = torch.empty((B, H, Tq, 2), dtype=torch.float32,
                         device=q.device)
+    key_split = (1 if q.dtype == torch.float32
+                 else fwd_key_split(B, H, Tq, _sms(q.device)))
     if out.numel():
         with torch.cuda.device(q.device):
+            strides = _strides(q, k, v, out)
             _BY_DTYPE[q.dtype][0].launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                B, H, Tq, Tk, D, dropout_thresh16(rate),
-                seed & (2 ** 64 - 1), _stream())
+                ctypes.addressof(strides), B, H, Tq, Tk, D,
+                dropout_thresh16(rate), seed & (2 ** 64 - 1), key_split,
+                _stream())
     return out, stats
 
 
@@ -393,24 +538,20 @@ def _arrive(device, n: int) -> torch.Tensor:
     return t
 
 
-def _strided_ok(t: torch.Tensor) -> bool:
-    """The backward reads t through its strides: rows contiguous, every
-    row 16-byte aligned."""
-    e, (sb, sh, st, sd) = 16 // t.element_size(), t.stride()
-    return sd == 1 and not (sb % e or sh % e or st % e or t.data_ptr() % 16)
-
-
 def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
     """Kernel 5: (dq, dk, dv) in q's dtype, the forward and its mask
-    recomputed, in one launch. q, k, v and g are read through their
+    recomputed, in one launch. q, k, v, out and g are read through their
     strides (the (B, T, H, D) layout of the projections, transposed, needs
     no copy), and dq, dk, dv come back in the layouts of q, k, v."""
     _check(q, k, v, bias)
     if out.dtype != q.dtype or g.dtype != q.dtype:
         raise ValueError("attn_bwd: out and g must be in q's dtype")
-    bias, out, stats = (t.contiguous() for t in (bias, out, stats))
-    q, k, v, g = (t if _strided_ok(t) else t.contiguous()
-                  for t in (q, k, v, g))
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"attn_bwd: out {tuple(out.shape)} and g "
+                         f"{tuple(g.shape)} must be q's shape")
+    bias, stats = bias.contiguous(), stats.contiguous()
+    q, k, v, out, g = (t if _strided_ok(t) else t.contiguous()
+                       for t in (q, k, v, out, g))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     # empty_like keeps the layout of q, k, v (dense, 16-byte aligned rows)
@@ -423,10 +564,7 @@ def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
                 part = torch.empty(B * H * nkt * Tq * D, dtype=torch.float32,
                                    device=q.device)
                 arrive = _arrive(q.device, B * H)
-            strides = (ctypes.c_longlong * 21)(
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
-                *dv.stride()[:3])
+            strides = _strides(q, k, v, g, dq, dk, dv, out)
             _BY_DTYPE[q.dtype][1].launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), stats.data_ptr(),

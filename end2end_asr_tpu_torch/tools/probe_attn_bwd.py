@@ -1,21 +1,21 @@
 """Where the training attention's backward (``attn_bwd``) spends its time.
 
     python -m end2end_asr_tpu_torch.tools.probe_attn_bwd
-        [--source path/to/attention.cu ...] [--no-package] [--batch 12]
-        [--dtype bf16|f32]
+        [--source path/to/attention.cu ...] [--no-package]
+        [--dtype bf16|f32] [--cuts philox,dq_sum,...]
 
 Builds ``csrc/attention.cu`` and every file ``--source`` names (another
 design of the same entry points, e.g. an earlier commit's file unpacked
 with ``git show``) into libraries of their own, and calls each one's
-backward entry through ctypes at the training path's shapes: the encoder
-self-attention (B, 8, 200, 200, 64), the decoder cross-attention (B, 8, 51,
-200, 64) and the causal decoder self-attention (B, 8, 51, 51, 64), rate 0.1,
-on the same inputs (q, k, v, g contiguous; out and stats from the
-package's forward). For each design and shape: the device time of each
-kernel the call launches (torch.profiler, by kernel name), their sum, and
-CUDA events around back-to-back ctypes calls (the C call and its launches,
-no Python wrapper); the designs are timed in turns (a, b, ..., b, a) and
-the smaller of the two readings is kept. The first design's gradients are
+backward entry through ctypes on the same inputs (``probe_lib``: batch
+12, 8 heads of 64, rate 0.1; q, k, v, g contiguous; out and stats from the
+package's forward, out made contiguous) at the train cell's shapes: the
+encoder self-attention (200, 200), the decoder cross-attention (51, 200)
+and the causal decoder self-attention (51, 51). For each design and
+shape: the device time of each kernel the call launches (torch.profiler,
+by kernel name), their sum, and CUDA events around back-to-back ctypes
+calls (the C call and its launches, no Python wrapper), timed in turns
+(``probe_lib.time_in_turns``). The first design's gradients are
 compared with each other's. One JSON line, with the card's name and power
 limit. The two signatures are told apart by the source: the earlier design
 (three kernels, ``attn_delta_kernel``) takes a (B, H, Tq) f32 scratch; the
@@ -24,9 +24,8 @@ fused one takes strides, a dQ scratch and arrival counters.
 copies of the package's file with one part of the fused kernel taken out
 each (``CUTS``; ``a+b`` cuts both): a part's cost is the full kernel's
 time less the copy's (the copies compute wrong gradients; only their times
-are kept). Needs a
-CUDA
-card and ``nvcc``; imports nothing at import time that needs either.
+are kept). Needs a CUDA card and ``nvcc``; imports nothing at import time
+that needs either.
 """
 
 from __future__ import annotations
@@ -39,9 +38,6 @@ import os
 from end2end_asr_tpu_torch.tools import probe_lib as P
 
 SOURCE = "attention.cu"
-SHAPES = {"enc_self": (200, 200, False), "dec_cross": (51, 200, False),
-          "dec_self": (51, 51, True)}
-
 
 # the fused design's parts, each cut by replacing lines of the source
 CUTS = {
@@ -79,12 +75,7 @@ CUTS = {
 
 def cut(src: str, names: str) -> str:
     """`names`: parts of CUTS joined by '+', all cut."""
-    for old, new in (c for name in names.split("+") for c in CUTS[name]):
-        if old not in src:
-            raise RuntimeError(f"probe_attn_bwd: {old.strip()!r} is not in "
-                               "the source; update the probe")
-        src = src.replace(old, new)
-    return src
+    return P.cut(src, names, CUTS, "probe_attn_bwd")
 
 
 def design_of(src: str) -> str:
@@ -100,9 +91,7 @@ def main(argv=None):
     p.add_argument("--cuts", default=None,
                    help="comma-separated parts of CUTS to time without "
                         "(default: none)")
-    p.add_argument("--batch", type=int, default=12)
     p.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
-    p.add_argument("--rate", type=float, default=0.1)
     args = p.parse_args(argv)
     import torch
     from end2end_asr_tpu_torch.ops import attention_fused as AF
@@ -118,29 +107,28 @@ def main(argv=None):
         with open(os.path.join(cuda_lib.CSRC_DIR, SOURCE)) as f:
             src = f.read()
         for name in args.cuts.split(","):
-            paths.append(P.write_source(f"cut_{name.replace('+', '_')}",
-                                        cut(src, name)))
+            paths.append(P.write_source(
+                f"cut_{name.replace('+', '_')}",
+                cut(src, name)))
     if not paths:
         raise SystemExit("probe_attn_bwd: no source to time")
     libs = P.build({path: path for path in paths}, "probe_attn_bwd")
     symbol = "attn_bwd_" + args.dtype
-    B, H, D, rate, seed = args.batch, 8, 64, args.rate, 77
+    B, H, D, rate, seed = P.ATTN_B, P.ATTN_H, P.ATTN_D, P.ATTN_RATE, \
+        P.ATTN_SEED
     thresh16 = AF.dropout_thresh16(rate)
     stream = torch.cuda.current_stream().cuda_stream
     out_json = {"shapes": {}, "designs": {}}
     for path in paths:
         with open(path) as f:
             out_json["designs"][path] = design_of(f.read())
-    for label, (Tq, Tk, causal) in SHAPES.items():
-        g0 = torch.Generator().manual_seed(Tq * 1000 + Tk)
-        q, k, v = (torch.randn(B, H, t, D, generator=g0).to(dev, cdt)
-                   for t in (Tq, Tk, Tk))
-        mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
-        if causal:
-            mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
-        bias = torch.where(mask, -1e9, 0.0).to(dev)
-        g = torch.randn(B, H, Tq, D, generator=g0).to(dev, cdt)
+    for label, (Tq, Tk, causal) in P.ATTN_SHAPES.items():
+        q, k, v, bias = P.attn_inputs(torch, dev, cdt, Tq, Tk, causal)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        g = torch.randn(B, H, Tq, D, generator=torch.Generator()
+                        .manual_seed(Tq + Tk)).to(dev, cdt)
         o, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
+        o = o.contiguous()   # the layout every design reads
         # dQ shares: room for any design's key tiles (16 keys at least)
         delta = torch.empty(B * H * Tq, device=dev)
         part = torch.empty(B * H * -(-Tk // 16) * Tq * D, device=dev)
@@ -162,8 +150,9 @@ def main(argv=None):
                 a = head + dims + [seed, delta.data_ptr(), stream]
             else:
                 fn.argtypes = AF.BWD.argtypes
-                strides = (ctypes.c_longlong * 21)(*(
-                    s for t in (q, k, v, g, dq, dk, dv)
+                # a design without out's strides reads the first 21
+                strides = (ctypes.c_longlong * 24)(*(
+                    s for t in (q, k, v, g, dq, dk, dv, o)
                     for s in t.stride()[:3]))
                 alive.append(strides)
                 a = head + [ctypes.addressof(strides)] + dims + [
@@ -173,20 +162,10 @@ def main(argv=None):
                 if fn(*a):
                     raise RuntimeError("probe_attn_bwd: launch failed")
             calls[path] = call
-        res = {path: {"kernels_ms": [], "events_ms": []} for path in paths}
-        for order in (paths, paths[::-1]):
-            for path in order:
-                res[path]["kernels_ms"].append(P.kernel_ms(torch, calls[path]))
-                res[path]["events_ms"].append(P.events_ms(torch, calls[path]))
-        torch.cuda.synchronize()
+        res = P.time_in_turns(torch, calls)
         ref = grads[paths[0]]
         for path in paths:
             r = res[path]
-            best = min(range(2), key=lambda i: sum(r["kernels_ms"][i]
-                                                   .values()))
-            r["kernels_ms"] = r["kernels_ms"][best]
-            r["device_ms"] = sum(r["kernels_ms"].values())
-            r["events_ms"] = min(r["events_ms"])
             r["max_abs_diff_to_first"] = max(
                 (a.float() - b.float()).abs().max().item()
                 for a, b in zip(grads[path], ref))

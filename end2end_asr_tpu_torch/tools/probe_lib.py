@@ -95,3 +95,59 @@ def gpu_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# The attention probes (probe_attn_fwd.py, probe_attn_bwd.py)
+# ---------------------------------------------------------------------------
+
+# the train cell's attention calls (PERF.md §4): {label: (Tq, Tk, causal)}
+# at batch 12, 8 heads of 64 and the training's dropout rate
+ATTN_SHAPES = {"enc_self": (200, 200, False), "dec_cross": (51, 200, False),
+               "dec_self": (51, 51, True)}
+ATTN_B, ATTN_H, ATTN_D, ATTN_RATE, ATTN_SEED = 12, 8, 64, 0.1, 77
+
+
+def cut(src: str, names: str, cuts: Dict[str, list], prog: str) -> str:
+    """`src` with the parts `names` (keys of `cuts` joined by '+') cut,
+    each by replacing lines of the source."""
+    for old, new in (c for name in names.split("+") for c in cuts[name]):
+        if old not in src:
+            raise RuntimeError(f"{prog}: {old.strip()!r} is not in the "
+                               "source; update the probe")
+        src = src.replace(old, new)
+    return src
+
+
+def attn_inputs(torch, dev, cdt, Tq: int, Tk: int, causal: bool):
+    """q, k, v (B, H, T, D) in `cdt`, transposed views of (B, T, H, D)
+    tensors as the projections hand them over, and the f32 bias
+    (B, Tq, Tk) of a random mask (plus the future where `causal`); from a
+    seed of the shape, so every design of a call gets the same."""
+    B, H, D = ATTN_B, ATTN_H, ATTN_D
+    g0 = torch.Generator().manual_seed(Tq * 1000 + Tk)
+    q, k, v = (torch.randn(B, t, H, D, generator=g0).to(dev, cdt)
+               .transpose(1, 2) for t in (Tq, Tk, Tk))
+    mask = torch.rand(B, Tq, Tk, generator=g0) < 0.1
+    if causal:
+        mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
+    return q, k, v, torch.where(mask, -1e9, 0.0).to(dev)
+
+
+def time_in_turns(torch, calls: Dict[str, object]) -> Dict[str, dict]:
+    """{name: fn} -> {name: {"kernels_ms", "device_ms", "events_ms"}}: the
+    calls timed in turns (a, b, ..., b, a), device ms by kernel
+    (`kernel_ms`) and events ms (`events_ms`); of each call's two
+    readings the smaller is kept."""
+    names = list(calls)
+    res = {n: {"kernels_ms": [], "events_ms": []} for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            res[n]["kernels_ms"].append(kernel_ms(torch, calls[n]))
+            res[n]["events_ms"].append(events_ms(torch, calls[n]))
+    torch.cuda.synchronize()
+    for r in res.values():
+        r["kernels_ms"] = min(r["kernels_ms"], key=lambda k: sum(k.values()))
+        r["device_ms"] = sum(r["kernels_ms"].values())
+        r["events_ms"] = min(r["events_ms"])
+    return res

@@ -348,3 +348,128 @@ def test_backward_probe_cuts_apply_to_the_source():
     assert len(set(copies.values())) == len(PA.CUTS)
     assert PA.cut(src, "philox+softmax") == PA.cut(copies["philox"],
                                                    "softmax")
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's algorithm (`attn_fwd_emulated`): key groups of a
+# block, each with its own online softmax over its share of every 64-key
+# tile, combined in group order; the mask drawn by pairs of lanes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Tq,Tk", [(51, 51), (51, 200), (200, 200), (7, 33),
+                                   (33, 7), (1, 1), (65, 257), (51, 13)])
+@pytest.mark.parametrize("seed", [0, 2 ** 64 - 1])
+def test_forward_lanes_draw_the_spec_bits(Tq, Tk, seed):
+    """The forward kernel draws one Philox call per four elements: the
+    even lane of a pair the call of one row, the odd lane that of the row
+    8 below, and they swap two flags each. The mask that gives is the
+    spec's, bit for bit."""
+    thresh16 = AF.dropout_thresh16(0.3)
+    got = AF.keep_mask_by_fwd_lanes(seed, 2, 3, Tq, Tk, thresh16)
+    assert torch.equal(got, AF.keep_mask(seed, 2, 3, Tq, Tk, thresh16))
+
+
+def test_forward_grid_fills_the_card_at_the_step_shapes():
+    """B = 12, H = 8 on 132 SMs: the encoder (Tq = 200) keeps 64-row
+    blocks (384 of them); the decoder (Tq = 51) splits the keys 4 ways,
+    384 blocks of 16 rows instead of 96 of 64."""
+    assert AF.fwd_key_split(12, 8, 200, 132) == 1
+    assert AF.fwd_key_split(12, 8, 51, 132) == 4
+    assert AF.fwd_key_split(12, 8, 100, 132) == 2
+    assert AF.fwd_key_split(1, 1, 7, 132) == 4
+    for Tq in (51, 200):
+        wk = AF.fwd_key_split(12, 8, Tq, 132)
+        assert -(-Tq // (64 // wk)) * 96 >= 2 * 132
+
+
+FWD_SHAPES = [(7, 33, False), (33, 7, False), (51, 51, True),
+              (51, 200, False), (17, 300, False)]
+
+
+@pytest.mark.parametrize("key_split", AF.KEY_SPLITS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk,causal", FWD_SHAPES)
+def test_forward_emulation_equals_the_plain_version(Tq, Tk, causal, rate,
+                                                    key_split):
+    """f32: the kernel's algorithm against the plain version (the same
+    Philox mask) and its statistics against attn_stats_plain, tight;
+    bf16: against the plain f32 version of the same bf16 inputs, within
+    the card's tolerance (P rounds to bf16 at each group's running max)."""
+    q, k, v, bias, _ = _emu_inputs(Tq, Tk, causal, Tq * 1000 + Tk)
+    seed = 0x5EED
+    qt, kt, vt, bt = (torch.from_numpy(a) for a in (q, k, v, bias))
+    out, stats = AF.attn_fwd_emulated(qt, kt, vt, bt, seed, rate, key_split)
+    want = AF.flash_mha_train_plain(qt, kt, vt, bt, seed, rate)
+    assert torch.isfinite(out).all()
+    assert _rel(out, want) < EMU_F32_TOL
+    want_stats = AF.attn_stats_plain(qt, kt, bt)
+    assert _rel(stats[..., 0], want_stats[..., 0]) < EMU_F32_TOL
+    assert _rel(stats[..., 1], want_stats[..., 1]) < EMU_F32_TOL
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (qt, kt, vt))
+    out, _ = AF.attn_fwd_emulated(qb, kb, vb, bt, seed, rate, key_split)
+    want = AF.flash_mha_train_plain(qb.float(), kb.float(), vb.float(), bt,
+                                    seed, rate)
+    assert out.dtype == torch.bfloat16 and _rel(out, want) < EMU_BF16_TOL
+
+
+@pytest.mark.parametrize("key_split", AF.KEY_SPLITS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk,causal", FWD_SHAPES)
+def test_forward_emulation_matches_jax(Tq, Tk, causal, rate, key_split):
+    """f32, against the JAX package: its ``flash_mha_train`` kernel
+    (interpret mode) at rate 0, its reference on a keep mask fed from
+    numpy at rate 0.1; the fully masked query too. Sums in another
+    order: FWD_TOL."""
+    q, k, v, bias, _ = _emu_inputs(Tq, Tk, causal, Tq + 7 * Tk)
+    if rate == 0.0:
+        keep = None
+        want = JAF.flash_mha_train(*(jnp.asarray(a) for a in (q, k, v)),
+                                   jnp.asarray(bias),
+                                   jnp.array([3], jnp.int32), 0.0)
+    else:
+        keep = np.random.RandomState(Tq).rand(B, H, Tq, Tk) < 0.9
+        scale = np.float32(65536.0 / AF.dropout_thresh16(rate))
+        want = _jax_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                        jnp.asarray(bias), jnp.asarray(keep), scale)
+    out, _ = AF.attn_fwd_emulated(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), 3, rate, key_split,
+        keep=None if keep is None else torch.from_numpy(keep))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=FWD_TOL)
+
+
+def test_wrapper_cpu_path_takes_the_projections_views():
+    """layers.mha hands the wrapper transposed views of the (B, T, H, D)
+    projections: on the CPU the plain version gives the same forward and
+    gradients as on contiguous copies."""
+    r = np.random.RandomState(12)
+    qp, kp, vp = (torch.from_numpy(r.randn(B, t, H, D).astype(np.float32))
+                  for t in (T, S, S))
+    bias = torch.from_numpy(_inputs(5)[3])
+    dout = torch.from_numpy(r.randn(B, T, H, D).astype(np.float32))
+    results = []
+    for make in (lambda t: t.transpose(1, 2),
+                 lambda t: t.transpose(1, 2).contiguous()):
+        qkv = [make(t).detach().requires_grad_() for t in (qp, kp, vp)]
+        assert qkv[0].is_contiguous() == (len(results) == 1)
+        out = AF.flash_mha_train(*qkv, bias, 21, 0.1)
+        results.append((out, *torch.autograd.grad(out, qkv,
+                                                  make(dout))))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_forward_probe_cuts_apply_to_the_source():
+    """tools/probe_attn_fwd.py times the forward kernel's parts by cutting
+    lines out of csrc/attention.cu: each cut must still find its lines and
+    change the source, and the earlier design's file is told apart."""
+    import os
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_attn_fwd as PF
+    with open(os.path.join(cuda_lib.CSRC_DIR, PF.SOURCE)) as f:
+        src = f.read()
+    assert PF.design_of(src) == "strided"
+    assert PF.design_of("... Params<T> p, T* out ...") == "contiguous"
+    copies = {name: PF.cut(src, name) for name in PF.CUTS}
+    assert src not in copies.values()
+    assert len(set(copies.values())) == len(PF.CUTS)
+    assert PF.cut(src, "philox+bias") == PF.cut(copies["philox"], "bias")

@@ -360,6 +360,84 @@ def test_attention_backward_is_one_kernel_on_the_projections_layout(dev,
         assert a.stride() == t.stride() and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Tq,Tk", [(200, 200), (51, 200), (51, 51), (7, 33)])
+def test_attention_forward_on_the_projections_layout(dev, dtype, Tq, Tk):
+    """q, k, v as the training path hands them over (transposed (B, T, H,
+    D) views): out lies in (B, Tq, H, D) memory, out and stats equal those
+    of contiguous inputs bit for bit, two runs too; through the autograd
+    Function, as the step calls it, the forward and the backward are one
+    kernel each and nothing else (no copy of q, k, v, out or g)."""
+    from torch.profiler import ProfilerActivity, profile
+    B, H = 2, 8
+    g0 = torch.Generator().manual_seed(Tq + Tk)
+    q, k, v, g = (torch.randn(B, T, H, 64, generator=g0).to(dev, dtype)
+                  .transpose(1, 2) for T in (Tq, Tk, Tk, Tq))
+    bias = torch.where(torch.rand(B, Tq, Tk, generator=g0) < 0.2, -1e9,
+                       0.0).to(dev)
+    out, stats = AF.attn_fwd(q, k, v, bias, 9, 0.1)
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    dense = AF.attn_fwd(*(t.contiguous() for t in (q, k, v)), bias, 9, 0.1)
+    again = AF.attn_fwd(q, k, v, bias, 9, 0.1)
+    for a, b, c in zip((out, stats), dense, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = AF.flash_mha_train(*leaves, bias, 9, 0.1)     # warm
+    torch.autograd.grad(o, leaves, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = AF.flash_mha_train(*leaves, bias, 9, 0.1)
+        grads = torch.autograd.grad(o, leaves, g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert "attn_fwd_kernel" in names[0] and "attn_bwd_kernel" in names[1]
+    assert torch.equal(o, out)
+    for a, t in zip(grads, (q, k, v)):
+        assert a.stride() == t.stride()
+
+
+@pytest.mark.parametrize("key_split", [1, 2, 4])
+@pytest.mark.parametrize("Tq,Tk", [(51, 200), (200, 200), (51, 51), (33, 7),
+                                   (1, 1), (17, 300)])
+def test_attention_forward_key_splits_match_plain(dev, monkeypatch,
+                                                  key_split, Tq, Tk):
+    """bf16, each number of key groups a block (the wrapper's rule set to
+    it), at rate 0.3 on the dropout_bits mask: out within ATTN_TOL of the
+    plain version on the same mask, the statistics (row max, row sum)
+    within f32 sum order of the plain ones, a fully masked row finite."""
+    monkeypatch.setattr(AF, "fwd_key_split", lambda *a: key_split)
+    q, k, v, bias = _attn_inputs(dev, 2, 3, Tq, Tk, seed=Tq + 31 * Tk,
+                                 mask_row=True)
+    rate, seed = 0.3, 0xC0DE
+    out, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
+    keep = (AF.dropout_bits(seed, 2, 3, Tq, Tk, device=dev)
+            .view(2, 3, Tq, Tk) < AF.dropout_thresh16(rate) * 65536)
+    want = AF.flash_mha_train_plain(q.float(), k.float(), v.float(), bias,
+                                    0, rate, keep=keep)
+    want_stats = AF.attn_stats_plain(q, k, bias)
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, want) < ATTN_TOL
+    # f32 scores of bf16 inputs, summed in another order
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_forward_f32_takes_one_key_group(dev, monkeypatch):
+    """The f32 entry refuses more than one key group (its P scratch is a
+    warp's own bias rows); the wrapper never asks it for more."""
+    monkeypatch.setattr(AF, "fwd_key_split", lambda *a: 4)
+    q, k, v, bias = _attn_inputs(dev, 1, 2, 9, 20, seed=2)
+    q, k, v = (t.float() for t in (q, k, v))
+    out, stats = AF.attn_fwd(q, k, v, bias, 1, 0.1)
+    strides = AF._strides(q, k, v, out)
+    with pytest.raises(RuntimeError, match="attn_fwd_f32"):
+        AF.FWD_F32.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                          AF.ctypes.addressof(strides), 1, 2, 9, 20, 64,
+                          AF.dropout_thresh16(0.1), 1, 4, AF._stream())
+
+
 def test_attention_fully_masked_row_is_uniform(dev):
     q, k, v, bias = _attn_inputs(dev, 1, 2, 4, 9, seed=3)
     bias[0, 2] = -1e9
@@ -468,7 +546,38 @@ def test_pool_bwd_kernel_matches_plain(dev, dtype, shape):
     PV.reset_launches()
     got = PV.pool_bwd(y, g)
     assert PV.launches() == 1
+    assert got.is_contiguous()
     assert torch.equal(got, PV.pool_bwd_plain(y, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 128, 80, 400), (1, 8, 7, 9),
+                                   (2, 16, 4, 11), (1, 3, 5, 6),
+                                   (1, 2, 1, 1)])
+def test_pool_bwd_channels_last_matches_plain(dev, dtype, shape):
+    """The train step's layout ((B, F, T, C) memory, as cuDNN's conv4
+    returns it): exact, one launch, dy channels-last; a g in the other
+    layout and a y of neither layout (a strided view) are copied, exact
+    too. C % 8 != 0 takes the kernel's one-channel path."""
+    cl = torch.channels_last
+    g0 = torch.Generator().manual_seed(sum(shape) + 1)
+    y = torch.randn(*shape, generator=g0).to(dev, dtype)
+    if shape[-1] > 1:
+        y[..., ::3] = y[..., 1::3].max()    # ties inside windows
+    B, Cc, F, T = shape
+    g = torch.randn(B, Cc, F // 2, T // 2, generator=g0).to(dev, dtype)
+    y, g = y.contiguous(memory_format=cl), g.contiguous(memory_format=cl)
+    want = PV.pool_bwd_plain(y, g)
+    PV.reset_launches()
+    got = PV.pool_bwd(y, g)
+    assert PV.launches() == 1
+    assert got.is_contiguous(memory_format=cl) and torch.equal(got, want)
+    assert torch.equal(PV.pool_bwd(y, g.contiguous()), want)
+    wide = torch.zeros(B, Cc, F, 2 * T, device=dev, dtype=dtype)
+    wide[..., ::2] = y
+    ys = wide[..., ::2]                     # neither layout
+    got = PV.pool_bwd(ys, g)
+    assert got.is_contiguous(memory_format=cl) and torch.equal(got, want)
 
 
 # block-1 backward against the plain backward on the same forward out/idx,

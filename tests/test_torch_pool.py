@@ -5,7 +5,9 @@ the CPU) against `jax.grad` of the JAX package's `max_pool2` — the Pallas
 backward in interpret mode where it applies (even T, C % 64 == 0), XLA's
 select_and_scatter elsewhere — with ties inside windows and odd F and T.
 Exact at f32: the backward only routes values. The JAX package works in
-NHWC, the port's block 2 in NCHW.
+NHWC; the port's block 2 holds NCHW tensors whose memory is channels-last
+in the train step (cuDNN's conv4), and the pool backward takes either,
+handing dy back in y's memory format.
 """
 
 import jax
@@ -16,6 +18,12 @@ import torch
 
 from end2end_asr_tpu.ops.pool_vjp import max_pool2 as jax_max_pool2
 from end2end_asr_tpu_torch.ops import pool_vjp as PV
+
+
+def _channels_last(t):
+    """(B, F, T, C) in memory and not also NCHW-contiguous."""
+    return (t.is_contiguous(memory_format=torch.channels_last)
+            and not t.is_contiguous())
 
 
 def _inputs(B, C, F, T, seed):
@@ -55,3 +63,41 @@ def test_pool_bwd_refuses_other_devices():
     y = torch.zeros(1, 1, 2, 2, device="meta")
     with pytest.raises(ValueError):
         PV.pool_bwd(y, torch.zeros(1, 1, 1, 1, device="meta"))
+
+
+@pytest.mark.parametrize("B,C,F,T", [(2, 64, 8, 10), (1, 128, 7, 12),
+                                     (2, 64, 9, 9), (1, 8, 5, 7),
+                                     (1, 3, 6, 5)])
+def test_channels_last_backward_matches_jax_nhwc(B, C, F, T):
+    """y in the JAX layout itself: the NHWC array seen as (B, C, F, T) is
+    a channels-last tensor with no copy; dy comes back channels-last and
+    read as NHWC equals JAX's gradient, odd F and T included."""
+    y, g = _inputs(B, C, F, T, seed=7 * F + T)
+    want, vjp = jax.vjp(jax_max_pool2, jnp.asarray(y))
+    want_dy, = vjp(jnp.asarray(g))
+    yt = torch.from_numpy(y).permute(0, 3, 1, 2).requires_grad_()
+    assert _channels_last(yt) or C == 1
+    out = PV.max_pool2(yt)
+    dy, = torch.autograd.grad(out, yt, torch.from_numpy(g).permute(0, 3, 1, 2))
+    assert dy.is_contiguous(memory_format=torch.channels_last)
+    assert _channels_last(dy)
+    np.testing.assert_array_equal(out.detach().permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want))
+    np.testing.assert_array_equal(dy.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want_dy))
+
+
+def test_plain_backward_keeps_the_memory_format():
+    y, g = (torch.from_numpy(a).permute(0, 3, 1, 2)
+            for a in _inputs(1, 16, 6, 8, seed=3))
+    assert _channels_last(PV.pool_bwd(y, g))
+    assert PV.pool_bwd(y.contiguous(), g.contiguous()).is_contiguous()
+    # a strided view of neither layout: dy comes back channels-last, as
+    # the kernel's wrapper gives it
+    ys = y.contiguous()[:, ::2]
+    gs = g.contiguous()[:, ::2]
+    assert not ys.is_contiguous() and not _channels_last(ys)
+    dy = PV.pool_bwd(ys, gs)
+    assert _channels_last(dy)
+    assert torch.equal(dy, PV.pool_bwd(y.contiguous(),
+                                       g.contiguous())[:, ::2])
