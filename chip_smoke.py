@@ -145,6 +145,10 @@ FWD_KERNEL_NAME = "vgg_block1_fwd_wgmma_kernel"   # the bf16 forward
 # the attention's kernels (csrc/attention.cu), bf16 and f32
 ATTN_FWD_KERNEL_NAME = "attn_fwd_kernel"
 ATTN_BWD_KERNEL_NAME = "attn_bwd_kernel"
+# the block-2 kernels (csrc/vgg_block2.cu): the bf16 backward's main pass,
+# and the prefix every kernel of the backward carries
+BWD2_KERNEL_NAME = "vgg_block2_bwd_rows_kernel"
+BWD2_PREFIX = "vgg_block2_bwd"
 
 
 def fail(msg):
@@ -875,7 +879,7 @@ def check_vgg2(torch, dev):
         return (bool(same[clear].all()), clear.float().mean().item(),
                 same.float().mean().item())
 
-    res = {}
+    res, lib = {}, {}
     for Bn, F, T in ((B, 80, 400), (2, 82, 398)):
         for cdt in (torch.bfloat16, torch.float32):
             name = f"{str(cdt)[6:]} ({Bn},{F},{T},64)"
@@ -949,34 +953,43 @@ def check_vgg2(torch, dev):
                 bwd=time_ms(torch, lambda: V.vgg_block2_bwd(
                     x, *ws[:3], out, idx, g, cdt), iters=10),
                 bwd_plain=time_ms(torch, lambda: V.vgg_block2_bwd_plain(
-                    x, *ws[:3], out, idx, g, cdt), iters=5))
-            if cdt == torch.bfloat16:
-                # library: cuDNN conv2d x2 + max_pool2d, and its autograd
-                xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
-                wl = [w.to(cdt).requires_grad_() for w in ws]
+                    x, *ws[:3], out, idx, g, cdt), iters=5),
+                # the kernels alone (no weight layout copies), on the device
+                fwd_device=device_ms(torch, fwd, iters=10,
+                                     name="vgg_block2_fwd"),
+                bwd_device=device_ms(torch, lambda: V.vgg_block2_bwd(
+                    x, *ws[:3], out, idx, g, cdt), iters=10,
+                    name=BWD2_PREFIX))
+            # library: cuDNN conv2d x2 + max_pool2d, and its autograd
+            # (f32: TF32 off, as main() sets it)
+            xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+            wl = [w.to(cdt).requires_grad_() for w in ws]
 
-                def lib_fwd():
-                    y = Fn.conv2d(xl, wl[0].permute(3, 2, 0, 1), wl[1],
-                                  padding=1)
-                    y = Fn.conv2d(torch.relu(y), wl[2].permute(3, 2, 0, 1),
-                                  padding=1)
-                    return torch.relu(Fn.max_pool2d(y, 2)
-                                      + wl[3][None, :, None, None])
-                gl = g.permute(0, 3, 1, 2).contiguous()
-                lib_f = time_ms(torch, lib_fwd, iters=5)
-                lib_b = time_ms(torch, lambda: torch.autograd.grad(
-                    lib_fwd(), [xl, *wl], gl), iters=5) - lib_f
+            def lib_fwd():
+                y = Fn.conv2d(xl, wl[0].permute(3, 2, 0, 1), wl[1],
+                              padding=1)
+                y = Fn.conv2d(torch.relu(y), wl[2].permute(3, 2, 0, 1),
+                              padding=1)
+                return torch.relu(Fn.max_pool2d(y, 2)
+                                  + wl[3][None, :, None, None])
+            gl = g.permute(0, 3, 1, 2).contiguous()
+            lib_f = time_ms(torch, lib_fwd, iters=5)
+            lib[cdt] = (lib_f, time_ms(torch, lambda: torch.autograd.grad(
+                lib_fwd(), [xl, *wl], gl), iters=5) - lib_f)
     flops = 2 * B * 80 * 400 * 128 * 9 * (64 + 128)
     f_bytes = 2 * B * 80 * 400 * 64 + 3 * B * 40 * 200 * 128 + 2 * 9 * (
         64 * 128 + 128 * 128)
     b_bytes = 2 * 2 * B * 80 * 400 * 64 + 5 * B * 40 * 200 * 128 + 4 * 9 * (
         64 * 128 + 128 * 128)
     rb, rf = res[torch.bfloat16], res[torch.float32]
-    log(f"vgg_block2 bf16 fwd {rb['fwd']:.4f} ms (plain {rb['fwd_plain']:.4f}"
-        f", cuDNN conv2d x2 + max_pool2d {lib_f:.4f}), bwd {rb['bwd']:.4f} "
+    (lib_f, lib_b), (lib_f32, lib_b32) = lib[torch.bfloat16], lib[torch.float32]
+    log(f"vgg_block2 bf16 fwd {rb['fwd']:.4f} ms, device {rb['fwd_device']} "
+        f"(plain {rb['fwd_plain']:.4f}, cuDNN conv2d x2 + max_pool2d "
+        f"{lib_f:.4f}), bwd {rb['bwd']:.4f}, device {rb['bwd_device']} "
         f"(plain {rb['bwd_plain']:.4f}, cuDNN autograd backward ~{lib_b:.4f})"
-        f"; f32 fwd {rf['fwd']:.4f} (plain {rf['fwd_plain']:.4f}), bwd "
-        f"{rf['bwd']:.4f} (plain {rf['bwd_plain']:.4f}); bounds "
+        f"; f32 fwd {rf['fwd']:.4f} (plain {rf['fwd_plain']:.4f}, cuDNN "
+        f"{lib_f32:.4f}), bwd {rf['bwd']:.4f} (plain {rf['bwd_plain']:.4f}, "
+        f"cuDNN ~{lib_b32:.4f}); TF32 off; bounds "
         f"{1e3 * flops / BF16_PEAK:.4f} / {2e3 * flops / BF16_PEAK:.4f} ms "
         f"bf16, {1e3 * flops / F32_PEAK:.4f} / {2e3 * flops / F32_PEAK:.4f} "
         f"f32 ({flops / 1e9:.1f} GFLOP forward)")
@@ -985,15 +998,17 @@ def check_vgg2(torch, dev):
         entry("vgg_block2_fwd", "vgg_block2.cu", rep + "654", rb["ferr"],
               rb["fwd"], rb["fwd_plain"], flops / BF16_PEAK,
               f_bytes / HBM_BPS, lib_f, rel_l2=rb["fl2"],
+              device_ms=rb["fwd_device"],
               max_abs_err_f32=rf["ferr"], rel_l2_f32=rf["fl2"],
               ms_f32=rf["fwd"], plain_ms_f32=rf["fwd_plain"],
-              bound_ms_f32=1e3 * flops / F32_PEAK),
+              bound_ms_f32=1e3 * flops / F32_PEAK, library_ms_f32=lib_f32),
         entry("vgg_block2_bwd", "vgg_block2.cu", rep + "682", rb["berr"],
               rb["bwd"], rb["bwd_plain"], 2 * flops / BF16_PEAK,
               b_bytes / HBM_BPS, lib_b, rel_l2=rb["bl2"],
+              device_ms=rb["bwd_device"],
               max_abs_err_f32=rf["berr"], rel_l2_f32=rf["bl2"],
               ms_f32=rf["bwd"], plain_ms_f32=rf["bwd_plain"],
-              bound_ms_f32=2e3 * flops / F32_PEAK,
+              bound_ms_f32=2e3 * flops / F32_PEAK, library_ms_f32=lib_b32,
               library_note="autograd forward+backward minus forward")]
 
 
@@ -1695,6 +1710,15 @@ def phase_gate_on(torch, dev, kernels, work, labels_path, ckpt,
                 1, 1, 0):
             fail(f"gate on: expected one block-2 forward and backward and "
                  f"no pool backward per step, got {c}")
+        # the step's profile names the backward's kernels: the row-walking
+        # pass and the dx kernel (which also adds up the pass's partials)
+        b2 = f["profile"]["sums"]
+        log(f"gate on: {BWD2_KERNEL_NAME} {b2[BWD2_KERNEL_NAME]}, all "
+            f"{BWD2_PREFIX}* kernels {b2[BWD2_PREFIX]} in the step")
+        if (b2[BWD2_KERNEL_NAME]["launches"], b2[BWD2_PREFIX]["launches"]) \
+                != (1, 2):
+            fail(f"gate on: the step's profile does not show one "
+                 f"{BWD2_KERNEL_NAME} among two {BWD2_PREFIX} kernels: {b2}")
     return serve_counts, train_counts, {
         "encoder_f32_gate_on_vs_off_max_abs_err": err,
         "train_step_ms": fixed["step_ms"],
@@ -1822,7 +1846,8 @@ def phase_probe(torch):
 
 
 def profile(torch, fn, top=6, sums=(ATTN_FWD_KERNEL_NAME, ATTN_BWD_KERNEL_NAME,
-                                   FWD_KERNEL_NAME, "pool_bwd")):
+                                   FWD_KERNEL_NAME, "pool_bwd",
+                                   BWD2_KERNEL_NAME, BWD2_PREFIX)):
     """One warm call of fn under torch.profiler: wall ms, summed device
     time of its kernels, their share of the wall time (the device's busy
     share; the rest is idle, waiting on the host), launches, the kernels

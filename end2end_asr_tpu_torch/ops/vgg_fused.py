@@ -306,7 +306,11 @@ class VggBlock1(torch.autograd.Function):
 #
 # Bound on the H100 at x (12, 80, 400, 64): 169.9 GFLOP forward (0.172 ms on
 # the bf16 tensor cores, 2.54 ms on f32 FMA), 339.7 GFLOP backward (0.343 ms /
-# 5.07 ms).
+# 5.07 ms). The bf16 backward is two kernels: a pass of 8 channel groups x 16
+# persistent blocks walking down 40-column strips (the weight gradients'
+# partial sums, dy3) and a persistent dx kernel on wgmma that also adds up
+# the partials; tests/test_torch_vgg_block2.py mirrors both decompositions.
+# The f32 backward is three kernels (per-tile products on FMA, a reduce, dx).
 # ---------------------------------------------------------------------------
 
 C_IN2, C2 = 64, 128
@@ -329,7 +333,10 @@ _BWD2_KERNELS = {
                             + [cuda_lib.P])
     for dt, sym in ((torch.float32, "vgg_block2_bwd_f32"),
                     (torch.bfloat16, "vgg_block2_bwd_bf16"))}
-BWD2_BLOCKS = 64                                # csrc/vgg_block2.cu
+# blocks of the backward's partial sums, each writing one row (csrc/
+# vgg_block2.cu: RBLK row-walking blocks of each channel group in bf16,
+# BWD2_BLOCKS for the f32 kernels)
+BWD2_BLOCKS = {torch.bfloat16: 16, torch.float32: 64}
 DW3_SIZE, DW4_SIZE = 9 * C_IN2 * C2, 9 * C2 * C2
 PART2 = DW3_SIZE + C2 + DW4_SIZE + C2           # floats of one block's partials
 
@@ -510,7 +517,8 @@ def vgg_block2_bwd(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     dy3 = torch.empty((B, F, T, C2), dtype=cdt, device=dev)
     dx = torch.empty_like(x)
     grads = torch.empty(PART2, dtype=torch.float32, device=dev)
-    part = torch.empty(BWD2_BLOCKS * PART2, dtype=torch.float32, device=dev)
+    part = torch.empty(BWD2_BLOCKS[cdt] * PART2, dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
         _BWD2_KERNELS[cdt].launch(
             x.data_ptr(), w3c.data_ptr(), b3.data_ptr(), w4d.data_ptr(),

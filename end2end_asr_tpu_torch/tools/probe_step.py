@@ -1,7 +1,7 @@
 """The default train step on the card: launches, device time and the copy
 kernels around the attention and the block-2 pool.
 
-    python -m end2end_asr_tpu_torch.tools.probe_step
+    python -m end2end_asr_tpu_torch.tools.probe_step [--block2]
     PYTHONPATH=<an earlier checkout> python3 \\
         end2end_asr_tpu_torch/tools/probe_step.py       # that package's step
 
@@ -16,7 +16,10 @@ the copy kernels by name, and what runs inside each attention forward
 (models/layers.mha's kernel call and reshape of its output, in the
 record_function range `layers.ATTN_RANGE` names), each attention
 backward node and each max-pool backward node, with the memory formats
-of the pool's y, g and dy. It
+of the pool's y, g and dy, and the launches and device time of the
+block-2 backward's kernels (`BLOCK2_BWD`) with their share of the step's
+device time. ``--block2`` sets ``ops.vgg_fused.BLOCK2_ENABLED`` (as a test
+does) before the step is built, so the fused block 2 runs. It
 measures whichever package ``end2end_asr_tpu_torch`` resolves to, so an
 earlier commit unpacked into another directory is measured by putting
 that directory first on PYTHONPATH. One JSON line, with the card's name
@@ -38,6 +41,8 @@ B, FRAMES, TARGET_COLUMNS = 12, 800, 50
 ATTN_FWD_RANGE = "probe_step: attention forward"
 # autograd's nodes of the port's two Functions
 ATTN_BWD_NODE, POOL_BWD_NODE = "FlashMhaTrainBackward", "MaxPool2Backward"
+# the block-2 backward's kernels (csrc/vgg_block2.cu) all carry this prefix
+BLOCK2_BWD = "vgg_block2_bwd"
 
 
 def is_copy(name: str) -> bool:
@@ -120,6 +125,8 @@ def report(torch, prof, wall_ms: float, formats: list) -> dict:
                 "copy_kernels": sum(is_copy(n) for c in calls for n, _ in c),
                 "device_ms": sum(us for c in calls for _, us in c) / 1e3,
                 "names": sorted({n[:60] for c in calls for n, _ in c})}
+    b2 = [e.time_range.elapsed_us() / 1e3 for e in kernels
+          if BLOCK2_BWD in e.name]
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "device_busy_share": dev_ms / wall_ms if kernels else None,
             "kernel_launches": len(kernels),
@@ -128,6 +135,9 @@ def report(torch, prof, wall_ms: float, formats: list) -> dict:
             "attention_backward": group(ATTN_BWD_NODE),
             "pool_backward": group(POOL_BWD_NODE),
             "pool_formats": formats,
+            "block2_backward": {
+                "launches": len(b2), "device_ms": sum(b2),
+                "share": sum(b2) / dev_ms if kernels else None},
             "top": [[n[:60], ms / 1e3] for n, ms in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
 
@@ -193,12 +203,19 @@ def default_step(torch, dev):
                         model_state={})
 
 
-def main():
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--block2", action="store_true",
+                   help="set ops.vgg_fused.BLOCK2_ENABLED: the fused block 2")
+    args = p.parse_args(argv)
     import torch
     import end2end_asr_tpu_torch as pkg
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
     from end2end_asr_tpu_torch.tools import probe_lib as P
     if not torch.cuda.is_available():
         raise SystemExit("probe_step: needs a CUDA device")
+    V.BLOCK2_ENABLED = args.block2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     one = default_step(torch, dev)
@@ -211,6 +228,7 @@ def main():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     out = {"package": os.path.dirname(os.path.abspath(pkg.__file__)),
+           "block2": args.block2,
            "step_ms_median": statistics.median(times), "step_ms": times,
            "profile": profile_step(torch, one), "gpu": P.gpu_line()}
     print(json.dumps(out))

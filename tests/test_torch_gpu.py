@@ -698,6 +698,50 @@ def test_vgg_block2_bwd_kernel_matches_plain(dev, cdt, B, F, T):
         assert torch.equal(a, b)          # fixed-order reduction
 
 
+# the bf16 backward's kernels as the profiler names them (csrc/vgg_block2.cu):
+# the row-walking pass and the dx kernel, which also adds up the partials
+BWD2_BF16_KERNELS = ("vgg_block2_bwd_rows_kernel", "vgg_block2_bwd_dx_kernel")
+
+
+@pytest.mark.parametrize("B,F,T,all_on", [
+    (12, 80, 400, False), (12, 80, 400, True), (1, 4, 70, False),
+    (2, 8, 130, True), (3, 24, 200, False)])
+def test_vgg_block2_bwd_bf16_kernels(dev, B, F, T, all_on):
+    """The bf16 backward at the train cell's shape, with fewer work items
+    than blocks (1, 4, 70), T not a multiple of the 40-column strip, and
+    with every activation positive (b3 + 10: the relu mask out of play):
+    within BLOCK2_BWD_BF16_TOL of the plain backward on the same out / idx,
+    two runs bit-identical, and one launch of each of its two kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    cdt = torch.bfloat16
+    x, w3, b3, w4, b4 = _block2_args(dev, cdt, B, F, T, seed=B * F + T)
+    if all_on:
+        b3 = b3.abs() + 10.0
+    idx = torch.empty((B, F // 2, T // 2, 128), dtype=torch.uint8, device=dev)
+    out = V.vgg_block2(x, w3, b3, w4, b4, cdt=cdt, idx_out=idx)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(T)
+                    ).to(dev, cdt)
+    got = V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt)
+    want = V.vgg_block2_bwd_plain(x, w3, b3, w4, out, idx, g, cdt)
+    for name, a, b in zip(("dx", "dw3", "db3", "dw4", "db4"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_l2(a, b) < BLOCK2_BWD_BF16_TOL, name
+    for _ in range(3):  # the profiler drops a call's events now and then
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt)
+            torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)          # fixed-order sums
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "vgg_block2_bwd" in e.name]
+        if names:
+            break
+    assert len(names) == len(BWD2_BF16_KERNELS), names
+    assert sorted(k for n in names for k in BWD2_BF16_KERNELS if k in n) \
+        == sorted(BWD2_BF16_KERNELS), names
+
+
 def test_vgg_block2_autograd_function_and_rejections(dev):
     x, w3, b3, w4, b4 = _block2_args(dev, torch.float32, 1, 6, 10, seed=2)
     leaves = [t.requires_grad_() for t in (x, w3, b3, w4, b4)]
