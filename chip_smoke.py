@@ -22,7 +22,9 @@ Phases (any failure exits non-zero without the final result line):
      and the two streaming probes at (38400, 1024); time the kernel, the
      plain version and one PyTorch library yardstick the port never calls
      (the STFT also by its device time under the profiler; the vgg block 1
-     also beside cuDNN in f32 with TF32 off);
+     also beside cuDNN in f32 with TF32 off; the block-2 forward also
+     beside cuDNN on channels-last tensors, the gate-off front end's
+     layout);
   3. serve: the full-width AiShell README model (vgg_cnn, 4 layers,
      8 heads, dim 512, dim_inner 2048, the AiShell vocabulary) with
      seeded random weights, written as a checkpoint in the JAX package's
@@ -54,8 +56,11 @@ Phases (any failure exits non-zero without the final result line):
      the 12-utterance batch greedy through `test` and trains an epoch
      through `train` with --spec-augment --remat; the block-2 kernels must
      have launched and the pool backward and every library convolution
-     must not; the f32 encoder output equals the gate-off one; the step
-     time and the launches per step stand beside the gate-off ones;
+     must not; the f32 encoder output equals the gate-off one; the bf16
+     encode is timed and profiled with the gate off and on (one block-2
+     forward kernel); the step time and the launches per step stand
+     beside the gate-off ones, and the step's profile must show one
+     block-2 forward kernel and the backward's two;
   6. ctc / emb_cnn: the model with --feat_extractor emb_cnn --loss ctc
      trains six steps on one batch through `train` (the loss must be
      finite and fall), saves, and serves the checkpoint greedy through
@@ -145,8 +150,9 @@ FWD_KERNEL_NAME = "vgg_block1_fwd_wgmma_kernel"   # the bf16 forward
 # the attention's kernels (csrc/attention.cu), bf16 and f32
 ATTN_FWD_KERNEL_NAME = "attn_fwd_kernel"
 ATTN_BWD_KERNEL_NAME = "attn_bwd_kernel"
-# the block-2 kernels (csrc/vgg_block2.cu): the bf16 backward's main pass,
-# and the prefix every kernel of the backward carries
+# the block-2 kernels (csrc/vgg_block2.cu): the bf16 forward, the bf16
+# backward's main pass, and the prefix every kernel of the backward carries
+FWD2_KERNEL_NAME = "vgg_block2_fwd_wgmma_kernel"
 BWD2_KERNEL_NAME = "vgg_block2_bwd_rows_kernel"
 BWD2_PREFIX = "vgg_block2_bwd"
 
@@ -974,18 +980,34 @@ def check_vgg2(torch, dev):
                                   + wl[3][None, :, None, None])
             gl = g.permute(0, 3, 1, 2).contiguous()
             lib_f = time_ms(torch, lib_fwd, iters=5)
+            # the same on channels-last tensors, the gate-off front end's
+            # layout (models/frontend.py)
+            cl = torch.channels_last
+            xc = xl.detach().contiguous(memory_format=cl)
+            w3c, w4c = (wl[i].detach().permute(3, 2, 0, 1).contiguous(
+                memory_format=cl) for i in (0, 2))
+
+            def lib_fwd_cl():
+                y = Fn.conv2d(xc, w3c, wl[1].detach(), padding=1)
+                y = Fn.conv2d(torch.relu(y), w4c, padding=1)
+                return torch.relu(Fn.max_pool2d(y, 2)
+                                  + wl[3].detach()[None, :, None, None])
+            with torch.no_grad():
+                lib_cl = time_ms(torch, lib_fwd_cl, iters=5)
             lib[cdt] = (lib_f, time_ms(torch, lambda: torch.autograd.grad(
-                lib_fwd(), [xl, *wl], gl), iters=5) - lib_f)
+                lib_fwd(), [xl, *wl], gl), iters=5) - lib_f, lib_cl)
     flops = 2 * B * 80 * 400 * 128 * 9 * (64 + 128)
     f_bytes = 2 * B * 80 * 400 * 64 + 3 * B * 40 * 200 * 128 + 2 * 9 * (
         64 * 128 + 128 * 128)
     b_bytes = 2 * 2 * B * 80 * 400 * 64 + 5 * B * 40 * 200 * 128 + 4 * 9 * (
         64 * 128 + 128 * 128)
     rb, rf = res[torch.bfloat16], res[torch.float32]
-    (lib_f, lib_b), (lib_f32, lib_b32) = lib[torch.bfloat16], lib[torch.float32]
+    (lib_f, lib_b, lib_cl), (lib_f32, lib_b32, lib_cl32) = (
+        lib[torch.bfloat16], lib[torch.float32])
     log(f"vgg_block2 bf16 fwd {rb['fwd']:.4f} ms, device {rb['fwd_device']} "
         f"(plain {rb['fwd_plain']:.4f}, cuDNN conv2d x2 + max_pool2d "
-        f"{lib_f:.4f}), bwd {rb['bwd']:.4f}, device {rb['bwd_device']} "
+        f"{lib_f:.4f}, channels-last {lib_cl:.4f}), bwd {rb['bwd']:.4f}, "
+        f"device {rb['bwd_device']} "
         f"(plain {rb['bwd_plain']:.4f}, cuDNN autograd backward ~{lib_b:.4f})"
         f"; f32 fwd {rf['fwd']:.4f} (plain {rf['fwd_plain']:.4f}, cuDNN "
         f"{lib_f32:.4f}), bwd {rf['bwd']:.4f} (plain {rf['bwd_plain']:.4f}, "
@@ -1001,7 +1023,8 @@ def check_vgg2(torch, dev):
               device_ms=rb["fwd_device"],
               max_abs_err_f32=rf["ferr"], rel_l2_f32=rf["fl2"],
               ms_f32=rf["fwd"], plain_ms_f32=rf["fwd_plain"],
-              bound_ms_f32=1e3 * flops / F32_PEAK, library_ms_f32=lib_f32),
+              bound_ms_f32=1e3 * flops / F32_PEAK, library_ms_f32=lib_f32,
+              library_ms_cl=lib_cl, library_ms_cl_f32=lib_cl32),
         entry("vgg_block2_bwd", "vgg_block2.cu", rep + "682", rb["berr"],
               rb["bwd"], rb["bwd_plain"], 2 * flops / BF16_PEAK,
               b_bytes / HBM_BPS, lib_b, rel_l2=rb["bl2"],
@@ -1635,6 +1658,28 @@ def phase_gate_on(torch, dev, kernels, work, labels_path, ckpt,
     enc = lambda: encode_pcm(p32, cfg32, dims32, pcm, frames,
                              batch.src_bucket)[0]
     e_off = enc()
+    # the serving encode in the checkpoint's compute type (bf16), gate off
+    # here and on below: host ms (median of 5) and one profiled call
+    dims16 = dims_from_config(cfg)
+    p16 = prepare_params(params, dims16, dev)
+    enc16 = lambda: encode_pcm(p16, cfg, dims16, pcm, frames,
+                               batch.src_bucket)[0]
+
+    def enc16_timed(label):
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc16()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        prof = profile(torch, enc16)
+        log(f"{cfg.dtype} encode of {B} utterances, {label}: median "
+            f"{statistics.median(ms):.3f} ms, device {prof['device_ms']}, "
+            f"block-2 forward {prof['sums'][FWD2_KERNEL_NAME]}")
+        return {"host_ms": statistics.median(ms), "host_ms_all": ms,
+                "profile": prof}
+    enc16_off = enc16_timed("gate off")
 
     # every library convolution of the run is counted: with the gate on the
     # front end must call none (nor a plain version, which would)
@@ -1662,6 +1707,13 @@ def phase_gate_on(torch, dev, kernels, work, labels_path, ckpt,
             f"max_abs_err {err:.3g} (tol {ENC_TOL}); conv2d calls {convs[0]}")
         if not err <= ENC_TOL or convs[0] != 0:
             fail(f"the gate-on encoder disagrees with the gate-off one: {err}")
+        enc16_on = enc16_timed("gate on")
+        f2 = enc16_on["profile"]["sums"][FWD2_KERNEL_NAME]
+        if (enc16_on["profile"]["device_ms"] is not None
+                and f2["launches"] != 1) or convs[0] != 0:
+            fail(f"the gate-on bf16 encode does not run one "
+                 f"{FWD2_KERNEL_NAME} and no conv2d: {f2}, conv2d "
+                 f"{convs[0]}")
         reset()
         res = port_test.main(["--continue-from", ckpt,
                               "--test-manifest-list", serve_manifest,
@@ -1713,14 +1765,17 @@ def phase_gate_on(torch, dev, kernels, work, labels_path, ckpt,
         # the step's profile names the backward's kernels: the row-walking
         # pass and the dx kernel (which also adds up the pass's partials)
         b2 = f["profile"]["sums"]
-        log(f"gate on: {BWD2_KERNEL_NAME} {b2[BWD2_KERNEL_NAME]}, all "
+        log(f"gate on: {FWD2_KERNEL_NAME} {b2[FWD2_KERNEL_NAME]}, "
+            f"{BWD2_KERNEL_NAME} {b2[BWD2_KERNEL_NAME]}, all "
             f"{BWD2_PREFIX}* kernels {b2[BWD2_PREFIX]} in the step")
-        if (b2[BWD2_KERNEL_NAME]["launches"], b2[BWD2_PREFIX]["launches"]) \
-                != (1, 2):
+        if (b2[FWD2_KERNEL_NAME]["launches"], b2[BWD2_KERNEL_NAME]["launches"],
+                b2[BWD2_PREFIX]["launches"]) != (1, 1, 2):
             fail(f"gate on: the step's profile does not show one "
-                 f"{BWD2_KERNEL_NAME} among two {BWD2_PREFIX} kernels: {b2}")
+                 f"{FWD2_KERNEL_NAME} and one {BWD2_KERNEL_NAME} among two "
+                 f"{BWD2_PREFIX} kernels: {b2}")
     return serve_counts, train_counts, {
         "encoder_f32_gate_on_vs_off_max_abs_err": err,
+        "encode_bf16_gate_off": enc16_off, "encode_bf16_gate_on": enc16_on,
         "train_step_ms": fixed["step_ms"],
         "train_step_ms_all": fixed["step_ms_all"],
         "launches_per_step": fixed["launches_per_step"],
@@ -1847,7 +1902,8 @@ def phase_probe(torch):
 
 def profile(torch, fn, top=6, sums=(ATTN_FWD_KERNEL_NAME, ATTN_BWD_KERNEL_NAME,
                                    FWD_KERNEL_NAME, "pool_bwd",
-                                   BWD2_KERNEL_NAME, BWD2_PREFIX)):
+                                   FWD2_KERNEL_NAME, BWD2_KERNEL_NAME,
+                                   BWD2_PREFIX)):
     """One warm call of fn under torch.profiler: wall ms, summed device
     time of its kernels, their share of the wall time (the device's busy
     share; the rest is idle, waiting on the host), launches, the kernels

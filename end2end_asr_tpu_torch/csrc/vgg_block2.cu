@@ -30,24 +30,36 @@
 // Products of cdt values are exact in f32, so only the order of the f32
 // sums differs from a library convolution.
 //
-// Structure. The forward and the f32 backward are templates over cdt that
-// share one device function for every convolution, conv_gemm: an implicit
-// GEMM over a shared-memory tile of positions x channels,
-//   out[p][n] = sum_tap sum_k A[apos(p, tap)][k] * W[tap][n][k]
-// (bf16 on the tensor cores, f32 on FMA), and, in the f32 backward, one for
-// every weight gradient, outer_acc,
+// Structure. The f32 forward and the f32 backward are templates over cdt
+// that share one device function for every convolution, conv_gemm: an
+// implicit GEMM on FMA over a shared-memory tile of positions x channels,
+//   out[p][n] = sum_tap sum_k A[apos(p, tap)][k] * W[tap][k][n],
+// and, in the f32 backward, one for every weight gradient, outer_acc,
 //   acc[tap][m][n] += sum_pos A[apos(pos, tap)][m] * B[bpos(pos)][n].
-// The bf16 backward has its own products over its row rings. All bf16
-// products are mma.sync m16n8k16 with f32 accumulation, their fragments
-// read by ldmatrix from tiles whose rows are padded by 16 bytes so that the
-// 8 rows of a matrix hit distinct banks.
+// The bf16 kernels have their own products on the tensor cores, with f32
+// accumulation: the forward and the backward's dx kernel on wgmma, the
+// backward's row pass on mma.sync m16n8k16 with fragments read by ldmatrix
+// from tiles whose rows are padded by 16 bytes so that the 8 rows of a
+// matrix hit distinct banks.
 //
-//   forward, grid (column chunks, F/2, B): x rows 2r-2 .. 2r+3 -> conv3 at
-//     rows 2r-1 .. 2r+2 (shared memory) -> conv4 at rows 2r, 2r+1 (shared
-//     memory, over the dead x tile) -> pool, bias, relu -> out, idx. The
-//     bf16 weights stream through shared memory one tap at a time (w4 is
-//     295 KB, more than a block may hold); the f32 kernel reads them through
-//     the L1 cache.
+//   forward, bf16 (vgg_block2_fwd_wgmma_kernel): one persistent pass, a
+//     block an SM, each walking down 100-column strips (work items:
+//     utterance, strip, pooled row r, r fastest). An item computes x2 rows
+//     2r+1, 2r+2 (conv3) into a ring of x2 rows, then conv4 rows 2r, 2r+1,
+//     the pool, b4 and relu in registers: each x2 row is computed once a
+//     strip (plus two rows where a block's range or a strip starts).
+//     Products on wgmma m64n104k16: M = 64 channels a warpgroup (the weight
+//     stage's rows), N = a tile row of 104 positions (100 own columns and
+//     the halo), a tap's operand the row above, at or below read from
+//     position dt (the 128-byte swizzle follows the address bits); x2 is
+//     held as two 64-channel halves so that a position is one 128-byte row.
+//     W3 and W4 (442 KB) stream through a ring of three 16 KB stages by
+//     bulk copies with mbarriers, each stage feeding 208 positions; a copy
+//     warpgroup stages the x rows of the next conv3 pass by cp.async.
+//   forward, f32, grid (32-column chunks, F/2, B): x rows 2r-2 .. 2r+3 ->
+//     conv3 at rows 2r-1 .. 2r+2 (shared memory) -> conv4 at rows 2r, 2r+1
+//     (shared memory, over the dead x tile) -> pool, bias, relu -> out,
+//     idx; the weights are read through the L1 cache.
 //   backward, bf16, two kernels:
 //   * vgg_block2_bwd_rows_kernel, grid (8 channel groups, RBLK blocks): block
 //     (cg, blk) owns the 16 conv3 channels 16cg .. 16cg+15 and a fixed range
@@ -85,8 +97,11 @@
 // Bound on the H100 at x (12, 80, 400, 64): conv3 56.6 + conv4 113.2 =
 // 169.9 GFLOP forward (0.172 ms at the 989 TFLOP/s of the bf16 tensor cores,
 // 2.54 ms at the 67 TFLOP/s of f32 FMA), twice that backward (0.343 ms;
-// 0.401 with the x2 recompute); bytes are far below that. What bounds the
-// bf16 row-walking pass is shared-memory reads: its products' ldmatrix
+// 0.401 with the x2 recompute); bytes are far below that. The bf16 forward
+// runs 182.2 GFLOP of products (1.07x: 104 positions a row for 100 own
+// columns, the warm passes) and reads ~0.88 GB of weight stages from L2
+// (a stage feeds 832 cycles of products at the peak rate). What bounds
+// the bf16 row-walking pass is shared-memory reads: its products' ldmatrix
 // loads (an SM reads 128 bytes a cycle; with 16 channels a group a
 // fragment feeds few products) and the staging of each item's rows, which
 // every channel group repeats; PERF.md has the split.
@@ -102,7 +117,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int CI = 64;    // input channels
 constexpr int C2 = 128;   // conv3 / conv4 output channels
 constexpr int NT = 256;   // threads per block
-constexpr int NW = NT / 32;
 constexpr int CG = 16;    // conv3 channels per backward channel group
 constexpr int NCG = C2 / CG;
 constexpr int BWD2_BLOCKS = 64;  // fixed: the reduction order is fixed
@@ -122,17 +136,6 @@ template <> struct Cdt<float> {
   static __device__ __forceinline__ float rnd(float v) { return v; }
   static __device__ __forceinline__ float to_f(float v) { return v; }
   static __device__ __forceinline__ float from_f(float v) { return v; }
-};
-template <> struct Cdt<bf16> {
-  static constexpr int W = 64;
-  static constexpr int PAD = 8;
-  static __device__ __forceinline__ float rnd(float v) { return bf16r(v); }
-  static __device__ __forceinline__ float to_f(bf16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ bf16 from_f(float v) {
-    return __float2bfloat16(v);
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -165,22 +168,9 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const bf16* h = reinterpret_cast<const bf16*>(&a);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(h[i]);
-}
 __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(bf16* p, const float* v) {
-  uint4 a;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = a;
 }
 
 // dy4 = g * [out > 0] routed by idx, at conv rows r0 .. r0+3 and columns
@@ -252,79 +242,17 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 }
 
 // ---------------------------------------------------------------------------
-// conv_gemm: out[p][n] = sum_tap sum_k A[apos(p, df, dt)][k] * W[tap][n][k]
-// for p < M, n < NOUT; epi(p, n, sum) consumes each result. A is a shared
-// tile [position][CIN + PAD]; apos maps an output position and a tap to a
-// tile position.
-//
-// bf16: a warp owns 16 positions x NOUT channels per round. STREAM: wg is
-// the device-memory weight (9, NOUT, CIN) and ws a one-tap buffer
-// [NOUT][CIN + 8] that every warp helps fill (so every warp runs every
-// round); otherwise ws holds all nine taps, staged by the caller.
-// f32: a thread owns one channel n and 8 positions per pass; the weight is
-// read through the cache as wg[(tap*CIN + k)*ldw + n].
+// conv_gemm (f32 kernels): out[p][n] = sum_tap sum_k A[apos(p, df, dt)][k] *
+// W[tap][k][n] for p < M, n < NOUT on FMA; epi(p, n, sum) consumes each
+// result. A is a shared tile [position][CIN + PAD]; apos maps an output
+// position and a tap to a tile position. A thread owns one channel n and 8
+// positions per pass; the weight is read through the cache as
+// wg[(tap*CIN + k)*ldw + n].
 // ---------------------------------------------------------------------------
 
-template <int CIN, int NOUT, bool STREAM, typename APos, typename Epi>
-__device__ __forceinline__ void conv_gemm(const bf16* A, const bf16* wg,
-                                          int /*ldw*/, bf16* ws, int M,
-                                          APos apos, Epi epi) {
-  constexpr int PA = CIN + 8, PW = CIN + 8, NTL = NOUT / 8;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rounds = (M + 16 * NW - 1) / (16 * NW);
-  for (int rd = 0; rd < rounds; ++rd) {
-    const int mt = rd * NW + warp;
-    int pa = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    if (pa >= M) pa = M - 1;  // computed and dropped
-    float acc[NTL][4];
-#pragma unroll
-    for (int n = 0; n < NTL; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const bf16* wt = ws + tap * NOUT * PW;
-      if (STREAM) {
-        __syncthreads();  // the previous tap's readers are done
-        for (int e = tid; e < NOUT * (CIN / 8); e += NT) {
-          const int n = e / (CIN / 8), c = e % (CIN / 8);
-          *reinterpret_cast<uint4*>(ws + n * PW + c * 8) =
-              *reinterpret_cast<const uint4*>(
-                  wg + ((size_t)tap * NOUT + n) * CIN + c * 8);
-        }
-        __syncthreads();
-        wt = ws;
-      }
-      const bf16* ap = A + apos(pa, tap / 3, tap % 3) * PA + (lane >> 4) * 8;
-      const bf16* bp =
-          wt + ((lane & 7) + (lane >> 4) * 8) * PW + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int kc = 0; kc < CIN / 16; ++kc) {
-        uint32_t a[4];
-        ldsm_x4(ap + kc * 16, a);
-#pragma unroll
-        for (int np = 0; np < NTL / 2; ++np) {
-          uint32_t q[4];
-          ldsm_x4(bp + np * 16 * PW + kc * 16, q);
-          mma_bf16(acc[2 * np], a, q[0], q[1]);
-          mma_bf16(acc[2 * np + 1], a, q[2], q[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NTL; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = mt * 16 + (lane >> 2) + 8 * (i >> 1);
-        if (p < M) epi(p, n * 8 + 2 * (lane & 3) + (i & 1), acc[n][i]);
-      }
-  }
-}
-
-template <int CIN, int NOUT, bool STREAM, typename APos, typename Epi>
+template <int CIN, int NOUT, typename APos, typename Epi>
 __device__ __forceinline__ void conv_gemm(const float* A, const float* wg,
-                                          int ldw, float* /*ws*/, int M,
-                                          APos apos, Epi epi) {
+                                          int ldw, int M, APos apos, Epi epi) {
   constexpr int PA = CIN + 4, NPG = NT / NOUT, PB = 8;
   const int n = threadIdx.x % NOUT, pg = threadIdx.x / NOUT;
   for (int base = 0; base < M; base += NPG * PB) {
@@ -428,9 +356,8 @@ template <typename T> struct FwdSmem {
   static constexpr int W = Cdt<T>::W, PAD = Cdt<T>::PAD;
   static constexpr int XS = 6 * (W + 4) * (CI + PAD);   // x tile (then y4)
   static constexpr int X2 = 4 * (W + 2) * (C2 + PAD);   // conv3 tile
-  static constexpr int WS = sizeof(T) == 2 ? C2 * (C2 + PAD) : 0;  // one tap
   static constexpr size_t BYTES =
-      sizeof(T) * (size_t)(XS + X2 + WS) + sizeof(float) * 2 * C2;
+      sizeof(T) * (size_t)(XS + X2) + sizeof(float) * 2 * C2;
   static_assert(2 * W * (C2 + PAD) <= XS, "y4 fits over the x tile");
 };
 
@@ -446,8 +373,7 @@ vgg_block2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w3,
   extern __shared__ float4 smem4[];
   T* xs = reinterpret_cast<T*>(smem4);
   T* x2s = xs + S::XS;
-  T* ws = x2s + S::X2;
-  float* b3s = reinterpret_cast<float*>(ws + S::WS);
+  float* b3s = reinterpret_cast<float*>(x2s + S::X2);
   float* b4s = b3s + C2;
   T* y4s = xs;  // conv4's rows, written after conv3 has consumed the x tile
 
@@ -462,8 +388,8 @@ vgg_block2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w3,
   __syncthreads();
 
   // conv3 + b3 + relu at rows 2r-1 .. 2r+2, columns c0-1 .. c0+W
-  conv_gemm<CI, C2, true>(
-      xs, w3, C2, ws, 4 * (W + 2),
+  conv_gemm<CI, C2>(
+      xs, w3, C2, 4 * (W + 2),
       [&](int p, int df, int dt) {
         return (p / (W + 2) + df) * (W + 4) + p % (W + 2) + dt;
       },
@@ -476,8 +402,8 @@ vgg_block2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w3,
   __syncthreads();
 
   // conv4 at rows 2r, 2r+1, columns c0 .. c0+W-1, rounded to cdt
-  conv_gemm<C2, C2, true>(
-      x2s, w4, C2, ws, 2 * W,
+  conv_gemm<C2, C2>(
+      x2s, w4, C2, 2 * W,
       [&](int p, int df, int dt) {
         return (p / W + df) * (W + 2) + p % W + dt;
       },
@@ -564,8 +490,8 @@ vgg_block2_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w3c,
     __syncthreads();
 
     // x2 (this group's 16 channels) at rows 2r-1 .. 2r+2, cols c0-1 .. c0+W
-    conv_gemm<CI, CG, false>(
-        xs, w3c + cg * CG, C2, nullptr, 4 * (W + 2),
+    conv_gemm<CI, CG>(
+        xs, w3c + cg * CG, C2, 4 * (W + 2),
         [&](int p, int df, int dt) {
           return (p / (W + 2) + df) * (W + 4) + p % (W + 2) + dt;
         },
@@ -592,8 +518,8 @@ vgg_block2_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w3c,
 
     // dx2 (16 channels) on the item's own rows 2r, 2r+1: the transposed
     // convolution reads dy4 at pos - (tap - 1); then the relu mask -> dy3
-    conv_gemm<C2, CG, false>(
-        dys, w4d + cg * CG, C2, nullptr, 2 * W,
+    conv_gemm<C2, CG>(
+        dys, w4d + cg * CG, C2, 2 * W,
         [&](int p, int df, int dt) {
           return (p / W + 2 - df) * (W + 2) + p % W + 2 - dt;
         },
@@ -1365,8 +1291,8 @@ vgg_block2_bwd_x_kernel(const T* __restrict__ dy3, const T* __restrict__ w3d,
   stage_tile<T, C2>(d3t, dy3 + (size_t)b * F * Tn * C2, F, Tn, 2 * r - 1,
                     c0 - 1, 4, W + 2);
   __syncthreads();
-  conv_gemm<C2, CI, true>(
-      d3t, w3d, CI, nullptr, 2 * W,
+  conv_gemm<C2, CI>(
+      d3t, w3d, CI, 2 * W,
       [&](int p, int df, int dt) {
         return (p / W + 2 - df) * (W + 2) + p % W + 2 - dt;
       },
@@ -1376,6 +1302,492 @@ vgg_block2_bwd_x_kernel(const T* __restrict__ dy3, const T* __restrict__ w3d,
           dx[(((size_t)b * F + 2 * r + q) * Tn + c0 + j) * CI + n] =
               D::from_f(v);
       });
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16: one persistent pass, conv3 and conv4 on wgmma
+// ---------------------------------------------------------------------------
+//
+// A block walks a fixed range of work items (utterance, 100-column strip,
+// pooled row r), r fastest, so it walks down its strips. Every tile row
+// holds FQ = 104 positions of 64 channels, 128 bytes a position in the
+// 128-byte swizzle: an x row holds columns c0-2 .. c0+101, an x2 row
+// c0-1 .. c0+102 (two 64-channel halves, each its own tile), conv4's output
+// row c0 .. c0+103, of which the strip owns the first 100. A tap (df, dt)
+// reads the row above, at or below, from position dt of its slot (a
+// descriptor may start on any 128-byte row of a swizzled tile); positions
+// past a row's end read the next slot: garbage, only ever in the last two
+// x2 and the last four conv4 columns, which are never used.
+//   * rings of 4 x rows and 4 x2 rows, indexed by row (slot4): an item
+//     computes x2 rows 2r+1, 2r+2 (conv3), then conv4 rows 2r, 2r+1 from x2
+//     rows 2r-1 .. 2r+2, so each x2 row is computed once a strip; the first
+//     item of a block's range or of a strip computes rows 2r-1, 2r first
+//     (its warm pass);
+//   * the weights stream through a ring of FRING stages of 16 KB by bulk
+//     copies (one thread, mbarriers): W3 as 9 (tap) stages of 128 conv3 x 64
+//     input channels, W4 as 18 (tap, input half) stages of 128 x 64, packed
+//     by the wrapper in the swizzle, 27 stages an item (36 warm);
+//   * warpgroup c (0, 1) owns conv3 channels and conv4 outputs 64c .. 64c+63
+//     (M = the channels, A = the stage's rows; N = a row's 104 positions,
+//     B = the x or x2 row): wgmma m64n104k16, two rows an item, 52 sums a
+//     row and thread; conv3's half c of x2 is written by stmatrix (its
+//     epilogue: round, + b3 in bf16, relu, zero outside the image);
+//   * warpgroup 2: warp 8 issues the weight stages, warps 9-11 copy each
+//     pass's new x rows (cp.async, zero outside the image) while the
+//     products of the previous pass run;
+//   * the pool epilogue in registers: a thread holds both conv rows and
+//     both columns of its windows; out and idx leave through swizzled
+//     staging tiles as 16-byte stores.
+// The ring (3 stages) is shallower than conv3's 9, so a warpgroup's conv3
+// epilogue, which overwrites x2 slots, follows both warpgroups' last conv4
+// products of the item before.
+
+constexpr int FQ = 104;                 // positions a tile row holds
+constexpr int FOWN = FQ - 4;            // conv columns a strip owns
+constexpr int FROW = FQ * 128;          // bytes of a 64-channel tile row
+constexpr int FSTAGE = C2 * 128;        // bytes of a weight stage
+constexpr int FRING = 3;                // weight stages in flight
+constexpr int FW3 = 9, FW4 = 18;        // weight stages of conv3, conv4
+constexpr int FSTG = 56;                // pooled positions a staging tile holds
+constexpr int F_THREADS = 384;          // warpgroups 0-1 products, 2 copies
+constexpr int F_CREGS = 232, F_PREGS = 40;  // registers after setmaxnreg
+constexpr int F_XS = FRING * FSTAGE;          // x ring (weights before it)
+constexpr int F_X2 = F_XS + 4 * FROW;         // x2 ring, (row, half) tiles
+constexpr int F_OUT = F_X2 + 8 * FROW;        // out staging, a warpgroup each
+constexpr int F_IDX = F_OUT + 2 * FSTG * 128;  // idx staging
+constexpr int F_BIAS = F_IDX + 2 * FSTG * 64;  // b3, b4 in bf16
+constexpr int F_BAR = F_BIAS + 2 * C2 * 2;     // mbarriers: full, empty
+constexpr size_t F_SMEM = F_BAR + 2 * FRING * 8 + 1024;  // + alignment
+static_assert(F_SMEM <= 232448, "the forward's shared memory");
+// named barriers: x rows landed / read (copy warps and products), x2 written
+// (both product warpgroups), a warpgroup's staging tiles (FB_EPI + c)
+enum { FB_XFULL = 1, FB_XEMPTY = 2, FB_X2 = 3, FB_EPI = 4 };
+constexpr int FB_XCOUNT = 256 + 96;
+
+__device__ __forceinline__ int slot4(int f) { return (f + 4) & 3; }
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+// bytes from device memory to shared memory by the bulk-copy engine; the
+// mbarrier counts them in
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// stmatrix, transposed: 8 x 8 b16 matrices from the mma fragment layout;
+// row k of matrix j is written at the address lane 8j + k holds
+__device__ __forceinline__ void stsm_x2_t(void* p, uint32_t r0, uint32_t r1) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::
+          "r"(smem_u32(p)),
+      "r"(r0), "r"(r1)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 104, f32) += A (64 x 16) . B (16 x 104), both from shared memory
+__device__ __forceinline__ void wgmma_n104(float (&d)[52], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51"
+      "}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void fence_acc2(float (&d)[2][52]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int i = 0; i < 52; ++i) asm volatile("" : "+f"(d[q][i])::"memory");
+}
+__device__ __forceinline__ void zero_acc2(float (&d)[2][52]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int i = 0; i < 52; ++i) d[q][i] = 0.f;
+  fence_acc2(d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait(float (&d)[2][52]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  fence_acc2(d);
+}
+
+struct F2Item {
+  int b, c0, r;  // utterance, the strip's first column, pooled row
+  bool warm;     // the block's first item or the strip's first row
+};
+
+__device__ __forceinline__ F2Item f2_item(long it, long lo, int Fp,
+                                          int strips) {
+  F2Item w;
+  w.r = (int)(it % Fp);
+  const long q = it / Fp;
+  w.c0 = (int)(q % strips) * FOWN;
+  w.b = (int)(q / strips);
+  w.warm = it == lo || w.r == 0;
+  return w;
+}
+
+// conv3 of x2 rows f0, f0 + 1 for tap t, issued and committed: x2 row f
+// reads x row f + df - 1 from position dt of its slot. `a`: the stage's
+// rows of the warpgroup's 64 conv3 channels
+__device__ __forceinline__ void conv3_stage(float (&acc)[2][52],
+                                            const char* a, const char* xs,
+                                            int f0, int t) {
+  const int df = t / 3, dt = t % 3;
+  const uint64_t ad = smem_desc(a);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const uint64_t bd =
+        smem_desc(xs + slot4(f0 + rr + df - 1) * FROW) + dt * 8;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)  // descriptors count 16-byte units
+      wgmma_n104(acc[rr], ad + kc * 2, bd + kc * 2);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// conv4 of rows 2r, 2r + 1 for tap t over input half h, issued and
+// committed: row g reads half h of x2 row g + df - 1 from position dt
+__device__ __forceinline__ void conv4_stage(float (&acc)[2][52],
+                                            const char* a, const char* x2s,
+                                            int r, int t, int h) {
+  const int df = t / 3, dt = t % 3;
+  const uint64_t ad = smem_desc(a);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint64_t bd =
+        smem_desc(x2s + (slot4(2 * r + q + df - 1) * 2 + h) * FROW) + dt * 8;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_n104(acc[q], ad + kc * 2, bd + kc * 2);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// x2 = relu(bf16(bf16(conv3) + b3)) of x2 rows f0, f0 + 1, half c, zero
+// outside the image (and in the two garbage columns), into the x2 ring.
+// acc[rr][4i + 2h + e]: channel 16 warp + lane / 4 + 8h of the half,
+// position 8i + 2 (lane % 4) + e; stmatrix.trans writes each n8 block's
+// 8 positions x 16 channels as 16-byte rows
+__device__ __forceinline__ void conv3_epilogue(const float (&acc)[2][52],
+                                               char* x2s, const bf16* b3s,
+                                               int f0, int c0, int F, int Tn,
+                                               int c) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+  __nv_bfloat162 bb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    bb[h] = __bfloat162bfloat162(b3s[64 * c + 16 * warp + (lane >> 2) + 8 * h]);
+  const int kk = lane & 7, chunk = 2 * warp + ((lane >> 3) & 1);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int f = f0 + rr;
+    const bool rowok = f >= 0 && f < F;
+    char* base = x2s + (slot4(f) * 2 + c) * FROW;
+#pragma unroll
+    for (int i = 0; i < FQ / 8; ++i) {
+      const int n = 8 * i + 2 * (lane & 3), t = c0 - 1 + n;
+      const uint32_t keep =
+          (rowok && n < FQ - 2 && t >= 0 && t < Tn ? 0xFFFFu : 0u) |
+          (rowok && n + 1 < FQ - 2 && t + 1 >= 0 && t + 1 < Tn ? 0xFFFF0000u
+                                                                : 0u);
+      uint32_t v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        v[h] = keep & bf16x2_bits(__hmax2(
+                          __hadd2(__floats2bfloat162_rn(acc[rr][4 * i + 2 * h],
+                                                        acc[rr][4 * i + 2 * h + 1]),
+                                  bb[h]),
+                          zero2));
+      const int row = 8 * i + kk;  // row & 7 == kk
+      stsm_x2_t(base + row * 128 + ((chunk ^ kk) << 4), v[0], v[1]);
+    }
+  }
+}
+
+// pool (first maximum in (f, t) order), + b4 in bf16, relu of conv4 rows
+// 2r, 2r + 1, channels 64c .. 64c + 63, into the warpgroup's staging tiles,
+// then out (and idx) as 16-byte stores. acc[q][4i + 2h + e]: row 2r + q,
+// column 8i + 2 (lane % 4) + e, channel 16 warp + lane / 4 + 8h: pooled
+// column p = 4i + lane % 4. Blocks i, i + 1 go out as one transposed
+// stmatrix: fragment column 2a + e holds p = 4i + a + 4e.
+__device__ __forceinline__ void pool_epilogue(
+    const float (&acc)[2][52], const bf16* b4s, char* outs, uint8_t* idxs,
+    bf16* out, uint8_t* idx, int b, int r, int c0, int Fp, int Tp, int c) {
+  const int wt = threadIdx.x & 127, lane = wt & 31, warp = wt >> 5;
+  char* ob = outs + c * FSTG * 128;
+  uint8_t* ib = idxs + c * FSTG * 64;
+  const int ch = 16 * warp + (lane >> 2);  // and ch + 8
+  const float b4v[2] = {__bfloat162float(b4s[64 * c + ch]),
+                        __bfloat162float(b4s[64 * c + ch + 8])};
+  const int kk = lane & 7, chunk = 2 * warp + ((lane >> 3) & 1);
+  const int prow = (kk >> 1) + 4 * (kk & 1);
+  bar_sync(FB_EPI + c, 128);  // the previous item's stores read the staging
+  uint32_t lo[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < FQ / 8 + 1; ++i) {
+    uint32_t v[2] = {0u, 0u};
+    if (i < FQ / 8) {
+      float tv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 r0 = __floats2bfloat162_rn(
+            acc[0][4 * i + 2 * h], acc[0][4 * i + 2 * h + 1]);
+        const __nv_bfloat162 r1 = __floats2bfloat162_rn(
+            acc[1][4 * i + 2 * h], acc[1][4 * i + 2 * h + 1]);
+        const float e[4] = {__low2float(r0), __high2float(r0),
+                            __low2float(r1), __high2float(r1)};
+        float best = e[0];
+        uint8_t id = 0;
+#pragma unroll
+        for (int m = 1; m < 4; ++m)
+          if (e[m] > best) { best = e[m]; id = m; }
+        tv[h] = best + b4v[h];
+        if (idx != nullptr) ib[(4 * i + (lane & 3)) * 64 + ch + 8 * h] = id;
+      }
+      const uint32_t pv = bf16x2_bits(
+          __hmax2(__floats2bfloat162_rn(tv[0], tv[1]),
+                  __floats2bfloat162_rn(0.f, 0.f)));
+      v[0] = pv & 0xFFFFu;
+      v[1] = pv >> 16;
+    }
+    if (i & 1) {  // blocks i - 1, i: pooled columns 4 (i - 1) .. 4i + 3
+      const int p = 4 * (i - 1) + prow;
+      stsm_x2_t(ob + p * 128 + ((chunk ^ (p & 7)) << 4), lo[0] | (v[0] << 16),
+                lo[1] | (v[1] << 16));
+    } else {
+      lo[0] = v[0];
+      lo[1] = v[1];
+    }
+  }
+  bar_sync(FB_EPI + c, 128);
+  const int np = min(FOWN / 2, Tp - c0 / 2);
+  const size_t row = ((size_t)b * Fp + r) * Tp + c0 / 2;
+  for (int e = wt; e < np * 8; e += 128) {
+    const int p = e >> 3, q = e & 7;
+    *reinterpret_cast<uint4*>(out + (row + p) * C2 + 64 * c + 8 * q) =
+        *reinterpret_cast<const uint4*>(ob + p * 128 + ((q ^ (p & 7)) << 4));
+  }
+  if (idx != nullptr)
+    for (int e = wt; e < np * 4; e += 128) {
+      const int p = e >> 2, q = e & 3;
+      *reinterpret_cast<uint4*>(idx + (row + p) * C2 + 64 * c + 16 * q) =
+          *reinterpret_cast<const uint4*>(ib + p * 64 + 16 * q);
+    }
+}
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+vgg_block2_fwd_wgmma_kernel(const bf16* __restrict__ x,
+                            const bf16* __restrict__ w3p,
+                            const float* __restrict__ b3,
+                            const bf16* __restrict__ w4p,
+                            const float* __restrict__ b4,
+                            bf16* __restrict__ out,
+                            uint8_t* __restrict__ idx, int B, int F,
+                            int Tn) {
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4) +
+               ((1024 - (smem_u32(smem4) & 1023)) & 1023);
+  char* wring = base;
+  char* xs = base + F_XS;
+  char* x2s = base + F_X2;
+  char* outs = base + F_OUT;
+  uint8_t* idxs = reinterpret_cast<uint8_t*>(base + F_IDX);
+  bf16* b3s = reinterpret_cast<bf16*>(base + F_BIAS);
+  bf16* b4s = b3s + C2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + F_BAR);
+  uint64_t* empty = full + FRING;
+
+  const int Fp = F / 2, Tp = Tn / 2, strips = (Tn + FOWN - 1) / FOWN;
+  const long n = (long)B * strips * Fp;
+  const long lo = n * blockIdx.x / gridDim.x;
+  const long hi = n * (blockIdx.x + 1) / gridDim.x;
+  const int tid = threadIdx.x;
+  if (tid < C2) {
+    b3s[tid] = __float2bfloat16(b3[tid]);
+    b4s[tid] = __float2bfloat16(b4[tid]);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < FRING; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each product warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F_PREGS));
+    if (tid == 256) {
+      // the weight stages, in the order the products take them
+      int s = 0, ph = 0;
+      long k = 0;
+      for (long it = lo; it < hi; ++it) {
+        const bool warm = it == lo || it % Fp == 0;
+        const int nst = (warm ? FW3 : 0) + FW3 + FW4;
+        for (int j = 0; j < nst; ++j, ++k) {
+          const int st = warm && j >= FW3 ? j - FW3 : j;
+          if (k >= FRING) mbar_wait(&empty[s], ph ^ 1);
+          mbar_expect_tx(&full[s], FSTAGE);
+          bulk_g2s(wring + s * FSTAGE,
+                   st < FW3 ? w3p + (size_t)st * (FSTAGE / 2)
+                            : w4p + (size_t)(st - FW3) * (FSTAGE / 2),
+                   FSTAGE, &full[s]);
+          if (++s == FRING) { s = 0; ph ^= 1; }
+        }
+      }
+    } else if (tid >= 288) {
+      // each conv3 pass's new x rows, once the previous pass has read
+      // the slots they replace
+      const int lt = tid - 288;
+      long pass = 0;
+      for (long it = lo; it < hi; ++it) {
+        const F2Item w = f2_item(it, lo, Fp, strips);
+        const bf16* xb = x + (size_t)w.b * F * Tn * CI;
+        for (int ps = 0; ps < (w.warm ? 2 : 1); ++ps, ++pass) {
+          const bool pre = w.warm && ps == 0;
+          const int nr = pre ? 4 : 2;
+          const int fr = pre ? 2 * w.r - 2 : 2 * w.r + 2;
+          if (pass > 0) bar_sync(FB_XEMPTY, FB_XCOUNT);
+          for (int e = lt; e < nr * FQ * 8; e += 96) {
+            const int q = e & 7, pos = e >> 3;
+            const int f = fr + pos / FQ, j = pos % FQ, t = w.c0 - 2 + j;
+            const bool ok = f >= 0 && f < F && t >= 0 && t < Tn;
+            cp_async16(xs + slot4(f) * FROW + j * 128 + ((q ^ (j & 7)) << 4),
+                       ok ? xb + ((size_t)f * Tn + t) * CI + 8 * q : x, ok);
+          }
+          cp_async_commit();
+          cp_async_wait_all();
+          fence_proxy_async();
+          bar_arrive(FB_XFULL, FB_XCOUNT);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F_CREGS));
+    const int c = tid >> 7, lane = tid & 31;
+    int s = 0, ph = 0, prev = 0;
+    for (long it = lo; it < hi; ++it) {
+      const F2Item w = f2_item(it, lo, Fp, strips);
+      const int b = w.b, r = w.r, c0 = w.c0;
+      for (int ps = 0; ps < (w.warm ? 2 : 1); ++ps) {
+        const int f0 = w.warm && ps == 0 ? 2 * r - 1 : 2 * r + 1;
+        float acc3[2][52];
+        zero_acc2(acc3);
+        bar_sync(FB_XFULL, FB_XCOUNT);
+        for (int t = 0; t < FW3; ++t) {
+          mbar_wait(&full[s], ph);
+          const char* wst = wring + s * FSTAGE;
+          conv3_stage(acc3, wst + c * 8192, xs, f0, t);
+          if (t > 0) {  // the previous stage's products are done
+            wgmma_wait<1>(acc3);
+            if (lane == 0) mbar_arrive(&empty[prev]);
+          }
+          prev = s;
+          if (++s == FRING) { s = 0; ph ^= 1; }
+        }
+        wgmma_wait<0>(acc3);
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (it + 1 < hi || ps + 1 < (w.warm ? 2 : 1))
+          bar_arrive(FB_XEMPTY, FB_XCOUNT);  // the x slots may be refilled
+        conv3_epilogue(acc3, x2s, b3s, f0, c0, F, Tn, c);
+        fence_proxy_async();
+        bar_sync(FB_X2, 256);  // both halves of the new x2 rows written
+      }
+      float acc4[2][52];
+      zero_acc2(acc4);
+      for (int j = 0; j < FW4; ++j) {
+        const int t = j >> 1, h = j & 1;
+        mbar_wait(&full[s], ph);
+        const char* wst = wring + s * FSTAGE;
+        conv4_stage(acc4, wst + c * 8192, x2s, r, t, h);
+        if (j > 0) {
+          wgmma_wait<1>(acc4);
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+        if (++s == FRING) { s = 0; ph ^= 1; }
+      }
+      wgmma_wait<0>(acc4);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      pool_epilogue(acc4, b4s, outs, idxs, out, idx, b, r, c0, Fp, Tp, c);
+    }
+  }
+}
+
+int launch_fwd_wgmma(const void* x, const void* w3p, const void* b3,
+                     const void* w4p, const void* b4, void* out, void* idx,
+                     int B, int F, int Tn, void* stream) {
+  cudaGetLastError();  // report only this launch's error
+  if (B == 0 || F == 0 || Tn == 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      vgg_block2_fwd_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // persistent: one block an SM, or one an item where there are fewer
+  const long n = (long)B * ((Tn + FOWN - 1) / FOWN) * (F / 2);
+  const int grid = (int)(n < sms ? n : sms);
+  vgg_block2_fwd_wgmma_kernel<<<grid, F_THREADS, F_SMEM,
+                                (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)w3p, (const float*)b3, (const bf16*)w4p,
+      (const float*)b4, (bf16*)out, (uint8_t*)idx, B, F, Tn);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1467,13 +1879,14 @@ extern "C" const char* error_string(int err) {
 }
 
 // Forward. x (B, F, T, 64) cdt; b3, b4 (128) f32; out (B, F/2, T/2, 128)
-// cdt; idx uint8 of out's shape or null. bf16: w3, w4 in layout "t" (tap,
-// out, in); f32: in layout "n" (tap, in, out).
-extern "C" int vgg_block2_fwd_bf16(const void* x, const void* w3t,
-                                   const void* b3, const void* w4t,
+// cdt; idx uint8 of out's shape or null. bf16: w3p, w4p the packed weight
+// stages (9 and 18 of 128 x 64, each row in the 128-byte swizzle: see
+// ops/vgg_fused._fwd2_stages); f32: w3, w4 in layout "n" (tap, in, out).
+extern "C" int vgg_block2_fwd_bf16(const void* x, const void* w3p,
+                                   const void* b3, const void* w4p,
                                    const void* b4, void* out, void* idx,
                                    int B, int F, int T, void* stream) {
-  return launch_fwd<bf16>(x, w3t, b3, w4t, b4, out, idx, B, F, T, stream);
+  return launch_fwd_wgmma(x, w3p, b3, w4p, b4, out, idx, B, F, T, stream);
 }
 
 extern "C" int vgg_block2_fwd_f32(const void* x, const void* w3n,

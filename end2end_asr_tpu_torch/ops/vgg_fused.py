@@ -48,6 +48,7 @@ The serving path passes none.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -306,11 +307,15 @@ class VggBlock1(torch.autograd.Function):
 #
 # Bound on the H100 at x (12, 80, 400, 64): 169.9 GFLOP forward (0.172 ms on
 # the bf16 tensor cores, 2.54 ms on f32 FMA), 339.7 GFLOP backward (0.343 ms /
-# 5.07 ms). The bf16 backward is two kernels: a pass of 8 channel groups x 16
-# persistent blocks walking down 40-column strips (the weight gradients'
-# partial sums, dy3) and a persistent dx kernel on wgmma that also adds up
-# the partials; tests/test_torch_vgg_block2.py mirrors both decompositions.
-# The f32 backward is three kernels (per-tile products on FMA, a reduce, dx).
+# 5.07 ms). The bf16 forward is one persistent kernel on wgmma whose blocks
+# walk down 100-column strips, each x2 row computed once a strip, the
+# weights streamed in 16 KB stages packed by `_pack_fwd2`; the f32 forward
+# is PR 3's per-tile FMA kernel. The bf16 backward is two kernels: a pass
+# of 8 channel groups x 16 persistent blocks walking down 40-column strips
+# (the weight gradients' partial sums, dy3) and a persistent dx kernel on
+# wgmma that also adds up the partials; tests/test_torch_vgg_block2.py
+# mirrors the three bf16 decompositions. The f32 backward is three kernels
+# (per-tile products on FMA, a reduce, dx).
 # ---------------------------------------------------------------------------
 
 C_IN2, C2 = 64, 128
@@ -459,6 +464,47 @@ def _layout(w: torch.Tensor, cdt: torch.dtype, t: bool) -> torch.Tensor:
     return (w.permute(0, 1, 3, 2) if t else w).contiguous()
 
 
+def _swizzle128(s: torch.Tensor) -> torch.Tensor:
+    """(S, 128, 64) -> the same rows with their 16-byte chunks (8 bf16) in
+    the 128-byte swizzle: chunk c of row r lands at c ^ (r % 8), as the
+    kernel's shared-memory tiles hold it."""
+    r = torch.arange(128, device=s.device)[:, None]
+    src = torch.arange(8, device=s.device)[None, :] ^ (r % 8)   # (128, 8)
+    v = s.reshape(s.shape[0], 128, 8, 8)
+    return v.gather(2, src[None, :, :, None].expand(v.shape)).reshape(s.shape)
+
+
+def _fwd2_stages(w3: torch.Tensor, w4: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward kernel's weight stages, in w3's and w4's dtype:
+    W3 (3,3,64,128) HWIO as 9 stages (tap) of 128 conv3 channels x 64
+    input channels, W4 (3,3,128,128) as 18 stages (tap, half of the 128
+    input channels) of 128 output channels x 64; each row's chunks in the
+    128-byte swizzle (`_swizzle128`), so a stage is copied into shared
+    memory as it lies."""
+    s3 = w3.reshape(9, C_IN2, C2).transpose(1, 2)
+    s4 = w4.reshape(9, 2, C2 // 2, C2).permute(0, 1, 3, 2).reshape(
+        18, C2, C2 // 2)
+    return _swizzle128(s3), _swizzle128(s4)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd2_index(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each element of `_fwd2_stages` comes from in the flat w3, w4."""
+    return tuple(i.reshape(-1).to(dev) for i in _fwd2_stages(
+        torch.arange(9 * C_IN2 * C2).reshape(3, 3, C_IN2, C2),
+        torch.arange(9 * C2 * C2).reshape(3, 3, C2, C2)))
+
+
+def _pack_fwd2(w3: torch.Tensor, w4: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_fwd2_stages` of the weights in bf16, by one gather each (a cast
+    and a gather a weight a call)."""
+    i3, i4 = _fwd2_index(w3.device)
+    return (w3.to(torch.bfloat16).reshape(-1).index_select(0, i3),
+            w4.to(torch.bfloat16).reshape(-1).index_select(0, i4))
+
+
 def vgg_block2(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
                w4: torch.Tensor, b4: torch.Tensor,
                cdt: torch.dtype = torch.bfloat16,
@@ -481,8 +527,11 @@ def vgg_block2(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     out = torch.empty((B, F // 2, T // 2, C2), dtype=cdt, device=x.device)
     if out.numel() == 0:
         return out
-    # the tensor-core kernel reads (tap, out, in), the FMA kernel HWIO
-    w3k, w4k = (_layout(w, cdt, cdt == torch.bfloat16) for w in (w3, w4))
+    # the wgmma kernel reads the packed stages, the FMA kernel HWIO
+    if cdt == torch.bfloat16:
+        w3k, w4k = _pack_fwd2(w3, w4)
+    else:
+        w3k, w4k = (_layout(w, cdt, False) for w in (w3, w4))
     x, b3, b4 = x.contiguous(), b3.contiguous(), b4.contiguous()
     _aligned("vgg_block2", x, *((idx_out,) if idx_out is not None else ()))
     with torch.cuda.device(x.device):

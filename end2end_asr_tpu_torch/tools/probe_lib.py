@@ -66,7 +66,8 @@ def kernel_ms(torch, fn, iters=20, tries=3) -> Dict[str, float]:
         if by and all(c % iters == 0 for c in seen.values()):
             return {n: us / 1e3 / iters for n, us in by.items()}
     raise RuntimeError("the profiler missed kernel events in "
-                       f"{tries} profiles")
+                       f"{tries} profiles (kernels seen in the last, of "
+                       f"{iters} calls: {seen})")
 
 
 def device_ms(torch, fn, iters=20) -> float:
@@ -143,7 +144,10 @@ def time_in_turns(torch, calls: Dict[str, object]) -> Dict[str, dict]:
     res = {n: {"kernels_ms": [], "events_ms": []} for n in names}
     for order in (names, names[::-1]):
         for n in order:
-            res[n]["kernels_ms"].append(kernel_ms(torch, calls[n]))
+            try:
+                res[n]["kernels_ms"].append(kernel_ms(torch, calls[n]))
+            except RuntimeError as e:
+                raise RuntimeError(f"{n}: {e}") from e
             res[n]["events_ms"].append(events_ms(torch, calls[n]))
     torch.cuda.synchronize()
     for r in res.values():

@@ -17,9 +17,10 @@ the copy kernels by name, and what runs inside each attention forward
 record_function range `layers.ATTN_RANGE` names), each attention
 backward node and each max-pool backward node, with the memory formats
 of the pool's y, g and dy, and the launches and device time of the
-block-2 backward's kernels (`BLOCK2_BWD`) with their share of the step's
-device time. ``--block2`` sets ``ops.vgg_fused.BLOCK2_ENABLED`` (as a test
-does) before the step is built, so the fused block 2 runs. It
+block-2 forward's and backward's kernels (`BLOCK2_FWD`, `BLOCK2_BWD`)
+with their shares of the step's device time. ``--block2`` sets
+``ops.vgg_fused.BLOCK2_ENABLED`` (as a test does) before the step is
+built, so the fused block 2 runs. It
 measures whichever package ``end2end_asr_tpu_torch`` resolves to, so an
 earlier commit unpacked into another directory is measured by putting
 that directory first on PYTHONPATH. One JSON line, with the card's name
@@ -41,8 +42,9 @@ B, FRAMES, TARGET_COLUMNS = 12, 800, 50
 ATTN_FWD_RANGE = "probe_step: attention forward"
 # autograd's nodes of the port's two Functions
 ATTN_BWD_NODE, POOL_BWD_NODE = "FlashMhaTrainBackward", "MaxPool2Backward"
-# the block-2 backward's kernels (csrc/vgg_block2.cu) all carry this prefix
-BLOCK2_BWD = "vgg_block2_bwd"
+# the block-2 kernels (csrc/vgg_block2.cu): every kernel of the backward
+# carries the second prefix, the forward's the first
+BLOCK2_FWD, BLOCK2_BWD = "vgg_block2_fwd", "vgg_block2_bwd"
 
 
 def is_copy(name: str) -> bool:
@@ -125,8 +127,11 @@ def report(torch, prof, wall_ms: float, formats: list) -> dict:
                 "copy_kernels": sum(is_copy(n) for c in calls for n, _ in c),
                 "device_ms": sum(us for c in calls for _, us in c) / 1e3,
                 "names": sorted({n[:60] for c in calls for n, _ in c})}
-    b2 = [e.time_range.elapsed_us() / 1e3 for e in kernels
-          if BLOCK2_BWD in e.name]
+    def block2(prefix):
+        ms = [e.time_range.elapsed_us() / 1e3 for e in kernels
+              if prefix in e.name]
+        return {"launches": len(ms), "device_ms": sum(ms),
+                "share": sum(ms) / dev_ms if kernels else None}
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "device_busy_share": dev_ms / wall_ms if kernels else None,
             "kernel_launches": len(kernels),
@@ -135,9 +140,8 @@ def report(torch, prof, wall_ms: float, formats: list) -> dict:
             "attention_backward": group(ATTN_BWD_NODE),
             "pool_backward": group(POOL_BWD_NODE),
             "pool_formats": formats,
-            "block2_backward": {
-                "launches": len(b2), "device_ms": sum(b2),
-                "share": sum(b2) / dev_ms if kernels else None},
+            "block2_forward": block2(BLOCK2_FWD),
+            "block2_backward": block2(BLOCK2_BWD),
             "top": [[n[:60], ms / 1e3] for n, ms in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
 

@@ -698,6 +698,54 @@ def test_vgg_block2_bwd_kernel_matches_plain(dev, cdt, B, F, T):
         assert torch.equal(a, b)          # fixed-order reduction
 
 
+# the bf16 forward's kernel as the profiler names it (csrc/vgg_block2.cu)
+FWD2_BF16_KERNEL = "vgg_block2_fwd_wgmma_kernel"
+
+
+@pytest.mark.parametrize("B,F,T", [(12, 80, 400), (2, 82, 398),
+                                   (1, 4, 70), (3, 8, 202)])
+def test_vgg_block2_bf16_forward_wgmma_kernel(dev, B, F, T):
+    """The bf16 forward at the train cell's shape, with fewer work items
+    than SMs (1, 4, 70: 2 items), T not a multiple of the 100-column
+    strip: within VGG_BF16_ATOL + VGG_BF16_RTOL * |plain| of the plain
+    version elementwise, the argmax equal wherever the plain conv4's two
+    best window values lie more than 2^-6 * max(|best|, 1) apart, out
+    with and without idx bit-identical, and one launch of its kernel a
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+    import torch.nn.functional as Fn
+    cdt = torch.bfloat16
+    args = _block2_args(dev, cdt, B, F, T, seed=7 * F + T)
+    idx = torch.empty((B, F // 2, T // 2, 128), dtype=torch.uint8, device=dev)
+    got = V.vgg_block2(*args, cdt=cdt, idx_out=idx)
+    want, want_idx = V.vgg_block2_plain(*args, cdt=cdt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    x, w3, b3, w4, _ = args
+    y4 = Fn.conv2d(V._x2_plain(x, w3, b3, cdt), V._nchw(w4, cdt),
+                   padding=1).float()
+    win = y4.reshape(B, 128, F // 2, 2, T // 2, 2).permute(
+        0, 2, 4, 1, 3, 5).reshape(B, F // 2, T // 2, 128, 4)
+    top = win.topk(2, dim=-1).values
+    clear = (top[..., 0] - top[..., 1]) > 2 ** -6 * top[..., 0].abs(
+        ).clamp_min(1.0)
+    assert clear.float().mean() > 0.9
+    assert bool((idx == want_idx)[clear].all())
+    for _ in range(3):  # the profiler drops a call's events now and then
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            V.reset_launches2()
+            noidx = V.vgg_block2(*args, cdt=cdt)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "vgg_block2" in e.name]
+        if names:
+            break
+    assert torch.equal(noidx, got)
+    assert V.launches2() == 1
+    assert len(names) == 1 and FWD2_BF16_KERNEL in names[0], names
+
+
 # the bf16 backward's kernels as the profiler names them (csrc/vgg_block2.cu):
 # the row-walking pass and the dx kernel, which also adds up the partials
 BWD2_BF16_KERNELS = ("vgg_block2_bwd_rows_kernel", "vgg_block2_bwd_dx_kernel")

@@ -466,3 +466,242 @@ def test_bwd_probe_cuts_apply_to_the_source():
         PB.variants(src.replace("    dw4_products(x2s, dys, acc4, r, warp, "
                                 "lane);", "    dw4_products(x2s, dys, acc4, "
                                 "r, lane, warp);"))
+
+
+# ---------------------------------------------------------------------------
+# the decomposition of the bf16 forward kernel (csrc/vgg_block2.cu,
+# vgg_block2_fwd_wgmma_kernel), mirrored here so that its index math is
+# held against the plain forward before the card: min(items, blocks)
+# persistent blocks over fixed ranges of work items (utterance, 100-column
+# strip, pooled row r), r fastest; every tile row FQ = 104 positions (x
+# columns c0-2 .., x2 columns c0-1 .., conv4 columns c0 ..); a ring of 4 x
+# rows and one of 4 x2 rows in two 64-channel halves, laid out flat in
+# shared memory as the kernel lays them out, so a tap (df, dt) reads a
+# slot from position dt and positions past a row's end read the next
+# slot (unwritten memory is NaN here: a valid output that read it would
+# be NaN); a warm pass (x2 rows 2r-1, 2r) at a block's first item and at
+# a strip's first row; conv3 -> bf16, + b3, relu, zero outside the image
+# and in the garbage columns; conv4 over (tap, input half) stages of the
+# packed, swizzled weights (ops.vgg_fused._fwd2_stages, read back through
+# the swizzle); the pool in (f, t) order with the first maximum winning,
+# + b4, relu; pooled columns through the staging tile's rows as the
+# transposed stmatrix of the kernel's pool epilogue writes them.
+# ---------------------------------------------------------------------------
+
+FQ, FOWN, SM_BLOCKS = 104, 100, 132
+
+
+def _unswizzle(stages):
+    """The stages as the tensor cores read them: row r, channel k from
+    chunk (k // 8) ^ (r % 8)."""
+    r = torch.arange(128)[:, None]
+    k = torch.arange(64)[None, :]
+    return stages[:, r, ((k // 8) ^ (r % 8)) * 8 + k % 8]
+
+
+def _pool_rows(i):
+    """Staging rows of the kernel's stmatrix for n8 blocks i - 1, i (i odd):
+    fragment column kk holds pooled column 4 (i - 1) + kk // 2 + 4 (kk % 2)."""
+    return [4 * (i - 1) + (kk >> 1) + 4 * (kk & 1) for kk in range(8)]
+
+
+def _fwd_mirror(x, w3, b3, w4, b4, cdt, blocks=SM_BLOCKS, mutate=None):
+    """`mutate`: None, or a fault the mirror must be caught with: "tap"
+    (conv4's taps read the x2 row one below) or "border" (x2 keeps
+    relu(0 + b3) past the image's columns)."""
+    f32 = torch.float32
+    rnd = lambda t: t.to(cdt).to(f32)
+    B, F, T, _ = x.shape
+    Fp, Tp = F // 2, T // 2
+    strips = -(-T // FOWN)
+    n = B * strips * Fp
+    s3, s4 = TV._fwd2_stages(rnd(w3), rnd(w4))
+    A3, A4 = _unswizzle(s3), _unswizzle(s4)   # (9 | 18, 128 out, 64 in)
+    bias3, bias4 = rnd(b3), rnd(b4)
+    xp = Fn.pad(rnd(x), (0, 0, 2, strips * FOWN + 2 - T, 2, 2))
+    out = torch.full((B, Fp, Tp, 128), float("nan"))
+    idx = torch.full((B, Fp, Tp, 128), 9, dtype=torch.uint8)
+    slot = lambda f: (f + 4) & 3
+    col = torch.arange(FQ)
+    dfo = 1 if mutate == "tap" else 0
+    grid = min(n, blocks)
+    for blk in range(grid):
+        lo, hi = n * blk // grid, n * (blk + 1) // grid
+        # the rings as rows of 64 channels, with the next buffer's first
+        # rows (read by the garbage positions of the last slot) unwritten
+        xs = torch.full((4 * FQ + 2, 64), float("nan"))
+        x2 = torch.full((8 * FQ + 2, 64), float("nan"))
+        for it in range(lo, hi):
+            r, q = it % Fp, it // Fp
+            c0, b = q % strips * FOWN, q // strips
+            warm = it == lo or r == 0
+            for pre in ((True, False) if warm else (False,)):
+                f0 = 2 * r - 1 if pre else 2 * r + 1
+                for f in (range(f0 - 1, f0 + 3) if pre else (f0 + 1, f0 + 2)):
+                    xs[slot(f) * FQ:slot(f) * FQ + FQ] = xp[b, f + 2, c0:c0 + FQ]
+                for f in (f0, f0 + 1):
+                    y = sum(xs[slot(f + t // 3 - 1) * FQ + t % 3:][:FQ]
+                            @ A3[t].T for t in range(9))
+                    v = torch.relu(rnd(rnd(y) + bias3))
+                    tt = c0 - 1 + col
+                    inside = (tt >= 0) & (tt < T) & (col < FQ - 2)
+                    if mutate == "border":
+                        inside = col < FQ - 2
+                    v = torch.where(inside[:, None] & (0 <= f < F), v,
+                                    torch.zeros(()))
+                    for h in range(2):
+                        s = (slot(f) * 2 + h) * FQ
+                        x2[s:s + FQ] = v[:, 64 * h:64 * h + 64]
+            y4 = []
+            for g in (2 * r, 2 * r + 1):
+                y4.append(rnd(sum(
+                    x2[(slot(g + t // 3 - 1 + dfo) * 2 + h) * FQ + t % 3:][:FQ]
+                    @ A4[2 * t + h].T for t in range(9) for h in range(2))))
+            # windows (f, t) in order (0,0), (0,1), (1,0), (1,1)
+            win = torch.stack([y4[0][0::2], y4[0][1::2], y4[1][0::2],
+                               y4[1][1::2]])              # (4, 52, 128)
+            best, id_ = win[0], torch.zeros(FQ // 2, 128, dtype=torch.uint8)
+            for m in range(1, 4):
+                gt = win[m] > best
+                best = torch.where(gt, win[m], best)
+                id_ = torch.where(gt, torch.tensor(m, dtype=torch.uint8), id_)
+            val = torch.relu(rnd(best + bias4))
+            # the staging tile: pooled rows as the pool epilogue's
+            # stmatrix writes them (blocks 12, 13: 13 is zero)
+            stage_v = torch.full((56, 128), float("nan"))
+            vz = torch.cat([val, torch.zeros(4, 128)])
+            for i in range(1, FQ // 8 + 2, 2):
+                # a lane's register: block i - 1 (low half, fragment
+                # column 2a) and block i (high, 2a + 1), a = lane % 4
+                for a in range(4):
+                    for e in range(2):
+                        stage_v[_pool_rows(i)[2 * a + e]] = \
+                            vz[4 * (i - 1) + a + 4 * e]
+            np_ = min(FOWN // 2, Tp - c0 // 2)
+            out[b, r, c0 // 2:c0 // 2 + np_] = stage_v[:np_]
+            idx[b, r, c0 // 2:c0 // 2 + np_] = id_[:np_]
+    return out.to(cdt), idx
+
+
+def _fwd_case(shape, seed):
+    B, F, T = shape
+    x, w3, b3, w4, b4 = _t(_mk(B, F, T, seed=seed))
+    return (x.relu(), w3, b3, w4, b4)
+
+
+def _idx_clear(args, cdt, gap):
+    """Windows whose plain conv4 best and second-best values lie further
+    apart than `gap` relative to max(|best|, 1) (chip_smoke.py's test)."""
+    x, w3, b3, w4, _ = args
+    y4 = Fn.conv2d(TV._x2_plain(x, w3, b3, cdt), TV._nchw(w4, cdt),
+                   padding=1).float()
+    Bn, C, F, T = y4.shape
+    w = y4.reshape(Bn, C, F // 2, 2, T // 2, 2).permute(
+        0, 2, 4, 1, 3, 5).reshape(Bn, F // 2, T // 2, C, 4)
+    top = w.topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) > gap * top[..., 0].abs().clamp_min(1)
+
+
+# the card's tolerances (chip_smoke.py VGG2_F32_TOL for f32: the same
+# products summed in another order; VGG_BF16_ATOL + VGG_BF16_RTOL * |plain|
+# elementwise for bf16: a sum by a bf16 rounding boundary rounds the other
+# way), and the argmax gaps beyond which it must agree (IDX_GAP_*)
+FWD_MIRROR_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+IDX_GAP = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+@pytest.mark.parametrize("blocks", [SM_BLOCKS, 3])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MIRROR_SHAPES)
+def test_fwd_wgmma_decomposition_equals_the_plain_forward(shape, cdt, blocks):
+    """The forward's items, strips, rings, warm passes, tap shifts, x2
+    halves, garbage columns and epilogue order against the plain forward,
+    with one block an item (at these shapes the card's 132 blocks
+    outnumber the items) and with 3 blocks walking down their strips."""
+    args = _fwd_case(shape, seed=sum(shape))
+    got, idx = _fwd_mirror(*args, cdt, blocks=blocks)
+    want, want_idx = TV.vgg_block2_plain(*args, cdt=cdt)
+    assert got.shape == want.shape and not torch.isnan(got.float()).any()
+    if cdt == torch.float32:
+        assert _rel_l2(got, want) < FWD_MIRROR_TOL[cdt]
+    else:
+        tol = FWD_MIRROR_TOL[cdt] * (1 + want.float().abs())
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+    clear = _idx_clear(args, cdt, IDX_GAP[cdt])
+    assert clear.float().mean() > 0.9
+    assert bool((idx == want_idx)[clear].all())
+
+
+@pytest.mark.parametrize("mutate", ["tap", "border"])
+def test_fwd_mirror_catches_a_shifted_tap_and_a_leaking_border(mutate):
+    """The comparison above sees conv4's taps read one x2 row off, and
+    x2 past the image's last column (the tail strip) left at relu(b3)."""
+    args = _fwd_case((1, 4, 70), seed=75)
+    got, _ = _fwd_mirror(*args, torch.float32, mutate=mutate)
+    want, _ = TV.vgg_block2_plain(*args, cdt=torch.float32)
+    got = torch.nan_to_num(got, nan=1e3)
+    assert _rel_l2(got, want) > 100 * FWD_MIRROR_TOL[torch.float32]
+
+
+def test_fwd_stages_pack_the_weights_in_the_kernels_order():
+    """_pack_fwd2 (one gather by a cached index) equals _fwd2_stages, and
+    reading the stages back through the swizzle gives W3[tap][:, c3] and
+    W4[tap][64h .., co]: stage 2t + h of W4."""
+    _, w3, _, w4, _ = _t(_mk(1, 4, 2, seed=11))
+    p3, p4 = TV._pack_fwd2(w3, w4)
+    s3, s4 = TV._fwd2_stages(w3.bfloat16(), w4.bfloat16())
+    assert torch.equal(p3.view(9, 128, 64), s3)
+    assert torch.equal(p4.view(18, 128, 64), s4)
+    a3, a4 = _unswizzle(s3), _unswizzle(s4)
+    w3b, w4b = w3.bfloat16().reshape(9, 64, 128), w4.bfloat16().reshape(
+        9, 128, 128)
+    for t in range(9):
+        assert torch.equal(a3[t], w3b[t].T)
+        for h in range(2):
+            assert torch.equal(a4[2 * t + h], w4b[t, 64 * h:64 * h + 64].T)
+
+
+def test_fwd_pool_staging_rows_cover_each_pooled_column_once():
+    """The pool epilogue's transposed stmatrix puts the 8 pooled columns
+    of n8 blocks i - 1, i on 8 distinct staging rows (bank-conflict free:
+    8 distinct row % 8) and all 56 rows once over the 7 pairs."""
+    rows = [p for i in range(1, FQ // 8 + 2, 2) for p in _pool_rows(i)]
+    assert sorted(rows) == list(range(56))
+    for i in range(1, FQ // 8 + 2, 2):
+        assert sorted(p % 8 for p in _pool_rows(i)) == list(range(8))
+
+
+def test_fwd_probe_cuts_apply_to_the_source():
+    """tools/probe_vgg2_fwd.py times the forward's parts by cutting
+    statements out of csrc/vgg_block2.cu: the source is the wgmma design,
+    each cut still finds its statement, each part's copy differs and the
+    full copy is the shipped source; a changed statement breaks the probe
+    loudly; PR 3's tile design (the parent's file) takes its own cuts."""
+    import os
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_vgg2_fwd as PF
+    with open(os.path.join(cuda_lib.CSRC_DIR, PF.SOURCE)) as f:
+        src = f.read()
+    assert PF.design_of(src) == "wgmma"
+    copies = PF.variants(src)
+    assert list(copies) == list(PF.PARTS) and copies["full"] == src
+    assert len(set(copies.values())) == len(PF.PARTS)
+    assert "out[tid] = out[0];" in copies["conv4"]   # conv4's sums kept
+    assert PF.variants(src, ["full"]) == {"full": src}
+    with pytest.raises(RuntimeError, match="update the probe"):
+        PF.variants(src.replace("conv4_stage(acc4, wst + c * 8192, x2s, r,",
+                                "conv4_stage(acc4, wst + 8192 * c, x2s, r,"))
+    # the tile design's anchors, as PR 3's kernel has them
+    tiles = "\n".join(
+        ["template <int CIN, int NOUT, bool STREAM, typename APos, "
+         "typename Epi>", "      for (int kc = 0; kc < CIN / 16; ++kc) {",
+         "  conv_gemm<CI, C2, true>(\n      xs, w3, C2, ws,",
+         "        x2s[p * P2 + n] = D::from_f(",
+         "  conv_gemm<C2, C2, true>(\n      x2s, w4, C2, ws,",
+         "      [&](int p, int n, float v) { y4s[p * P2 + n] = D::from_f(v); "
+         "});", "  for (int e = tid; e < (W / 2) * C2; e += NT) {"])
+    assert PF.design_of(tiles) == "tiles"
+    t = PF.variants(tiles)
+    assert len(set(t.values())) == len(PF.PARTS) and t["full"] == tiles
+    assert "conv_gemm<CI, C2, true, false>" in t["staging"]
+    assert "bool P = true" in t["conv4"] and "if (false)" in t["conv4"]
