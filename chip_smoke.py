@@ -152,6 +152,7 @@ ATTN_FWD_KERNEL_NAME = "attn_fwd_kernel"
 ATTN_BWD_KERNEL_NAME = "attn_bwd_kernel"
 # the block-2 kernels (csrc/vgg_block2.cu): the bf16 forward, the bf16
 # backward's main pass, and the prefix every kernel of the backward carries
+# (those of csrc/vgg_block2_f32.cu too; its forward's carry vgg_block2_fwd)
 FWD2_KERNEL_NAME = "vgg_block2_fwd_wgmma_kernel"
 BWD2_KERNEL_NAME = "vgg_block2_bwd_rows_kernel"
 BWD2_PREFIX = "vgg_block2_bwd"
@@ -205,7 +206,7 @@ def gpu_line():
 def phase_build(cuda_lib):
     t0 = time.time()
     paths = cuda_lib.build(["stft", "vgg_block1", "attention", "pool_bwd",
-                            "vgg_block2", "stream"])
+                            "vgg_block2", "vgg_block2_f32", "stream"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
     for src in sorted(paths):
         for ln in cuda_lib.build_log(src).splitlines():
@@ -997,6 +998,11 @@ def check_vgg2(torch, dev):
             lib[cdt] = (lib_f, time_ms(torch, lambda: torch.autograd.grad(
                 lib_fwd(), [xl, *wl], gl), iters=5) - lib_f, lib_cl)
     flops = 2 * B * 80 * 400 * 128 * 9 * (64 + 128)
+    # the f32 entries' executed products (csrc/vgg_block2_f32.cu): the
+    # backward recomputes conv3, and dW3's fifth tile runs one tap in two
+    # halves (10/9 of dW3)
+    c3 = 2 * B * 80 * 400 * 128 * 9 * 64
+    bwd_f32_flops = 2 * flops + c3 + c3 / 9
     f_bytes = 2 * B * 80 * 400 * 64 + 3 * B * 40 * 200 * 128 + 2 * 9 * (
         64 * 128 + 128 * 128)
     b_bytes = 2 * 2 * B * 80 * 400 * 64 + 5 * B * 40 * 200 * 128 + 4 * 9 * (
@@ -1009,13 +1015,22 @@ def check_vgg2(torch, dev):
         f"{lib_f:.4f}, channels-last {lib_cl:.4f}), bwd {rb['bwd']:.4f}, "
         f"device {rb['bwd_device']} "
         f"(plain {rb['bwd_plain']:.4f}, cuDNN autograd backward ~{lib_b:.4f})"
-        f"; f32 fwd {rf['fwd']:.4f} (plain {rf['fwd_plain']:.4f}, cuDNN "
-        f"{lib_f32:.4f}), bwd {rf['bwd']:.4f} (plain {rf['bwd_plain']:.4f}, "
-        f"cuDNN ~{lib_b32:.4f}); TF32 off; bounds "
+        f"; f32 fwd {rf['fwd']:.4f}, device {rf['fwd_device']} (plain "
+        f"{rf['fwd_plain']:.4f}, cuDNN {lib_f32:.4f}), bwd {rf['bwd']:.4f}, "
+        f"device {rf['bwd_device']} (plain {rf['bwd_plain']:.4f}, cuDNN "
+        f"~{lib_b32:.4f}); TF32 off; bounds "
         f"{1e3 * flops / BF16_PEAK:.4f} / {2e3 * flops / BF16_PEAK:.4f} ms "
         f"bf16, {1e3 * flops / F32_PEAK:.4f} / {2e3 * flops / F32_PEAK:.4f} "
         f"f32 ({flops / 1e9:.1f} GFLOP forward)")
+    # the f32 entries' executed rates against the 67 TFLOP/s of f32 FMA
+    tf_f32 = {k: (n / (1e9 * rf[k]) if rf[k] else None) for k, n in (
+        ("fwd_device", flops), ("bwd_device", bwd_f32_flops))}
+    log(f"vgg_block2 f32 executed: fwd {flops / 1e9:.1f} GFLOP at "
+        f"{tf_f32['fwd_device']} TFLOP/s, bwd {bwd_f32_flops / 1e9:.1f} "
+        f"GFLOP at {tf_f32['bwd_device']} TFLOP/s, of "
+        f"{F32_PEAK / 1e12:.0f} (device time)")
     rep = "end2end_asr_tpu/ops/vgg_fused.py:"
+    src32 = "end2end_asr_tpu_torch/csrc/vgg_block2_f32.cu"
     return [
         entry("vgg_block2_fwd", "vgg_block2.cu", rep + "654", rb["ferr"],
               rb["fwd"], rb["fwd_plain"], flops / BF16_PEAK,
@@ -1023,6 +1038,8 @@ def check_vgg2(torch, dev):
               device_ms=rb["fwd_device"],
               max_abs_err_f32=rf["ferr"], rel_l2_f32=rf["fl2"],
               ms_f32=rf["fwd"], plain_ms_f32=rf["fwd_plain"],
+              device_ms_f32=rf["fwd_device"],
+              tflops_f32=tf_f32["fwd_device"], source_f32=src32,
               bound_ms_f32=1e3 * flops / F32_PEAK, library_ms_f32=lib_f32,
               library_ms_cl=lib_cl, library_ms_cl_f32=lib_cl32),
         entry("vgg_block2_bwd", "vgg_block2.cu", rep + "682", rb["berr"],
@@ -1031,6 +1048,8 @@ def check_vgg2(torch, dev):
               device_ms=rb["bwd_device"],
               max_abs_err_f32=rf["berr"], rel_l2_f32=rf["bl2"],
               ms_f32=rf["bwd"], plain_ms_f32=rf["bwd_plain"],
+              device_ms_f32=rf["bwd_device"],
+              tflops_f32=tf_f32["bwd_device"], source_f32=src32,
               bound_ms_f32=2e3 * flops / F32_PEAK, library_ms_f32=lib_b32,
               library_note="autograd forward+backward minus forward")]
 

@@ -1,7 +1,7 @@
 """Kernels 2 and 3: the fused vgg block 1 forward and its backward
 (csrc/vgg_block1.cu), and their plain versions; kernels 7 and 8, the fused
-block 2 and its backward (csrc/vgg_block2.cu), in the second half of this
-module, behind `BLOCK2_ENABLED`.
+block 2 and its backward (csrc/vgg_block2.cu in bf16, csrc/vgg_block2_f32.cu
+in f32), in the second half of this module, behind `BLOCK2_ENABLED`.
 
     relu(maxpool2x2(conv2_SAME(relu(conv1_SAME(spect) + b1))) + b2)
 
@@ -292,7 +292,8 @@ class VggBlock1(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Block 2 (kernels 7 and 8, csrc/vgg_block2.cu)
+# Block 2 (kernels 7 and 8, csrc/vgg_block2.cu in bf16, csrc/vgg_block2_f32.cu
+# in f32)
 #
 #   relu(maxpool2x2(conv4_SAME(relu(conv3_SAME(x) + b3))) + b4)
 #
@@ -309,13 +310,16 @@ class VggBlock1(torch.autograd.Function):
 # the bf16 tensor cores, 2.54 ms on f32 FMA), 339.7 GFLOP backward (0.343 ms /
 # 5.07 ms). The bf16 forward is one persistent kernel on wgmma whose blocks
 # walk down 100-column strips, each x2 row computed once a strip, the
-# weights streamed in 16 KB stages packed by `_pack_fwd2`; the f32 forward
-# is PR 3's per-tile FMA kernel. The bf16 backward is two kernels: a pass
-# of 8 channel groups x 16 persistent blocks walking down 40-column strips
-# (the weight gradients' partial sums, dy3) and a persistent dx kernel on
-# wgmma that also adds up the partials; tests/test_torch_vgg_block2.py
-# mirrors the three bf16 decompositions. The f32 backward is three kernels
-# (per-tile products on FMA, a reduce, dx).
+# weights streamed in 16 KB stages packed by `_pack_fwd2`. The bf16 backward
+# is two kernels: a pass of 8 channel groups x 16 persistent blocks walking
+# down 40-column strips (the weight gradients' partial sums, dy3) and a
+# persistent dx kernel on wgmma that also adds up the partials;
+# tests/test_torch_vgg_block2.py mirrors the three bf16 decompositions. The
+# f32 entries are a sequence of register-blocked FFMA implicit GEMMs with
+# their intermediates in device memory: forward x2, then conv4 with the
+# pool; backward x2, dy4, dy3, the weight gradients over SPLITS fixed K
+# ranges, their sum in range order, dx (tests/test_torch_vgg_block2_f32.py
+# mirrors their tiling).
 # ---------------------------------------------------------------------------
 
 C_IN2, C2 = 64, 128
@@ -326,22 +330,26 @@ C_IN2, C2 = 64, 128
 # TPU's compiler and are not this card's; the card's own times are in PERF.md.
 BLOCK2_ENABLED = False
 
+# the f32 forward takes one more pointer, its x2 scratch
 _FWD2_KERNELS = {
-    dt: cuda_lib.CudaKernel("vgg_block2", sym,
-                            [cuda_lib.P] * 7 + [cuda_lib.I] * 3
+    dt: cuda_lib.CudaKernel(src, sym, [cuda_lib.P] * n + [cuda_lib.I] * 3
                             + [cuda_lib.P])
-    for dt, sym in ((torch.float32, "vgg_block2_fwd_f32"),
-                    (torch.bfloat16, "vgg_block2_fwd_bf16"))}
+    for dt, src, sym, n in (
+        (torch.float32, "vgg_block2_f32", "vgg_block2_fwd_f32", 8),
+        (torch.bfloat16, "vgg_block2", "vgg_block2_fwd_bf16", 7))}
 _BWD2_KERNELS = {
-    dt: cuda_lib.CudaKernel("vgg_block2", sym,
-                            [cuda_lib.P] * 12 + [cuda_lib.I] * 3
+    dt: cuda_lib.CudaKernel(src, sym, [cuda_lib.P] * 12 + [cuda_lib.I] * 3
                             + [cuda_lib.P])
-    for dt, sym in ((torch.float32, "vgg_block2_bwd_f32"),
-                    (torch.bfloat16, "vgg_block2_bwd_bf16"))}
-# blocks of the backward's partial sums, each writing one row (csrc/
-# vgg_block2.cu: RBLK row-walking blocks of each channel group in bf16,
-# BWD2_BLOCKS for the f32 kernels)
-BWD2_BLOCKS = {torch.bfloat16: 16, torch.float32: 64}
+    for dt, src, sym in (
+        (torch.float32, "vgg_block2_f32", "vgg_block2_bwd_f32"),
+        (torch.bfloat16, "vgg_block2", "vgg_block2_bwd_bf16"))}
+# rows of the backward's partial sums (csrc/vgg_block2.cu: RBLK row-walking
+# blocks of each channel group in bf16; csrc/vgg_block2_f32.cu: SPLITS K
+# ranges of the weight gradients)
+BWD2_BLOCKS = {torch.bfloat16: 16, torch.float32: 132}
+# activations of (B, F, T, 128) the f32 backward keeps in its scratch: x2,
+# dy4, dy3 (the bf16 backward: dy3)
+BWD2_SCRATCH = {torch.bfloat16: 1, torch.float32: 3}
 DW3_SIZE, DW4_SIZE = 9 * C_IN2 * C2, 9 * C2 * C2
 PART2 = DW3_SIZE + C2 + DW4_SIZE + C2           # floats of one block's partials
 
@@ -527,18 +535,22 @@ def vgg_block2(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     out = torch.empty((B, F // 2, T // 2, C2), dtype=cdt, device=x.device)
     if out.numel() == 0:
         return out
-    # the wgmma kernel reads the packed stages, the FMA kernel HWIO
+    # the wgmma kernel reads the packed stages, the FMA kernels HWIO and
+    # an x2 scratch
     if cdt == torch.bfloat16:
         w3k, w4k = _pack_fwd2(w3, w4)
+        scratch = ()
     else:
         w3k, w4k = (_layout(w, cdt, False) for w in (w3, w4))
+        x2 = torch.empty((B, F, T, C2), dtype=cdt, device=x.device)
+        scratch = (x2.data_ptr(),)
     x, b3, b4 = x.contiguous(), b3.contiguous(), b4.contiguous()
     _aligned("vgg_block2", x, *((idx_out,) if idx_out is not None else ()))
     with torch.cuda.device(x.device):
         _FWD2_KERNELS[cdt].launch(
             x.data_ptr(), w3k.data_ptr(), b3.data_ptr(), w4k.data_ptr(),
             b4.data_ptr(), out.data_ptr(),
-            idx_out.data_ptr() if idx_out is not None else None,
+            idx_out.data_ptr() if idx_out is not None else None, *scratch,
             B, F, T, torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -563,7 +575,8 @@ def vgg_block2_bwd(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     w3c, w4d, w3d = (_layout(w3, cdt, bf), _layout(w4, cdt, not bf),
                      _layout(w3, cdt, not bf))
     dev = x.device
-    dy3 = torch.empty((B, F, T, C2), dtype=cdt, device=dev)
+    scratch = torch.empty((BWD2_SCRATCH[cdt], B, F, T, C2), dtype=cdt,
+                          device=dev)
     dx = torch.empty_like(x)
     grads = torch.empty(PART2, dtype=torch.float32, device=dev)
     part = torch.empty(BWD2_BLOCKS[cdt] * PART2, dtype=torch.float32,
@@ -572,7 +585,8 @@ def vgg_block2_bwd(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
         _BWD2_KERNELS[cdt].launch(
             x.data_ptr(), w3c.data_ptr(), b3.data_ptr(), w4d.data_ptr(),
             w3d.data_ptr(), g.data_ptr(), out.data_ptr(), idx.data_ptr(),
-            dy3.data_ptr(), dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
+            scratch.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            grads.data_ptr(),
             B, F, T, torch.cuda.current_stream().cuda_stream)
     o1, o2, o3 = DW3_SIZE, DW3_SIZE + C2, DW3_SIZE + C2 + DW4_SIZE
     return (dx, grads[:o1].view(3, 3, C_IN2, C2), grads[o1:o2],

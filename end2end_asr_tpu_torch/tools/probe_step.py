@@ -2,6 +2,7 @@
 kernels around the attention and the block-2 pool.
 
     python -m end2end_asr_tpu_torch.tools.probe_step [--block2]
+        [--dtype bfloat16|float32]
     PYTHONPATH=<an earlier checkout> python3 \\
         end2end_asr_tpu_torch/tools/probe_step.py       # that package's step
 
@@ -20,7 +21,9 @@ of the pool's y, g and dy, and the launches and device time of the
 block-2 forward's and backward's kernels (`BLOCK2_FWD`, `BLOCK2_BWD`)
 with their shares of the step's device time. ``--block2`` sets
 ``ops.vgg_fused.BLOCK2_ENABLED`` (as a test does) before the step is
-built, so the fused block 2 runs. It
+built, so the fused block 2 runs; ``--dtype float32`` builds the step at
+compute type f32 with TF32 off (as ``train --dtype float32`` runs it), so
+the f32 kernels' entries run. It
 measures whichever package ``end2end_asr_tpu_torch`` resolves to, so an
 earlier commit unpacked into another directory is measured by putting
 that directory first on PYTHONPATH. One JSON line, with the card's name
@@ -163,9 +166,9 @@ def profile_step(torch, one) -> dict:
     return report(torch, prof, wall, formats)
 
 
-def default_step(torch, dev):
-    """The train cell's step on one synthetic batch: a function of no
-    arguments that runs it once."""
+def default_step(torch, dev, dtype="bfloat16"):
+    """The train cell's step on one synthetic batch at compute type
+    `dtype`: a function of no arguments that runs it once."""
     import numpy as np
     import end2end_asr_tpu_torch as pkg
     from end2end_asr_tpu_torch.config import Config, load_vocab
@@ -179,7 +182,7 @@ def default_step(torch, dev):
                  dim_model=512, dim_key=64, dim_value=64, dim_inner=2048,
                  dim_emb=512, batch_size=B, label_smoothing=0.1,
                  dropout=0.1, k_lr=1.0, min_lr=1e-6, warmup=4000,
-                 dtype="bfloat16", seed=SEED)
+                 dtype=dtype, seed=SEED)
     labels = os.path.join(os.path.dirname(os.path.dirname(pkg.__file__)),
                           "data", "labels", "aishell_labels.json")
     label2id, _ = load_vocab(labels)
@@ -212,6 +215,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--block2", action="store_true",
                    help="set ops.vgg_fused.BLOCK2_ENABLED: the fused block 2")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16", help="the step's compute type")
     args = p.parse_args(argv)
     import torch
     import end2end_asr_tpu_torch as pkg
@@ -222,7 +227,10 @@ def main(argv=None):
     V.BLOCK2_ENABLED = args.block2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    one = default_step(torch, dev)
+    if args.dtype == "float32":   # JAX's f32 is full f32: no TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    one = default_step(torch, dev, args.dtype)
     one()
     torch.cuda.synchronize()
     times = []
@@ -232,7 +240,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     out = {"package": os.path.dirname(os.path.abspath(pkg.__file__)),
-           "block2": args.block2,
+           "block2": args.block2, "dtype": args.dtype,
            "step_ms_median": statistics.median(times), "step_ms": times,
            "profile": profile_step(torch, one), "gpu": P.gpu_line()}
     print(json.dumps(out))

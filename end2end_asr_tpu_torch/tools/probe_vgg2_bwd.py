@@ -1,14 +1,18 @@
-"""Where the bf16 block-2 backward (``vgg_block2_bwd``) spends its time.
+"""Where the block-2 backward (``vgg_block2_bwd``) spends its time.
 
     python -m end2end_asr_tpu_torch.tools.probe_vgg2_bwd
-        [--source path/to/vgg_block2.cu] [--parts staging,x2,...]
-        [--phases] [--mma-rate]
+        [--dtype bfloat16|float32] [--source path/to/vgg_block2.cu ...]
+        [--parts staging,x2,...] [--phases] [--mma-rate]
+        [--variants all|conv_kc8,...]
 
 The card's profiler gives kernel durations but no stall reasons, so this
-probe builds cut-down copies of ``csrc/vgg_block2.cu`` (or of the file
-``--source`` names) and times the bf16 entry of each at the main path's
-shape, x (B, 80, 400, 64), each copy's kernels by name. The copies add one
-part of the work at a time:
+probe builds cut-down copies of the package's source (``csrc/vgg_block2.cu``
+for bf16, ``csrc/vgg_block2_f32.cu`` for f32) and of every file
+``--source`` names (another design of the same entry, e.g. the parent
+commit's file unpacked with ``git show``), and times the entry of each at
+the main path's shape, x (B, 80, 400, 64), each copy's kernels by name,
+all of them in turns (a, b, ..., b, a). The bf16 copies add one part of the
+work at a time:
 
   staging   the item loop and its barriers, the x tile and the pooled
             g / out / idx loads (and the dy4 tile built from them), the
@@ -22,20 +26,28 @@ part of the work at a time:
 
 Each line's device time less the previous line's is that part's cost
 where the parts run one after another; where two run at once, the later
-part's line gives what it adds on top. ``--phases`` also builds a copy of
-the row-walking pass with clock64 counters at its barriers and reports
-the cycles an item spends in each phase (warp 0's view, barrier waits
-included) and each warp's phase-1 work, summed over the blocks' items.
-``--mma-rate`` also times what an SM sustains of mma.sync m16n8k16 on
-register operands, of ldmatrix.x4 alone, and of loads feeding products at
-1, 1/2 and 1/4 of a load a product (``RATE_ARMS``). The cuts put
-``if (false)`` before a statement of the row-walking source (a cut tile
-keeps what it held: the later products run on whatever it holds); every
-line must be found, so a change of the source breaks the probe loudly
-(``--parts full`` cuts nothing and takes any source). The shipped copy is
-also held against the plain backward (relative L2 per tensor). One JSON
-line, with the card's name and power limit. Needs a CUDA card and
-``nvcc``; imports nothing at import time that needs either.
+part's line gives what it adds on top. At f32 only ``full`` is built (the
+entry's kernels run one after another, and ``kernels_ms`` times each by
+name); every design is called with the same arguments, the scratch sized
+for the largest (three activations of (B, F, T, 128) at f32: x2, dy4 and
+dy3; the earlier f32 design uses the first as dy3). ``--phases`` also
+builds a copy of the bf16 row-walking pass with clock64 counters at its
+barriers and reports the cycles an item spends in each phase (warp 0's
+view, barrier waits included) and each warp's phase-1 work, summed over
+the blocks' items. ``--mma-rate`` also times what an SM sustains of
+mma.sync m16n8k16 on register operands, of ldmatrix.x4 alone, and of
+loads feeding products at 1, 1/2 and 1/4 of a load a product
+(``RATE_ARMS``). The cuts put ``if (false)`` before a statement of the
+row-walking source (a cut tile keeps what it held: the later products run
+on whatever it holds); every line must be found, so a change of the
+source breaks the probe loudly (``--parts full`` cuts nothing and takes
+any source). Each uncut copy is also held against the plain backward
+(relative L2 per tensor). At f32, ``--variants`` also builds copies of
+the package's source with one design choice changed (``F32_VARIANTS``: a
+tile's shared-memory loads cut, the K chunk, the column slots, the wgrad
+loop's unrolling and stages, the number of K ranges) and times them in
+the same turns. One JSON line, with the card's name and power limit. Needs a CUDA card and ``nvcc``; imports nothing at import time that
+needs either.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from typing import Dict, List, Tuple
 from end2end_asr_tpu_torch.tools import probe_lib as P
 
 SOURCE = "vgg_block2.cu"
+SOURCE_F32 = "vgg_block2_f32.cu"
 B, F, T = 12, 80, 400  # the train cell's x (PERF.md §4)
 PARTS = ("staging", "x2", "dw4", "dx2", "dw3", "kernel_x", "full")
 
@@ -91,6 +104,56 @@ def variants(src: str, parts=PARTS) -> Dict[str, str]:
                                        "not in the source; update the probe")
                 v = v.replace(old, new)
         out[part] = v
+    return out
+
+
+# ---- --variants (f32): copies of vgg_block2_f32.cu with one design choice
+# changed, timed in turns with the source as shipped, so that what each
+# choice buys is measured. The load cuts replace a tile's shared-memory
+# loads by register constants: their outputs are wrong, their time is kept
+_CONV_A = "          a[i] = lds4(ap + (prow(i) * HC + pcol(i)) * PA + kk);"
+_CONV_B = ("          const float4 b0 = lds4(wp + (kk + k) * C::NOUT);\n"
+           "          const float4 b1 = lds4(wp + (kk + k) * C::NOUT + 32);")
+_WG_A = ("    const float4 a0 = lds4(ap + p * C2), a1 = lds4(ap + p * C2 + "
+         "32);")
+_WG_B = ("      const float4 b = lds4(bp + p * C2 + 16 * q);\n"
+         "      bv[4 * q] = b.x;")
+_WG_LOOP = ("#pragma unroll 8\n  for (int p = 0; p < KP; ++p) {\n"
+            "    const float4 a0")
+F32_VARIANTS = {
+    "conv_no_a_loads": [(_CONV_A, "          a[i] = make_float4(i, kk, 1.f, "
+                                  "2.f);")],
+    "conv_no_b_loads": [(_CONV_B, "          const float4 b0 = make_float4("
+                                  "k, kk, 1.f, 2.f);\n          const float4 "
+                                  "b1 = make_float4(kk, k, 2.f, 1.f);")],
+    "wgrad_no_a_loads": [(_WG_A, "    const float4 a0 = make_float4(p, 1.f, "
+                                 "2.f, 3.f), a1 = make_float4(3.f, p, 1.f, "
+                                 "2.f);")],
+    "wgrad_no_b_loads": [(_WG_B, "      const float4 b = make_float4(p, q, "
+                                 "1.f, 2.f);\n      bv[4 * q] = b.x;")],
+    "conv_kc8": [("  static constexpr int KC = 16;",
+                  "  static constexpr int KC = 8;")],
+    "conv_cslot6": [("constexpr int CSLOT = 4;", "constexpr int CSLOT = 6;")],
+    **{f"wgrad_unroll{n}": [(_WG_LOOP, _WG_LOOP.replace("8", str(n)))]
+       for n in (1, 2, 4)},
+    "wgrad_stages2": [("constexpr int WG_NST = 3;",
+                       "constexpr int WG_NST = 2;")],
+    "splits66": [("constexpr int SPLITS = 132;",
+                  "constexpr int SPLITS = 66;")],
+}
+
+
+def f32_variants(src: str, names) -> Dict[str, str]:
+    """{name: the f32 source with that variant's edits}, for `names`."""
+    out = {}
+    for name in names:
+        v = src
+        for old, new in F32_VARIANTS[name]:
+            if v.count(old) != 1:
+                raise RuntimeError(f"probe_vgg2_bwd: {old.strip()!r} is not "
+                                   "in the source once; update the probe")
+            v = v.replace(old, new)
+        out[name] = v
     return out
 
 
@@ -278,15 +341,21 @@ def mma_rate(torch, so: str) -> Dict[str, dict]:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--source", default=None,
-                   help="a vgg_block2.cu to cut (default: the package's)")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16", help="the entry to time")
+    p.add_argument("--source", action="append", default=[],
+                   help="another source of the entry (repeatable), timed "
+                        "in turns with the package's")
     p.add_argument("--parts", default=None,
-                   help="comma-separated parts to build and time "
-                        "(default: all)")
+                   help="comma-separated parts to build and time (default: "
+                        "all in bf16; f32 takes full only)")
     p.add_argument("--phases", action="store_true",
-                   help="also the row pass's cycles by phase (clock64)")
+                   help="also the bf16 row pass's cycles by phase (clock64)")
     p.add_argument("--mma-rate", action="store_true",
                    help="also the card's mma.sync and ldmatrix rates")
+    p.add_argument("--variants", default=None,
+                   help="f32: comma-separated F32_VARIANTS to time beside "
+                        "the package's source, or 'all'")
     args = p.parse_args(argv)
     import torch
     from end2end_asr_tpu_torch.ops import cuda_lib
@@ -295,22 +364,42 @@ def main(argv=None):
         raise SystemExit("probe_vgg2_bwd: needs a CUDA device")
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
-    path = args.source or os.path.join(cuda_lib.CSRC_DIR, SOURCE)
-    with open(path) as f:
-        src = f.read()
-    parts = args.parts.split(",") if args.parts else list(PARTS)
-    named = {name: P.write_source(f"probe_vgg2_bwd_{name}", v)
-             for name, v in variants(src, parts).items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = args.dtype == "float32"
+    parts = args.parts.split(",") if args.parts else (
+        ["full"] if f32 else list(PARTS))
+    if f32 and (parts != ["full"] or args.phases):
+        raise SystemExit("probe_vgg2_bwd: at float32 only --parts full, "
+                         "and no --phases (they count the bf16 row pass)")
+    if args.variants and not f32:
+        raise SystemExit("probe_vgg2_bwd: --variants edit the f32 source")
+    chosen = ([] if not args.variants else list(F32_VARIANTS)
+              if args.variants == "all" else args.variants.split(","))
+    package = os.path.join(cuda_lib.CSRC_DIR, SOURCE_F32 if f32 else SOURCE)
+    designs = {"package": package}
+    designs.update({f"source{i}": s for i, s in enumerate(args.source)})
+    named = {}
+    for d, path in designs.items():
+        with open(path) as f:
+            src = f.read()
+        for part, v in variants(src, parts).items():
+            named[f"{d}:{part}"] = P.write_source(
+                f"probe_vgg2_bwd_{args.dtype}_{d}_{part}", v)
+        if d == "package":
+            for name, v in f32_variants(src, chosen).items():
+                named[f"{name}:full"] = P.write_source(
+                    f"probe_vgg2_bwd_variant_{name}", v)
     if args.phases:
-        named["phases"] = P.write_source("probe_vgg2_bwd_phases",
-                                         phases_source(src))
+        with open(os.path.join(cuda_lib.CSRC_DIR, SOURCE)) as f:
+            named["phases"] = P.write_source("probe_vgg2_bwd_phases",
+                                             phases_source(f.read()))
     if args.mma_rate:
         named["rate"] = P.write_source("probe_vgg2_bwd_rate", _RATE_SRC)
     libs = P.build(named, "probe_vgg2_bwd")
     phase_lib = libs.pop("phases", None)
     rate_lib = libs.pop("rate", None)
 
-    cdt = torch.bfloat16
+    cdt = torch.float32 if f32 else torch.bfloat16
     g0 = torch.Generator().manual_seed(0)
     x = torch.randn(B, F, T, 64, generator=g0).relu().to(dev, cdt)
     ws = [(torch.randn(*s, generator=g0) * sc).to(dev) for s, sc in
@@ -319,46 +408,48 @@ def main(argv=None):
     # the plain forward: the probe builds nothing but its own copies
     out, idx = V.vgg_block2_plain(x, *ws, cdt=cdt)
     g = torch.randn(out.shape, generator=g0).to(dev, cdt)
-    w3c, w4d, w3d = (V._layout(ws[0], cdt, True), V._layout(ws[2], cdt, False),
-                     V._layout(ws[0], cdt, False))
-    dy3 = torch.empty((B, F, T, 128), dtype=cdt, device=dev)
+    # the bf16 entry reads w3 "t", w4 "n", w3 "n"; the f32 entries (this
+    # design's and the earlier per-tile one's) the other layouts
+    w3c, w4d, w3d = (V._layout(ws[0], cdt, not f32),
+                     V._layout(ws[2], cdt, f32), V._layout(ws[0], cdt, f32))
+    scratch = torch.empty((V.BWD2_SCRATCH[cdt], B, F, T, 128), dtype=cdt,
+                          device=dev)
     dx = torch.empty_like(x)
-    # room for the partials of either design (256 blocks at most)
+    # room for the partials of any design (256 rows at most)
     part = torch.empty(256 * V.PART2, device=dev)
     grads = torch.empty(V.PART2, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     kernel = V._BWD2_KERNELS[cdt]
-    calls, regs = {}, {}
-    for name, (so, regs[name]) in libs.items():
+
+    def entry(so):
         fn = getattr(ctypes.CDLL(so), kernel.symbol)
         fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
-
-        def call(fn=fn):
-            if fn(x.data_ptr(), w3c.data_ptr(), ws[1].data_ptr(),
-                  w4d.data_ptr(), w3d.data_ptr(), g.data_ptr(),
-                  out.data_ptr(), idx.data_ptr(), dy3.data_ptr(),
-                  dx.data_ptr(), part.data_ptr(), grads.data_ptr(), B, F, T,
-                  stream):
-                raise RuntimeError("probe_vgg2_bwd: launch failed")
+        return lambda: fn(x.data_ptr(), w3c.data_ptr(), ws[1].data_ptr(),
+                          w4d.data_ptr(), w3d.data_ptr(), g.data_ptr(),
+                          out.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+                          dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
+                          B, F, T, stream)
+    calls, regs = {}, {}
+    for name, (so, regs[name]) in libs.items():
+        def call(run=entry(so), name=name):
+            if run():
+                raise RuntimeError(f"probe_vgg2_bwd: {name} failed")
         calls[name] = call
-    check = None
-    if "full" in calls:
-        calls["full"]()
-        o1, o2, o3 = V.DW3_SIZE, V.DW3_SIZE + V.C2, V.DW3_SIZE + V.C2 + V.DW4_SIZE
+    want = V.vgg_block2_bwd_plain(x, *ws[:3], out, idx, g, cdt)
+    o1, o2, o3 = V.DW3_SIZE, V.DW3_SIZE + V.C2, V.DW3_SIZE + V.C2 + V.DW4_SIZE
+    checks = {}
+    for name in calls:
+        if not name.endswith(":full") or name.split(":")[0] not in designs:
+            continue
+        calls[name]()
         got = (dx, grads[:o1], grads[o1:o2], grads[o2:o3], grads[o3:])
-        want = V.vgg_block2_bwd_plain(x, *ws[:3], out, idx, g, cdt)
-        check = [((a.double() - b.double().reshape(a.shape)).norm()
-                  / b.double().norm()).item() for a, b in zip(got, want)]
+        checks[name] = [((a.double() - b.double().reshape(a.shape)).norm()
+                         / b.double().norm()).item()
+                        for a, b in zip(got, want)]
     phases = None
     if phase_lib is not None:
         lib = ctypes.CDLL(phase_lib[0])
-        fn = getattr(lib, kernel.symbol)
-        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
-        run = lambda: fn(x.data_ptr(), w3c.data_ptr(), ws[1].data_ptr(),
-                         w4d.data_ptr(), w3d.data_ptr(), g.data_ptr(),
-                         out.data_ptr(), idx.data_ptr(), dy3.data_ptr(),
-                         dx.data_ptr(), part.data_ptr(), grads.data_ptr(), B,
-                         F, T, stream)
+        run = entry(phase_lib[0])
         run()
         torch.cuda.synchronize()
         buf = (ctypes.c_ulonglong * 32)()
@@ -379,17 +470,20 @@ def main(argv=None):
                   "ptxas": phase_lib[1]}
     rates = mma_rate(torch, rate_lib[0]) if rate_lib else None
     res = P.time_in_turns(torch, calls)
-    smi = P.gpu_line()
     names = list(res)
     dev_ms = {n: res[n]["device_ms"] for n in names}
+    part_ms = {}
+    for d in designs:
+        chain = [f"{d}:{pt}" for pt in PARTS if f"{d}:{pt}" in dev_ms]
+        part_ms[d] = {n.split(":")[1]: dev_ms[n] - (dev_ms[chain[i - 1]]
+                                                    if i else 0.0)
+                      for i, n in enumerate(chain)}
     print(json.dumps({
-        "source": path, "shape": [B, F, T, 64],
-        "gpu": smi, "device_ms": dev_ms,
+        "dtype": args.dtype, "sources": designs, "shape": [B, F, T, 64],
+        "gpu": P.gpu_line(), "device_ms": dev_ms,
         "events_ms": {n: res[n]["events_ms"] for n in names},
         "kernels_ms": {n: res[n]["kernels_ms"] for n in names},
-        "part_ms": {n: dev_ms[n] - (dev_ms[names[i - 1]] if i else 0.0)
-                    for i, n in enumerate(names)},
-        "full_rel_l2_dx_dw3_db3_dw4_db4": check,
+        "part_ms": part_ms, "full_rel_l2_dx_dw3_db3_dw4_db4": checks,
         "phases": phases, "mma_rate": rates, "ptxas": regs}))
 
 

@@ -1,15 +1,20 @@
-"""Where the bf16 block-2 forward (``vgg_block2_fwd``) spends its time.
+"""Where the block-2 forward (``vgg_block2_fwd``) spends its time.
 
     python -m end2end_asr_tpu_torch.tools.probe_vgg2_fwd
-        [--source path/to/vgg_block2.cu ...] [--parts staging,conv3,...]
-        [--library]
+        [--dtype bfloat16|float32] [--source path/to/vgg_block2.cu ...]
+        [--parts staging,conv3,...] [--library]
 
-Builds cut-down copies of ``csrc/vgg_block2.cu`` and of every file
-``--source`` names (another design of the same entry point, e.g. the
-parent commit's file unpacked with ``git show``) and times the bf16 entry
-of each at the main path's shape, x (12, 80, 400, 64), with the pool
-argmax (the training path); the uncut copies also without it (the
-serving path). The copies add one part of the work at a time:
+Builds cut-down copies of the package's source (``csrc/vgg_block2.cu`` for
+bf16, ``csrc/vgg_block2_f32.cu`` for f32) and of every file ``--source``
+names (another design of the same entry point, e.g. the parent commit's
+file unpacked with ``git show``) and times the entry of each at the main
+path's shape, x (12, 80, 400, 64), with the pool argmax (the training
+path); the uncut copies also without it (the serving path). At f32 only
+the uncut copies are built (``--parts full``; ``kernels_ms`` times the
+entry's kernels by name), and the design, the earlier per-tile kernel
+(``conv_gemm``) or the FFMA GEMMs of ``vgg_block2_f32.cu`` (which take an
+x2 scratch), is read from the source (``f32_design_of``). The bf16 copies add one part of the
+work at a time:
 
   staging   the work loop, its barriers, the x tiles and the weights
             staged; no product, no epilogue, no output written
@@ -33,7 +38,8 @@ kept), device ms by kernel name from torch.profiler and CUDA events
 around back-to-back calls. Each uncut copy's output is compared with the
 plain version (max abs error, the argmax's agreement). ``--library``
 also times cuDNN (conv2d x2 + max_pool2d) on the same inputs in NCHW and
-in channels-last memory (the gate-off front end's layout). One JSON
+in channels-last memory (the gate-off front end's layout; f32 with TF32
+off). One JSON
 line, with the card's name and power limit and ptxas's registers and
 spills. Needs a CUDA card and ``nvcc``; imports nothing at import time
 that needs either.
@@ -50,6 +56,7 @@ from typing import Dict, List, Tuple
 from end2end_asr_tpu_torch.tools import probe_lib as P
 
 SOURCE = "vgg_block2.cu"
+SOURCE_F32 = "vgg_block2_f32.cu"
 B, F, T = 12, 80, 400  # the train cell's x (PERF.md §4)
 PARTS = ("staging", "conv3", "conv4", "full")
 WGMMA_KERNEL = "vgg_block2_fwd_wgmma_kernel"
@@ -58,6 +65,19 @@ WGMMA_KERNEL = "vgg_block2_fwd_wgmma_kernel"
 def design_of(src: str) -> str:
     """"wgmma" for the persistent wgmma kernel, "tiles" for PR 3's."""
     return "wgmma" if WGMMA_KERNEL in src else "tiles"
+
+
+def f32_design_of(src: str) -> str:
+    """The f32 entry's design: "fma" for the FFMA GEMMs with an x2 scratch
+    argument, "tiles" for the earlier per-tile kernel."""
+    return "fma" if "vgg_block2_fwd_conv4_f32_kernel" in src else "tiles"
+
+
+def f32_argtypes(design: str) -> list:
+    """The f32 entry's ctypes arguments: the "fma" design's x2 scratch
+    pointer comes before B, F, T."""
+    from end2end_asr_tpu_torch.ops import cuda_lib as C
+    return [C.P] * (8 if design == "fma" else 7) + [C.I] * 3 + [C.P]
 
 
 def _off(stmt: str) -> Tuple[str, str]:
@@ -138,10 +158,13 @@ def variants(src: str, parts=PARTS) -> Dict[str, str]:
     return out
 
 
-def weights_for(V, design: str, w3, w4):
-    """The weight arguments the design's bf16 entry reads: PR 3's kernel
-    the "t" layout (tap, out, in), the wgmma kernel the packed stages."""
+def weights_for(V, design: str, w3, w4, cdt):
+    """The weight arguments the design's entry reads: the per-tile bf16
+    kernel the "t" layout (tap, out, in), the wgmma kernel the packed stages, the
+    f32 entries (either design) the "n" layout (tap, in, out)."""
     import torch
+    if cdt == torch.float32:
+        return V._layout(w3, cdt, False), V._layout(w4, cdt, False)
     if design == "wgmma":
         return V._pack_fwd2(w3, w4)
     return (V._layout(w3, torch.bfloat16, True),
@@ -150,6 +173,8 @@ def weights_for(V, design: str, w3, w4):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16", help="the entry to time")
     p.add_argument("--source", action="append", default=[],
                    help="another vgg_block2.cu (repeatable)")
     p.add_argument("--parts", default=None,
@@ -166,20 +191,26 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("probe_vgg2_fwd: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    parts = args.parts.split(",") if args.parts else list(PARTS)
-    designs = {"package": os.path.join(cuda_lib.CSRC_DIR, SOURCE)}
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = args.dtype == "float32"
+    parts = args.parts.split(",") if args.parts else (
+        ["full"] if f32 else list(PARTS))
+    if f32 and parts != ["full"]:
+        raise SystemExit("probe_vgg2_fwd: at float32 only --parts full")
+    designs = {"package": os.path.join(cuda_lib.CSRC_DIR,
+                                       SOURCE_F32 if f32 else SOURCE)}
     designs.update({f"source{i}": s for i, s in enumerate(args.source)})
     named, design = {}, {}
     for d, path in designs.items():
         with open(path) as f:
             src = f.read()
-        design[d] = design_of(src)
+        design[d] = f32_design_of(src) if f32 else design_of(src)
         for part, v in variants(src, parts).items():
             named[f"{d}:{part}"] = P.write_source(
-                f"probe_vgg2_fwd_{d}_{part}", v)
+                f"probe_vgg2_fwd_{args.dtype}_{d}_{part}", v)
     libs = P.build(named, "probe_vgg2_fwd")
 
-    cdt = torch.bfloat16
+    cdt = torch.float32 if f32 else torch.bfloat16
     g0 = torch.Generator().manual_seed(0)
     x = torch.randn(B, F, T, 64, generator=g0).relu().to(dev, cdt)
     ws = [(torch.randn(*s, generator=g0) * sc).to(dev) for s, sc in
@@ -190,22 +221,26 @@ def main(argv=None):
     stream = torch.cuda.current_stream().cuda_stream
     kernel = V._FWD2_KERNELS[cdt]
     calls, outs = {}, {}
+    x2 = torch.empty((B, F, T, 128), dtype=cdt, device=dev)
     for name, (so, _) in libs.items():
         d, part = name.split(":")
-        w3k, w4k = weights_for(V, design[d], ws[0], ws[2])
+        w3k, w4k = weights_for(V, design[d], ws[0], ws[2], cdt)
         fn = getattr(ctypes.CDLL(so), kernel.symbol)
-        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        fn.argtypes = (f32_argtypes(design[d]) if f32 else kernel.argtypes)
+        fn.restype = ctypes.c_int
+        scratch = (x2.data_ptr(),) if design[d] == "fma" else ()
         out = torch.empty(pooled, dtype=cdt, device=dev)
         idx = torch.empty(pooled, dtype=torch.uint8, device=dev)
         outs[name] = (out, idx)
         modes = (("idx", idx), ("no_idx", None)) if part == "full" else (
             ("idx", idx),)
         for mode, ip in modes:
-            def call(fn=fn, out=out, ip=ip, w3k=w3k, w4k=w4k):
+            def call(fn=fn, out=out, ip=ip, w3k=w3k, w4k=w4k,
+                     scratch=scratch, name=name):
                 if fn(x.data_ptr(), w3k.data_ptr(), ws[1].data_ptr(),
                       w4k.data_ptr(), ws[3].data_ptr(), out.data_ptr(),
-                      ip.data_ptr() if ip is not None else None, B, F, T,
-                      stream):
+                      ip.data_ptr() if ip is not None else None, *scratch,
+                      B, F, T, stream):
                     raise RuntimeError(f"probe_vgg2_fwd: {name} failed")
             calls[f"{name}" + ("" if mode == "idx" else ":no_idx")] = call
     if args.library:
@@ -230,10 +265,11 @@ def main(argv=None):
         calls[name]()
         torch.cuda.synchronize()
         diff = (out.float() - want.float()).abs()
+        tol = 1e-4 if f32 else 2 ** -6   # chip_smoke.py's elementwise ones
         checks[name] = {
             "max_abs_err": diff.max().item(),
-            "within_bf16_tol": bool((diff <= 2 ** -6 + 2 ** -6
-                                     * want.float().abs()).all()),
+            "within_tol": bool((diff <= tol + tol
+                                * want.float().abs()).all()),
             "idx_equal_share": (idx == want_idx).float().mean().item()}
     dev_ms = {n: r["device_ms"] for n, r in res.items()}
     part_ms = {}
@@ -243,7 +279,8 @@ def main(argv=None):
                                                     if i else 0.0)
                       for i, n in enumerate(chain)}
     print(json.dumps({
-        "shape": [B, F, T, 64], "gpu": P.gpu_line(), "sources": designs,
+        "dtype": args.dtype, "shape": [B, F, T, 64], "gpu": P.gpu_line(),
+        "sources": designs,
         "designs": design, "device_ms": dev_ms,
         "events_ms": {n: r["events_ms"] for n, r in res.items()},
         "kernels_ms": {n: r["kernels_ms"] for n, r in res.items()},

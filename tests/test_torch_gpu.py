@@ -790,6 +790,101 @@ def test_vgg_block2_bwd_bf16_kernels(dev, B, F, T, all_on):
         == sorted(BWD2_BF16_KERNELS), names
 
 
+# the f32 entries' kernels as the profiler names them (csrc/vgg_block2_f32.cu):
+# every kernel of an entry carries the prefix chip_smoke.py's device_ms sums
+FWD2_F32_KERNELS = ("vgg_block2_fwd_x2_f32_kernel",
+                    "vgg_block2_fwd_conv4_f32_kernel")
+BWD2_F32_KERNELS = ("vgg_block2_bwd_x2_f32_kernel",
+                    "vgg_block2_bwd_dy4_f32_kernel",
+                    "vgg_block2_bwd_dy3_f32_kernel",
+                    "vgg_block2_bwd_wgrad_f32_kernel",
+                    "vgg_block2_bwd_reduce_f32_kernel",
+                    "vgg_block2_bwd_dx_f32_kernel")
+# f32 backward, the tensors downstream of the relu mask (dx, dW3, db3): an
+# activation within one f32 sum error of zero may be masked the other way
+# (chip_smoke.py VGG2_F32_MASK_TOL); with b3 + 10 no mask decision is near
+BLOCK2_F32_MASK_TOL = 1e-3
+
+
+def _kernel_names(fn, key):
+    """The device kernels of one fn() call whose names hold `key`."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):  # the profiler drops a call's events now and then
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and key in e.name]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.parametrize("B,F,T,all_on", [
+    (2, 82, 398, False), (2, 82, 398, True), (3, 10, 34, False)])
+def test_vgg_block2_f32_kernels(dev, B, F, T, all_on):
+    """The f32 forward and backward at chip_smoke.py's second shape and at
+    one whose F and T are multiples of neither tile (8 or 16 rows, 16
+    columns), and with every activation positive (b3 + 10): the forward
+    within F32_TOL of the plain version, its argmax equal wherever the
+    plain conv4's two best window values lie more than 1e-4 * max(|best|,
+    1) apart, out with and without idx bit-identical; the backward within
+    BLOCK2_F32_TOL (BLOCK2_F32_MASK_TOL for dx, dW3, db3 where a mask
+    decision can be near) of the plain backward on the same out / idx, two
+    runs bit-identical; one launch through each wrapper, whose kernels are
+    the entry's and carry its prefix."""
+    import torch.nn.functional as Fn
+    cdt = torch.float32
+    x, w3, b3, w4, b4 = _block2_args(dev, cdt, B, F, T, seed=5 * F + T)
+    if all_on:
+        b3 = b3.abs() + 10.0
+    idx = torch.empty((B, F // 2, T // 2, 128), dtype=torch.uint8, device=dev)
+    V.reset_launches2()
+    out = V.vgg_block2(x, w3, b3, w4, b4, cdt=cdt, idx_out=idx)
+    assert V.launches2() == 1
+    want, want_idx = V.vgg_block2_plain(x, w3, b3, w4, b4, cdt=cdt)
+    torch.testing.assert_close(out, want, rtol=F32_TOL, atol=F32_TOL)
+    y4 = Fn.conv2d(V._x2_plain(x, w3, b3, cdt), V._nchw(w4, cdt), padding=1)
+    win = y4.reshape(B, 128, F // 2, 2, T // 2, 2).permute(
+        0, 2, 4, 1, 3, 5).reshape(B, F // 2, T // 2, 128, 4)
+    top = win.topk(2, dim=-1).values
+    clear = (top[..., 0] - top[..., 1]) > 1e-4 * top[..., 0].abs(
+        ).clamp_min(1.0)
+    assert clear.float().mean() > 0.9
+    assert bool((idx == want_idx)[clear].all())
+    names = _kernel_names(lambda: V.vgg_block2(x, w3, b3, w4, b4, cdt=cdt),
+                          "vgg_block2")
+    assert len(names) == len(FWD2_F32_KERNELS), names
+    assert all("vgg_block2_fwd" in n for n in names), names
+    assert sorted(k for n in names for k in FWD2_F32_KERNELS if k in n) \
+        == sorted(FWD2_F32_KERNELS), names
+    assert torch.equal(V.vgg_block2(x, w3, b3, w4, b4, cdt=cdt), out)
+
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(T)
+                    ).to(dev, cdt)
+    V.reset_launches2()
+    got = V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt)
+    assert V.bwd2_launches() == 1
+    want = V.vgg_block2_bwd_plain(x, w3, b3, w4, out, idx, g, cdt)
+    tols = [BLOCK2_F32_TOL if all_on else BLOCK2_F32_MASK_TOL] * 3 + [
+        BLOCK2_F32_TOL] * 2
+    for name, a, b, tol in zip(("dx", "dw3", "db3", "dw4", "db4"), got, want,
+                               tols):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_l2(a, b) < tol, name
+    again = V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)          # fixed-order sums
+    names = _kernel_names(
+        lambda: V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt),
+        "vgg_block2")
+    assert len(names) == len(BWD2_F32_KERNELS), names
+    assert all("vgg_block2_bwd" in n for n in names), names
+    assert sorted(k for n in names for k in BWD2_F32_KERNELS if k in n) \
+        == sorted(BWD2_F32_KERNELS), names
+
+
 def test_vgg_block2_autograd_function_and_rejections(dev):
     x, w3, b3, w4, b4 = _block2_args(dev, torch.float32, 1, 6, 10, seed=2)
     leaves = [t.requires_grad_() for t in (x, w3, b3, w4, b4)]
