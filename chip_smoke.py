@@ -205,8 +205,9 @@ def gpu_line():
 
 def phase_build(cuda_lib):
     t0 = time.time()
-    paths = cuda_lib.build(["stft", "vgg_block1", "attention", "pool_bwd",
-                            "vgg_block2", "vgg_block2_f32", "stream"])
+    paths = cuda_lib.build(["stft", "vgg_block1", "vgg_block1_f32",
+                            "attention", "pool_bwd", "vgg_block2",
+                            "vgg_block2_f32", "stream"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
     for src in sorted(paths):
         for ln in cuda_lib.build_log(src).splitlines():
@@ -398,6 +399,9 @@ def check_vgg(torch, dev):
     dev_ms = {mode: device_ms(torch, lambda: V.vgg_block1(
         *args, cdt=torch.bfloat16, idx_out=ix), name=FWD_KERNEL_NAME)
         for mode, ix in (("idx", idx), ("no_idx", None))}
+    # the f32 entry's kernel (csrc/vgg_block1_f32.cu), with idx (training)
+    dev_ms["f32"] = device_ms(torch, lambda: V.vgg_block1(
+        *args, cdt=torch.float32, idx_out=idx), name="vgg_block1_fwd")
     lib = {}
     for cdt in (torch.bfloat16, torch.float32):   # TF32 off (main)
         xs = spect.to(cdt)[:, None]
@@ -408,15 +412,14 @@ def check_vgg(torch, dev):
             torch.relu(Fn.conv2d(xs, w1c, b1c, padding=1)), w2c, padding=1),
             2) + b2c[None, :, None, None]), iters=10)
     lib_ms = lib[torch.bfloat16]
-    flops = 2 * B * F * T * 64 * (9 + 576)
-    # x and the weights in; out (bf16) and idx (uint8) out
-    nbytes = (4 * (B * F * T + 9 * 64 + 576 * 64 + 128)
-              + (2 + 1) * B * Fp * Tp * 64)
-    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_BPS
+    work = vgg1_work(B, F, T)
+    flops = work["fwd_flop"]
+    t_ops, t_bytes = flops / BF16_PEAK, work["fwd_bytes_bf16"] / HBM_BPS
     for cdt, (k, p) in times.items():
         log(f"vgg_block1 {str(cdt)[6:]} ms {k:.4f} plain {p:.4f}")
     log(f"vgg_block1 bf16 {FWD_KERNEL_NAME} device ms {dev_ms['idx']} "
-        f"with idx, {dev_ms['no_idx']} without")
+        f"with idx, {dev_ms['no_idx']} without; f32 {dev_ms['f32']} "
+        f"({tflops(flops, dev_ms['f32'])} TFLOP/s)")
     log(f"vgg_block1 cuDNN bf16 conv2d x2 + max_pool2d {lib_ms:.4f} ms "
         f"(f32, TF32 off: {lib[torch.float32]:.4f}); "
         f"bf16 bound {1e3 * max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.1f} "
@@ -435,7 +438,36 @@ def check_vgg(torch, dev):
             "plain_ms_f32": times[torch.float32][1],
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms, "library_ms_f32": lib[torch.float32]}
+            "library_ms": lib_ms, "library_ms_f32": lib[torch.float32],
+            "device_ms_f32": dev_ms["f32"],
+            "tflops_f32": tflops(flops, dev_ms["f32"]),
+            "bound_ms_f32": 1e3 * max(flops / F32_PEAK,
+                                      work["fwd_bytes_f32"] / HBM_BPS),
+            "source_f32": "end2end_asr_tpu_torch/csrc/vgg_block1_f32.cu"}
+
+
+def vgg1_work(B, F, T):
+    """What block 1's forward and backward must do at x (B, F, T), for
+    their bounds: conv2 and dW2 at the 2 Fp x 2 Tp positions the pool
+    keeps; conv1 (recomputed in the backward), dx1 and dW1 at the F x T
+    positions of the image (FLOP); x and the weights read once, out and
+    idx written once by the forward, out, idx and g read once by the
+    backward and the weight gradients written once (bytes, by the compute
+    dtype's size)."""
+    keep, full = B * (F // 2 * 2) * (T // 2 * 2), B * F * T
+    pooled, wts = B * (F // 2) * (T // 2) * 64, 9 * 64 + 64 + 576 * 64 + 64
+    w = {"fwd_flop": 2 * 64 * (keep * 576 + full * 9),
+         "bwd_flop": 2 * 64 * ((keep + full) * 576 + 2 * full * 9)}
+    for name, size in (("bf16", 2), ("f32", 4)):
+        w[f"fwd_bytes_{name}"] = 4 * (full + wts) + (size + 1) * pooled
+        w[f"bwd_bytes_{name}"] = (4 * (full + wts) + (2 * size + 1) * pooled
+                                  + 4 * wts)
+    return w
+
+
+def tflops(flop, ms):
+    """flop / ms in TFLOP/s (None where the profiler saw no time)."""
+    return flop / (1e9 * ms) if ms else None
 
 
 def rel_err(a, b):
@@ -496,8 +528,13 @@ def check_vgg_bwd(torch, dev):
             spect, *ws[:3], out, idx, g, cdt), iters=10)
         plain = time_ms(torch, lambda: V.vgg_block1_bwd_plain(
             spect, *ws[:3], out, idx, g, cdt), iters=5)
+        # the f32 entry's kernels (csrc/vgg_block1_f32.cu) on the device
+        dms = device_ms(torch, lambda: V.vgg_block1_bwd(
+            spect, *ws[:3], out, idx, g, cdt), iters=10,
+            name="vgg_block1_bwd") if cdt == torch.float32 else None
         res[cdt] = (max(errs), ms, plain,
-                    max((a - b).abs().max().item() for a, b in zip(got, want)))
+                    max((a - b).abs().max().item() for a, b in zip(got, want)),
+                    dms)
     # cuDNN: autograd of conv2d x2 + max_pool2d, less its forward; bf16
     # and f32 (TF32 off, main)
     gl = torch.randn(B, 64, F // 2, T // 2, generator=g0).to(dev)
@@ -517,23 +554,29 @@ def check_vgg_bwd(torch, dev):
         both_ms = time_ms(torch, lambda: torch.autograd.grad(
             lib_fwd(), wc, gc), iters=5)
         lib[cdt] = both_ms - fwd_ms
-    flops = 2 * B * F * T * 64 * (576 + 9) * 2
-    nbytes = 4 * B * F * T + B * (F // 2) * (T // 2) * 64 * 5 + 4 * 2 * (
-        9 * 64 + 64 + 576 * 64 + 64)
-    err, ms, plain, abs_err = res[torch.bfloat16]
+    work = vgg1_work(B, F, T)
+    flops = work["bwd_flop"]
+    err, ms, plain, abs_err, _ = res[torch.bfloat16]
+    dms32 = res[torch.float32][4]
     log(f"vgg_block1_bwd bf16 ms {ms:.4f} plain {plain:.4f}; f32 ms "
-        f"{res[torch.float32][1]:.4f} plain {res[torch.float32][2]:.4f}; "
+        f"{res[torch.float32][1]:.4f}, device {dms32} "
+        f"({tflops(flops, dms32)} TFLOP/s of the useful {flops / 1e9:.1f} "
+        f"GFLOP), plain {res[torch.float32][2]:.4f}; "
         f"cuDNN conv2d x2 + max_pool2d backward ~{lib[torch.bfloat16]:.4f} "
         f"(f32, TF32 off: ~{lib[torch.float32]:.4f}) "
         f"({flops / 1e9:.1f} GFLOP)")
     return entry("vgg_block1_bwd", "vgg_block1.cu",
                  "end2end_asr_tpu/ops/vgg_fused.py:214", abs_err, ms, plain,
-                 flops / BF16_PEAK, nbytes / HBM_BPS, lib[torch.bfloat16],
+                 flops / BF16_PEAK, work["bwd_bytes_bf16"] / HBM_BPS,
+                 lib[torch.bfloat16],
                  rel_err=err, rel_err_f32=res[torch.float32][0],
                  ms_f32=res[torch.float32][1],
                  plain_ms_f32=res[torch.float32][2],
-                 bound_ms_f32=1e3 * flops / F32_PEAK,
-                 library_ms_f32=lib[torch.float32])
+                 bound_ms_f32=1e3 * max(flops / F32_PEAK,
+                                        work["bwd_bytes_f32"] / HBM_BPS),
+                 library_ms_f32=lib[torch.float32], device_ms_f32=dms32,
+                 tflops_f32=tflops(flops, dms32),
+                 source_f32="end2end_asr_tpu_torch/csrc/vgg_block1_f32.cu")
 
 
 def attention_runs(torch, AF, qkv, bias, dout, seed, rate):
@@ -1023,7 +1066,7 @@ def check_vgg2(torch, dev):
         f"bf16, {1e3 * flops / F32_PEAK:.4f} / {2e3 * flops / F32_PEAK:.4f} "
         f"f32 ({flops / 1e9:.1f} GFLOP forward)")
     # the f32 entries' executed rates against the 67 TFLOP/s of f32 FMA
-    tf_f32 = {k: (n / (1e9 * rf[k]) if rf[k] else None) for k, n in (
+    tf_f32 = {k: tflops(n, rf[k]) for k, n in (
         ("fwd_device", flops), ("bwd_device", bwd_f32_flops))}
     log(f"vgg_block2 f32 executed: fwd {flops / 1e9:.1f} GFLOP at "
         f"{tf_f32['fwd_device']} TFLOP/s, bwd {bwd_f32_flops / 1e9:.1f} "

@@ -1,4 +1,5 @@
-// vgg_block1_fwd: the first block of the vgg_cnn front end, fused:
+// vgg_block1: the bf16 entries of the first block of the vgg_cnn front end,
+// fused, and of its backward (csrc/vgg_block1_f32.cu holds the f32 entries):
 //
 //   out = relu(maxpool2x2(conv2_SAME(relu(conv1_SAME(x) + b1))) + b2)
 //
@@ -8,10 +9,9 @@
 // memory, and conv2, the pool, the bias and the relu run on them.
 //
 // Layouts: x (B, F, T) f32; w1 (3,3,1,64) HWIO f32; b1, b2 (64,) f32;
-// conv2's weight is f32 HWIO (3,3,64,64) for the f32 kernel and bf16
-// (3,3,64 out,64 in) for the bf16 kernel (the wrapper packs it, as the JAX
+// conv2's weight bf16 (3,3,64 out,64 in) (the wrapper packs it, as the JAX
 // package packs its weights outside its kernel, vgg_fused.py:315-325);
-// out (B, F/2, T/2, 64) NHWC in the compute type cdt (f32 or bf16); idx,
+// out (B, F/2, T/2, 64) NHWC in the compute type cdt (bf16); idx,
 // when given, (B, F/2, T/2, 64) uint8 = the pool's argmax in window order
 // (0,0),(0,1),(1,0),(1,1) over (f, t).
 //
@@ -29,10 +29,12 @@
 // Products of cdt values are exact in f32, so only the summation order
 // differs from cuDNN's or XLA's convolution.
 //
-// What bounds it on the H100: conv2, 2*B*F*T*64*576 FLOP (~114 GFLOP at
-// B=12, F=161, T=800): ~0.12 ms at the 989 TFLOP/s of the bf16 tensor
-// cores (the serving path's compute type), ~1.7 ms at the 67 TFLOP/s of
-// f32 FMA. Bytes are small beside it (~80 MB in and out with idx).
+// What bounds it on the H100: conv2 at the 2Fp x 2Tp positions the pool
+// keeps and conv1 at the F x T of the image, 115.0 GFLOP at B=12, F=161,
+// T=800 (chip_smoke.py: vgg1_work): 0.116 ms at the 989 TFLOP/s of the
+// bf16 tensor cores (the serving path's compute type), 1.72 ms at the 67
+// TFLOP/s of f32 FMA. Bytes are small beside it (~80 MB in and out with
+// idx).
 //
 // bf16 (vgg_block1_fwd_wgmma_kernel): one persistent pass, a block of four
 // warpgroups on each SM. Work item = (utterance, pair of pooled rows = 4
@@ -65,11 +67,6 @@
 // The products sum in the order of the mma.sync kernel this one replaced
 // (taps, then 16-channel steps); at the main path's shape the two gave the
 // same bits.
-//
-// f32 (vgg_block1_fwd_f32_kernel): f32 FMA on the CUDA cores, one block per
-// (utterance, pooled row, 16 pooled columns); conv2's weights stream through
-// shared memory one filter row at a time; each thread owns 2 conv rows x 4
-// conv columns x 4 channels (two pool windows) in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,147 +78,6 @@ constexpr int C = 64;  // channels of conv1 out / conv2 in and out
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA-core FMA
-// ---------------------------------------------------------------------------
-
-constexpr int TP = 16;         // pooled columns per block
-constexpr int CC = 2 * TP;     // conv columns per block (32)
-constexpr int XR = 4;          // conv1 rows held (2 conv rows + halo)
-constexpr int XC = CC + 2;     // conv1 columns held (34)
-constexpr int XCP = 36;        // padded row pitch of the conv1 tile
-constexpr int SR = XR + 2;     // input rows staged (6)
-constexpr int SC = XC + 2;     // input columns staged (36)
-constexpr int THREADS = 128;   // 8 column groups x 16 channel groups
-
-__global__ void __launch_bounds__(THREADS)
-vgg_block1_fwd_f32_kernel(const float* __restrict__ x,
-                          const float* __restrict__ w1,
-                          const float* __restrict__ b1,
-                          const float* __restrict__ w2,
-                          const float* __restrict__ b2,
-                          float* __restrict__ out,
-                          uint8_t* __restrict__ idx, int F, int T) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* w2s = smem;                   // 3 x C x C (one filter row df)
-  float* x1s = w2s + 3 * C * C;        // XR x C x XCP
-  float* xs = x1s + XR * C * XCP;      // SR x SC
-  float* w1s = xs + SR * SC;           // 9 x C
-  float* b1s = w1s + 9 * C;            // C
-  float* b2s = b1s + C;                // C
-
-  const int Fp = F / 2, Tp = T / 2;
-  const int b = blockIdx.z;
-  const int fp = blockIdx.y;
-  const int c0 = blockIdx.x * CC;      // first conv column of the block
-  const int tid = threadIdx.x;
-
-  // input tile: rows 2fp-2 .. 2fp+3, columns c0-2 .. c0+33, zero outside
-  const float* xb = x + (size_t)b * F * T;
-  for (int e = tid; e < SR * SC; e += THREADS) {
-    const int r = e / SC, j = e % SC;
-    const int g = 2 * fp - 2 + r, t = c0 - 2 + j;
-    xs[e] = (g >= 0 && g < F && t >= 0 && t < T) ? xb[(size_t)g * T + t]
-                                                 : 0.f;
-  }
-  for (int e = tid; e < 9 * C; e += THREADS) w1s[e] = w1[e];
-  for (int e = tid; e < C; e += THREADS) {
-    b1s[e] = b1[e];
-    b2s[e] = b2[e];
-  }
-  __syncthreads();
-
-  // conv1 + b1 + relu for rows 2fp-1 .. 2fp+2 and columns c0-1 .. c0+32;
-  // zero outside the image (conv2's SAME padding pads the activations)
-  for (int e = tid; e < XR * C * XC; e += THREADS) {
-    const int r = e / (C * XC);
-    const int ci = (e / XC) % C;
-    const int j = e % XC;
-    const int g = 2 * fp - 1 + r, t = c0 - 1 + j;
-    float v = 0.f;
-    if (g >= 0 && g < F && t >= 0 && t < T) {
-      float acc = 0.f;
-#pragma unroll
-      for (int df = 0; df < 3; ++df)
-#pragma unroll
-        for (int dt = 0; dt < 3; ++dt)
-          acc = fmaf(xs[(r + df) * SC + j + dt], w1s[(df * 3 + dt) * C + ci],
-                     acc);
-      v = fmaxf(acc + b1s[ci], 0.f);
-    }
-    x1s[(r * C + ci) * XCP + j] = v;
-  }
-
-  const int chg = tid % 16;   // output channels 4*chg .. 4*chg+3
-  const int cg = tid / 16;    // conv columns 4*cg .. 4*cg+3 of the block
-  float acc[2][4][4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[q][i][k] = 0.f;
-
-  for (int df = 0; df < 3; ++df) {
-    __syncthreads();  // conv1 tile written / previous filter row consumed
-    const float4* src = reinterpret_cast<const float4*>(w2 + df * 3 * C * C);
-    float4* dst = reinterpret_cast<float4*>(w2s);
-    for (int e = tid; e < 3 * C * C / 4; e += THREADS) dst[e] = src[e];
-    __syncthreads();
-    for (int ci = 0; ci < C; ++ci) {
-      float a[2][6];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float* row = x1s + ((q + df) * C + ci) * XCP + 4 * cg;
-        const float4 v = *reinterpret_cast<const float4*>(row);
-        const float2 u = *reinterpret_cast<const float2*>(row + 4);
-        a[q][0] = v.x; a[q][1] = v.y; a[q][2] = v.z; a[q][3] = v.w;
-        a[q][4] = u.x; a[q][5] = u.y;
-      }
-#pragma unroll
-      for (int dt = 0; dt < 3; ++dt) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(w2s + (dt * C + ci) * C + 4 * chg);
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float av = a[q][i + dt];
-            acc[q][i][0] = fmaf(av, w.x, acc[q][i][0]);
-            acc[q][i][1] = fmaf(av, w.y, acc[q][i][1]);
-            acc[q][i][2] = fmaf(av, w.z, acc[q][i][2]);
-            acc[q][i][3] = fmaf(av, w.w, acc[q][i][3]);
-          }
-      }
-    }
-  }
-
-  // pool windows: columns (4cg, 4cg+1) and (4cg+2, 4cg+3) of rows 2fp, 2fp+1
-#pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    const int tp = blockIdx.x * TP + 2 * cg + w;
-    if (tp >= Tp) continue;
-    float o[4];
-    uint32_t packed = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float v[4] = {acc[0][2 * w][k], acc[0][2 * w + 1][k],
-                          acc[1][2 * w][k], acc[1][2 * w + 1][k]};
-      float best = v[0];
-      uint32_t id = 0;
-#pragma unroll
-      for (int m = 1; m < 4; ++m)
-        if (v[m] > best) { best = v[m]; id = m; }
-      o[k] = fmaxf(best + b2s[4 * chg + k], 0.f);
-      packed |= id << (8 * k);
-    }
-    const size_t off = (((size_t)b * Fp + fp) * Tp + tp) * C + 4 * chg;
-    *reinterpret_cast<float4*>(out + off) = make_float4(o[0], o[1], o[2], o[3]);
-    if (idx != nullptr) *reinterpret_cast<uint32_t*>(idx + off) = packed;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -698,9 +554,10 @@ vgg_block1_fwd_wgmma_kernel(const float* __restrict__ x,
 // neighbouring items' pool windows) feeds its dx1, so every x1 position's
 // dx1 is complete inside one item and no partial dx1 crosses blocks.
 //
-// Bound on the H100 (B=12, F=161, T=800): dW2 and dx1 are 2 x 114 GFLOP,
-// conv1's recompute and dW1 2 x 1.8: 231.5 GFLOP, 0.234 ms on the bf16
-// tensor cores (3.5 ms at the f32 FMA rate); bytes (~60 MB in) are small
+// Bound on the H100 (B=12, F=161, T=800): dW2 at the 2Fp x 2Tp positions
+// the pool keeps (113.2 GFLOP), dx1 at the F x T of the image (114.0),
+// conv1's recompute and dW1 2 x 1.8: 230.8 GFLOP, 0.233 ms on the bf16
+// tensor cores (3.44 ms at the f32 FMA rate); bytes (~130 MB) are small
 // beside it.
 //
 // bf16 (vgg_block1_bwd_fused_kernel): ONE pass. FUSED_BLOCKS persistent
@@ -732,14 +589,8 @@ vgg_block1_fwd_wgmma_kernel(const float* __restrict__ x,
 //   operand from registers (ldmatrix with per-lane rows). A wgmma
 //   descriptor can start on any 128-byte row of a swizzled tile (the
 //   forward's products rely on it), so a wgmma design is open.
-// f32: the earlier design, unchanged: a dW2 kernel (grid BWD_BLOCKS x 3,
-//   block (i, df) owns dW2[df], FMA, each thread 3 taps x 4 ci x 4 co) and
-//   a dx kernel (FMA; then the relu mask with x1 recomputed, db1, dW1),
-//   both recomputing x1 from the input tile.
 
-constexpr int BWD_BLOCKS = 256;    // f32 kernels; fixed: the reduction order
-constexpr int FUSED_BLOCKS = 132;  // bf16 kernel (one per SM); fixed too
-constexpr int BT = 256;            // threads of the f32 backward blocks
+constexpr int FUSED_BLOCKS = 132;  // one per SM; fixed: the reduction order
 constexpr int CW = 64;             // conv columns per work item
 constexpr int XW = CW + 2;         // x1 / dy2 columns held (halo)
 constexpr int XS = CW + 4;         // input columns staged
@@ -759,65 +610,6 @@ __device__ __forceinline__ Item item_of(long it, int rows, int chunks) {
   return w;
 }
 
-// the f32 kernels' helpers: input rows 2r-2 .. 2r+3, columns c0-2 ..
-// c0+65, zero outside the image
-__device__ __forceinline__ void stage_x(const float* x, int F, int T,
-                                        const Item& w, float* xs, int tid) {
-  const float* xb = x + (size_t)w.b * F * T;
-  for (int e = tid; e < 6 * XS; e += BT) {
-    const int i = e / XS, j = e % XS;
-    const int g = 2 * w.r - 2 + i, t = w.c0 - 2 + j;
-    xs[e] = (g >= 0 && g < F && t >= 0 && t < T) ? xb[(size_t)g * T + t]
-                                                 : 0.f;
-  }
-}
-
-// x1 at (row 2r + q, column c0 + j) for conv1 output channel ci, from the
-// staged tile, as the f32 forward computes it
-__device__ __forceinline__ float x1_at(const float* xs, const float* w1s,
-                                       const float* b1s, int q, int j,
-                                       int ci) {
-  float acc = 0.f;
-#pragma unroll
-  for (int df = 0; df < 3; ++df)
-#pragma unroll
-    for (int dt = 0; dt < 3; ++dt)
-      acc = fmaf(xs[(q + 1 + df) * XS + j + 1 + dt], w1s[(df * 3 + dt) * C + ci],
-                 acc);
-  return fmaxf(acc + b1s[ci], 0.f);
-}
-
-// g, out and idx of 8 channels at one pooled position (zeros and an idx
-// that matches no window element when the position is outside the pool)
-__device__ __forceinline__ void load_pooled8(const float* g, const float* out,
-                                             const uint8_t* idx, size_t off,
-                                             bool valid, float* gv, float* ov,
-                                             uint8_t* iv) {
-  if (!valid) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      gv[i] = 0.f;
-      ov[i] = 0.f;
-      iv[i] = 255;
-    }
-    return;
-  }
-  const float4* gp = reinterpret_cast<const float4*>(g + off);
-  const float4* op = reinterpret_cast<const float4*>(out + off);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float4 a = gp[h], c = op[h];
-    gv[4 * h] = a.x; gv[4 * h + 1] = a.y; gv[4 * h + 2] = a.z;
-    gv[4 * h + 3] = a.w;
-    ov[4 * h] = c.x; ov[4 * h + 1] = c.y; ov[4 * h + 2] = c.z;
-    ov[4 * h + 3] = c.w;
-  }
-  const uint2 u = *reinterpret_cast<const uint2*>(idx + off);
-  const uint8_t* up = reinterpret_cast<const uint8_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) iv[i] = up[i];
-}
-
 __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t& r0,
                                           uint32_t& r1, uint32_t& r2,
                                           uint32_t& r3) {
@@ -826,301 +618,6 @@ __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t& r0,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(a));
-}
-
-__device__ __forceinline__ void stage_w1b1(const float* w1, const float* b1,
-                                           float* w1s, float* b1s, int tid) {
-  for (int e = tid; e < 9 * C; e += BT) w1s[e] = w1[e];
-  for (int e = tid; e < C; e += BT) b1s[e] = b1[e];
-}
-
-// dy2 at rows 2r-1 .. 2r+2 and columns c0-1 .. c0+64 of an item (the
-// positions whose dy2 reaches the item's x1 through conv2), one thread per
-// (position, 8 channels); `put` stores the 8 values of a position.
-template <typename Put>
-__device__ __forceinline__ void gather_dy(const float* g, const float* out,
-                                          const uint8_t* idx, const Item& w,
-                                          int Fp, int Tp, int tid, Put put) {
-  for (int e = tid; e < 4 * XW * 8; e += BT) {
-    const int pos = e >> 3, ch = e & 7;
-    const int i = pos / XW, j = pos % XW;
-    const int R = 2 * w.r - 1 + i, Cc = w.c0 - 1 + j;
-    const bool in = R >= 0 && R < 2 * Fp && Cc >= 0 && Cc < 2 * Tp;
-    float gv[8], ov[8];
-    uint8_t iv[8];
-    load_pooled8(g, out, idx,
-                 in ? (((size_t)w.b * Fp + R / 2) * Tp + Cc / 2) * C + ch * 8
-                    : 0,
-                 in, gv, ov, iv);
-    const int wp = 2 * (R & 1) + (Cc & 1);
-    float d[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      d[k] = (in && iv[k] == wp && ov[k] > 0.f) ? gv[k] : 0.f;
-    put(pos, ch, d);
-  }
-}
-
-// dW1 partial over an item: thread e (< 576 = 9 taps x 64) accumulates
-// sum_pos dx1[pos][ci] * x[pos + tap]; dxs is the masked dx1 (rounded to
-// cdt) at the item's 2 x 64 positions, [pos][64].
-__device__ __forceinline__ void accumulate_dw1(const float* dxs,
-                                               const float* xs, float* dw1,
-                                               int tid) {
-  const int ci = tid & 63, t0 = tid >> 6;
-#pragma unroll 1
-  for (int q = 0; q < 2; ++q)
-#pragma unroll 4
-    for (int j = 0; j < CW; ++j) {
-      const float d = dxs[(q * CW + j) * C + ci];
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        const int tap = t0 + 4 * s;
-        if (tap < 9)
-          dw1[s] = fmaf(d, xs[(q + 1 + tap / 3) * XS + j + 1 + tap % 3],
-                        dw1[s]);
-      }
-    }
-}
-
-// write the block's dW1 partial (thread e holds taps e/64, e/64+4, e/64+8)
-__device__ __forceinline__ void store_dw1(float* part, int blk,
-                                          const float* dw1, int tid) {
-  float* p = part + (size_t)blk * PART;
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const int e = tid + 256 * s;
-    if (e < 9 * C) p[e] = dw1[s];
-  }
-}
-
-// ---- dW2 (+ db2), f32 FMA ------------------------------------------------
-
-__global__ void __launch_bounds__(BT)
-vgg_block1_dw2_f32_kernel(const float* __restrict__ x,
-                          const float* __restrict__ w1,
-                          const float* __restrict__ b1,
-                          const float* __restrict__ g,
-                          const float* __restrict__ out,
-                          const uint8_t* __restrict__ idx,
-                          float* __restrict__ part, int B, int F, int T) {
-  extern __shared__ float4 smem4[];
-  float* x1s = reinterpret_cast<float*>(smem4);  // 4XW x 64
-  float* dys = x1s + 4 * XW * C;                 // 2CW x 64
-  float* xs = dys + 2 * CW * C;                  // 6 x XS
-  float* w1s = xs + 6 * XS;
-  float* b1s = w1s + 9 * C;
-  float* red = b1s + C;                          // 32 x 64
-
-  const int Fp = F / 2, Tp = T / 2;
-  const int chunks = (2 * Tp + CW - 1) / CW;
-  const long n = (long)B * Fp * chunks;
-  const int blk = blockIdx.x, df = blockIdx.y;
-  const long lo = n * blk / BWD_BLOCKS, hi = n * (blk + 1) / BWD_BLOCKS;
-  const int tid = threadIdx.x;
-  stage_w1b1(w1, b1, w1s, b1s, tid);
-
-  const int cg = tid >> 4, og = tid & 15;  // ci 4cg.., co 4og..
-  float acc[3][4][4];
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[s][i][k] = 0.f;
-  float db2[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) db2[i] = 0.f;
-  const int tpl = tid >> 3, ch = tid & 7;
-
-  for (long it = lo; it < hi; ++it) {
-    const Item w = item_of(it, Fp, chunks);
-    __syncthreads();
-    stage_x(x, F, T, w, xs, tid);
-    {
-      const int tp = w.c0 / 2 + tpl;
-      float gv[8], ov[8];
-      uint8_t iv[8];
-      load_pooled8(g, out, idx, (((size_t)w.b * Fp + w.r) * Tp + tp) * C +
-                                    ch * 8,
-                   tp < Tp, gv, ov, iv);
-#pragma unroll
-      for (int wp = 0; wp < 4; ++wp) {
-        const int pos = (wp >> 1) * CW + 2 * tpl + (wp & 1);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          dys[pos * C + ch * 8 + i] =
-              (iv[i] == wp && ov[i] > 0.f) ? gv[i] : 0.f;
-      }
-      if (df == 0)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) db2[i] += ov[i] > 0.f ? gv[i] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < 4 * XW * C; e += BT) {
-      const int ci = e & 63, pos = e >> 6;
-      const int i = pos / XW, j = pos % XW;
-      const int gr = 2 * w.r - 1 + i, t = w.c0 - 1 + j;
-      x1s[e] = (gr >= 0 && gr < F && t >= 0 && t < T)
-                   ? x1_at(xs, w1s, b1s, i - 1, j - 1, ci) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int q = 0; q < 2; ++q)
-#pragma unroll 2
-      for (int j = 0; j < CW; ++j) {
-        const float4 d = *reinterpret_cast<const float4*>(
-            dys + (q * CW + j) * C + 4 * og);
-        const float dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-        for (int dt = 0; dt < 3; ++dt) {
-          const float4 a = *reinterpret_cast<const float4*>(
-              x1s + ((q + df) * XW + j + dt) * C + 4 * cg);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-              acc[dt][ii][jj] = fmaf(av[ii], dv[jj], acc[dt][ii][jj]);
-        }
-      }
-  }
-
-  float* pd = part + (size_t)blk * PART + 9 * C + C + df * 3 * C * C;
-#pragma unroll
-  for (int dt = 0; dt < 3; ++dt)
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        pd[(dt * C + 4 * cg + ii) * C + 4 * og + jj] = acc[dt][ii][jj];
-  if (df == 0) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[tpl * C + ch * 8 + i] = db2[i];
-    __syncthreads();
-    if (tid < C) {
-      float s = 0.f;
-      for (int k = 0; k < 32; ++k) s += red[k * C + tid];
-      part[(size_t)blk * PART + 9 * C + C + DW2_SIZE + tid] = s;
-    }
-  }
-}
-
-// ---- dx1 -> dW1, db1, f32 FMA --------------------------------------------
-
-constexpr int XP = 68;  // column pitch of the f32 dy2 tile
-
-__global__ void __launch_bounds__(BT, 1)
-vgg_block1_dx_f32_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w1,
-                         const float* __restrict__ b1,
-                         const float* __restrict__ w2,
-                         const float* __restrict__ g,
-                         const float* __restrict__ out,
-                         const uint8_t* __restrict__ idx,
-                         float* __restrict__ part, int B, int F, int T) {
-  extern __shared__ float4 smem4[];
-  float* w2s = reinterpret_cast<float*>(smem4);  // 3 dt x 64 co x 64 ci
-  float* dys = w2s + 3 * C * C;                  // 4 rows x 64 co x XP
-  float* dxs = dys + 4 * C * XP;                 // 2CW x 64
-  float* xs = dxs + 2 * CW * C;                  // 6 x XS
-  float* w1s = xs + 6 * XS;
-  float* b1s = w1s + 9 * C;
-  float* red = b1s + C;                          // BT x 4
-
-  const int Fp = F / 2, Tp = T / 2;
-  const int rows = (F + 1) / 2, chunks = (T + CW - 1) / CW;
-  const long n = (long)B * rows * chunks;
-  const int blk = blockIdx.x;
-  const long lo = n * blk / BWD_BLOCKS, hi = n * (blk + 1) / BWD_BLOCKS;
-  const int tid = threadIdx.x;
-  stage_w1b1(w1, b1, w1s, b1s, tid);
-
-  const int cgi = tid & 15, colg = tid >> 4;  // ci 4cgi.., cols 4colg..
-  float dw1[3] = {0.f, 0.f, 0.f};
-  float db1[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (long it = lo; it < hi; ++it) {
-    const Item w = item_of(it, rows, chunks);
-    __syncthreads();
-    stage_x(x, F, T, w, xs, tid);
-    gather_dy(g, out, idx, w, Fp, Tp, tid,
-              [&](int pos, int ch, const float* d) {
-                const int i = pos / XW, j = pos % XW;
-#pragma unroll
-                for (int k = 0; k < 8; ++k)
-                  dys[(i * C + ch * 8 + k) * XP + j] = d[k];
-              });
-    float acc[2][4][4];
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[q][i][k] = 0.f;
-    for (int df = 0; df < 3; ++df) {
-      __syncthreads();  // dy2 gathered / previous filter row consumed
-      for (int e = tid; e < 3 * C * C; e += BT) {
-        const int dt = e / (C * C), ci = (e / C) % C, co = e % C;
-        w2s[(dt * C + co) * C + ci] = w2[((df * 3 + dt) * C + ci) * C + co];
-      }
-      __syncthreads();
-      for (int co = 0; co < C; ++co) {
-        float a[2][6];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float* row = dys + ((q + 2 - df) * C + co) * XP + 4 * colg;
-          const float4 v = *reinterpret_cast<const float4*>(row);
-          const float2 u = *reinterpret_cast<const float2*>(row + 4);
-          a[q][0] = v.x; a[q][1] = v.y; a[q][2] = v.z; a[q][3] = v.w;
-          a[q][4] = u.x; a[q][5] = u.y;
-        }
-#pragma unroll
-        for (int dt = 0; dt < 3; ++dt) {
-          const float4 wv = *reinterpret_cast<const float4*>(
-              w2s + (dt * C + co) * C + 4 * cgi);
-          const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int q = 0; q < 2; ++q)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-              for (int cc = 0; cc < 4; ++cc)
-                acc[q][jj][cc] =
-                    fmaf(a[q][jj + 2 - dt], wr[cc], acc[q][jj][cc]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int j = 4 * colg + jj, ci = 4 * cgi + cc;
-          const bool in = 2 * w.r + q < F && w.c0 + j < T;
-          float d = 0.f;
-          if (in && x1_at(xs, w1s, b1s, q, j, ci) > 0.f)
-            d = acc[q][jj][cc];
-          db1[cc] += d;
-          dxs[(q * CW + j) * C + ci] = d;
-        }
-    __syncthreads();
-    accumulate_dw1(dxs, xs, dw1, tid);
-  }
-
-  store_dw1(part, blk, dw1, tid);
-  __syncthreads();
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc) red[tid * 4 + cc] = db1[cc];
-  __syncthreads();
-  if (tid < C) {
-    float s = 0.f;
-    for (int k = 0; k < BT / 16; ++k) s += red[(k * 16 + (tid >> 2)) * 4 +
-                                               (tid & 3)];
-    part[(size_t)blk * PART + 9 * C + tid] = s;
-  }
 }
 
 // ---- the fused pass, bf16 --------------------------------------------------
@@ -1608,59 +1105,10 @@ __global__ void vgg_block1_bwd_reduce_kernel(const float* __restrict__ part,
   grads[e] = s;
 }
 
-int launch_bwd_f32(const float* x, const float* w1, const float* b1,
-                   const float* w2, const float* g, const float* out,
-                   const uint8_t* idx, float* part, float* grads, int B,
-                   int F, int T, cudaStream_t s) {
-  const size_t smem_dw2 =
-      sizeof(float) * (size_t)(4 * XW * C + 2 * CW * C + 6 * XS + 9 * C + C +
-                               32 * C);
-  const size_t smem_dx =
-      sizeof(float) * (size_t)(3 * C * C + 4 * C * XP + 2 * CW * C + 6 * XS +
-                               9 * C + C + BT * 4);
-  cudaError_t e = cudaFuncSetAttribute(
-      vgg_block1_dw2_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_dw2);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(vgg_block1_dx_f32_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_dx);
-  if (e != cudaSuccess) return e;
-  vgg_block1_dw2_f32_kernel<<<dim3(BWD_BLOCKS, 3), BT, smem_dw2, s>>>(
-      x, w1, b1, g, out, idx, part, B, F, T);
-  vgg_block1_dx_f32_kernel<<<BWD_BLOCKS, BT, smem_dx, s>>>(
-      x, w1, b1, w2, g, out, idx, part, B, F, T);
-  vgg_block1_bwd_reduce_kernel<<<(PART + 255) / 256, 256, 0, s>>>(
-      part, grads, BWD_BLOCKS);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// x (B, F, T) f32; w1 (3,3,1,64), b1 (64), w2 (3,3,64,64) HWIO, b2 (64)
-// f32; out (B, F/2, T/2, 64) f32; idx uint8 of out's shape or null.
-extern "C" int vgg_block1_fwd_f32(const void* x, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* b2, void* out, void* idx,
-                                  int B, int F, int T, void* stream) {
-  cudaGetLastError();  // report only this launch's error
-  const int Fp = F / 2, Tp = T / 2;
-  if (Fp == 0 || Tp == 0 || B == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (size_t)(3 * C * C + XR * C * XCP +
-                                               SR * SC + 9 * C + 2 * C);
-  cudaError_t e = cudaFuncSetAttribute(
-      vgg_block1_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Tp + TP - 1) / TP, Fp, B);
-  vgg_block1_fwd_f32_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
-      (const float*)b2, (float*)out, (uint8_t*)idx, F, T);
-  return cudaGetLastError();
 }
 
 // As above with w2p the bf16 conv2 weight packed as (3,3,64 out,64 in) and
@@ -1693,12 +1141,11 @@ extern "C" int vgg_block1_fwd_bf16(const void* x, const void* w1,
   return cudaGetLastError();
 }
 
-// Backward. x (B, F, T) f32; w1 (3,3,1,64), b1 (64) f32; w2: bf16 HWIO
-// (3,3,64 ci,64 co) for the bf16 entry, f32 HWIO for the f32 entry; g and
-// out (B, F/2, T/2, 64) NHWC in cdt; idx uint8 of the same shape (the bf16
-// entry copies g, out and idx in 16-byte chunks: 16-byte aligned); part:
-// FUSED_BLOCKS (bf16) or BWD_BLOCKS (f32) x PART f32 scratch; grads: PART
-// f32 = dW1 (3,3,1,64) | db1 (64) | dW2 (3,3,64,64) | db2 (64).
+// Backward. x (B, F, T) f32; w1 (3,3,1,64), b1 (64) f32; w2 bf16 HWIO
+// (3,3,64 ci,64 co); g and out (B, F/2, T/2, 64) NHWC bf16; idx uint8 of the
+// same shape (g, out and idx are copied in 16-byte chunks: 16-byte
+// aligned); part: FUSED_BLOCKS x PART f32 scratch; grads: PART f32 = dW1
+// (3,3,1,64) | db1 (64) | dW2 (3,3,64,64) | db2 (64).
 extern "C" int vgg_block1_bwd_bf16(const void* x, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* g, const void* out,
@@ -1719,19 +1166,4 @@ extern "C" int vgg_block1_bwd_bf16(const void* x, const void* w1,
   vgg_block1_bwd_reduce_kernel<<<(PART + 255) / 256, 256, 0, s>>>(
       (const float*)part, (float*)grads, FUSED_BLOCKS);
   return cudaGetLastError();
-}
-
-extern "C" int vgg_block1_bwd_f32(const void* x, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* g, const void* out,
-                                  const void* idx, void* part, void* grads,
-                                  int B, int F, int T, void* stream) {
-  cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B == 0 || F / 2 == 0 || T / 2 == 0)
-    return cudaMemsetAsync(grads, 0, sizeof(float) * PART, s);
-  return launch_bwd_f32((const float*)x, (const float*)w1, (const float*)b1,
-                        (const float*)w2, (const float*)g, (const float*)out,
-                        (const uint8_t*)idx, (float*)part, (float*)grads, B,
-                        F, T, s);
 }

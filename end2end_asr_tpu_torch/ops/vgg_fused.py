@@ -1,7 +1,8 @@
 """Kernels 2 and 3: the fused vgg block 1 forward and its backward
-(csrc/vgg_block1.cu), and their plain versions; kernels 7 and 8, the fused
-block 2 and its backward (csrc/vgg_block2.cu in bf16, csrc/vgg_block2_f32.cu
-in f32), in the second half of this module, behind `BLOCK2_ENABLED`.
+(csrc/vgg_block1.cu in bf16, csrc/vgg_block1_f32.cu in f32), and their plain
+versions; kernels 7 and 8, the fused block 2 and its backward
+(csrc/vgg_block2.cu in bf16, csrc/vgg_block2_f32.cu in f32), in the second
+half of this module, behind `BLOCK2_ENABLED`.
 
     relu(maxpool2x2(conv2_SAME(relu(conv1_SAME(spect) + b1))) + b2)
 
@@ -18,13 +19,16 @@ go to the earlier window element in (f, t) order. b1 follows the
 composite path's order (round conv1 to ``cdt``, then add b1 in ``cdt``),
 not the Pallas kernel's f32 add; in f32 the two are the same.
 
-Bound on the H100 (B=12, F=161, T=800): conv2's 2·B·F·T·64·576 ≈
-114 GFLOP: ≈0.12 ms at the 989 TFLOP/s of the bf16 tensor cores. The
+Bound on the H100 (B=12, F=161, T=800): conv2 at the 2Fp × 2Tp positions
+the pool keeps and conv1 at the F × T of the image, 115.0 GFLOP: 0.116 ms
+at the 989 TFLOP/s of the bf16 tensor cores. The
 bf16 kernel (the serving and training paths') is one persistent pass
 that keeps conv2's weight in shared memory, runs conv2 on ``wgmma`` and
 builds conv1's activations beside the products
-(tests/test_torch_vgg_block1.py mirrors its tiling); the f32 kernel runs
-on f32 FMA (67 TFLOP/s, ≥1.7 ms). See the source for the tiling.
+(tests/test_torch_vgg_block1.py mirrors its tiling). The f32 kernel runs
+on f32 FMA (67 TFLOP/s, ≥1.72 ms): a register-blocked FFMA implicit GEMM
+over tiles of 8 conv rows × 32 columns, each building its x1 halo tile
+once in shared memory (tests/test_torch_vgg_block1_f32.py mirrors it).
 
 The backward (kernel 3) replaces ``_bwd_kernel``: from the forward's
 uint8 pool argmax and g = dL/d(out) it computes dW1, db1, dW2, db2 with
@@ -32,12 +36,19 @@ conv1 recomputed, and NO input gradient (``_zero_input_cotangent``,
 vgg_fused.py:455-468: the featurizer upstream has no parameters; the
 front end detaches the spectrogram). Numerics of vgg_fused.py:238-285:
 dy2 is rounded to cdt, products of cdt values sum in f32, dW1 takes dx1
-rounded to cdt. Bound (B=12, F=161, T=800): 231.5 GFLOP, 0.234 ms on the
-bf16 tensor cores; the f32 variant runs on f32 FMA (≥3.5 ms). The bf16
-kernel is one fused pass over work items (utterance, conv row pair, 64
-columns): x1 and dy2 built once per item into shared memory, dW2, dx1 and
-dW1 on the tensor cores (tests/test_torch_vgg_block1.py mirrors its
-tiling); the f32 kernels are the earlier two-kernel design.
+rounded to cdt. Bound (B=12, F=161, T=800; dW2 at the pool's positions,
+dx1, dW1 and conv1 at the image's): 230.8 GFLOP, 0.233 ms on the bf16
+tensor cores, 3.44 ms on f32 FMA. The bf16 kernel is one fused pass
+over work items (utterance, conv row pair, 64 columns): x1 and dy2 built
+once per item into shared memory, dW2, dx1 and dW1 on the tensor cores
+(tests/test_torch_vgg_block1.py mirrors its tiling). The f32 backward is
+three kernels, its products on the forward's FFMA tiles, dy2 formed from
+g, out and idx where a tile is staged and x1 recomputed where it is
+needed: dW2 with db2 (whose blocks first transpose W2 for dx1), dx1 (the
+transposed conv2 over all F rows, masked by x1 > 0, dW1 and db1 summed),
+each over SPLITS fixed ranges, then the ranges added in order
+(tests/test_torch_vgg_block1_f32.py mirrors them); its scratch
+(`bwd_scratch`) holds the partial sums and W2 transposed.
 
 `vgg_block1` / `vgg_block1_bwd` take the plain version only for a CPU
 tensor; for a CUDA tensor they launch the kernel, and raise if they
@@ -58,24 +69,36 @@ from end2end_asr_tpu_torch.ops import cuda_lib
 
 C = 64
 
+# the source of each compute dtype's entries
+SOURCES = {torch.float32: "vgg_block1_f32", torch.bfloat16: "vgg_block1"}
+
 _KERNELS = {
     dt: cuda_lib.CudaKernel(
-        "vgg_block1", sym, [cuda_lib.P] * 7 + [cuda_lib.I] * 3
+        SOURCES[dt], sym, [cuda_lib.P] * 7 + [cuda_lib.I] * 3
         + [cuda_lib.P])
     for dt, sym in ((torch.float32, "vgg_block1_fwd_f32"),
                     (torch.bfloat16, "vgg_block1_fwd_bf16"))}
 
 
 _BWD_KERNELS = {
-    dt: cuda_lib.CudaKernel("vgg_block1", sym,
+    dt: cuda_lib.CudaKernel(SOURCES[dt], sym,
                             [cuda_lib.P] * 9 + [cuda_lib.I] * 3
                             + [cuda_lib.P])
     for dt, sym in ((torch.float32, "vgg_block1_bwd_f32"),
                     (torch.bfloat16, "vgg_block1_bwd_bf16"))}
-# blocks of the backward, each writing one row of partials (csrc/vgg_block1.cu:
-# FUSED_BLOCKS for the bf16 pass, BWD_BLOCKS for the f32 kernels)
-BWD_BLOCKS = {torch.bfloat16: 132, torch.float32: 256}
+# rows of the backward's partial sums (csrc/vgg_block1.cu: FUSED_BLOCKS
+# persistent blocks of the bf16 pass; csrc/vgg_block1_f32.cu: SPLITS fixed
+# ranges)
+BWD_BLOCKS = {torch.bfloat16: 132, torch.float32: 132}
 PART = 9 * C + C + 9 * C * C + C       # floats of one block's partials
+
+
+def bwd_scratch(cdt: torch.dtype, B: int, F: int, T: int) -> int:
+    """Floats of the backward's scratch (its `part` argument) at x (B, F,
+    T): the rows of partial sums and, at f32, W2 transposed (tap, co, ci)
+    after them."""
+    return BWD_BLOCKS[cdt] * PART + (9 * C * C if cdt == torch.float32
+                                     else 0)
 
 
 def launches() -> int:
@@ -256,7 +279,7 @@ def vgg_block1_bwd(spect: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     # bf16: conv2's weight as bf16 in its natural (tap, ci, co) layout
     w2k = (w2.to(torch.bfloat16) if cdt == torch.bfloat16 else w2).contiguous()
     grads = torch.empty(PART, dtype=torch.float32, device=spect.device)
-    part = torch.empty(BWD_BLOCKS[cdt] * PART, dtype=torch.float32,
+    part = torch.empty(bwd_scratch(cdt, B, F, T), dtype=torch.float32,
                        device=spect.device)
     with torch.cuda.device(spect.device):
         _BWD_KERNELS[cdt].launch(

@@ -7,7 +7,11 @@ nothing at import time that needs either.
 
 from __future__ import annotations
 
+import ast
+import ctypes
+import operator
 import os
+import re
 import subprocess
 from typing import Dict, List, Tuple
 
@@ -42,6 +46,60 @@ def build(named: Dict[str, str],
             raise RuntimeError(f"{prefix}: nvcc failed for {name}:\n{log}")
         out[name] = (so, [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln])
+    return out
+
+
+def bind(so: str, kernel, argtypes=None):
+    """The entry `kernel` (an ops.cuda_lib.CudaKernel) names, from the
+    library `so`, typed as the wrapper calls it (or by `argtypes`)."""
+    fn = getattr(ctypes.CDLL(so), kernel.symbol)
+    fn.argtypes = kernel.argtypes if argtypes is None else argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def edited_copies(src: str, table: Dict[str, list], names,
+                  prog: str) -> Dict[str, str]:
+    """{name: `src` with the (old, new) edits table[name] lists}, for
+    `names`; each old text must be in the source once."""
+    out = {}
+    for name in names:
+        v = src
+        for old, new in table[name]:
+            if v.count(old) != 1:
+                raise RuntimeError(f"{prog}: {old.strip()!r} is not in the "
+                                   "source once; update the probe")
+            v = v.replace(old, new)
+        out[name] = v
+    return out
+
+
+_OPS = {ast.Add: operator.add, ast.Sub: operator.sub,
+        ast.Mult: operator.mul, ast.FloorDiv: operator.floordiv,
+        ast.Div: operator.floordiv, ast.Mod: operator.mod}
+
+
+def constexprs(path: str) -> Dict[str, int]:
+    """{name: value} of a CUDA source's ``constexpr int NAME = <expr>;``
+    lines whose expr holds integers, earlier names, + - * / % and brackets
+    (C's integer division), in source order; other lines are left out."""
+    with open(path) as f:
+        src = f.read()
+    out: Dict[str, int] = {}
+
+    def ev(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, int):
+            return node.value
+        if isinstance(node, ast.Name):
+            return out[node.id]
+        if isinstance(node, ast.BinOp) and type(node.op) in _OPS:
+            return _OPS[type(node.op)](ev(node.left), ev(node.right))
+        raise ValueError(f"{path}: cannot evaluate {ast.dump(node)}")
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        try:
+            out[name] = ev(ast.parse(expr.strip(), mode="eval").body)
+        except (KeyError, ValueError, SyntaxError):
+            continue
     return out
 
 
@@ -133,6 +191,18 @@ def attn_inputs(torch, dev, cdt, Tq: int, Tk: int, causal: bool):
     if causal:
         mask |= torch.ones(Tq, Tk, dtype=torch.bool).triu(1)
     return q, k, v, torch.where(mask, -1e9, 0.0).to(dev)
+
+
+def turns_json(res: Dict[str, dict], gflop=None) -> dict:
+    """`time_in_turns`'s result as the probes print it: device, events and
+    by-kernel ms for each call and, given the GFLOP a call executes, each
+    call's TFLOP/s on its device time."""
+    out = {key: {n: r[key] for n, r in res.items()}
+           for key in ("device_ms", "events_ms", "kernels_ms")}
+    if gflop is not None:
+        out["executed_gflop"] = gflop
+        out["tflops"] = {n: gflop / r["device_ms"] for n, r in res.items()}
+    return out
 
 
 def time_in_turns(torch, calls: Dict[str, object]) -> Dict[str, dict]:

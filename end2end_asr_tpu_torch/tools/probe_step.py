@@ -18,8 +18,12 @@ the copy kernels by name, and what runs inside each attention forward
 record_function range `layers.ATTN_RANGE` names), each attention
 backward node and each max-pool backward node, with the memory formats
 of the pool's y, g and dy, and the launches and device time of the
-block-2 forward's and backward's kernels (`BLOCK2_FWD`, `BLOCK2_BWD`)
-with their shares of the step's device time. ``--block2`` sets
+block-1 and block-2 forwards' and backwards' kernels (`BLOCK1_FWD`,
+`BLOCK1_BWD`, `BLOCK2_FWD`, `BLOCK2_BWD`) with their shares of the
+step's device time. Then one more step between the allocator's counters
+(`step_memory`): what is allocated before it (weights, optimizer state,
+the gradient buffer), the most allocated and the most reserved during
+it. ``--block2`` sets
 ``ops.vgg_fused.BLOCK2_ENABLED`` (as a test does) before the step is
 built, so the fused block 2 runs; ``--dtype float32`` builds the step at
 compute type f32 with TF32 off (as ``train --dtype float32`` runs it), so
@@ -45,8 +49,9 @@ B, FRAMES, TARGET_COLUMNS = 12, 800, 50
 ATTN_FWD_RANGE = "probe_step: attention forward"
 # autograd's nodes of the port's two Functions
 ATTN_BWD_NODE, POOL_BWD_NODE = "FlashMhaTrainBackward", "MaxPool2Backward"
-# the block-2 kernels (csrc/vgg_block2.cu): every kernel of the backward
-# carries the second prefix, the forward's the first
+# the block-1 and block-2 kernels (csrc/vgg_block{1,2}{,_f32}.cu): every
+# kernel of a backward carries the second prefix, a forward's the first
+BLOCK1_FWD, BLOCK1_BWD = "vgg_block1_fwd", "vgg_block1_bwd"
 BLOCK2_FWD, BLOCK2_BWD = "vgg_block2_fwd", "vgg_block2_bwd"
 
 
@@ -130,7 +135,7 @@ def report(torch, prof, wall_ms: float, formats: list) -> dict:
                 "copy_kernels": sum(is_copy(n) for c in calls for n, _ in c),
                 "device_ms": sum(us for c in calls for _, us in c) / 1e3,
                 "names": sorted({n[:60] for c in calls for n, _ in c})}
-    def block2(prefix):
+    def by_prefix(prefix):
         ms = [e.time_range.elapsed_us() / 1e3 for e in kernels
               if prefix in e.name]
         return {"launches": len(ms), "device_ms": sum(ms),
@@ -143,8 +148,10 @@ def report(torch, prof, wall_ms: float, formats: list) -> dict:
             "attention_backward": group(ATTN_BWD_NODE),
             "pool_backward": group(POOL_BWD_NODE),
             "pool_formats": formats,
-            "block2_forward": block2(BLOCK2_FWD),
-            "block2_backward": block2(BLOCK2_BWD),
+            "block1_forward": by_prefix(BLOCK1_FWD),
+            "block1_backward": by_prefix(BLOCK1_BWD),
+            "block2_forward": by_prefix(BLOCK2_FWD),
+            "block2_backward": by_prefix(BLOCK2_BWD),
             "top": [[n[:60], ms / 1e3] for n, ms in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
 
@@ -164,6 +171,20 @@ def profile_step(torch, one) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     return report(torch, prof, wall, formats)
+
+
+def step_memory(torch, one) -> dict:
+    """MB allocated before one warm call of `one` and the peaks allocated
+    and reserved by PyTorch's caching allocator during it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    one()
+    torch.cuda.synchronize()
+    mb = 2.0 ** -20
+    return {"allocated_before_mb": before * mb,
+            "peak_allocated_mb": torch.cuda.max_memory_allocated() * mb,
+            "peak_reserved_mb": torch.cuda.max_memory_reserved() * mb}
 
 
 def default_step(torch, dev, dtype="bfloat16"):
@@ -242,7 +263,8 @@ def main(argv=None):
     out = {"package": os.path.dirname(os.path.abspath(pkg.__file__)),
            "block2": args.block2, "dtype": args.dtype,
            "step_ms_median": statistics.median(times), "step_ms": times,
-           "profile": profile_step(torch, one), "gpu": P.gpu_line()}
+           "profile": profile_step(torch, one),
+           "step_memory": step_memory(torch, one), "gpu": P.gpu_line()}
     print(json.dumps(out))
 
 

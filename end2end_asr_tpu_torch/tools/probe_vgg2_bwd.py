@@ -145,16 +145,7 @@ F32_VARIANTS = {
 
 def f32_variants(src: str, names) -> Dict[str, str]:
     """{name: the f32 source with that variant's edits}, for `names`."""
-    out = {}
-    for name in names:
-        v = src
-        for old, new in F32_VARIANTS[name]:
-            if v.count(old) != 1:
-                raise RuntimeError(f"probe_vgg2_bwd: {old.strip()!r} is not "
-                                   "in the source once; update the probe")
-            v = v.replace(old, new)
-        out[name] = v
-    return out
+    return P.edited_copies(src, F32_VARIANTS, names, "probe_vgg2_bwd")
 
 
 # ---- --phases: clock64 counters at the row pass's barriers (warp 0 sums
@@ -422,8 +413,7 @@ def main(argv=None):
     kernel = V._BWD2_KERNELS[cdt]
 
     def entry(so):
-        fn = getattr(ctypes.CDLL(so), kernel.symbol)
-        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        fn = P.bind(so, kernel)
         return lambda: fn(x.data_ptr(), w3c.data_ptr(), ws[1].data_ptr(),
                           w4d.data_ptr(), w3d.data_ptr(), g.data_ptr(),
                           out.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
@@ -470,8 +460,7 @@ def main(argv=None):
                   "ptxas": phase_lib[1]}
     rates = mma_rate(torch, rate_lib[0]) if rate_lib else None
     res = P.time_in_turns(torch, calls)
-    names = list(res)
-    dev_ms = {n: res[n]["device_ms"] for n in names}
+    dev_ms = {n: r["device_ms"] for n, r in res.items()}
     part_ms = {}
     for d in designs:
         chain = [f"{d}:{pt}" for pt in PARTS if f"{d}:{pt}" in dev_ms]
@@ -480,10 +469,8 @@ def main(argv=None):
                       for i, n in enumerate(chain)}
     print(json.dumps({
         "dtype": args.dtype, "sources": designs, "shape": [B, F, T, 64],
-        "gpu": P.gpu_line(), "device_ms": dev_ms,
-        "events_ms": {n: res[n]["events_ms"] for n in names},
-        "kernels_ms": {n: res[n]["kernels_ms"] for n in names},
-        "part_ms": part_ms, "full_rel_l2_dx_dw3_db3_dw4_db4": checks,
+        "gpu": P.gpu_line(), **P.turns_json(res), "part_ms": part_ms,
+        "full_rel_l2_dx_dw3_db3_dw4_db4": checks,
         "phases": phases, "mma_rate": rates, "ptxas": regs}))
 
 

@@ -48,7 +48,6 @@ that needs either.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 from typing import Dict, List, Tuple
@@ -225,9 +224,7 @@ def main(argv=None):
     for name, (so, _) in libs.items():
         d, part = name.split(":")
         w3k, w4k = weights_for(V, design[d], ws[0], ws[2], cdt)
-        fn = getattr(ctypes.CDLL(so), kernel.symbol)
-        fn.argtypes = (f32_argtypes(design[d]) if f32 else kernel.argtypes)
-        fn.restype = ctypes.c_int
+        fn = P.bind(so, kernel, f32_argtypes(design[d]) if f32 else None)
         scratch = (x2.data_ptr(),) if design[d] == "fma" else ()
         out = torch.empty(pooled, dtype=cdt, device=dev)
         idx = torch.empty(pooled, dtype=torch.uint8, device=dev)
@@ -281,9 +278,7 @@ def main(argv=None):
     print(json.dumps({
         "dtype": args.dtype, "shape": [B, F, T, 64], "gpu": P.gpu_line(),
         "sources": designs,
-        "designs": design, "device_ms": dev_ms,
-        "events_ms": {n: r["events_ms"] for n, r in res.items()},
-        "kernels_ms": {n: r["kernels_ms"] for n, r in res.items()},
+        "designs": design, **P.turns_json(res),
         "part_ms": part_ms, "checks": checks,
         "ptxas": {n: libs[n][1] for n in libs}}))
 

@@ -1,8 +1,8 @@
-"""Where the bf16 block-1 forward (``vgg_block1_fwd``) spends its time.
+"""Where the block-1 forward (``vgg_block1_fwd``) spends its time.
 
     python -m end2end_asr_tpu_torch.tools.probe_vgg_fwd
-        [--source path/to/vgg_block1.cu ...] [--no-package] [--cuts]
-        [--shift]
+        [--dtype bfloat16|float32] [--source path/to/vgg_block1.cu ...]
+        [--no-package] [--cuts] [--shift]
 
 Builds ``csrc/vgg_block1.cu`` and every file ``--source`` names (another
 design of the same entry point, e.g. an earlier commit's file unpacked
@@ -30,6 +30,14 @@ rests on: one ``wgmma`` whose B operand starts 0, 1 or 2 rows of 128
 bytes into a 128-byte-swizzled tile, with the descriptor's base offset 0
 or the start row, against the product computed on the host.
 
+``--dtype float32`` times the f32 entry instead: the package's
+(``csrc/vgg_block1_f32.cu``), each ``--source`` file's (an earlier commit's
+``vgg_block1.cu``, whose f32 entry takes the same arguments) and cuDNN's
+conv2d x2 + max_pool2d on the same inputs (NCHW, TF32 off), in turns,
+device ms by kernel name; each entry's output is held against the plain
+version, and the executed TFLOP/s are the package's products (``f32_gflop``)
+over each one's device time. No cuts at f32.
+
 One JSON line, with the card's name and power limit and ptxas's
 registers and spills. Needs a CUDA card and ``nvcc``; imports nothing at
 import time that needs either.
@@ -45,7 +53,8 @@ from typing import Dict
 
 from end2end_asr_tpu_torch.tools import probe_lib as P
 
-SOURCE = "vgg_block1.cu"
+SOURCES = {"bfloat16": "vgg_block1.cu", "float32": "vgg_block1_f32.cu"}
+SOURCE = SOURCES["bfloat16"]
 
 # the kernel's parts, each cut by replacing lines of the source
 CUT_PARTS = {
@@ -147,6 +156,71 @@ def cut(src: str, name: str) -> str:
     return src
 
 
+def f32_gflop(B: int, F: int, T: int) -> float:
+    """GFLOP the f32 forward executes: conv2 over its tiles (the source's
+    TR x TC) of the 2 Fp x 2 Tp positions the pool keeps, conv1 over each
+    tile's halo."""
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    k = P.constexprs(os.path.join(cuda_lib.CSRC_DIR, SOURCES["float32"]))
+    tr, tc = k["TR"], k["TC"]
+    nf, nt = -(-(F // 2 * 2) // tr), -(-(T // 2 * 2) // tc)
+    conv2 = 2 * B * nf * tr * nt * tc * 64 * 576
+    conv1 = 2 * B * nf * nt * (tr + 2) * (tc + 2) * 64 * 9
+    return (conv2 + conv1) / 1e9
+
+
+def f32_main(args, torch, dev, out_json):
+    """--dtype float32: the package's f32 entry, each --source file's and
+    cuDNN's, in turns."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
+    if args.cuts or args.shift:
+        raise SystemExit("probe_vgg_fwd: no --cuts or --shift at float32")
+    torch.backends.cudnn.allow_tf32 = False
+    named = {} if args.no_package else {
+        "package": os.path.join(cuda_lib.CSRC_DIR, SOURCES["float32"])}
+    named.update({f"source{i}": s for i, s in enumerate(args.source)})
+    libs = P.build(named, "probe_vgg_fwd_f32")
+    g0 = torch.Generator().manual_seed(0)
+    spect = torch.randn(B, F, T, generator=g0).to(dev)
+    ws = [(torch.randn(*s, generator=g0) * sc).to(dev)
+          for s, sc in (((3, 3, 1, 64), 0.3), ((64,), 0.1),
+                        ((3, 3, 64, 64), 0.05), ((64,), 0.1))]
+    want, want_idx = V.vgg_block1_plain(spect, *ws, cdt=torch.float32)
+    pooled = (B, F // 2, T // 2, 64)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel = V._KERNELS[torch.float32]
+    calls, outs = {}, {}
+    for name, (so, _) in libs.items():
+        fn = P.bind(so, kernel)
+        out = torch.empty(pooled, device=dev)
+        idx = torch.empty(pooled, dtype=torch.uint8, device=dev)
+        outs[name] = (out, idx)
+        for mode, ip in (("idx", idx.data_ptr()), ("no_idx", None)):
+            def call(fn=fn, out=out, ip=ip, name=name):
+                if fn(spect.data_ptr(), *(w.data_ptr() for w in ws),
+                      out.data_ptr(), ip, B, F, T, stream):
+                    raise RuntimeError(f"probe_vgg_fwd: {name} failed")
+            calls[name + ("" if mode == "idx" else ":no_idx")] = call
+    xs = spect[:, None]
+    w1c, w2c = (w.permute(3, 2, 0, 1).contiguous() for w in (ws[0], ws[2]))
+    calls["library"] = lambda: torch.relu(Fn.max_pool2d(Fn.conv2d(
+        torch.relu(Fn.conv2d(xs, w1c, ws[1], padding=1)), w2c, padding=1),
+        2) + ws[3][None, :, None, None])
+    res = P.time_in_turns(torch, calls)
+    checks = {}
+    for name, (out, idx) in outs.items():
+        calls[name]()
+        torch.cuda.synchronize()
+        checks[name] = {
+            "max_abs_err": (out - want).abs().max().item(),
+            "idx_equal_share": (idx == want_idx).float().mean().item()}
+    out_json.update(dtype="float32", shape=[B, F, T], sources=named,
+                    **P.turns_json(res, f32_gflop(B, F, T)), checks=checks,
+                    ptxas={n: libs[n][1] for n in libs})
+
+
 def shift_check(torch, dev) -> Dict[str, bool]:
     """{"dt=<d> base=<0|1>": the product matched} for d = 0, 1, 2."""
     path = P.write_source("probe_vgg_fwd_shift", SHIFT_SRC)
@@ -180,6 +254,8 @@ def main(argv=None):
                    help="add the package's file with parts cut out")
     p.add_argument("--shift", action="store_true",
                    help="run the descriptor shift check")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16", help="the entry to time")
     args = p.parse_args(argv)
     import torch
     from end2end_asr_tpu_torch.ops import cuda_lib
@@ -188,6 +264,11 @@ def main(argv=None):
         raise SystemExit("probe_vgg_fwd: needs a CUDA device")
     dev = torch.device("cuda", 0)
     out_json = {}
+    if args.dtype == "float32":
+        f32_main(args, torch, dev, out_json)
+        out_json["gpu"] = P.gpu_line()
+        print(json.dumps(out_json))
+        return
     if args.shift:
         out_json["shift"] = shift_check(torch, dev)
     package = os.path.join(cuda_lib.CSRC_DIR, SOURCE)
@@ -213,8 +294,7 @@ def main(argv=None):
         kernel = V._KERNELS[torch.bfloat16]
         calls, outs = {}, {}
         for name, (so, _) in libs.items():
-            fn = getattr(ctypes.CDLL(so), kernel.symbol)
-            fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+            fn = P.bind(so, kernel)
             out = torch.empty(pooled, dtype=torch.bfloat16, device=dev)
             idx = torch.empty(pooled, dtype=torch.uint8, device=dev)
             outs[name] = (out, idx)

@@ -97,7 +97,8 @@ def _block_args(dev, B, F, T, seed):
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,F,T", [(2, 16, 16), (1, 17, 9), (2, 161, 129),
-                                   (1, 161, 801), (3, 5, 300)])
+                                   (1, 161, 801), (3, 5, 300),
+                                   (2, 19, 70), (1, 42, 97)])
 def test_vgg_block1_kernel_matches_plain(dev, cdt, B, F, T):
     args = _block_args(dev, B, F, T, seed=F * T)
     idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8,
@@ -591,7 +592,8 @@ VGG_BWD_F32_TOL, VGG_BWD_BF16_TOL = 1e-4, 1e-3
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,F,T", [(2, 16, 16), (1, 17, 9), (2, 161, 129),
-                                   (1, 9, 801), (3, 5, 300)])
+                                   (1, 9, 801), (3, 5, 300),
+                                   (2, 19, 70), (1, 42, 97)])
 def test_vgg_block1_bwd_kernel_matches_plain(dev, cdt, B, F, T):
     args = _block_args(dev, B, F, T, seed=F + T)
     idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8, device=dev)
@@ -608,6 +610,58 @@ def test_vgg_block1_bwd_kernel_matches_plain(dev, cdt, B, F, T):
     again = V.vgg_block1_bwd(*args[:4], out, idx, g, cdt)
     for a, b in zip(got, again):
         assert torch.equal(a, b)          # fixed-order reduction
+
+
+# the f32 entries' kernels as the profiler names them (csrc/vgg_block1_f32.cu)
+FWD1_F32_KERNELS = ("vgg_block1_fwd_f32_kernel",)
+BWD1_F32_KERNELS = ("vgg_block1_bwd_wgrad_f32_kernel",
+                    "vgg_block1_bwd_dx1_f32_kernel",
+                    "vgg_block1_bwd_reduce_f32_kernel")
+
+
+@pytest.mark.parametrize("B,F,T,all_on", [
+    (2, 161, 129, False), (2, 161, 129, True), (3, 25, 95, False),
+    (1, 2, 2, False)])
+def test_vgg_block1_f32_kernels(dev, B, F, T, all_on):
+    """The f32 forward and backward where the 8-row and 32-column tiles
+    are cut at the bottom and the right edge (odd F: the backward's last
+    row tile holds row F-1 alone), and with every x1 positive (b1 + 10: a
+    border that took relu(b1) instead of zero would show, and no mask
+    decision is near): the forward within F32_TOL of the plain version,
+    out with and without idx bit-identical; the backward within
+    VGG_BWD_F32_TOL of the plain backward, two runs bit-identical; one
+    launch through each wrapper, whose kernels are the entry's."""
+    cdt = torch.float32
+    args = _block_args(dev, B, F, T, seed=3 * F + T)
+    if all_on:
+        args[2] = args[2].abs() + 10.0
+    idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8, device=dev)
+    V.reset_launches()
+    out = V.vgg_block1(*args, cdt=cdt, idx_out=idx)
+    assert V.launches() == 1
+    want, want_idx = V.vgg_block1_plain(*args, cdt=cdt)
+    torch.testing.assert_close(out, want, rtol=F32_TOL, atol=F32_TOL)
+    assert (idx == want_idx).float().mean().item() > 0.999
+    assert torch.equal(V.vgg_block1(*args, cdt=cdt), out)
+    names = _kernel_names(lambda: V.vgg_block1(*args, cdt=cdt), "vgg_block1")
+    assert [k for n in names for k in FWD1_F32_KERNELS if k in n] == list(
+        FWD1_F32_KERNELS) and len(names) == 1, names
+
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(T)
+                    ).to(dev, cdt)
+    V.reset_launches()
+    got = V.vgg_block1_bwd(*args[:4], out, idx, g, cdt)
+    assert V.bwd_launches() == 1
+    want = V.vgg_block1_bwd_plain(*args[:4], out, idx, g, cdt)
+    for name, a, b in zip(("dw1", "db1", "dw2", "db2"), got, want):
+        assert a.shape == b.shape and _rel_err(a, b) < VGG_BWD_F32_TOL, name
+    again = V.vgg_block1_bwd(*args[:4], out, idx, g, cdt)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)          # fixed-order sums
+    names = _kernel_names(
+        lambda: V.vgg_block1_bwd(*args[:4], out, idx, g, cdt), "vgg_block1")
+    assert [k for n in names for k in BWD1_F32_KERNELS if k in n] == list(
+        BWD1_F32_KERNELS) and len(names) == len(BWD1_F32_KERNELS), names
 
 
 # ---------------------------------------------------------------------------
