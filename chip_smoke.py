@@ -66,9 +66,22 @@ Phases (any failure exits non-zero without the final result line):
      finite and fall), saves, and serves the checkpoint greedy through
      `test` with the saved batch-norm state; a batch whose targets cannot
      be aligned gives an infinite loss and the optimizer step stays;
-  7. the streaming probe's entry point, its four lines printed;
-  8. one JSON line of per-kernel numbers (and the serving and training
-     numbers), then the result line {"ok": true, "device": {...}}.
+  7. serve options, on phase 3's model: an LSTM LM at lm_train's default
+     size (256 / 256, 2 layers) trained on the card for 20 epochs on the
+     phases' transcripts through the `lm_train` entry point (its loss
+     must be finite and fall); `test --beam-search --beam-width 8
+     --lm-rescoring`, whose n-best LM scores on the card must equal the
+     CPU LM's, timed beside plain beam-8; `test --quantize-int8` greedy
+     and beam-8, the int8 model's f32 encoder output and 8 decode steps
+     on the card against the CPU, encode / greedy / beam timed beside
+     phase 3's bf16; `StreamingTranscriber` fed one ~8 s utterance in
+     2 s chunks (twice: p50 / p95 ms a feed), whose flush() must equal
+     `transcribe` on the file; the serving kernels must launch on each
+     path (their counts set to 0 just before, read just after);
+  8. the streaming probe's entry point, its four lines printed;
+  9. one JSON line of per-kernel numbers (and the serving, training and
+     serve-option numbers), then the result line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -140,6 +153,9 @@ ATTN_TOL = 2e-2
 ATTN_F32_TOL = 2e-5
 ENC_TOL = 2e-3       # f32 encoder, 4 layers: GPU vs CPU sum order
 DEC_TOL = 2e-3       # f32 decoder logits, 4 layers: GPU vs CPU sum order
+# the LM score (-CE / words + 1) of an n-best string, card vs CPU: f32
+# LSTM sums in another order, averaged over the string's words
+LM_TOL = 1e-4
 # f32 train step, card vs CPU: loss, and each gradient relative to its
 # largest value (floor 1e-3 of the largest gradient): sums in another
 # order through 8 layers and their backward
@@ -1183,6 +1199,66 @@ def make_corpus(root, labels, rng, n=B, name="manifest.csv", text=None,
     return manifest
 
 
+def host_ms(torch, fn, n):
+    """Median host ms of n calls of fn(), each between two synchronizes,
+    and the last call's result."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out), r
+
+
+def f32_card_vs_cpu(torch, dev, params, cfg, batch, n_vocab, label,
+                    dec_steps=8):
+    """`params` (a checkpoint's, f32 or int8) at f32 with TF32 off: the
+    encoder output of the batch's first utterance and `dec_steps`
+    teacher-forced decode steps on it, on the card against the port's
+    CPU path. Fails past ENC_TOL / DEC_TOL; returns both max abs errs."""
+    import numpy as np
+    from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
+    from end2end_asr_tpu_torch.models import decoder as D
+    from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    cfg32 = cfg.replace(dtype="float32")
+    dims32 = dims_from_config(cfg32)
+    cpu = torch.device("cpu")
+    p_gpu = prepare_params(params, dims32, dev)
+    p_cpu = prepare_params(params, dims32, cpu)
+    one = torch.from_numpy(batch.pcm[:1])
+    fr1 = torch.from_numpy(batch.n_frames[:1].astype(np.int64))
+    e_gpu, _ = encode_pcm(p_gpu, cfg32, dims32, one.to(dev), fr1.to(dev),
+                          batch.src_bucket)
+    e_cpu, _ = encode_pcm(p_cpu, cfg32, dims32, one, fr1, batch.src_bucket)
+    err = (e_gpu.cpu() - e_cpu).abs().max().item()
+    log(f"{label}encoder f32 card vs CPU (one utterance): max_abs_err "
+        f"{err:.3g} (tol {ENC_TOL}), output {tuple(e_gpu.shape)}")
+    if not err <= ENC_TOL:
+        fail(f"{label}encoder on the card disagrees with the CPU path: "
+             f"{err}")
+    toks = np.random.RandomState(SEED).randint(0, n_vocab,
+                                               size=(dec_steps, 1))
+    logits = []
+    for p, d in ((p_gpu, dev), (p_cpu, cpu)):
+        cache = D.init_cache(p["decoder"], e_cpu.to(d), dec_steps,
+                             dims32.num_heads, dims32.dim_key,
+                             dims32.dim_value, dtype=torch.float32)
+        logits.append(torch.stack([D.decode_step(
+            p["decoder"], cache, torch.from_numpy(toks[t]).to(d), t,
+            dims32.num_heads, dims32.dim_key, dims32.dim_value,
+            dims32.dim_model, emb_trg_sharing=dims32.emb_trg_sharing,
+            dtype=torch.float32).cpu() for t in range(dec_steps)]))
+    dec_err = (logits[0] - logits[1]).abs().max().item()
+    log(f"{label}decode_step f32 card vs CPU ({dec_steps} steps): "
+        f"max_abs_err {dec_err:.3g} (tol {DEC_TOL})")
+    if not dec_err <= DEC_TOL:
+        fail(f"{label}decoder on the card disagrees with the CPU path: "
+             f"{dec_err}")
+    return err, dec_err
+
+
 def phase_serve(torch, dev, kernels, work):
     """`kernels`: {name: module with launches() / reset_launches()};
     `work`: a scratch directory for the checkpoint and the corpus."""
@@ -1195,7 +1271,6 @@ def phase_serve(torch, dev, kernels, work):
     from end2end_asr_tpu_torch.decoding.greedy import \
         greedy_decode_progressive
     from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
-    from end2end_asr_tpu_torch.models import decoder as D
     from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
                                                           init_params,
                                                           num_params)
@@ -1249,25 +1324,15 @@ def phase_serve(torch, dev, kernels, work):
     pcm = torch.from_numpy(batch.pcm).to(dev)
     frames = torch.from_numpy(batch.n_frames.astype(np.int64)).to(dev)
 
-    def host_ms(fn, n):
-        out = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out), r
-
-    enc_ms, (enc, _) = host_ms(lambda: encode_pcm(
+    enc_ms, (enc, _) = host_ms(torch, lambda: encode_pcm(
         prepared, cfg, dims, pcm, frames, batch.src_bucket), 5)
     max_len = min(cfg.decode_max_len, cfg.tgt_max_len)
-    greedy_ms, ids = host_ms(lambda: greedy_decode_progressive(
+    greedy_ms, ids = host_ms(torch, lambda: greedy_decode_progressive(
         prepared, enc, dims, max_len=max_len,
         stage_len=cfg.decode_stage_len), 3)
     beam = BeamDecoder(cfg.replace(beam_search=True, beam_width=8), dims,
                        id2label, stage_len=cfg.decode_stage_len)
-    beam_ms, hyps = host_ms(lambda: beam.decode(prepared, enc), 2)
+    beam_ms, hyps = host_ms(torch, lambda: beam.decode(prepared, enc), 2)
     steps = int((ids != 2).sum(dim=1).max().item())
     log(f"per batch of {B} (bucket {batch.src_bucket} frames): encode "
         f"{enc_ms:.2f} ms, greedy {greedy_ms:.2f} ms ({steps} steps), "
@@ -1287,59 +1352,35 @@ def phase_serve(torch, dev, kernels, work):
         fail(f"the encode's profile shows {fwd['launches']} launches of "
              f"{FWD_KERNEL_NAME}, not one per batch")
 
-    # encoder on the card (f32, TF32 off) vs the port's CPU path
+    err, dec_err = f32_card_vs_cpu(torch, dev, params, cfg, batch,
+                                   len(label2id), "")
+    # the TF32 hazard: the same encoder comparison with cuDNN/cuBLAS
+    # allowed TF32
     cfg32 = cfg.replace(dtype="float32")
     dims32 = dims_from_config(cfg32)
-    p_gpu = prepare_params(params, dims32, dev)
-    p_cpu = prepare_params(params, dims32, torch.device("cpu"))
     one = torch.from_numpy(batch.pcm[:1])
     fr1 = torch.from_numpy(batch.n_frames[:1].astype(np.int64))
-    e_gpu, _ = encode_pcm(p_gpu, cfg32, dims32, one.to(dev), fr1.to(dev),
-                          batch.src_bucket)
-    e_cpu, _ = encode_pcm(p_cpu, cfg32, dims32, one, fr1,
-                          batch.src_bucket)
-    err = (e_gpu.cpu() - e_cpu).abs().max().item()
-    log(f"encoder f32 card vs CPU (one utterance): max_abs_err {err:.3g} "
-        f"(tol {ENC_TOL}), output {tuple(e_gpu.shape)}")
-    if not err <= ENC_TOL:
-        fail(f"encoder on the card disagrees with the CPU path: {err}")
-    # the TF32 hazard: the same comparison with cuDNN/cuBLAS allowed TF32
+    e_cpu, _ = encode_pcm(prepare_params(params, dims32, torch.device("cpu")),
+                          cfg32, dims32, one, fr1, batch.src_bucket)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    e_tf32, _ = encode_pcm(p_gpu, cfg32, dims32, one.to(dev), fr1.to(dev),
+    e_tf32, _ = encode_pcm(prepare_params(params, dims32, dev), cfg32,
+                           dims32, one.to(dev), fr1.to(dev),
                            batch.src_bucket)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     err_tf32 = (e_tf32.cpu() - e_cpu).abs().max().item()
     log(f"encoder with TF32 allowed vs CPU: max_abs_err {err_tf32:.3g} "
         "(why every f32 comparison here turns TF32 off)")
-
-    # decoder steps (f32) on the card vs the CPU path, teacher-forced on
-    # the same encoder output
-    dec_steps = 8
-    toks = np.random.RandomState(SEED).randint(
-        0, len(label2id), size=(dec_steps, 1))
-    logits = []
-    for p, d in ((p_gpu, dev), (p_cpu, torch.device("cpu"))):
-        cache = D.init_cache(p["decoder"], e_cpu.to(d), dec_steps,
-                             dims32.num_heads, dims32.dim_key,
-                             dims32.dim_value, dtype=torch.float32)
-        logits.append(torch.stack([D.decode_step(
-            p["decoder"], cache, torch.from_numpy(toks[t]).to(d), t,
-            dims32.num_heads, dims32.dim_key, dims32.dim_value,
-            dims32.dim_model, emb_trg_sharing=dims32.emb_trg_sharing,
-            dtype=torch.float32).cpu() for t in range(dec_steps)]))
-    dec_err = (logits[0] - logits[1]).abs().max().item()
-    log(f"decode_step f32 card vs CPU ({dec_steps} steps): max_abs_err "
-        f"{dec_err:.3g} (tol {DEC_TOL})")
-    if not dec_err <= DEC_TOL:
-        fail(f"decoder on the card disagrees with the CPU path: {dec_err}")
+    model = types.SimpleNamespace(cfg=cfg, params=params, ckpt=ckpt,
+                                  manifest=manifest, id2label=id2label,
+                                  n_vocab=len(label2id), batch=batch)
     return runs, {"encode_ms": enc_ms, "greedy_ms": greedy_ms,
                   "beam8_ms": beam_ms, "greedy_steps": steps,
                   "encoder_f32_card_vs_cpu_max_abs_err": err,
                   "encoder_tf32_card_vs_cpu_max_abs_err": err_tf32,
                   "decode_step_f32_card_vs_cpu_max_abs_err": dec_err,
-                  "profile": breakdown}
+                  "profile": breakdown}, model
 
 
 # ---------------------------------------------------------------------------
@@ -1948,6 +1989,185 @@ def phase_ctc_embcnn(torch, dev, kernels, work, labels_path, epochs=6):
             "profile_step": fixed["profile"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving options
+# ---------------------------------------------------------------------------
+
+def phase_serve_options(torch, dev, kernels, work, model, serve, manifests):
+    """LSTM-LM rescoring, int8 weight-only serving and streaming on phase
+    3's model (`model`: the AiShell README model at full width, seeded
+    random weights, its checkpoint, manifest and 12-utterance batch), each
+    path through its entry point with the serving kernels' counts
+    (`kernels`, as in phase_serve) set to 0 just before and read just
+    after. `serve`: phase 3's bf16 numbers; `manifests`: the transcripts
+    the LM trains on. With random weights every decode runs its full 300
+    steps (200 for the beam), as in phase 3."""
+    import numpy as np
+    from end2end_asr_tpu_torch import lm_train as port_lm_train
+    from end2end_asr_tpu_torch import test as port_test
+    from end2end_asr_tpu_torch import transcribe as port_transcribe
+    from end2end_asr_tpu_torch.data.audio import load_audio
+    from end2end_asr_tpu_torch.decoding.beam import BeamDecoder
+    from end2end_asr_tpu_torch.decoding.greedy import \
+        greedy_decode_progressive
+    from end2end_asr_tpu_torch.decoding.lm_rescoring import \
+        calculate_lm_score
+    from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
+    from end2end_asr_tpu_torch.models.lm import LM
+    from end2end_asr_tpu_torch.models.quantize import quantize_for_inference
+    from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.streaming import StreamingTranscriber
+
+    cfg, batch, id2label = model.cfg, model.batch, model.id2label
+    dims = dims_from_config(cfg)
+    launches = {}
+
+    def counted(name, fn):
+        for k in kernels.values():
+            k.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        launches[name] = {n: k.launches() for n, k in kernels.items()}
+        log(f"serve options, {name}: launches {launches[name]}")
+        missing = [n for n, c in launches[name].items() if c < 1]
+        if missing:
+            fail(f"serve options, {name}: kernels not launched: {missing}")
+        return r
+
+    # the LM at lm_train's default size (ninp = nhid = 256, 2 layers),
+    # trained on the card through its entry point
+    lm_path = os.path.join(work, "lm.npz")
+    t0 = time.time()
+    lm_res = port_lm_train.main(
+        ["--train-manifest-list", *manifests, "--lm-path", lm_path,
+         "--batch-size", "8", "--epochs", "20", "--device", str(dev)])
+    losses = lm_res["losses"]
+    lm_step_ms = statistics.median(lm_res["step_ms"])
+    log(f"lm_train: stream {lm_res['stream']}, vocab {lm_res['vocab']}, "
+        f"{len(lm_res['step_ms'])} steps in {time.time() - t0:.1f} s, "
+        f"median {lm_step_ms:.2f} ms a step, loss per epoch "
+        f"{[round(v, 4) for v in losses]}")
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        fail(f"lm_train: the loss is not finite and falling: {losses}")
+
+    base = ["--continue-from", model.ckpt, "--test-manifest-list",
+            model.manifest, "--batch-size", str(B), "--device", str(dev)]
+    beam8 = ["--beam-search", "--beam-width", "8"]
+    res = counted("lm_beam8", lambda: port_test.main(
+        base + beam8 + ["--lm-rescoring", "--lm-path", lm_path]))
+    log(f"serve options, LM-rescored beam-8 through test: {res}")
+    if not all(math.isfinite(v) for v in res.values()):
+        fail(f"LM-rescored beam-8: non-finite metrics {res}")
+
+    # the batch's n-best under the card's LM, its LM scores against the
+    # CPU LM's on the same strings; the beam's time with and without it
+    pcm = torch.from_numpy(batch.pcm).to(dev)
+    frames = torch.from_numpy(batch.n_frames.astype(np.int64)).to(dev)
+    prepared = prepare_params(model.params, dims, dev)
+    enc, _ = encode_pcm(prepared, cfg, dims, pcm, frames, batch.src_bucket)
+    lm_card, lm_cpu = LM(lm_path, dev), LM(lm_path, "cpu")
+    bcfg = cfg.replace(beam_search=True, beam_width=8)
+    plain = BeamDecoder(bcfg, dims, id2label, stage_len=cfg.decode_stage_len)
+    rescored = BeamDecoder(bcfg.replace(lm_rescoring=True), dims, id2label,
+                           lm=lm_card, stage_len=cfg.decode_stage_len)
+    beam_ms, _ = host_ms(torch, lambda: plain.decode(prepared, enc), 2)
+    lm_beam_ms, nbest = host_ms(torch, lambda: rescored.decode_nbest(
+        prepared, enc, nbest=8), 2)
+    scores = [(calculate_lm_score(h.ids, lm_card, id2label),
+               calculate_lm_score(h.ids, lm_cpu, id2label))
+              for utt in nbest for h in utt]
+    lm_err = max(abs(g[0] - c[0]) for g, c in scores)
+    oov_equal = all(g[1:] == c[1:] for g, c in scores)
+    log(f"LM-rescored beam-8: {lm_beam_ms:.2f} ms a batch against "
+        f"{beam_ms:.2f} plain; {len(scores)} n-best LM scores card vs CPU "
+        f"max_abs_err {lm_err:.3g} (tol {LM_TOL}), words and OOV equal "
+        f"{oov_equal}; 1-best final {[u[0].final for u in nbest][:3]}")
+    if len(scores) < B or not lm_err <= LM_TOL or not oov_equal:
+        fail(f"the card's LM scores disagree with the CPU's: {lm_err}")
+
+    # int8 weight-only serving
+    for name, extra in (("int8_greedy", []), ("int8_beam8", beam8)):
+        res = counted(name, lambda: port_test.main(
+            base + ["--quantize-int8"] + extra))
+        log(f"serve options, {name} through test: {res}")
+        if not all(math.isfinite(v) for v in res.values()):
+            fail(f"{name}: non-finite metrics {res}")
+    qparams = quantize_for_inference(model.params)
+    qprep = prepare_params(qparams, dims, dev)
+    q8 = qprep["decoder"]["output_linear"]["q8"]
+    if q8.dtype != torch.int8 or q8.device != dev:
+        fail(f"int8 params on the card hold {q8.dtype} on {q8.device}")
+    q_enc_ms, (qenc, _) = host_ms(torch, lambda: encode_pcm(
+        qprep, cfg, dims, pcm, frames, batch.src_bucket), 5)
+    max_len = min(cfg.decode_max_len, cfg.tgt_max_len)
+    q_greedy_ms, ids = host_ms(torch, lambda: greedy_decode_progressive(
+        qprep, qenc, dims, max_len=max_len,
+        stage_len=cfg.decode_stage_len), 3)
+    q_beam_ms, _ = host_ms(torch, lambda: plain.decode(qprep, qenc), 2)
+    log(f"int8 per batch of {B}: encode {q_enc_ms:.2f} ms, greedy "
+        f"{q_greedy_ms:.2f} ms ({int((ids != 2).sum(dim=1).max())} steps), "
+        f"beam-8 {q_beam_ms:.2f} ms; bf16 (phase 3): encode "
+        f"{serve['encode_ms']:.2f}, greedy {serve['greedy_ms']:.2f}, "
+        f"beam-8 {serve['beam8_ms']:.2f}")
+    q_prof = profile(torch, lambda: greedy_decode_progressive(
+        qprep, qenc, dims, max_len=64, stage_len=64))
+    bf16_prof = serve["profile"]["greedy_64_steps"]
+    log(f"64 greedy steps, int8 against bf16 (phase 3): launches "
+        f"{q_prof['kernel_launches']} / {bf16_prof['kernel_launches']}, "
+        f"device ms {q_prof['device_ms']} / {bf16_prof['device_ms']}, wall "
+        f"ms {q_prof['wall_ms']:.2f} / {bf16_prof['wall_ms']:.2f}")
+    q_enc_err, q_dec_err = f32_card_vs_cpu(torch, dev, qparams, cfg, batch,
+                                           model.n_vocab, "int8 ")
+
+    # streaming: one utterance of the batch's manifest fed in 2 s chunks,
+    # twice; flush() against transcribe on the whole file
+    with open(model.manifest) as f:
+        wav = f.readline().split(",")[0]
+    y = load_audio(wav)
+    chunk = 2 * cfg.sample_rate
+    st = StreamingTranscriber(model.params, {}, cfg, id2label, device=dev)
+    feed_ms, partials = [], []
+
+    def stream():
+        for _ in range(2):
+            st.reset()
+            for i in range(0, len(y), chunk):
+                t0 = time.perf_counter()
+                partials.append(st.feed(y[i:i + chunk]))
+                feed_ms.append((time.perf_counter() - t0) * 1e3)
+        return st.flush()
+    final = counted("stream", stream)
+    line = port_transcribe.main(["--continue-from", model.ckpt, wav,
+                                 "--device", str(dev)])[0]
+    p50 = statistics.median(feed_ms)
+    p95 = float(np.percentile(feed_ms, 95))
+    log(f"streaming {len(y) / cfg.sample_rate:.2f} s in 2 s chunks: "
+        f"{len(feed_ms)} feeds, p50 {p50:.2f} ms, p95 {p95:.2f} ms a feed "
+        f"({[round(v, 2) for v in feed_ms]}); partial lengths "
+        f"{[len(p) for p in partials]}; flush equals transcribe: "
+        f"{line.split(chr(9), 1)[1] == final}")
+    if line.split("\t", 1)[1] != final or not final:
+        fail(f"streaming flush() {final!r} differs from transcribe "
+             f"{line!r}")
+    return {"lm_train": {"losses": losses, "step_ms_median": lm_step_ms,
+                         "steps": len(lm_res["step_ms"]),
+                         "stream": lm_res["stream"],
+                         "vocab": lm_res["vocab"]},
+            "lm_beam8_ms": lm_beam_ms, "beam8_ms": beam_ms,
+            "lm_score_card_vs_cpu_max_abs_err": lm_err,
+            "lm_scores_compared": len(scores),
+            "int8": {"encode_ms": q_enc_ms, "greedy_ms": q_greedy_ms,
+                     "beam8_ms": q_beam_ms,
+                     "profile_greedy_64_steps": q_prof,
+                     "encoder_f32_card_vs_cpu_max_abs_err": q_enc_err,
+                     "decode_step_f32_card_vs_cpu_max_abs_err": q_dec_err},
+            "stream": {"feed_ms": feed_ms, "feed_ms_p50": p50,
+                       "feed_ms_p95": p95, "chunk_s": 2,
+                       "seconds": len(y) / cfg.sample_rate},
+            "launches": launches}
+
+
 def phase_probe(torch):
     """The streaming probe through its entry point (its four lines go to
     the standard output); returns its kernels' launch counts."""
@@ -2056,7 +2276,7 @@ def main():
     labels_path = os.path.abspath(os.path.join("data", "labels",
                                                "aishell_labels.json"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        runs, serve = phase_serve(torch, dev, kernels, work)
+        runs, serve, model = phase_serve(torch, dev, kernels, work)
         log(f"serving done at {time.time() - t0:.1f} s")
         train_counts, f32_counts, manifest, valid, train = phase_train(
             torch, dev, train_kernels, work, labels_path,
@@ -2076,6 +2296,10 @@ def main():
             f"{gate['spec_augment_remat_profile_step']['kernel_launches']}")
         ctc = phase_ctc_embcnn(torch, dev, train_kernels, work, labels_path)
         log(f"ctc / emb_cnn done at {time.time() - t0:.1f} s")
+        options = phase_serve_options(torch, dev, kernels, work, model,
+                                      serve, [model.manifest, manifest,
+                                              valid])
+        log(f"serve options done at {time.time() - t0:.1f} s")
     probe_counts = phase_probe(torch)
     for e in entries:
         # each path was driven with the counts set to 0 just before it: the
@@ -2086,6 +2310,8 @@ def main():
         if e["name"] in runs["greedy"]:
             e["launches_serve_greedy"] = runs["greedy"][e["name"]]
             e["launches_serve_beam8"] = runs["beam8"][e["name"]]
+            for path, counts in options["launches"].items():
+                e[f"launches_{path}"] = counts[e["name"]]
         if e["name"] in ("vgg_block2_fwd", "vgg_block2_bwd"):
             e["launches"] = gate_train[e["name"]]
             e["launches_serve_greedy"] = gate_serve[e["name"]]
@@ -2100,10 +2326,12 @@ def main():
         if e["name"] == "dropout_bits":
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
-        f"ctc / emb_cnn: {ctc}; total {time.time() - t0:.1f} s")
+        f"ctc / emb_cnn: {ctc}; serve options: {options}; total "
+        f"{time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
-                      "gate_on": gate, "ctc_embcnn": ctc, "gpu": gpu}))
+                      "gate_on": gate, "ctc_embcnn": ctc,
+                      "serve_options": options, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

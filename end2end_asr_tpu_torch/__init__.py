@@ -4,7 +4,9 @@ The JAX package ``end2end_asr_tpu`` stays the reference; this package
 imports nothing of it and nothing of JAX. Its TPU kernels become
 hand-written CUDA kernels under ``csrc/`` (ops/stft.py,
 ops/vgg_fused.py); the rest is plain PyTorch. Entry points:
-``python -m end2end_asr_tpu_torch.test`` and
-``python -m end2end_asr_tpu_torch.transcribe`` (``--device cuda`` by
-default).
+``python -m end2end_asr_tpu_torch.train``,
+``python -m end2end_asr_tpu_torch.test``,
+``python -m end2end_asr_tpu_torch.transcribe`` and
+``python -m end2end_asr_tpu_torch.lm_train`` (``--device cuda`` by
+default), and ``streaming.StreamingTranscriber``.
 """

@@ -15,8 +15,10 @@ Semantics kept from the reference and the JAX package:
   * when the search runs to enc_T - 1 steps, every still-alive
     hypothesis gets EOS appended WITHOUT adding its log-prob (:464-467);
   * final ranking on the host: final = score + sqrt(num_words)·c_weight
-    over the finished pool, which keeps the best pool_factor·W finished
-    hypotheses by raw score (exact when pool_factor >= n_steps + 1);
+    (+ lm_weight·(lm_score − 2·oov) with sqrt(lm_num_words) in place of
+    sqrt(num_words) when LM-rescoring, :473-488) over the finished pool,
+    which keeps the best pool_factor·W finished hypotheses by raw score
+    (exact when pool_factor >= n_steps + 1);
   * empty pool for an utterance → greedy fallback for that utterance.
 
 Top-k selections break ties toward the lower index, as jax.lax.top_k
@@ -36,6 +38,7 @@ from end2end_asr_tpu_torch.config import (Config, EOS_CHAR, EOS_TOKEN,
                                           PAD_CHAR, SOS_CHAR, SOS_TOKEN)
 from end2end_asr_tpu_torch.decoding.greedy import (greedy_decode,
                                                    ids_to_strings)
+from end2end_asr_tpu_torch.decoding.lm_rescoring import calculate_lm_score
 from end2end_asr_tpu_torch.models import decoder as D
 from end2end_asr_tpu_torch.models.transformer import ModelDims
 
@@ -146,16 +149,17 @@ class Hyp(NamedTuple):
 
 
 class BeamDecoder:
-    """Host wrapper: device beam → host final scoring → n-best."""
+    """Host wrapper: device beam → host final scoring (with LM rescoring
+    when `lm`, a models.lm.LM, is given and cfg.lm_rescoring is set) →
+    n-best."""
 
     def __init__(self, cfg: Config, dims: ModelDims,
-                 id2label: Dict[int, str], pool_factor: int = POOL_FACTOR,
-                 stage_len: int = 64):
-        if cfg.lm_rescoring:
-            raise NotImplementedError("LM rescoring is not ported yet")
+                 id2label: Dict[int, str], lm=None,
+                 pool_factor: int = POOL_FACTOR, stage_len: int = 64):
         self.cfg = cfg
         self.dims = dims
         self.id2label = id2label
+        self.lm = lm
         self.pool_factor = pool_factor
         # short-cache first stage for decode_nbest (0 disables)
         self.stage_len = stage_len
@@ -171,7 +175,13 @@ class BeamDecoder:
     def _final_score(self, ids: np.ndarray, raw_score: float,
                      length: int) -> float:
         """transformer.py:473-488: strip specials, collapse double
-        spaces, add the word-count bonus."""
+        spaces, add the word-count bonus, or the LM score and the LM's
+        word-count bonus when LM-rescoring."""
+        if self.lm is not None and self.cfg.lm_rescoring:
+            lm_score, lm_num_words, oov = calculate_lm_score(
+                ids[:length], self.lm, self.id2label)
+            return (raw_score + self.cfg.lm_weight * (lm_score - 2 * oov)
+                    + math.sqrt(lm_num_words) * self.cfg.c_weight)
         chars = "".join(self.id2label.get(int(x), "")
                         for x in ids[:length])
         seq_str = (chars.replace(PAD_CHAR, "").replace(SOS_CHAR, "")

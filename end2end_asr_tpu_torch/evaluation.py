@@ -18,6 +18,8 @@ import torch
 
 from end2end_asr_tpu_torch.config import (Config, EOS_CHAR, PAD_CHAR,
                                           PAD_TOKEN, SOS_CHAR)
+from end2end_asr_tpu_torch.data.features import num_frames
+from end2end_asr_tpu_torch.data.loader import pick_bucket
 from end2end_asr_tpu_torch.decoding.greedy import (greedy_decode_progressive,
                                                    ids_to_strings)
 from end2end_asr_tpu_torch.models.transformer import (ModelDims,
@@ -25,6 +27,7 @@ from end2end_asr_tpu_torch.models.transformer import (ModelDims,
                                                       dims_from_config,
                                                       encode, to_device,
                                                       with_state)
+from end2end_asr_tpu_torch.ops.features import reflect_pad_pcm
 from end2end_asr_tpu_torch.ops.stft import batched_features
 from end2end_asr_tpu_torch.utils.metrics import (calculate_cer,
                                                  calculate_cer_en_zh,
@@ -74,7 +77,9 @@ def prepare_params(params, dims: ModelDims, device: torch.device,
                    model_state=None):
     """Params on `device` with dense weights stored in the compute dtype,
     and the model state (a checkpoint's ``state`` group: the emb_cnn
-    batch norms' running statistics) under "state" for `encode`."""
+    batch norms' running statistics) under "state" for `encode`. int8
+    params (models/quantize.py) are quantised before this, from the f32
+    weights; their "q8" leaves stay int8."""
     return to_device(with_state(cast_dense_weights(params, dims.dtype),
                                 model_state), device)
 
@@ -90,14 +95,47 @@ def encode_pcm(params, cfg: Config, dims: ModelDims, pcm: torch.Tensor,
     return encode(params, spect, n_frames, dims)
 
 
-def make_beam(cfg: Config, dims: ModelDims, id2label: Dict[int, str]):
-    """The BeamDecoder for --beam-search, else None (greedy)."""
+def encode_utterance(params, cfg: Config, dims: ModelDims, y: np.ndarray,
+                     device: torch.device) -> torch.Tensor:
+    """One utterance's f32 PCM → enc_out (1, T', H) with the batch
+    loader's frame geometry: the bucket of its frame count, both capped
+    at src_max_len, and reflect-padded PCM of (T_b − 1)·hop samples; so a
+    file alone encodes as it does in a batch of its bucket."""
+    frames = min(num_frames(len(y), cfg.n_fft, cfg.hop_length),
+                 cfg.src_max_len)
+    T_b = min(pick_bucket(frames, cfg.src_buckets), cfg.src_max_len)
+    n_pcm = (T_b - 1) * cfg.hop_length
+    pcm = reflect_pad_pcm(y[:n_pcm], cfg.n_fft, n_pcm)[None, :]
+    enc_out, _ = encode_pcm(
+        params, cfg, dims, torch.from_numpy(pcm).to(device),
+        torch.tensor([min(frames, T_b)], dtype=torch.long, device=device),
+        T_b)
+    return enc_out
+
+
+def make_beam(cfg: Config, dims: ModelDims, id2label: Dict[int, str],
+              lm=None):
+    """The BeamDecoder (LM-rescored where `lm` is given and
+    --lm-rescoring is set) for --beam-search, or for --lm-rescoring with
+    --lm-greedy-as-beam and an LM; else None (greedy).
+
+    --lm-rescoring without --beam-search leaves the LM unused, the
+    reference's reachable behaviour: its evaluate() always calls
+    greedy_search with defaults (transformer.py:117-118), and the per-step
+    LM branch it never reaches is broken (:357-373). --lm-greedy-as-beam
+    takes a width-k LM-rescored beam instead, as the JAX package does."""
+    if cfg.beam_search or (cfg.lm_rescoring and cfg.lm_greedy_as_beam
+                           and lm is not None):
+        from end2end_asr_tpu_torch.decoding.beam import BeamDecoder
+        return BeamDecoder(cfg, dims, id2label, lm=lm,
+                           stage_len=cfg.decode_stage_len)
     if cfg.lm_rescoring:
-        raise NotImplementedError("LM rescoring is not ported yet")
-    if not cfg.beam_search:
-        return None
-    from end2end_asr_tpu_torch.decoding.beam import BeamDecoder
-    return BeamDecoder(cfg, dims, id2label, stage_len=cfg.decode_stage_len)
+        logger.warning(
+            "--lm-rescoring without --beam-search: the LM is unused, "
+            "matching the reference's reachable behavior "
+            "(transformer.py:117-118); pass --lm-greedy-as-beam for a "
+            "width-%d LM-rescored beam instead", cfg.beam_width)
+    return None
 
 
 def decode_strings(params, cfg: Config, dims: ModelDims, enc_out, beam,
@@ -118,13 +156,14 @@ def _sync(device: torch.device) -> None:
 
 def evaluate(params, cfg: Config, test_loader, id2label: Dict[int, str],
              device: torch.device, verbose: bool = False,
-             timings: Optional[list] = None) -> Dict[str, float]:
+             timings: Optional[list] = None, lm=None) -> Dict[str, float]:
     """Decode every batch and score it. `params` are prepared for
-    `device` (prepare_params). With `timings` (a list), one dict per
-    batch is appended: encode_ms and decode_ms on the host clock, each
-    ending in a device synchronize."""
+    `device` (prepare_params); `lm` is the rescoring LM (make_beam).
+    With `timings` (a list), one dict per batch is appended: encode_ms
+    and decode_ms on the host clock, each ending in a device
+    synchronize."""
     dims = dims_from_config(cfg)
-    beam = make_beam(cfg, dims, id2label)
+    beam = make_beam(cfg, dims, id2label, lm)
     totals = dict(word=0, char=0, cer=0, wer=0,
                   en_cer=0, zh_cer=0, en_char=0, zh_char=0)
 

@@ -36,9 +36,14 @@ def logit_scale(dim_model: int, emb_trg_sharing: bool) -> float:
 
 def output_logits(p: Params, h: torch.Tensor,
                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Bias-free output projection; tied to the embedding when sharing."""
+    """Bias-free output projection; tied to the embedding when sharing;
+    int8 weight-only where output_linear holds "q8" (models/quantize.py)."""
     if "output_linear" in p:
-        w = p["output_linear"]["w"]
+        ol = p["output_linear"]
+        if "q8" in ol:
+            y = h.to(dtype) @ ol["q8"].to(dtype)
+            return y.to(torch.float32) * ol["scale"]
+        w = ol["w"]
     else:
         w = p["embedding"].T
     return (h.to(dtype) @ w.to(dtype)).to(torch.float32)
@@ -117,14 +122,22 @@ def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
 
 def fused_qkv_weights(p: Params, dtype: torch.dtype = torch.bfloat16):
     """Per-layer fused self-attention projection [Wq‖Wk‖Wv] so the step
-    issues one product instead of three. None for low-rank layers."""
+    issues one product instead of three. None for low-rank layers. An
+    int8 layer (models/quantize.py) stays int8: its per-output-channel
+    scales concatenate beside the int8 columns."""
     fused = []
     for lp in p["layers"]:
         sa = lp["self_attn"]
-        if "w" not in sa["q"]:
+        if "w" not in sa["q"] and "q8" not in sa["q"]:
             fused.append(None)
             continue
         b = torch.cat([sa["q"]["b"], sa["k"]["b"], sa["v"]["b"]])
+        if "q8" in sa["q"]:
+            fused.append({
+                "q8": torch.cat([sa[n]["q8"] for n in "qkv"], dim=1),
+                "scale": torch.cat([sa[n]["scale"] for n in "qkv"]),
+                "b": b})
+            continue
         w = torch.cat([sa["q"]["w"], sa["k"]["w"], sa["v"]["w"]],
                       dim=1).to(dtype)
         fused.append({"w": w, "b": b})

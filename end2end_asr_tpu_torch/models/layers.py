@@ -126,11 +126,19 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng] = None,
 def dense(p: Params, x: torch.Tensor,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w + b, or the low-rank (x @ u) @ v + b when p holds "u"/"v"
-    (Low-Rank Transformer, Winata et al. ICASSP 2020). Operands are cast
-    to `dtype`; the bias is added in the product's dtype."""
+    (Low-Rank Transformer, Winata et al. ICASSP 2020), or the int8
+    weight-only product when p holds "q8"/"scale" (models/quantize.py).
+    Operands are cast to `dtype`; the bias is added in the product's
+    dtype."""
     if dtype is not None:
         x = x.to(dtype)
     b = p.get("b")
+    if "q8" in p:
+        # int8 values are exact in bf16, so the cast loses nothing; the
+        # scale multiplies in f32
+        w = p["q8"].to(dtype or x.dtype)
+        y = ((x @ w).to(torch.float32) * p["scale"]).to(w.dtype)
+        return y if b is None else y + b.to(y.dtype)
     if "u" in p:
         u, v = p["u"], p["v"]
         if dtype is not None:

@@ -3,14 +3,18 @@
 
     python -m end2end_asr_tpu_torch.test --continue-from models/run/best_model \
         --test-manifest-list test.csv [--beam-search --beam-width 8] \
-        [--device cpu]
+        [--lm-rescoring --lm-path lm.npz [--lm-greedy-as-beam]] \
+        [--quantize-int8] [--device cpu]
 
 Loads a checkpoint in the JAX package's format (training/checkpoint.py),
 takes the feature and model config FROM THE CHECKPOINT (reference
 test.py:78-84) and the decode/search flags, the manifests and any other
-explicitly typed flag from the command line, builds the test loader and
-runs batch evaluation (greedy or --beam-search). Without a GPU it raises
-unless --device cpu is given.
+explicitly typed flag from the command line, quantises the dense weights
+to int8 with --quantize-int8 (models/quantize.py), loads the rescoring
+LM with --lm-rescoring (models/lm.py; .npz or a reference .pt), builds
+the test loader and runs batch evaluation (greedy or --beam-search).
+Without a GPU it raises unless --device cpu is given. --parallel is not
+ported yet and raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,11 +46,9 @@ def main(argv=None, timings: Optional[list] = None):
     if not cli.continue_from:
         print("need --continue-from checkpoint")
         sys.exit(1)
-    for flag, name in ((cli.quantize_int8, "--quantize-int8"),
-                       (cli.lm_rescoring, "--lm-rescoring"),
-                       (cli.parallel, "--parallel")):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if cli.parallel:
+        raise NotImplementedError("--parallel is not ported yet: "
+                                  "parallelism (ROADMAP §1, parallelism)")
 
     from end2end_asr_tpu_torch.data.dataset import ManifestDataset
     from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
@@ -78,16 +80,25 @@ def main(argv=None, timings: Optional[list] = None):
         verbose=cli.verbose, continue_from=cli.continue_from)
     cfg = cfg.replace(**overrides)
 
+    if cfg.quantize_int8:
+        from end2end_asr_tpu_torch.models.quantize import \
+            quantize_for_inference
+        params = quantize_for_inference(params)
+
     test_data = ManifestDataset(list(cfg.test_manifest_list), label2id,
                                 sample_rate=cfg.sample_rate)
     test_loader = AudioBatchLoader(
         test_data, cfg,
         sampler=BucketingSampler(len(test_data), cfg.batch_size,
                                  seed=cfg.seed))
+    lm = None
+    if cfg.lm_rescoring:
+        from end2end_asr_tpu_torch.models.lm import LM
+        lm = LM(cfg.lm_path, device)
     params = prepare_params(params, dims_from_config(cfg), device,
                             model_state)
     results = evaluate(params, cfg, test_loader, id2label, device,
-                       verbose=cfg.verbose, timings=timings)
+                       verbose=cfg.verbose, timings=timings, lm=lm)
     print("TEST CER:{:.2f}% WER:{:.2f}% CER_EN:{:.2f}% CER_ZH:{:.2f}%".format(
         results["cer"], results["wer"], results["cer_en"],
         results["cer_zh"]))

@@ -45,17 +45,19 @@ logger = logging.getLogger("end2end_asr_tpu_torch")
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for every option of root train.py that
     the port does not have yet."""
+    # items named by title, not number, so a renumbering cannot stale them
     todo = [
         (cfg.parallel or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
-         "--parallel / --mesh-*", "parallelism (ROADMAP queue 1, item 8)"),
+         "--parallel / --mesh-*", "ROADMAP §1, parallelism"),
         (cfg.zero1 or cfg.fsdp, "--zero1 / --fsdp",
-         "ZeRO (ROADMAP queue 1, item 8)"),
+         "ZeRO (ROADMAP §1, parallelism)"),
         (cfg.seq_parallel, "--seq-parallel",
-         "sequence parallelism (ROADMAP queue 1, item 8)"),
+         "sequence parallelism (ROADMAP §1, parallelism)"),
         (cfg.noise_dir or cfg.augment, "--noise-dir / --augment",
-         "noise and sox augmentation (ROADMAP queue 1, item 1)"),
+         "ROADMAP §1, noise injection and tempo/gain augmentation"),
         (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
-         "orbax checkpoints (ROADMAP queue 1, item 9)"),
+         "orbax checkpoints (ROADMAP §1, parallelism: sharded "
+         "checkpoints)"),
     ]
     for bad, flag, item in todo:
         if bad:

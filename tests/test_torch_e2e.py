@@ -13,42 +13,29 @@ import os
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from end2end_asr_tpu.config import load_vocab
 from end2end_asr_tpu.data.dataset import ManifestDataset
 from end2end_asr_tpu.data.loader import AudioBatchLoader, BucketingSampler
 from end2end_asr_tpu.evaluation import evaluate
-from end2end_asr_tpu.models.transformer import init_transformer
-from end2end_asr_tpu.training.checkpoint import (load_checkpoint,
-                                                 save_checkpoint)
+from end2end_asr_tpu.training.checkpoint import load_checkpoint
+from end2end_asr_tpu_torch import lm_train as port_lm_train
 from end2end_asr_tpu_torch import test as port_test
 from end2end_asr_tpu_torch import transcribe as port_transcribe
 from end2end_asr_tpu_torch.config import Config as TorchConfig
 from end2end_asr_tpu_torch.data import dataset as port_dataset
 from end2end_asr_tpu_torch.data import loader as port_loader
 
-from port_parity import small_config
-from synth import make_corpus
+from port_parity import corpus_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("port_e2e"))
-    manifest, labels = make_corpus(root)
-    cfg = small_config(labels_path=labels, tgt_max_len=16, src_max_len=400,
-                       batch_size=2)
-    label2id, id2label = load_vocab(labels)
-    params, state = init_transformer(jax.random.PRNGKey(3), cfg,
-                                     len(label2id))
-    base = os.path.join(root, "ck")
-    save_checkpoint(base, cfg, 1, params, None, state, label2id, id2label)
-    return manifest, base
+    return corpus_checkpoint(str(tmp_path_factory.mktemp("port_e2e")))
 
 
 def _hyps(caplog, logger):
@@ -134,7 +121,9 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'end2end_asr_tpu', 'tools')]\n"
         "assert not bad, bad\n"
-        "for m in ('tools.probe_stream', 'ops.ctc', 'ops.specaugment'):\n"
+        "for m in ('tools.probe_stream', 'ops.ctc', 'ops.specaugment',\n"
+        "          'models.lm', 'models.quantize', 'streaming',\n"
+        "          'data.lm_loader', 'lm_train'):\n"
         "    assert pkg.__name__ + '.' + m in mods, m\n"
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -143,7 +132,7 @@ def test_port_imports_no_jax():
     assert int(r.stdout.strip()) >= 20
 
 
-@pytest.mark.parametrize("entry", ["test", "transcribe"])
+@pytest.mark.parametrize("entry", ["test", "transcribe", "lm_train"])
 def test_entry_points_raise_without_gpu(corpus, monkeypatch, entry):
     manifest, base = corpus
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -151,5 +140,7 @@ def test_entry_points_raise_without_gpu(corpus, monkeypatch, entry):
         if entry == "test":
             port_test.main(["--continue-from", base,
                             "--test-manifest-list", manifest])
-        else:
+        elif entry == "transcribe":
             port_transcribe.main(["--continue-from", base, "x.wav"])
+        else:
+            port_lm_train.main(["--train-manifest-list", manifest])

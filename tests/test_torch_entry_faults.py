@@ -2,7 +2,7 @@
 have: `--trace-dir` writes a trace of the first epoch, `--no-pallas-
 features` takes the plain STFT, the training run's console output is teed
 into log/<name>.stdout, and TF32 is off once an entry point has set up its
-device (train, test, transcribe). All on the CPU at a tiny size; the card's
+device (train, test, transcribe, lm_train, StreamingTranscriber). All on the CPU at a tiny size; the card's
 side of the STFT routing is in tests/test_torch_gpu.py.
 """
 
@@ -16,13 +16,16 @@ import pytest
 import torch
 
 from end2end_asr_tpu_torch import evaluation as E
+from end2end_asr_tpu_torch import lm_train as port_lm_train
 from end2end_asr_tpu_torch import test as port_test
 from end2end_asr_tpu_torch import train as port_train
 from end2end_asr_tpu_torch import transcribe as port_transcribe
 from end2end_asr_tpu_torch.config import Config
 from end2end_asr_tpu_torch.ops import features as PF
 from end2end_asr_tpu_torch.ops import stft as S
+from end2end_asr_tpu_torch.streaming import StreamingTranscriber
 from end2end_asr_tpu_torch.training import steps as TS
+from end2end_asr_tpu_torch.training.checkpoint import load_checkpoint
 
 from synth import make_corpus
 
@@ -115,13 +118,14 @@ def test_stdout_is_teed_and_a_resumed_run_appends(corpus, tmp_path,
         assert f.read().count(BANNER) == 1
 
 
-@pytest.mark.parametrize("entry", ["train", "test", "transcribe"])
+@pytest.mark.parametrize("entry", ["train", "test", "transcribe",
+                                   "lm_train", "streaming"])
 def test_tf32_is_off_after_each_entry_points_setup(corpus, tmp_path,
                                                    monkeypatch, entry):
     monkeypatch.chdir(tmp_path)
     manifest, _ = corpus
     root = str(tmp_path)
-    if entry != "train":        # a checkpoint to serve
+    if entry not in ("train", "lm_train"):        # a checkpoint to serve
         port_train.main(_train_argv(corpus, root, ["--epochs", "1"]))
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
@@ -131,6 +135,15 @@ def test_tf32_is_off_after_each_entry_points_setup(corpus, tmp_path,
     elif entry == "test":
         port_test.main(["--continue-from", ck, "--test-manifest-list",
                         manifest, "--batch-size", "4", "--device", "cpu"])
+    elif entry == "lm_train":
+        port_lm_train.main(["--train-manifest-list", manifest, "--lm-path",
+                            os.path.join(root, "lm.npz"), "--ninp", "8",
+                            "--nhid", "8", "--nlayers", "1", "--batch-size",
+                            "1", "--bptt", "4", "--epochs", "1",
+                            "--device", "cpu"])
+    elif entry == "streaming":
+        cfg, _, params, _, state, _, id2label, _ = load_checkpoint(ck)
+        StreamingTranscriber(params, state, cfg, id2label, device="cpu")
     else:
         with open(manifest) as f:
             wav = f.readline().split(",")[0]

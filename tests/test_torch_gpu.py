@@ -983,3 +983,61 @@ def test_stream_kernels_match_plain(dev, n):
         assert (a - b).abs().max().item() <= 1e-6
     with pytest.raises(ValueError, match="16-byte"):
         PS.stream_copy(p[1:])
+
+
+def test_lm_evaluate_on_the_card_equals_cpu(dev, tmp_path):
+    """The rescoring LM's scores on the card (cuDNN's LSTM, TF32 off)
+    equal the CPU's: summed CE of <= 20 words of f32 log-softmax."""
+    from end2end_asr_tpu_torch.models.lm import LM, init_lm, save_npz_lm
+    words = ["<eos>", "<oov>"] + [f"w{i}" for i in range(300)]
+    path = str(tmp_path / "lm.npz")
+    save_npz_lm(path, init_lm(len(words), 256, 256, 2, False,
+                              torch.Generator().manual_seed(0)),
+                {w: i for i, w in enumerate(words)})
+    gpu, cpu = LM(path, dev), LM(path, "cpu")
+    g = torch.Generator().manual_seed(1)
+    for n in (1, 2, 7, 19):
+        ids = torch.randint(0, 320, (n,), generator=g).tolist()
+        seq = " ".join(f"w{i}" for i in ids)
+        (ce_g, oov_g), (ce_c, oov_c) = gpu.evaluate(seq), cpu.evaluate(seq)
+        assert oov_g == oov_c and abs(ce_g - ce_c) <= 1e-4, (seq, ce_g,
+                                                            ce_c)
+
+
+def test_quantized_f32_serving_on_the_card_equals_cpu(dev):
+    """The int8 model at f32 (TF32 off): the encoder output (features,
+    the vgg kernels, 2 layers) and 8 KV-cached decode steps on the card
+    equal the CPU path's; sums in another order."""
+    from end2end_asr_tpu_torch.config import Config
+    from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
+    from end2end_asr_tpu_torch.models import decoder as D
+    from end2end_asr_tpu_torch.models.quantize import quantize_for_inference
+    from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                          init_params)
+    cfg = Config(feat_extractor="vgg_cnn", num_layers=2, num_heads=4,
+                 dim_model=128, dim_key=32, dim_value=32, dim_inner=256,
+                 dim_emb=128, dtype="float32")
+    dims = dims_from_config(cfg)
+    q = quantize_for_inference(init_params(cfg, 50,
+                                           torch.Generator().manual_seed(2)))
+    T = 200
+    pcm = torch.randn(2, (T - 1) * cfg.hop_length + cfg.n_fft,
+                      generator=torch.Generator().manual_seed(3)) * 0.3
+    frames = torch.tensor([T, T - 37])
+    toks = torch.randint(0, 50, (8, 2), generator=torch.Generator()
+                         .manual_seed(4))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        p = prepare_params(q, dims, d)
+        enc, _ = encode_pcm(p, cfg, dims, pcm.to(d), frames.to(d), T)
+        cache = D.init_cache(p["decoder"], enc, 8, dims.num_heads,
+                             dims.dim_key, dims.dim_value,
+                             dtype=torch.float32)
+        logits = torch.stack([D.decode_step(
+            p["decoder"], cache, toks[t].to(d), t, dims.num_heads,
+            dims.dim_key, dims.dim_value, dims.dim_model,
+            dtype=torch.float32) for t in range(8)])
+        outs.append((enc.cpu(), logits.cpu()))
+    assert outs[0][0].shape == (2, T // 4, 128)
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=2e-3)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=2e-3)
