@@ -78,10 +78,27 @@ Phases (any failure exits non-zero without the final result line):
      2 s chunks (twice: p50 / p95 ms a feed), whose flush() must equal
      `transcribe` on the file; the serving kernels must launch on each
      path (their counts set to 0 just before, read just after);
-  8. the streaming probe's entry point, its four lines printed;
-  9. one JSON line of per-kernel numbers (and the serving, training and
-     serve-option numbers), then the result line
-     {"ok": true, "device": {...}}.
+  8. augmented joint training: the phase 4 model through the
+     `multi_train` entry point with --augment (tempo/gain), --noise-dir
+     (a synthesised directory of WAV and AU files) and --num-workers 4,
+     on two train manifests (phase 4's 24 utterances and 12 new ones) and
+     two valid manifests, for 2 epochs of 2 batches, with the training
+     kernels' launch counts set to 0 before and read after (each must
+     have launched; a TASK line per task and epoch; the buckets the
+     batches landed in, read from the run's log, printed); kernels 1-5
+     against their plain versions at the 1600-frame bucket that augmented
+     ~8 s utterances land in; the host data path: one augmented and one
+     plain batch of 12 built at num_workers 0 and 4, and one WSOLA call,
+     on the host clock, and the train step on the augmented batch; the
+     two epoch checkpoints averaged by `tools.average_checkpoints` (each
+     leaf the float64 mean) and served greedy through `test`; a
+     reference-layout .th of phase 3's weights converted by
+     `tools.convert_reference_checkpoint` (its tensors equal phase 3's bit
+     for bit) and served greedy through `test` with phase 3's strings;
+  9. the streaming probe's entry point, its four lines printed;
+  10. one JSON line of per-kernel numbers (and the serving, training,
+     serve-option and augmented-training numbers, the script's seconds),
+     then the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -1401,8 +1418,11 @@ def aishell_config(**kw):
 
 
 def train_argv(cfg, manifest, valid, labels_path, extra=(), name="aishell"):
-    return ["--train-manifest-list", manifest,
-            "--valid-manifest-list", valid, "--labels-path", labels_path,
+    """`manifest`, `valid`: a manifest, or a list of them (joint training)."""
+    as_list = lambda m: [m] if isinstance(m, str) else list(m)
+    return ["--train-manifest-list", *as_list(manifest),
+            "--valid-manifest-list", *as_list(valid),
+            "--labels-path", labels_path,
             "--name", name, "--save-folder", "models",
             "--feat_extractor", cfg.feat_extractor,
             "--num-layers", str(cfg.num_layers),
@@ -2168,6 +2188,452 @@ def phase_serve_options(torch, dev, kernels, work, model, serve, manifests):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: augmented joint training and the checkpoint tools
+# ---------------------------------------------------------------------------
+
+def write_au(path, y, sr):
+    """A Sun .au file of big-endian int16 samples."""
+    import numpy as np
+    data = np.clip(np.asarray(y) * 32768, -32768, 32767).astype(">i2")
+    hdr = np.array([0x2E736E64, 24, data.nbytes, 3, sr, 1], ">u4")
+    with open(path, "wb") as f:
+        f.write(hdr.tobytes() + data.tobytes())
+
+
+def make_noise_dir(root, rng):
+    """Three WAVs (12 s, 5 s and a 2 s one, shorter than an utterance) and
+    a 3 s AU file of filtered noise and hum."""
+    import numpy as np
+    from end2end_asr_tpu_torch.data.audio import save_wav
+    d = os.path.join(root, "noise")
+    os.makedirs(d, exist_ok=True)
+    sr = 16000
+    for name, sec in (("babble.wav", 12.0), ("fan.wav", 5.0),
+                      ("click.wav", 2.0), ("hum.au", 3.0)):
+        n = int(sec * sr)
+        y = np.convolve(rng.randn(n), np.ones(8) / 8, "same") * 0.2 \
+            + 0.05 * np.sin(2 * math.pi * 50 * np.arange(n) / sr)
+        if name.endswith(".au"):
+            write_au(os.path.join(d, name), y, sr)
+        else:
+            save_wav(os.path.join(d, name), y, sr)
+    return d
+
+
+def log_epoch_walls(path):
+    """The (Epoch N) TRAIN ... wall:Xs seconds of a train log, in order."""
+    import re
+    with open(path, encoding="utf-8") as f:
+        return [float(m) for m in re.findall(
+            r"\(Epoch \d+\) TRAIN LOSS:.* wall:([0-9.]+)s", f.read())]
+
+
+def log_train_buckets(path):
+    """Per epoch of a train log, its batches per bucket: {"<frames>x<target
+    columns>": batches}, from the trainer's TRAIN BATCHES PER BUCKET
+    lines."""
+    import re
+    with open(path, encoding="utf-8") as f:
+        return [{k: int(n) for k, n in (c.split(":") for c in m.split())}
+                for m in re.findall(
+                    r"\(Epoch \d+\) TRAIN BATCHES PER BUCKET \(frames x "
+                    r"target columns\): ([0-9x: ]+)\n", f.read())]
+
+
+def check_bucket_1600(torch, dev, tgt_cols):
+    """Kernels 1-5 against their plain versions at the 1600-frame bucket
+    that tempo-augmented ~8 s utterances land in: the STFT (B, 1600, 161),
+    block 1 bf16 forward and backward at (12, 161, 1600), the attention
+    bf16 forward and backward at rate 0.1 at the encoder shape (12, 8, 400,
+    400, 64) and the cross shape (12, 8, tgt_cols + 1, 400, 64); phase 2's
+    tolerances. Returns {kernel: {max err, kernel ms, plain ms}}."""
+    from end2end_asr_tpu_torch.ops import attention_fused as AF
+    from end2end_asr_tpu_torch.ops import features as PF
+    from end2end_asr_tpu_torch.ops import stft as S
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
+    F, T, n_fft, hop = 161, 1600, 320, 160
+    g = torch.Generator().manual_seed(SEED + 40)
+    out = {}
+    N = (T - 1) * hop + n_fft
+    pcm = (torch.randn(B, N, generator=g) * 0.1).mul(32768).round().div(
+        32768).to(dev)
+    cos, sin = (torch.from_numpy(a).to(dev)
+                for a in PF.dft_matrices(n_fft, "hamming"))
+    got = S.stft_logmag(pcm, n_fft, hop, T, "hamming")
+    err = (got - PF.stft_logmag_plain(pcm, cos, sin, hop, T)).abs().max(
+        ).item()
+    out["stft_logmag"] = {"max_abs_err": err, "tol": STFT_TOL, "ms": time_ms(
+        torch, lambda: S.stft_logmag(pcm, n_fft, hop, T, "hamming"),
+        iters=10), "plain_ms": time_ms(torch, lambda: PF.stft_logmag_plain(
+            pcm, cos, sin, hop, T), iters=3)}
+    if not (err <= STFT_TOL and got.shape == (B, T, F)):
+        fail(f"stft_logmag at T {T}: max_abs_err {err}")
+
+    spect = torch.randn(B, F, T, generator=g).to(dev)
+    ws = [(torch.randn(*s, generator=g) * sc).to(dev) for s, sc in
+          (((3, 3, 1, 64), 0.3), ((64,), 0.1), ((3, 3, 64, 64), 0.05),
+           ((64,), 0.1))]
+    cdt = torch.bfloat16
+    idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8, device=dev)
+    y = V.vgg_block1(spect, *ws, cdt=cdt, idx_out=idx)
+    want, want_idx = V.vgg_block1_plain(spect, *ws, cdt=cdt)
+    diff = (y.float() - want.float()).abs()
+    same_idx = (idx == want_idx).float().mean().item()
+    ok = bool((diff <= VGG_BF16_ATOL + VGG_BF16_RTOL
+               * want.float().abs()).all())
+    out["vgg_block1_fwd"] = {
+        "max_abs_err": diff.max().item(), "idx_equal_share": same_idx,
+        "ms": time_ms(torch, lambda: V.vgg_block1(spect, *ws, cdt=cdt,
+                                                  idx_out=idx), iters=10),
+        "plain_ms": time_ms(torch, lambda: V.vgg_block1_plain(
+            spect, *ws, cdt=cdt), iters=3)}
+    if not ok or same_idx < 0.99 or y.shape != (B, F // 2, T // 2, 64):
+        fail(f"vgg_block1 bf16 at T {T} disagrees with its plain version: "
+             f"{out['vgg_block1_fwd']}")
+    gy = torch.randn(y.shape, generator=g).to(dev, cdt)
+    grads = V.vgg_block1_bwd(spect, *ws[:3], y, idx, gy, cdt)
+    want_g = V.vgg_block1_bwd_plain(spect, *ws[:3], y, idx, gy, cdt)
+    errs = [rel_err(a, b) for a, b in zip(grads, want_g)]
+    out["vgg_block1_bwd"] = {
+        "rel_err": errs, "tol": VGG_BWD_BF16_TOL,
+        "ms": time_ms(torch, lambda: V.vgg_block1_bwd(
+            spect, *ws[:3], y, idx, gy, cdt), iters=10),
+        "plain_ms": time_ms(torch, lambda: V.vgg_block1_bwd_plain(
+            spect, *ws[:3], y, idx, gy, cdt), iters=3)}
+    if not (max(errs) <= VGG_BWD_BF16_TOL
+            and all(torch.isfinite(a).all() for a in grads)):
+        fail(f"vgg_block1_bwd bf16 at T {T} disagrees with its plain "
+             f"version: {errs}")
+    del want, want_idx, want_g
+
+    H, D, Tk, rate, seed = 8, 64, T // 4, 0.1, 0x5EED1600
+    for label, Tq in (("enc_self", Tk), ("dec_cross", tgt_cols + 1)):
+        q, k, v = (torch.randn(B, t, H, D, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2) for t in (Tq, Tk, Tk))
+        mask = torch.rand(B, Tq, Tk, generator=g) < 0.1
+        mask[0, 0] = True                 # a query with every key masked
+        bias = torch.where(mask, -1e9, 0.0).to(dev)
+        dout = torch.randn(B, Tq, H, D, generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = AF.flash_mha_train(*leaves, bias, seed, rate)
+        gq = torch.autograd.grad(o, leaves, dout)
+        qf = [t.float().requires_grad_() for t in (q, k, v)]
+        want = AF.flash_mha_train_plain(*qf, bias, seed, rate)
+        want_g = torch.autograd.grad(want, qf, dout.float())
+        ef = rel_err(o, want)
+        eb = [rel_err(a, b) for a, b in zip(gq, want_g)]
+        o2, stats = AF.attn_fwd(q, k, v, bias, seed, rate)
+        out[f"attn_{label}"] = {
+            "shape": [B, H, Tq, Tk, D], "fwd_rel_err": ef, "bwd_rel_err": eb,
+            "tol": ATTN_TOL,
+            "fwd_ms": time_ms(torch, lambda: AF.attn_fwd(
+                q, k, v, bias, seed, rate), iters=20),
+            "bwd_ms": time_ms(torch, lambda: AF.attn_bwd(
+                q, k, v, bias, o2, stats, dout, seed, rate), iters=20)}
+        if not (ef <= ATTN_TOL and max(eb) <= ATTN_TOL
+                and torch.isfinite(o.float()).all()):
+            fail(f"attention {label} at T {T} disagrees with plain: "
+                 f"{out[f'attn_{label}']}")
+    torch.cuda.synchronize()
+    log(f"kernels at the 1600-frame bucket: {json.dumps(out)}")
+    return out
+
+
+def host_data_path(cfg, label2id, manifest, noise_dir):
+    """One augmented batch of 12 ~8 s utterances (tempo, gain, noise at
+    the default probability) and one plain batch, each built three times
+    by a loader of rows 0..B-1 (a new epoch's stream each time) at
+    num_workers 0 and 4; and one _wsola_py call on a 7.99 s utterance.
+    Returns the times and the last augmented batch."""
+    import numpy as np
+    from end2end_asr_tpu_torch.data import audio as A
+    from end2end_asr_tpu_torch.data.dataset import (ManifestDataset,
+                                                    NoiseInjector)
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    res = {}
+    for aug in (True, False):
+        noise = (NoiseInjector(noise_dir, cfg.sample_rate,
+                               (cfg.noise_min, cfg.noise_max))
+                 if aug else None)
+        data = ManifestDataset([manifest], label2id, augment=aug,
+                               noise_injector=noise,
+                               noise_prob=cfg.noise_prob)
+        for nw in (0, 4):
+            loader = AudioBatchLoader(data, cfg, sampler=[list(range(B))],
+                                      seed=SEED, num_workers=nw)
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                batch = next(iter(loader))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if aug:
+                aug_batch = batch
+            key = f"{'augmented' if aug else 'plain'}_batch_ms_workers{nw}"
+            res[key], res[key + "_all"] = statistics.median(ms), ms
+            res[key.replace("_ms_", "_bucket_")] = batch.src_bucket
+    y = np.random.RandomState(SEED).randn(int(7.99 * 16000)).astype(
+        np.float32) * 0.1
+    ms = []
+    for tempo in (0.9, 1.1, 0.87):
+        t0 = time.perf_counter()
+        A._wsola_py(y, tempo, 16000)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["wsola_7.99s_ms"] = ms
+    log(f"host data path ({B} x ~8 s, host clock): {json.dumps(res)}")
+    return res, aug_batch
+
+
+def reference_state_dict(params):
+    """Phase 3's params (the port's tree) in the reference's module names
+    and layouts, DataParallel's "module." prefix included: the inverse of
+    the converter's mapping."""
+    sd = {}
+
+    def lin(name, p):
+        sd[f"{name}.weight"] = p["w"].t().contiguous()
+        if "b" in p:
+            sd[f"{name}.bias"] = p["b"].clone()
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = (p["scale"].clone(),
+                                                    p["bias"].clone())
+
+    def mha(base, p):
+        for ref, ours in (("query", "q"), ("key", "k"), ("value", "v"),
+                          ("output", "out")):
+            lin(f"{base}.{ref}_linear", p[ours])
+        ln(f"{base}.layer_norm", p["ln"])
+
+    def ffn(base, p):
+        for i in (1, 2):
+            w = p[f"w{i}"]
+            sd[f"{base}.conv_{i}.weight"] = w["w"].t().unsqueeze(-1).contiguous()
+            sd[f"{base}.conv_{i}.bias"] = w["b"].clone()
+        ln(f"{base}.layer_norm", p["ln"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    lin("encoder.input_linear", enc["input_linear"])
+    ln("encoder.layer_norm_input", enc["ln_input"])
+    for i, layer in enumerate(enc["layers"]):
+        mha(f"encoder.layers.{i}.self_attn", layer["self_attn"])
+        ffn(f"encoder.layers.{i}.pos_ffn", layer["ffn"])
+    sd["decoder.trg_embedding.weight"] = dec["embedding"].clone()
+    for i, layer in enumerate(dec["layers"]):
+        mha(f"decoder.layers.{i}.self_attn", layer["self_attn"])
+        mha(f"decoder.layers.{i}.encoder_attn", layer["enc_attn"])
+        ffn(f"decoder.layers.{i}.pos_ffn", layer["ffn"])
+    if "output_linear" in dec:
+        sd["decoder.output_linear.weight"] = \
+            dec["output_linear"]["w"].t().contiguous()
+    for k, conv in (("0", "conv1"), ("2", "conv2"), ("5", "conv3"),
+                    ("7", "conv4")):
+        p = params["frontend"][conv]
+        sd[f"conv.{k}.weight"] = p["w"].permute(3, 2, 0, 1).contiguous()
+        sd[f"conv.{k}.bias"] = p["b"].clone()
+    return {"module." + k: v for k, v in sd.items()}
+
+
+def greedy_strings(torch, kernels, argv):
+    """The HYP strings of `test --verbose` on `argv`, with the serving
+    kernels' counts set to 0 just before and read just after."""
+    import logging
+    from end2end_asr_tpu_torch import test as port_test
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.hyps = []
+
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("HYP: "):
+                self.hyps.append(msg[5:].split(" || GOLD: ")[0])
+    keep = Keep()
+    lg = logging.getLogger("end2end_asr_tpu_torch")
+    lg.addHandler(keep)
+    try:
+        for k in kernels.values():
+            k.reset_launches()
+        res = port_test.main(argv + ["--verbose"])
+        torch.cuda.synchronize()
+        counts = {n: k.launches() for n, k in kernels.items()}
+    finally:
+        lg.removeHandler(keep)
+    if not all(math.isfinite(v) for v in res.values()):
+        fail(f"test {argv}: non-finite metrics {res}")
+    missing = [n for n, c in counts.items() if c < 1]
+    if missing:
+        fail(f"test {argv}: kernels not launched: {missing}")
+    return keep.hyps, counts, res
+
+
+def phase_augment_multi(torch, dev, kernels, serve_kernels, work,
+                        labels_path, model, manifest, valid, train):
+    """Augmented joint training of the AiShell README model through the
+    `multi_train` entry point (two train manifests: phase 4's 24
+    utterances and 12 new ones; two valid manifests: phase 4's and phase
+    3's; --augment, --noise-dir of a synthesised directory, --num-workers
+    4; 2 epochs of 2 batches), with the training kernels' counts
+    (`kernels`, as in phase_train) set to 0 before and read after; the
+    kernels at the 1600-frame bucket; the host data path's times; then the
+    epoch checkpoints averaged by `tools.average_checkpoints` and served
+    greedy through `test`, and a reference-layout .th of phase 3's weights
+    converted by `tools.convert_reference_checkpoint` and served greedy
+    beside phase 3's checkpoint (`serve_kernels`, as in phase_serve)."""
+    import argparse
+
+    import numpy as np
+    from end2end_asr_tpu_torch import multi_train as port_multi_train
+    from end2end_asr_tpu_torch.config import load_vocab
+    from end2end_asr_tpu_torch.tools import average_checkpoints as PAV
+    from end2end_asr_tpu_torch.tools import \
+        convert_reference_checkpoint as PCV
+    from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
+                                                           load_checkpoint)
+
+    with open(labels_path, encoding="utf-8") as f:
+        labels = json.load(f)
+    rs = np.random.RandomState(SEED + 50)
+    noise_dir = make_noise_dir(work, rs)
+    task1 = make_corpus(work, labels, rs, n=B, name="task1.csv")
+    cfg = aishell_config()
+    label2id, id2label = load_vocab(labels_path)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_kernels(kernels)
+        t0 = time.time()
+        res = port_multi_train.main(train_argv(
+            cfg, [manifest, task1], [valid, model.manifest], labels_path,
+            ["--epochs", "2", "--device", str(dev), "--augment",
+             "--noise-dir", noise_dir, "--num-workers", "4"],
+            name="augment_multi"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernel_counts(kernels)
+        with open(os.path.join("log", "augment_multi"),
+                  encoding="utf-8") as f:
+            run_log = f.read()
+        aug_walls = log_epoch_walls(os.path.join("log", "augment_multi"))
+        plain_walls = log_epoch_walls(os.path.join("log", "aishell"))
+        seen = log_train_buckets(os.path.join("log", "augment_multi"))
+        plain_seen = log_train_buckets(os.path.join("log", "aishell"))
+    finally:
+        os.chdir(cwd)
+    m = res["metrics"]
+    log(f"multi_train --augment --noise-dir --num-workers 4: 2 epochs in "
+        f"{wall:.1f} s, optimizer step {res['opt_step']}, metrics "
+        f"{ {k: v for k, v in m.items() if k != 'history'} }, launches "
+        f"{counts}; train batches per bucket (frames x target columns) and "
+        f"epoch {seen} against the plain run's {plain_seen}; epoch wall s "
+        f"{aug_walls} against the plain run's {plain_walls}")
+    missing = [n for n, c in counts.items() if c < 1]
+    if missing:
+        fail(f"augmented joint training: kernels not launched: {missing}")
+    if res["opt_step"] != 4 or not all(
+            math.isfinite(v) for v in m["valid_losses"] + [m["train_loss"]]):
+        fail(f"augmented joint training: bad result {m}, step "
+             f"{res['opt_step']}")
+    if len(m["valid_losses"]) != 2 or not math.isclose(
+            m["valid_loss"], sum(m["valid_losses"]) / 2, rel_tol=1e-12):
+        fail(f"multi_train: valid_losses {m.get('valid_losses')} and "
+             f"valid_loss {m['valid_loss']} are not the tasks' losses and "
+             "their mean")
+    for epoch in (1, 2):
+        for task in (0, 1):
+            if f"(Epoch {epoch}) TASK:{task} VALID LOSS:" not in run_log:
+                fail(f"multi_train: no TASK:{task} line in epoch {epoch}")
+    shapes = [tuple(map(int, k.split("x"))) for e in seen for k in e]
+    if len(seen) != 2 or sum(n for e in seen for n in e.values()) != 4:
+        fail(f"multi_train: the log's batches per bucket {seen} are not "
+             "2 epochs of 2 batches")
+    train_buckets = sorted({t for t, _ in shapes})
+    tgt_cols = max(u for _, u in shapes)
+
+    bucket = check_bucket_1600(torch, dev, tgt_cols)
+    data_path, aug_batch = host_data_path(cfg, label2id, manifest, noise_dir)
+
+    # the train step on an augmented batch, beside phase 4's 800-bucket one
+    run_dir = os.path.join(work, "models", "augment_multi")
+    epochs = [os.path.join(run_dir, f"epoch_{e}") for e in (1, 2)]
+    step_aug = fixed_batch_step(torch, dev, kernels, cfg,
+                                load_checkpoint(epochs[1])[2], aug_batch,
+                                steps=5, label="augmented train step")
+
+    # the two epoch checkpoints averaged, then served greedy
+    avg = os.path.join(work, "avg")
+    t0 = time.time()
+    PAV.main([avg, *epochs, "--device", str(dev)])
+    avg_s = time.time() - t0
+    trees = [flatten_params(load_checkpoint(p)[2]) for p in epochs + [avg]]
+    exact = all(torch.equal(trees[2][k], ((trees[0][k].double()
+                                           + trees[1][k].double()) / 2
+                                          ).to(v.dtype))
+                for k, v in trees[2].items())
+    serve_argv = ["--test-manifest-list", model.manifest, "--batch-size",
+                  str(B), "--device", str(dev)]
+    avg_hyps, avg_counts, avg_res = greedy_strings(
+        torch, serve_kernels, ["--continue-from", avg] + serve_argv)
+    log(f"average_checkpoints of epochs 1-2 in {avg_s:.2f} s: every leaf "
+        f"(a + b) / 2 in float64, exactly: {exact}; served greedy through "
+        f"test: {avg_res}, launches {avg_counts}")
+    if not exact:
+        fail("the averaged checkpoint is not the mean of the two epochs")
+
+    # a reference-layout .th of phase 3's weights, converted and served
+    th = os.path.join(work, "reference.th")
+    torch.save({"label2id": label2id, "id2label": id2label,
+                "args": argparse.Namespace(**model.cfg.to_dict()),
+                "epoch": 0,
+                "model_state_dict": reference_state_dict(model.params),
+                "optimizer_state_dict": {},
+                "optimizer_params": {"_step": 4321, "_rate": 1e-4,
+                                     "warmup": 4000, "factor": 1.0,
+                                     "model_size": 512},
+                "metrics": {}}, th)
+    t0 = time.time()
+    converted = PCV.main([th, os.path.join(work, "converted"), "--device",
+                          str(dev)])
+    conv_s = time.time() - t0
+    _, _, cparams, _, _, _, _, cmetrics = load_checkpoint(converted)
+    want, got = flatten_params(model.params), flatten_params(cparams)
+    same = sorted(want) == sorted(got) and all(
+        torch.equal(got[k], v) for k, v in want.items())
+    ref_hyps, _, _ = greedy_strings(
+        torch, serve_kernels, ["--continue-from", model.ckpt] + serve_argv)
+    conv_hyps, conv_counts, _ = greedy_strings(
+        torch, serve_kernels, ["--continue-from", converted] + serve_argv)
+    log(f"convert_reference_checkpoint in {conv_s:.2f} s: {len(got)} "
+        f"tensors, equal to phase 3's bit for bit: {same}; noam_step "
+        f"{cmetrics.get('noam_step')}; greedy strings equal to phase 3's "
+        f"checkpoint's: {conv_hyps == ref_hyps} ({len(conv_hyps)} strings, "
+        f"first {conv_hyps[0][:40]!r}); launches {conv_counts}")
+    if not same or cmetrics.get("noam_step") != 4321:
+        fail("the converted checkpoint differs from phase 3's weights")
+    if conv_hyps != ref_hyps or len(conv_hyps) != B:
+        fail("the converted checkpoint's greedy strings differ from "
+             "phase 3's")
+    return counts, {
+        "run_2_epochs_s": wall, "epoch_wall_s": aug_walls,
+        "plain_epoch_wall_s": plain_walls[:2],
+        "train_step_ms_800_bucket": train["train_step_ms"],
+        "augmented_train_step_ms": step_aug["step_ms"],
+        "augmented_train_step_ms_all": step_aug["step_ms_all"],
+        "augmented_train_step_bucket": aug_batch.src_bucket,
+        "train_batches_per_bucket": seen,
+        "plain_train_batches_per_bucket": plain_seen,
+        "train_buckets": train_buckets,
+        "valid_losses": m["valid_losses"], "valid_loss": m["valid_loss"],
+        "bucket_1600": bucket, "host_data_path": data_path,
+        "average_s": avg_s, "average_exact": exact,
+        "average_serve_launches": avg_counts,
+        "convert_s": conv_s, "converted_equal": same,
+        "converted_strings_equal": conv_hyps == ref_hyps,
+        "converted_serve_launches": conv_counts}
+
+
 def phase_probe(torch):
     """The streaming probe through its entry point (its four lines go to
     the standard output); returns its kernels' launch counts."""
@@ -2300,6 +2766,11 @@ def main():
                                       serve, [model.manifest, manifest,
                                               valid])
         log(f"serve options done at {time.time() - t0:.1f} s")
+        augment_counts, augment = phase_augment_multi(
+            torch, dev, train_kernels, kernels, work, labels_path, model,
+            manifest, valid, train)
+        log(f"augmented joint training and the checkpoint tools done at "
+            f"{time.time() - t0:.1f} s")
     probe_counts = phase_probe(torch)
     for e in entries:
         # each path was driven with the counts set to 0 just before it: the
@@ -2315,6 +2786,8 @@ def main():
         if e["name"] in ("vgg_block2_fwd", "vgg_block2_bwd"):
             e["launches"] = gate_train[e["name"]]
             e["launches_serve_greedy"] = gate_serve[e["name"]]
+        if e["name"] in augment_counts:
+            e["launches_augment_multi"] = augment_counts[e["name"]]
         if e["name"] in probe_counts:
             e["launches"] = probe_counts[e["name"]]
         if e["name"] in ("attn_fwd_f32", "attn_bwd_f32"):
@@ -2326,12 +2799,13 @@ def main():
         if e["name"] == "dropout_bits":
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
-        f"ctc / emb_cnn: {ctc}; serve options: {options}; total "
-        f"{time.time() - t0:.1f} s")
+        f"ctc / emb_cnn: {ctc}; serve options: {options}; augmented joint "
+        f"training and tools: {augment}; total {time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
                       "gate_on": gate, "ctc_embcnn": ctc,
-                      "serve_options": options, "gpu": gpu}))
+                      "serve_options": options, "augment_multi": augment,
+                      "total_s": time.time() - t0, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,11 @@
 """Bucketed batch loader with static shapes.
 
 A copy of the JAX package's ``data/loader.py`` without the prefetch
-thread, the host-feature path and the multi-host slicing. Batches are
+thread, the host-feature path and the multi-host slicing. With
+``num_workers`` > 1 each utterance of a batch draws from its own
+RandomState, seeded from the epoch's generator as the JAX package's worker
+threads are, so the batches (augmented or joint) equal its batches; the
+port loads the rows one after another. Batches are
 padded to a STATIC bucket ladder (Config.src_buckets frames ×
 Config.tgt_buckets tokens) and carry reflect-padded raw PCM; the feature
 math runs on the device (ops/features.py, ops/stft.py).
@@ -69,7 +73,8 @@ class AudioBatchLoader:
 
     def __init__(self, dataset: ManifestDataset, cfg: Config,
                  sampler: Optional[BucketingSampler] = None,
-                 batch_size: Optional[int] = None, seed: int = 123456):
+                 batch_size: Optional[int] = None, seed: int = 123456,
+                 num_workers: Optional[int] = None):
         self.dataset = dataset
         self.cfg = cfg
         self._batch_size = batch_size or cfg.batch_size
@@ -77,6 +82,9 @@ class AudioBatchLoader:
             len(dataset), self._batch_size, seed=seed)
         self.epoch = 0
         self._seed = seed
+        # --num-workers: > 1 gives each row of a batch its own generator
+        self.num_workers = (cfg.num_workers if num_workers is None
+                            else num_workers)
         # pad_to_full=True cycles a ragged final bin's rows up to the full
         # batch size, so every batch has one static shape;
         # Batch.real_rows marks the real prefix for scoring
@@ -94,6 +102,18 @@ class AudioBatchLoader:
         for bin_ids in self.sampler:
             yield self._build_batch(bin_ids, rng)
 
+    def _get_items(self, bin_ids: List[int], rng: np.random.RandomState):
+        if self.num_workers and self.num_workers > 1 and len(bin_ids) > 1:
+            # one sub-seed per utterance, drawn up front in row order: the
+            # JAX package's stream. Its thread pool is not copied: four
+            # threads built an augmented batch ~10x slower than one
+            # (PERF.md, host data path)
+            rngs = [np.random.RandomState(rng.randint(0, 2 ** 31 - 1))
+                    for _ in bin_ids]
+            return [self.dataset.get_item(i, r)
+                    for i, r in zip(bin_ids, rngs)]
+        return [self.dataset.get_item(i, rng) for i in bin_ids]
+
     def _build_batch(self, bin_ids: List[int],
                      rng: np.random.RandomState) -> Batch:
         cfg = self.cfg
@@ -104,7 +124,7 @@ class AudioBatchLoader:
         if self.pad_to_full and 0 < real_rows < full:
             bin_ids = [bin_ids[k % real_rows] for k in range(full)]
 
-        items = [self.dataset.get_item(i, rng) for i in bin_ids]
+        items = self._get_items(bin_ids, rng)
         pcms = [it[0] for it in items]
         transcripts = [it[1] for it in items]
 

@@ -4,23 +4,27 @@
     python -m end2end_asr_tpu_torch.train --train-manifest-list train.csv \
         --valid-manifest-list dev.csv --labels-path labels.json --name run \
         --feat_extractor vgg_cnn ... [--continue-from ckpt | --auto-resume] \
-        [--device cpu]
+        [--augment] [--noise-dir noise/] [--device cpu]
 
 Builds the vocabulary (duplicate labels warned), the train loader (the
-shuffled BucketingSampler of the run's seed) and one valid loader per
-manifest, initialises the model from the seed or resumes from
+shuffled BucketingSampler of the run's seed; tempo/gain augmentation with
+``--augment``, noise mixed in from ``--noise-dir`` with probability
+``--noise-prob``; ``--num-workers`` > 1 gives each row its own
+generator, as the JAX loader does) and one valid
+loader per manifest, initialises the model from the seed or resumes from
 ``--continue-from`` / ``--auto-resume`` (checkpoints of either package:
-parameters, optimizer state, epoch, metrics), and runs the Trainer. Logs
-to log/<name> and tees the console output into log/<name>.stdout (both
-appended to on resume). ``--trace-dir`` takes a torch.profiler trace of
-the first epoch. Without a GPU it raises unless --device cpu is given;
-on the card TF32 is off (``evaluation.resolve_device``).
-``--spec-augment``, ``--loss ctc``, ``--remat`` and ``--feat_extractor
-emb_cnn`` (whose batch-norm statistics are saved and resumed as the
-checkpoint's model state) are taken as root ``train.py`` takes them. Data /
-model parallelism, ZeRO, sequence parallelism, sox and noise augmentation
-and orbax checkpoints are not ported yet and raise, naming the ROADMAP
-item.
+parameters, optimizer state, epoch, metrics; a converted reference
+checkpoint's Noam step), and runs the Trainer (``multi_train`` passes
+MultiTrainer). Logs to log/<name> and tees the console output into
+log/<name>.stdout (both appended to on resume). ``--trace-dir`` takes a
+torch.profiler trace of the first epoch. Without a GPU it raises unless
+--device cpu is given; on the card TF32 is off
+(``evaluation.resolve_device``). ``--spec-augment``, ``--loss ctc``,
+``--remat`` and ``--feat_extractor emb_cnn`` (whose batch-norm statistics
+are saved and resumed as the checkpoint's model state) are taken as root
+``train.py`` takes them. Data / model parallelism, ZeRO, sequence
+parallelism and orbax checkpoints are not ported yet and raise, naming
+the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,8 +57,6 @@ def refuse_unported(cfg: Config) -> None:
          "ZeRO (ROADMAP §1, parallelism)"),
         (cfg.seq_parallel, "--seq-parallel",
          "sequence parallelism (ROADMAP §1, parallelism)"),
-        (cfg.noise_dir or cfg.augment, "--noise-dir / --augment",
-         "ROADMAP §1, noise injection and tempo/gain augmentation"),
         (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
          "orbax checkpoints (ROADMAP §1, parallelism: sharded "
          "checkpoints)"),
@@ -77,8 +79,9 @@ def _warn_duplicate_labels(labels_path: str) -> None:
         seen.add(ch)
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
-    """Runs the training and returns the Trainer's result dict."""
+def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
+    """Runs the training with `trainer_cls` (default Trainer) and returns
+    its result dict."""
     from end2end_asr_tpu_torch.test import split_device_arg
     if argv is None:
         argv = sys.argv[1:]
@@ -86,7 +89,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = config_from_args(argv)
     refuse_unported(cfg)
 
-    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.dataset import (ManifestDataset,
+                                                    NoiseInjector)
     from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
                                                    BucketingSampler)
     from end2end_asr_tpu_torch.evaluation import resolve_device
@@ -156,8 +160,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                  torch.Generator().manual_seed(cfg.seed))
             model_state = init_state(cfg)
 
-        train_data = ManifestDataset(list(cfg.train_manifest_list), label2id,
-                                     sample_rate=cfg.sample_rate)
+        noise = (NoiseInjector(cfg.noise_dir, cfg.sample_rate,
+                               (cfg.noise_min, cfg.noise_max))
+                 if cfg.noise_dir else None)
+        train_data = ManifestDataset(
+            list(cfg.train_manifest_list), label2id,
+            sample_rate=cfg.sample_rate, augment=cfg.augment,
+            noise_injector=noise, noise_prob=cfg.noise_prob)
         train_loader = AudioBatchLoader(
             train_data, cfg, sampler=BucketingSampler(
                 len(train_data), cfg.batch_size, seed=cfg.seed))
@@ -166,8 +175,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                              sample_rate=cfg.sample_rate),
                              cfg)
             for m in cfg.valid_manifest_list]
-        trainer = Trainer(cfg, label2id, id2label, device,
-                          metrics_every=cfg.metrics_every)
+        trainer = (trainer_cls or Trainer)(cfg, label2id, id2label, device,
+                                           metrics_every=cfg.metrics_every)
         return trainer.train(params, opt_state, train_loader, valid_loaders,
                              start_epoch=start_epoch, num_epochs=cfg.epochs,
                              last_metrics=metrics, model_state=model_state)

@@ -126,8 +126,9 @@ def load_checkpoint(base_path: str):
         base_path = base_path.rsplit(".", 1)[0]
     if os.path.isdir(base_path + ".orbax"):
         raise NotImplementedError(
-            "orbax checkpoints are not read by the port; save with "
-            "--checkpoint-format npz")
+            f"{base_path}.orbax: orbax checkpoints are not read by the "
+            "port yet (ROADMAP §1, parallelism: sharded checkpoints); save "
+            "with --checkpoint-format npz")
     with open(base_path + ".json", encoding="utf-8") as f:
         meta = json.load(f)
     bf16_keys = set(meta.get("bf16_keys", ()))

@@ -7,14 +7,15 @@ every valid loader → metrics history → a checkpoint every `save_every`
 epochs and `best_model` on the valid loss → optional sampler shuffle.
 
 Metrics are read on the host two steps behind the step that made them,
-so the device runs ahead of the logging. Joint multi-dataset training
-(`MultiTrainer`) is not ported yet (ROADMAP).
+so the device runs ahead of the logging. `MultiTrainer` (joint training,
+`multi_train.py`) overrides the three validation hooks.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -81,6 +82,23 @@ class Trainer:
             totals["wer"] += calculate_wer(hyp, gold)
             totals["char"] += len(gold.replace(" ", ""))
 
+    # ------------------------------------------------------------------
+    # Validation hooks (overridden by MultiTrainer)
+    def _log_valid(self, epoch: int, ind: int, vloss: float,
+                   cer_pct: float) -> None:
+        logger.info("VALID SET %d LOSS:%.4f CER:%.2f%%", ind, vloss,
+                    cer_pct)
+
+    def _best_valid_loss_key(self, valid_losses: List[float]) -> float:
+        # the reference keys the best model and metrics["valid_loss"] off
+        # the LAST valid loader (trainer/asr/trainer.py:189-208 leaks the
+        # loop variable out of the loop over the loaders)
+        return valid_losses[-1] if valid_losses else 0.0
+
+    def _extend_metrics(self, metrics: Dict,
+                        valid_losses: List[float]) -> None:
+        pass
+
     def train(self, params, opt_state, train_loader, valid_loader_list,
               start_epoch: int = 0, num_epochs: Optional[int] = None,
               last_metrics: Optional[Dict] = None,
@@ -109,6 +127,7 @@ class Trainer:
             t0 = time.time()
             lr = 0.0
             pending = []
+            buckets: Counter = Counter()   # (frames, target columns)
 
             def drain(entry):
                 nonlocal lr
@@ -139,6 +158,7 @@ class Trainer:
                         fp, data, opt, rng, *batch_tensors(batch, dev),
                         batch.src_bucket, model_state=state)
                     pending.append((i, rows, m, hyp, gold))
+                    buckets[batch.src_bucket, batch.targets.shape[1]] += 1
                     while len(pending) > 2:
                         drain(pending.pop(0))
                 for entry in pending:
@@ -149,6 +169,10 @@ class Trainer:
                         "utt/s:%.2f wall:%.1fs", epoch + 1, train_loss,
                         totals["cer"] * 100 / totals["char"], lr,
                         totals["utts"] / max(wall, 1e-9), wall)
+            logger.info("(Epoch %d) TRAIN BATCHES PER BUCKET (frames x "
+                        "target columns): %s", epoch + 1,
+                        " ".join(f"{t}x{u}:{n}"
+                                 for (t, u), n in sorted(buckets.items())))
 
             logger.info("VALID")
             params_now = fp.tree(data)
@@ -172,21 +196,20 @@ class Trainer:
                     self._accumulate_cer(hyp[:rows].tolist(),
                                          gold[:rows].tolist(), vtot)
                 vloss = vtot["loss"] / max(vtot["batches"], 1)
-                logger.info("VALID SET %d LOSS:%.4f CER:%.2f%%", ind, vloss,
-                            vtot["cer"] * 100 / vtot["char"])
+                self._log_valid(epoch, ind, vloss,
+                                vtot["cer"] * 100 / vtot["char"])
                 valid_losses.append(vloss)
                 valid_cer_total += vtot["cer"]
                 valid_wer_total += vtot["wer"]
 
-            # the reference keys the best model off the LAST valid loader
-            # (trainer/asr/trainer.py:189-208)
-            valid_loss_key = valid_losses[-1] if valid_losses else 0.0
+            valid_loss_key = self._best_valid_loss_key(valid_losses)
             metrics = {"train_loss": train_loss,
                        "valid_loss": valid_loss_key,
                        "train_cer": totals["cer"],
                        "train_wer": totals["wer"],
                        "valid_cer": valid_cer_total,
                        "valid_wer": valid_wer_total, "history": history}
+            self._extend_metrics(metrics, valid_losses)
             history.append({k: v for k, v in metrics.items()
                             if k != "history"})
 
@@ -213,3 +236,23 @@ class Trainer:
                 "model_state": state, "metrics": metrics,
                 "epochs_run": max(0, num_epochs - start_epoch),
                 "opt_step": int(opt["step"].item())}
+
+
+class MultiTrainer(Trainer):
+    """Joint multi-dataset trainer (`multi_train.py`; the JAX package's
+    `MultiTrainer`, restoring the reference's deleted one): one
+    `(Epoch N) TASK:i VALID LOSS:… CER:…` line per task, the best model
+    keyed off the mean of the tasks' valid losses, and the list of them
+    in metrics["valid_losses"]."""
+
+    def _log_valid(self, epoch: int, ind: int, vloss: float,
+                   cer_pct: float) -> None:
+        logger.info("(Epoch %d) TASK:%d VALID LOSS:%.4f CER:%.2f%%",
+                    epoch + 1, ind, vloss, cer_pct)
+
+    def _best_valid_loss_key(self, valid_losses: List[float]) -> float:
+        return float(np.mean(valid_losses)) if valid_losses else 0.0
+
+    def _extend_metrics(self, metrics: Dict,
+                        valid_losses: List[float]) -> None:
+        metrics["valid_losses"] = list(valid_losses)

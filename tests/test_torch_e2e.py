@@ -22,11 +22,15 @@ from end2end_asr_tpu.data.loader import AudioBatchLoader, BucketingSampler
 from end2end_asr_tpu.evaluation import evaluate
 from end2end_asr_tpu.training.checkpoint import load_checkpoint
 from end2end_asr_tpu_torch import lm_train as port_lm_train
+from end2end_asr_tpu_torch import multi_train as port_multi_train
 from end2end_asr_tpu_torch import test as port_test
 from end2end_asr_tpu_torch import transcribe as port_transcribe
 from end2end_asr_tpu_torch.config import Config as TorchConfig
 from end2end_asr_tpu_torch.data import dataset as port_dataset
 from end2end_asr_tpu_torch.data import loader as port_loader
+from end2end_asr_tpu_torch.tools import average_checkpoints as port_average
+from end2end_asr_tpu_torch.tools import \
+    convert_reference_checkpoint as port_convert
 
 from port_parity import corpus_checkpoint
 
@@ -123,7 +127,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for m in ('tools.probe_stream', 'ops.ctc', 'ops.specaugment',\n"
         "          'models.lm', 'models.quantize', 'streaming',\n"
-        "          'data.lm_loader', 'lm_train'):\n"
+        "          'data.lm_loader', 'lm_train', 'multi_train',\n"
+        "          'tools.average_checkpoints',\n"
+        "          'tools.convert_reference_checkpoint'):\n"
         "    assert pkg.__name__ + '.' + m in mods, m\n"
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -132,9 +138,13 @@ def test_port_imports_no_jax():
     assert int(r.stdout.strip()) >= 20
 
 
-@pytest.mark.parametrize("entry", ["test", "transcribe", "lm_train"])
-def test_entry_points_raise_without_gpu(corpus, monkeypatch, entry):
+@pytest.mark.parametrize("entry", ["test", "transcribe", "lm_train",
+                                   "multi_train", "average_checkpoints",
+                                   "convert_reference_checkpoint"])
+def test_entry_points_raise_without_gpu(corpus, monkeypatch, tmp_path,
+                                        entry):
     manifest, base = corpus
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "test":
@@ -142,5 +152,13 @@ def test_entry_points_raise_without_gpu(corpus, monkeypatch, entry):
                             "--test-manifest-list", manifest])
         elif entry == "transcribe":
             port_transcribe.main(["--continue-from", base, "x.wav"])
-        else:
+        elif entry == "lm_train":
             port_lm_train.main(["--train-manifest-list", manifest])
+        elif entry == "multi_train":
+            port_multi_train.main(["--train-manifest-list", manifest,
+                                   manifest, "--valid-manifest-list",
+                                   manifest])
+        elif entry == "average_checkpoints":
+            port_average.main(["out", base, base])
+        else:
+            port_convert.main(["in.th", "out"])

@@ -95,10 +95,13 @@ def _block_args(dev, B, F, T, seed):
                                 torch.randn(64, generator=g) * 0.1)]
 
 
+# (2, 161, 1600): the 1600-frame bucket that tempo-augmented ~8 s
+# utterances land in
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,F,T", [(2, 16, 16), (1, 17, 9), (2, 161, 129),
                                    (1, 161, 801), (3, 5, 300),
-                                   (2, 19, 70), (1, 42, 97)])
+                                   (2, 19, 70), (1, 42, 97),
+                                   (2, 161, 1600)])
 def test_vgg_block1_kernel_matches_plain(dev, cdt, B, F, T):
     args = _block_args(dev, B, F, T, seed=F * T)
     idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8,
@@ -285,10 +288,13 @@ def _attn_inputs(dev, B, H, Tq, Tk, seed, mask_row=False, causal=False):
 
 
 # (257, 257): three key tiles, the dQ shares summed by the last block;
-# (51, 51): the decoder self-attention, whose bias carries the causal mask
+# (51, 51): the decoder self-attention, whose bias carries the causal mask;
+# (400, 400) and (51, 400): the encoder and cross shapes at the 1600-frame
+# bucket (tempo-augmented ~8 s utterances)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("Tq,Tk", [(1, 1), (7, 33), (33, 7), (201, 201),
-                                   (51, 200), (257, 257), (51, 51)])
+                                   (51, 200), (257, 257), (51, 51),
+                                   (400, 400), (51, 400)])
 def test_attention_kernels_match_plain(dev, rate, Tq, Tk):
     q, k, v, bias = _attn_inputs(dev, 2, 3, Tq, Tk, seed=Tq * 1000 + Tk,
                                  mask_row=True, causal=(Tq, Tk) == (51, 51))
@@ -593,7 +599,8 @@ VGG_BWD_F32_TOL, VGG_BWD_BF16_TOL = 1e-4, 1e-3
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,F,T", [(2, 16, 16), (1, 17, 9), (2, 161, 129),
                                    (1, 9, 801), (3, 5, 300),
-                                   (2, 19, 70), (1, 42, 97)])
+                                   (2, 19, 70), (1, 42, 97),
+                                   (2, 161, 1600)])
 def test_vgg_block1_bwd_kernel_matches_plain(dev, cdt, B, F, T):
     args = _block_args(dev, B, F, T, seed=F + T)
     idx = torch.empty((B, F // 2, T // 2, 64), dtype=torch.uint8, device=dev)

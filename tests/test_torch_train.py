@@ -510,8 +510,15 @@ def test_train_entry_point_needs_a_card_or_device_cpu(corpus, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_train.main(_train_argv(corpus, str(tmp_path), ["--epochs", "1"]))
-    for flag in (["--parallel"], ["--seq-parallel"], ["--noise-dir", "x"],
-                 ["--zero1"], ["--checkpoint-format", "orbax"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --noise-dir is ported: a missing directory raises IOError, as the JAX
+    # package's NoiseInjector does
+    for flag, exc, match in (
+            (["--parallel"], NotImplementedError, "ROADMAP"),
+            (["--seq-parallel"], NotImplementedError, "ROADMAP"),
+            (["--noise-dir", "x"], IOError, "Directory doesn't exist: x"),
+            (["--zero1"], NotImplementedError, "ROADMAP"),
+            (["--checkpoint-format", "orbax"], NotImplementedError,
+             "ROADMAP")):
+        with pytest.raises(exc, match=match):
             port_train.main(_train_argv(corpus, str(tmp_path),
                                         ["--device", "cpu", *flag]))
