@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero without the final result line):
   1. build every CUDA kernel of the port from csrc/ (one nvcc per
-     source, all started together) and print the card's name and power
-     limit;
+     source, all started together) and the host C++ library
+     (csrc/audio_host.cc, g++: its WSOLA is augmentation's path, so a
+     failed build fails here), and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at
      the shapes the serving and training paths give it (B=12, T=800,
      F=161; f32 with TF32 off, and bf16): the STFT (the FFT kernel that
@@ -88,15 +89,35 @@ Phases (any failure exits non-zero without the final result line):
      batches landed in, read from the run's log, printed); kernels 1-5
      against their plain versions at the 1600-frame bucket that augmented
      ~8 s utterances land in; the host data path: one augmented and one
-     plain batch of 12 built at num_workers 0 and 4, and one WSOLA call,
-     on the host clock, and the train step on the augmented batch; the
+     plain batch of 12 built at num_workers 0 and 4 (the loader's tempo
+     must run the C++ WSOLA, not the Python fallback), the C++ and the
+     Python WSOLA on 7.99 s, on the host clock, and the train step on the
+     augmented batch; the
      two epoch checkpoints averaged by `tools.average_checkpoints` (each
      leaf the float64 mean) and served greedy through `test`; a
      reference-layout .th of phase 3's weights converted by
      `tools.convert_reference_checkpoint` (its tensors equal phase 3's bit
      for bit) and served greedy through `test` with phase 3's strings;
-  9. the streaming probe's entry point, its four lines printed;
-  10. one JSON line of per-kernel numbers (and the serving, training,
+  9. data parallelism at the phase 4 width (batch 12, bf16, dropout 0,
+     one epoch of 2 steps): a group of one NCCL rank through
+     `python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+     end2end_asr_tpu_torch.train --parallel` (its checkpoint equal to the
+     one-process run's bit for bit); two gloo ranks sharing the card, 6
+     rows each, through the same entry point (this script's --ddp-rank
+     mode wraps it to read each rank's kernel launches, peak memory and
+     step time), plain, --zero1 and --fsdp: each rank must launch the
+     hand kernels of the dropout-0 path in the run and all six of the
+     default path in its timed steps at dropout 0.1, each run's train
+     loss must be the
+     one-process run's within DDP_LOSS_RTOL and its parameters within
+     Adam's two-step bound, and the ZeRO checkpoints (gathered to rank
+     0) plain DDP's within ZERO_RTOL; then `test --parallel` on two ranks
+     over phase 3's checkpoint must give phase 3's strings at
+     --batch-size 24 (rank 0 decodes phase 3's 12 rows; bf16 sums depend
+     on the row count), and at 12 the strings equal to phase 3's are
+     counted;
+  10. the streaming probe's entry point, its four lines printed;
+  11. one JSON line of per-kernel numbers (and the serving, training,
      serve-option and augmented-training numbers, the script's seconds),
      then the result line {"ok": true, "device": {...}}.
 
@@ -237,11 +258,18 @@ def gpu_line():
 # ---------------------------------------------------------------------------
 
 def phase_build(cuda_lib):
+    from end2end_asr_tpu_torch.data import audio_host
     t0 = time.time()
     paths = cuda_lib.build(["stft", "vgg_block1", "vgg_block1_f32",
                             "attention", "pool_bwd", "vgg_block2",
                             "vgg_block2_f32", "stream"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
+    # the host C++ WSOLA (csrc/audio_host.cc): a CUDA host has g++ (nvcc
+    # needs it), so the Python fallback must not hide a failed build
+    if not audio_host.available():
+        fail(f"csrc/audio_host.cc did not build: {audio_host.build_error()}")
+    log(f"host library {audio_host.library_path()} loaded; augmentation's "
+        f"tempo path: {audio_host.active()}")
     for src in sorted(paths):
         for ln in cuda_lib.build_log(src).splitlines():
             if "registers" in ln or "spill" in ln:
@@ -1438,6 +1466,20 @@ def train_argv(cfg, manifest, valid, labels_path, extra=(), name="aishell"):
             "--save-every", "1", *extra]
 
 
+def train_kernel_table():
+    """The default training path's kernels: {name: (reset, count)}."""
+    from end2end_asr_tpu_torch.ops import (attention_fused, pool_vjp, stft,
+                                           vgg_fused)
+    AF, V = attention_fused, vgg_fused
+    return {
+        "stft_logmag": (stft.reset_launches, lambda: stft.FFT.launches),
+        "vgg_block1_fwd": (V.reset_launches, V.launches),
+        "vgg_block1_bwd": (V.reset_launches, V.bwd_launches),
+        "attn_fwd": (AF.reset_launches, lambda: AF.FWD.launches),
+        "attn_bwd": (AF.reset_launches, lambda: AF.BWD.launches),
+        "pool_bwd": (pool_vjp.reset_launches, pool_vjp.launches)}
+
+
 def kernel_counts(kernels):
     """`kernels`: {name: (reset function, launch-count function)}."""
     return {n: count() for n, (_, count) in kernels.items()}
@@ -2345,10 +2387,16 @@ def host_data_path(cfg, label2id, manifest, noise_dir):
     """One augmented batch of 12 ~8 s utterances (tempo, gain, noise at
     the default probability) and one plain batch, each built three times
     by a loader of rows 0..B-1 (a new epoch's stream each time) at
-    num_workers 0 and 4; and one _wsola_py call on a 7.99 s utterance.
-    Returns the times and the last augmented batch."""
+    num_workers 0 and 4; and _wsola_py and the C++ WSOLA on a 7.99 s
+    utterance.
+    Returns the times and the last augmented batch. The loader's tempo
+    must run the C++ WSOLA (the JAX package's default path)."""
     import numpy as np
     from end2end_asr_tpu_torch.data import audio as A
+    from end2end_asr_tpu_torch.data import audio_host
+    if audio_host.active() != "native":
+        fail(f"augmentation runs the Python WSOLA, not csrc/audio_host.cc: "
+             f"{audio_host.build_error()}")
     from end2end_asr_tpu_torch.data.dataset import (ManifestDataset,
                                                     NoiseInjector)
     from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
@@ -2375,12 +2423,14 @@ def host_data_path(cfg, label2id, manifest, noise_dir):
             res[key.replace("_ms_", "_bucket_")] = batch.src_bucket
     y = np.random.RandomState(SEED).randn(int(7.99 * 16000)).astype(
         np.float32) * 0.1
-    ms = []
-    for tempo in (0.9, 1.1, 0.87):
-        t0 = time.perf_counter()
-        A._wsola_py(y, tempo, 16000)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    res["wsola_7.99s_ms"] = ms
+    for key, fn in (("wsola_7.99s_ms", A._wsola_py),
+                    ("native_wsola_7.99s_ms", audio_host.tempo_wsola)):
+        ms = []
+        for tempo in (0.9, 1.1, 0.87):
+            t0 = time.perf_counter()
+            fn(y, tempo, 16000)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[key] = ms
     log(f"host data path ({B} x ~8 s, host clock): {json.dumps(res)}")
     return res, aug_batch
 
@@ -2634,6 +2684,317 @@ def phase_augment_multi(torch, dev, kernels, serve_kernels, work,
         "converted_serve_launches": conv_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: data parallelism, ZeRO-1 and FSDP on the one card
+# ---------------------------------------------------------------------------
+
+# bf16, two ranks of 6 rows against one process of 12: the same kernels on
+# other row counts, the gradients rounded to bf16 per rank before their
+# f32 sum; the train loss is a mean over bf16 logits
+DDP_LOSS_RTOL = 2e-2
+# ZeRO against plain data parallelism: the same ranks, rows and kernels;
+# the gradient sum of two ranks rounds once either way and the update is
+# elementwise, so only a reordered sum may move a last bit
+ZERO_RTOL = 1e-6
+DDP_STEPS = 5           # timed steps a rank (host clock, median)
+# at dropout 0 the training attention runs the plain core, as the JAX
+# package's attn_core: the dropout kernels launch in the timed steps, which
+# run at the train cell's dropout 0.1
+NO_DROPOUT_KERNELS = ("stft_logmag", "vgg_block1_fwd", "vgg_block1_bwd",
+                      "pool_bwd")
+
+
+def torchrun(work, nproc, args, name, timeout=300):
+    """`python -m torch.distributed.run --standalone` with `nproc` ranks
+    in `work`, the checkout on PYTHONPATH; its output kept in
+    work/<name>.out. Fails on a non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *args]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    with open(os.path.join(work, name + ".out"), "w") as f:
+        f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    if r.returncode != 0:
+        fail(f"{name}: {' '.join(cmd[3:])} exited {r.returncode}:\n"
+             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, time.time() - t0
+
+
+def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
+    """Median host ms of the train step on `batch` (this rank's rows),
+    each step between two synchronizes, after one untimed step; --zero1 /
+    --fsdp in `cfg` shard it over the group."""
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.parallel.zero import ZeroShard
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams,
+                                                      make_train_step_impl)
+    from end2end_asr_tpu_torch.training.trainer import batch_tensors
+    fp = FlatParams(params, dev)
+    data = fp.data
+    zero = (ZeroShard.for_config(cfg, fp.numel) if cfg.zero1 or cfg.fsdp
+            else None)
+    opt = init_opt_state(cfg, data if zero is None else zero.shard(data))
+    if zero is not None and zero.stage == 3:
+        data = zero.shard(data)
+    step = make_train_step_impl(cfg, dims_from_config(cfg), zero=zero)
+    rng = DropoutRng(SEED, dev)
+    tensors = batch_tensors(batch, dev)
+    one = lambda: step(fp, data, opt, rng, *tensors, batch.src_bucket)
+    one()
+    ms, _ = host_ms(torch, one, n)
+    return ms
+
+
+def ddp_rank(spec_path):
+    """One rank of phase 9 (`chip_smoke.py --ddp-rank SPEC`, started by
+    torch.distributed.run): joins the group, runs the train entry point
+    with the spec's argv (--parallel, each rank on cuda:0 with gloo), then
+    times the step at dropout 0.1 on its slice of the first batch; writes
+    the launch counts of both, the run's peak memory, the step time and
+    the backend to <out>.r<rank>.json."""
+    import torch
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.config import config_from_args, load_vocab
+    from end2end_asr_tpu_torch.test import split_device_arg
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.parallel import mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = mesh.rank_device(torch.device("cuda"))
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.maybe_initialize_distributed(dev)
+    rank, world = mesh.rank(), mesh.world_size()
+    kernels = train_kernel_table()
+    reset_kernels(kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    res = port_train.main(spec["argv"])
+    torch.cuda.synchronize()
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "backend": torch.distributed.get_backend(),
+           "launches": kernel_counts(kernels),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "train_s": time.time() - t0, "opt_step": res["opt_step"],
+           "train_loss": res["metrics"]["train_loss"]}
+    cfg = config_from_args(split_device_arg(spec["argv"])[1])
+    label2id, _ = load_vocab(cfg.labels_path)
+    loader = AudioBatchLoader(
+        ManifestDataset(list(cfg.train_manifest_list), label2id), cfg,
+        process_index=rank, process_count=world)
+    reset_kernels(kernels)
+    out["step_ms"] = rank_step_ms(torch, cfg.replace(dropout=0.1),
+                                  res["params"], next(iter(loader)), dev)
+    out["step_launches"] = kernel_counts(kernels)
+    with open(f"{spec['out']}.r{rank}.json", "w") as f:
+        json.dump(out, f)
+    mesh.shutdown()
+
+
+def flat_npz(path):
+    import numpy as np
+    with np.load(path + ".npz") as f:
+        return {k: f[k] for k in f.files if k.startswith("params::")
+                or k.startswith("opt::")}
+
+
+def phase_ddp(torch, dev, kernels, serve_kernels, work, labels_path, model,
+              manifest, valid, gpu):
+    """Data parallelism on the card at the AiShell width (batch 12, bf16,
+    dropout 0, one epoch = 2 steps of phase 4's 24 utterances): a group of
+    one NCCL rank through `torch.distributed.run -m
+    end2end_asr_tpu_torch.train --parallel`; two gloo ranks sharing cuda:0
+    (6 rows each) through the same entry point, plain, --zero1 and
+    --fsdp, each rank's launches, peak memory and step time read; each
+    run's loss and checkpoint against the one-process run of the same
+    steps; then `test --parallel` on two ranks over phase 3's checkpoint,
+    whose strings must be phase 3's."""
+    import numpy as np
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.config import load_vocab
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.training.optimizer import noam_rate
+    from end2end_asr_tpu_torch.training.steps import noam_config_from
+    cfg = aishell_config(dropout=0.0)
+    argv = lambda name, extra=(): train_argv(
+        cfg, manifest, valid, labels_path, ["--epochs", "1", *extra],
+        name=name)
+    res = {"gpu": gpu}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # the one-process run of the same 2 steps, and its step time
+        ref = port_train.main(argv("ddp_ref", ["--device", str(dev)]))
+        label2id, _ = load_vocab(labels_path)
+        batch = next(iter(AudioBatchLoader(
+            ManifestDataset([manifest], label2id), cfg)))
+        res["step_ms_1_process"] = rank_step_ms(
+            torch, cfg.replace(dropout=0.1), ref["params"], batch, dev)
+    finally:
+        os.chdir(cwd)
+    ref_ck = flat_npz(os.path.join(work, "models", "ddp_ref", "epoch_1"))
+    ref_loss = ref["metrics"]["train_loss"]
+
+    # a group of one NCCL rank, through the entry point alone
+    out, secs = torchrun(work, 1, ["-m", "end2end_asr_tpu_torch.train",
+                                   *argv("ddp_one"), "--parallel"],
+                         "ddp_one")
+    with open(os.path.join(work, "log", "ddp_one"), encoding="utf-8") as f:
+        one_log = f.read()
+    if "process group: 1 ranks, backend nccl" not in one_log:
+        fail(f"the group of one did not run on NCCL:\n{one_log[-2000:]}")
+    one_ck = flat_npz(os.path.join(work, "models", "ddp_one", "epoch_1"))
+    with open(os.path.join(work, "models", "ddp_one", "epoch_1.json"),
+              encoding="utf-8") as f:
+        one_loss = json.load(f)["metrics"]["train_loss"]
+    one_same = all(np.array_equal(one_ck[k], v) for k, v in ref_ck.items())
+    log(f"torchrun 1 rank --parallel: backend nccl, {secs:.1f} s; train "
+        f"loss {one_loss:.6f} against the one-process {ref_loss:.6f}; its "
+        f"checkpoint equals the one-process run's bit for bit: {one_same}")
+    res["nccl_1_rank"] = {"seconds": secs, "train_loss": one_loss,
+                          "checkpoint_bit_equal": one_same}
+
+    runs = {}
+    for name, extra in (("ddp", []), ("zero1", ["--zero1"]),
+                        ("fsdp", ["--fsdp"])):
+        spec = os.path.join(work, f"{name}.json")
+        with open(spec, "w") as f:
+            json.dump({"argv": argv("ddp_" + name,
+                                    ["--parallel", "--device", "cuda",
+                                     *extra]),
+                       "out": os.path.join(work, name)}, f)
+        _, secs = torchrun(work, 2, [os.path.abspath(__file__), "--ddp-rank",
+                                     spec], "ddp_" + name)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"{name}.r{r}.json")) as f:
+                ranks.append(json.load(f))
+        ck = flat_npz(os.path.join(work, "models", "ddp_" + name,
+                                   "epoch_1"))
+        runs[name] = {"ranks": ranks, "ck": ck, "s": secs}
+        for rk in ranks:
+            missing = [n for n in NO_DROPOUT_KERNELS
+                       if rk["launches"][n] < 1] + [
+                n for n, c in rk["step_launches"].items() if c < 1]
+            if missing or rk["backend"] != "gloo" or rk["opt_step"] != 2:
+                fail(f"{name} rank {rk['rank']}: kernels not launched "
+                     f"{missing}, backend {rk['backend']}, step "
+                     f"{rk['opt_step']}")
+        log(f"torchrun 2 ranks --parallel {' '.join(extra)} ({gpu}): "
+            f"{secs:.1f} s; " + "; ".join(
+                f"rank {rk['rank']} on {rk['device']} ({rk['backend']}): "
+                f"launches {rk['launches']} in the run, "
+                f"{rk['step_launches']} in the {DDP_STEPS + 1} timed "
+                f"steps at dropout 0.1, peak memory "
+                f"{rk['peak_mem_bytes'] / 2**20:.1f} MiB, step "
+                f"{rk['step_ms']:.2f} ms (median of {DDP_STEPS}, 6 rows)"
+                for rk in ranks))
+
+    # losses and checkpoints: the group of one and DDP against one process
+    # (bf16; library backward kernels with atomics make even a rerun
+    # differ), ZeRO against DDP (tighter)
+    report = {}
+    runs["nccl_1_rank"] = {"ck": one_ck, "ranks": [{"train_loss": one_loss}]}
+    for name, run in runs.items():
+        loss = run["ranks"][0]["train_loss"]
+        ck = run["ck"]
+        dp = max(float(np.abs(ck[k].astype(np.float64)
+                              - ref_ck[k].astype(np.float64)).max())
+                 for k in ref_ck if k.startswith("params::"))
+        report[name] = {"train_loss": loss, "params_max_abs_vs_1_process":
+                        dp}
+        if name in ("zero1", "fsdp"):
+            base = runs["ddp"]["ck"]
+            rel = max(float(np.abs(ck[k].astype(np.float64)
+                                   - base[k].astype(np.float64)).max()
+                            / max(np.abs(base[k]).max(), 1e-30))
+                      for k in base if k != "opt::step")
+            report[name]["rel_vs_ddp"] = rel
+            if rel > ZERO_RTOL or set(ck) != set(base):
+                fail(f"{name}: checkpoint differs from plain DDP's by rel "
+                     f"{rel:.3g} (tolerance {ZERO_RTOL})")
+        if abs(loss - ref_loss) > DDP_LOSS_RTOL * abs(ref_loss):
+            fail(f"{name}: train loss {loss} against the one-process "
+                 f"{ref_loss} (rtol {DDP_LOSS_RTOL})")
+    # Adam's first steps move each parameter by at most ~lr (warmup 4000
+    # and min-lr 1e-6: 1e-6 a step; the second step's ratio of moments is
+    # at most 1.0009), so two runs differ by at most 2 * (lr1 + lr2)
+    # wherever their bf16 gradients' signs differ
+    lr_sum = sum(float(noam_rate(torch.tensor(s), noam_config_from(cfg)))
+                 for s in (1, 2))
+    for name in runs:
+        if report[name]["params_max_abs_vs_1_process"] > 2 * lr_sum * 1.01:
+            fail(f"{name}: parameters moved {report[name]} from the "
+                 f"one-process run's, beyond 2 * (lr1 + lr2) = "
+                 f"{2 * lr_sum:.3g}")
+    runs.pop("nccl_1_rank")
+    res["nccl_1_rank"]["params_max_abs_vs_1_process"] = report.pop(
+        "nccl_1_rank")["params_max_abs_vs_1_process"]
+    n = sum(v.size for k, v in ref_ck.items() if k.startswith("params::"))
+    for name, run in runs.items():
+        per = -(-n // 2) if name != "ddp" else n
+        report[name].update(
+            peak_mem_mib=[rk["peak_mem_bytes"] / 2 ** 20
+                          for rk in run["ranks"]],
+            moments_mib=2 * per * 4 / 2 ** 20,
+            step_ms=[rk["step_ms"] for rk in run["ranks"]],
+            launches=[rk["launches"] for rk in run["ranks"]],
+            step_launches=[rk["step_launches"] for rk in run["ranks"]],
+            seconds=run["s"])
+    log(f"data parallelism ({gpu}): one-process loss {ref_loss:.6f}; "
+        f"{json.dumps({k: {kk: vv for kk, vv in v.items() if 'launches' not in kk} for k, v in report.items()})}; "
+        f"the one-process step {res['step_ms_1_process']:.2f} ms (12 rows)")
+    res.update(report=report, one_process_loss=ref_loss)
+
+    # test --parallel on two ranks over phase 3's checkpoint. A bf16
+    # product's sums depend on its row count, and the random weights' greedy
+    # picks are often near ties: 6 rows a rank flipped a few characters of
+    # phase 3's strings (PERF.md §6). At --batch-size 24 the 12
+    # utterances' bin is cycled to 24 rows and rank 0 decodes phase 3's
+    # batch as it stood, so the gathered strings must be phase 3's; at 12
+    # (6 rows a rank) the strings equal to phase 3's are counted
+    serve_argv = ["--continue-from", model.ckpt, "--test-manifest-list",
+                  model.manifest]
+    ref_hyps, _, _ = greedy_strings(
+        torch, serve_kernels,
+        serve_argv + ["--batch-size", str(B), "--device", str(dev)])
+    for batch_size in (2 * B, B):
+        out, secs = torchrun(work, 2, [
+            "-m", "end2end_asr_tpu_torch.test", "--parallel", "--verbose",
+            *serve_argv, "--batch-size", str(batch_size), "--device",
+            "cuda"], f"test_parallel_{batch_size}")
+        hyps = [ln.split("HYP: ", 1)[1].split(" || GOLD: ")[0]
+                for ln in out.splitlines() if "HYP: " in ln]
+        same = sum(h == r for h, r in zip(hyps, ref_hyps))
+        flips = sum(a != b for h, r in zip(hyps, ref_hyps)
+                    for a, b in zip(h, r))
+        log(f"torchrun 2 ranks test --parallel --batch-size {batch_size} "
+            f"({batch_size // 2} rows a rank): {secs:.1f} s, {len(hyps)} "
+            f"strings, {same} equal to phase 3's ({flips} characters "
+            f"differ)")
+        res[f"test_parallel_batch{batch_size}"] = {
+            "seconds": secs, "strings": len(hyps),
+            "equal_to_phase3": same, "characters_differing": flips}
+        if batch_size == 2 * B and hyps != ref_hyps:
+            fail(f"test --parallel strings differ from phase 3's: "
+                 f"{list(zip(hyps, ref_hyps))[:3]}")
+        if len(hyps) != B:
+            fail(f"test --parallel scored {len(hyps)} strings, not {B}")
+    return {n: [{k: (rk["launches"][k], rk["step_launches"][k])
+                 for k in rk["launches"]} for rk in r["ranks"]]
+            for n, r in runs.items()}, res
+
+
 def phase_probe(torch):
     """The streaming probe through its entry point (its four lines go to
     the standard output); returns its kernels' launch counts."""
@@ -2694,6 +3055,8 @@ def main():
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
+    if sys.argv[1:2] == ["--ddp-rank"]:      # a rank of phase 9
+        return ddp_rank(sys.argv[2])
     try:
         from end2end_asr_tpu_torch.ops import (attention_fused, cuda_lib,
                                                pool_vjp, stft, vgg_fused)
@@ -2725,13 +3088,7 @@ def main():
     kernels = {"stft_logmag": fft_count, "vgg_block1_fwd": vgg_fused}
     AF = attention_fused
     V = vgg_fused
-    train_kernels = {
-        "stft_logmag": (stft.reset_launches, lambda: stft.FFT.launches),
-        "vgg_block1_fwd": (V.reset_launches, V.launches),
-        "vgg_block1_bwd": (V.reset_launches, V.bwd_launches),
-        "attn_fwd": (AF.reset_launches, lambda: AF.FWD.launches),
-        "attn_bwd": (AF.reset_launches, lambda: AF.BWD.launches),
-        "pool_bwd": (pool_vjp.reset_launches, pool_vjp.launches)}
+    train_kernels = train_kernel_table()
     f32_kernels = dict(
         train_kernels,
         attn_fwd_f32=(AF.reset_launches, lambda: AF.FWD_F32.launches),
@@ -2771,6 +3128,10 @@ def main():
             manifest, valid, train)
         log(f"augmented joint training and the checkpoint tools done at "
             f"{time.time() - t0:.1f} s")
+        ddp_counts, ddp = phase_ddp(torch, dev, train_kernels, kernels,
+                                    work, labels_path, model, manifest,
+                                    valid, gpu)
+        log(f"data parallelism done at {time.time() - t0:.1f} s")
     probe_counts = phase_probe(torch)
     for e in entries:
         # each path was driven with the counts set to 0 just before it: the
@@ -2788,6 +3149,11 @@ def main():
             e["launches_serve_greedy"] = gate_serve[e["name"]]
         if e["name"] in augment_counts:
             e["launches_augment_multi"] = augment_counts[e["name"]]
+        if e["name"] in ddp_counts["ddp"][0]:
+            # per rank: (the dropout-0 run of 2 steps, the 6 timed steps at
+            # dropout 0.1)
+            for run, ranks in ddp_counts.items():
+                e[f"launches_{run}_2_ranks"] = [r[e["name"]] for r in ranks]
         if e["name"] in probe_counts:
             e["launches"] = probe_counts[e["name"]]
         if e["name"] in ("attn_fwd_f32", "attn_bwd_f32"):
@@ -2800,11 +3166,13 @@ def main():
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
         f"ctc / emb_cnn: {ctc}; serve options: {options}; augmented joint "
-        f"training and tools: {augment}; total {time.time() - t0:.1f} s")
+        f"training and tools: {augment}; data parallelism: {ddp}; total "
+        f"{time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
                       "gate_on": gate, "ctc_embcnn": ctc,
                       "serve_options": options, "augment_multi": augment,
+                      "data_parallel": ddp,
                       "total_s": time.time() - t0, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

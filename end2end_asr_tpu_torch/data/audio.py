@@ -6,11 +6,16 @@ to [-1, 1] with a mean downmix of multi-channel audio (:7-15), duration
 without a `soxi` subprocess (:17-20), random tempo in [0.85, 1.15] and
 gain in [-6, 8] dB (:35-61).
 
-The JAX package's C++ library (``native/``) is not copied: its WSOLA
-builds the window in float and stretches short input with its own linear
-resampler, so it differs from ``_wsola_py``. The port runs the Python
-WSOLA, which the JAX package runs where the library is not built, and
-its results equal that fallback's bit for bit.
+Tempo runs the JAX package's default path: the C++ WSOLA of its
+``native/`` library, of which the port has its own copy
+(``csrc/audio_host.cc``, built with g++ at first use by
+``data/audio_host.py``). Its window is built in float and it stretches
+input shorter than two windows with its linear resampler, so it differs
+from the NumPy ``_wsola_py``; the port takes ``_wsola_py`` only where the
+library does not build (or ``ASR_TPU_NO_NATIVE`` stops the build), as the
+JAX package does. Each path equals its JAX counterpart bit for bit. The
+resampler below is NumPy's ``interp``, whose results equal the native
+``resample_linear``'s.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
+
+from end2end_asr_tpu_torch.data import audio_host
 
 
 # ---------------------------------------------------------------------------
@@ -196,9 +203,14 @@ def apply_gain(y: np.ndarray, gain_db: float) -> np.ndarray:
 
 
 def apply_tempo(y: np.ndarray, tempo: float, sample_rate: int) -> np.ndarray:
-    """Time-stretch by `tempo` (>1 = faster/shorter) preserving pitch."""
+    """Time-stretch by `tempo` (>1 = faster/shorter) preserving pitch:
+    the C++ WSOLA (data/audio_host.py) when its library loads, else
+    `_wsola_py` (`audio_host.active()` says which)."""
     if abs(tempo - 1.0) < 1e-6:
         return y.astype(np.float32)
+    out = audio_host.tempo_wsola(y, tempo, sample_rate)
+    if out is not None:
+        return out
     return _wsola_py(y, tempo, sample_rate)
 
 

@@ -1,7 +1,7 @@
 """Bucketed batch loader with static shapes.
 
 A copy of the JAX package's ``data/loader.py`` without the prefetch
-thread, the host-feature path and the multi-host slicing. With
+thread and the host-feature path. With
 ``num_workers`` > 1 each utterance of a batch draws from its own
 RandomState, seeded from the epoch's generator as the JAX package's worker
 threads are, so the batches (augmented or joint) equal its batches; the
@@ -14,6 +14,15 @@ BucketingSampler semantics (utils/data_loader.py:223-243 of the
 reference): sequential index bins of batch_size over duration-sorted
 manifests, shuffle WITHIN a bin every iteration, shuffle bin order on
 .shuffle(epoch) (the training loader, with the run's seed).
+
+Data parallelism (``process_index`` / ``process_count``, the JAX
+package's multi-host slicing): every rank runs the same sampler and builds
+only its 1/process_count slice of each bin, with the buckets taken from
+the WAV headers and transcripts of the whole bin (`_global_buckets`), so
+every rank's batch has one shape. A ragged bin is cycled up to the full
+batch before it is sliced; ``real_rows`` is then -1 (the duplicates land
+on any rank, as in the JAX package) and ``bin_rows`` counts the bin's real
+rows, which the ranks' slices hold first in rank order.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from end2end_asr_tpu_torch.config import Config, PAD_TOKEN
+from end2end_asr_tpu_torch.data.audio import get_num_samples
 from end2end_asr_tpu_torch.data.dataset import ManifestDataset
 from end2end_asr_tpu_torch.data.features import num_frames
 from end2end_asr_tpu_torch.ops.features import reflect_pad_pcm
@@ -57,8 +67,10 @@ class Batch:
     targets: np.ndarray                # (B, U_bucket) PAD-padded, SOS…EOS
     tgt_lengths: np.ndarray            # (B,)
     # rows [0:real_rows) are real; the tail (if any) is cycled padding
-    # (pad_to_full below). -1 = all rows real.
+    # (pad_to_full below). -1 = all rows real, or sliced over ranks.
     real_rows: int = -1
+    # real rows of the sampler's bin (all ranks' slices together)
+    bin_rows: int = -1
 
 
 def pick_bucket(value: int, ladder: Sequence[int]) -> int:
@@ -74,7 +86,8 @@ class AudioBatchLoader:
     def __init__(self, dataset: ManifestDataset, cfg: Config,
                  sampler: Optional[BucketingSampler] = None,
                  batch_size: Optional[int] = None, seed: int = 123456,
-                 num_workers: Optional[int] = None):
+                 num_workers: Optional[int] = None,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.cfg = cfg
         self._batch_size = batch_size or cfg.batch_size
@@ -89,6 +102,11 @@ class AudioBatchLoader:
         # batch size, so every batch has one static shape;
         # Batch.real_rows marks the real prefix for scoring
         self.pad_to_full = False
+        # data parallelism: this rank's 1/process_count slice of each bin
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
+        # per-index (frame_bound, u_len) memo for _global_buckets
+        self._bounds_cache: dict = {}
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -114,15 +132,60 @@ class AudioBatchLoader:
                     for i, r in zip(bin_ids, rngs)]
         return [self.dataset.get_item(i, rng) for i in bin_ids]
 
+    def _global_buckets(self, bin_ids: List[int]) -> tuple:
+        """(T_b, U_b) for a bin, from WAV headers and transcript files
+        only (no audio decode), the same on every rank. Tempo
+        augmentation stretches audio by up to 1/0.85, so the frame bound
+        is scaled; joint training picks a random manifest per row, so the
+        bound covers every manifest's candidate at each index."""
+        cfg = self.cfg
+        max_frames, max_u = 1, 1
+        for i in bin_ids:
+            bounds = self._bounds_cache.get(i)
+            if bounds is None:
+                f_i, u_i = 1, 1
+                for entries in self.dataset.ids_list:
+                    wav, txt = entries[i % len(entries)]
+                    n = get_num_samples(wav)
+                    if self.dataset.augment:
+                        n = int(n / 0.85) + 1
+                    f_i = max(f_i, num_frames(n, cfg.n_fft,
+                                              cfg.hop_length))
+                    u_i = max(u_i,
+                              len(self.dataset.parse_transcript(txt)))
+                bounds = self._bounds_cache[i] = (f_i, u_i)
+            max_frames = max(max_frames, bounds[0])
+            max_u = max(max_u, bounds[1])
+        T_b = min(pick_bucket(min(max_frames, cfg.src_max_len),
+                              cfg.src_buckets), cfg.src_max_len)
+        U_b = min(pick_bucket(max_u, cfg.tgt_buckets), cfg.tgt_max_len)
+        return T_b, U_b
+
     def _build_batch(self, bin_ids: List[int],
                      rng: np.random.RandomState) -> Batch:
         cfg = self.cfg
         n_fft, hop = cfg.n_fft, cfg.hop_length
 
-        real_rows = len(bin_ids)
+        real_rows = bin_rows = len(bin_ids)
         full = self._batch_size
-        if self.pad_to_full and 0 < real_rows < full:
+        if (self.pad_to_full and self.process_count == 1
+                and 0 < real_rows < full):
             bin_ids = [bin_ids[k % real_rows] for k in range(full)]
+
+        forced_buckets = None
+        if self.process_count > 1:
+            forced_buckets = self._global_buckets(bin_ids)
+            # cycle a ragged bin up to the full global batch before
+            # slicing, so every rank holds batch_size/process_count rows
+            if self.pad_to_full and 0 < len(bin_ids) < full:
+                bin_ids = [bin_ids[k % len(bin_ids)] for k in range(full)]
+            per = -(-len(bin_ids) // self.process_count)
+            padded = [bin_ids[k % len(bin_ids)]
+                      for k in range(per * self.process_count)]
+            lo = self.process_index * per
+            bin_ids = padded[lo:lo + per]
+            # the real/cycled split is global here: no local trimming
+            real_rows = -1
 
         items = self._get_items(bin_ids, rng)
         pcms = [it[0] for it in items]
@@ -130,10 +193,13 @@ class AudioBatchLoader:
 
         frames = np.array([min(num_frames(len(y), n_fft, hop),
                                cfg.src_max_len) for y in pcms])
-        T_b = min(pick_bucket(int(frames.max()), cfg.src_buckets),
-                  cfg.src_max_len)
-        U_max = max(len(t) for t in transcripts)
-        U_b = min(pick_bucket(U_max, cfg.tgt_buckets), cfg.tgt_max_len)
+        if forced_buckets is None:
+            T_b = min(pick_bucket(int(frames.max()), cfg.src_buckets),
+                      cfg.src_max_len)
+            U_max = max(len(t) for t in transcripts)
+            U_b = min(pick_bucket(U_max, cfg.tgt_buckets), cfg.tgt_max_len)
+        else:
+            T_b, U_b = forced_buckets
         frames = np.minimum(frames, T_b)
 
         B = len(items)
@@ -157,4 +223,4 @@ class AudioBatchLoader:
                           32767).astype(np.int16)
         return Batch(pcm=pcm, n_frames=frames, src_bucket=T_b,
                      targets=targets, tgt_lengths=tgt_lengths,
-                     real_rows=real_rows)
+                     real_rows=real_rows, bin_rows=bin_rows)

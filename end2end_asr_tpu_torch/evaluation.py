@@ -5,6 +5,12 @@ features (the STFT kernel, ops/stft.py) → encode (the front end — vgg
 with its fused kernels, or emb_cnn with the checkpoint's batch-norm
 statistics — then the encoder) → greedy or beam decode; strip
 special chars and accumulate CER / WER / CER_EN / CER_ZH totals.
+
+Data parallelism (``test --parallel``): each rank encodes and decodes its
+slice of every batch; the hypotheses and golds are gathered to every rank
+in row order (``all_gather_object``), cut to the bin's real rows, and
+rank 0 alone scores and logs them, so the strings and the CER are the
+one-process run's.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from end2end_asr_tpu_torch.models.transformer import (ModelDims,
                                                       with_state)
 from end2end_asr_tpu_torch.ops.features import reflect_pad_pcm
 from end2end_asr_tpu_torch.ops.stft import batched_features
+from end2end_asr_tpu_torch.parallel import mesh
 from end2end_asr_tpu_torch.utils.metrics import (calculate_cer,
                                                  calculate_cer_en_zh,
                                                  calculate_wer)
@@ -161,7 +168,8 @@ def evaluate(params, cfg: Config, test_loader, id2label: Dict[int, str],
     `device` (prepare_params); `lm` is the rescoring LM (make_beam).
     With `timings` (a list), one dict per batch is appended: encode_ms
     and decode_ms on the host clock, each ending in a device
-    synchronize."""
+    synchronize. Under data parallelism only rank 0 scores: the other
+    ranks return {}."""
     dims = dims_from_config(cfg)
     beam = make_beam(cfg, dims, id2label, lm)
     totals = dict(word=0, char=0, cer=0, wer=0,
@@ -185,7 +193,15 @@ def evaluate(params, cfg: Config, test_loader, id2label: Dict[int, str],
                             "batch": len(hyps)})
         golds = [ids_to_string_until_pad(row, id2label)
                  for row in batch.targets]
-        if batch.real_rows > 0:
+        if mesh.world_size() > 1:
+            # the ranks' slices in rank order: the bin's rows, then its
+            # cycled duplicates
+            parts = mesh.gather_objects((hyps, golds))
+            hyps = [h for p in parts for h in p[0]][:batch.bin_rows]
+            golds = [g for p in parts for g in p[1]][:batch.bin_rows]
+            if not mesh.is_main():
+                continue
+        elif batch.real_rows > 0:
             hyps, golds = hyps[:batch.real_rows], golds[:batch.real_rows]
 
         for hyp_raw, gold_raw in zip(hyps, golds):
@@ -209,6 +225,8 @@ def evaluate(params, cfg: Config, test_loader, id2label: Dict[int, str],
             totals["en_cer"] * 100 / max(1, totals["en_char"]),
             totals["zh_cer"] * 100 / max(1, totals["zh_char"]))
 
+    if not mesh.is_main():
+        return {}
     return {
         "cer": totals["cer"] * 100 / max(1, totals["char"]),
         "wer": totals["wer"] * 100 / max(1, totals["word"]),

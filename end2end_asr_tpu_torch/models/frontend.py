@@ -41,6 +41,7 @@ import torch.nn.functional as Fn
 
 from end2end_asr_tpu_torch.ops import vgg_fused
 from end2end_asr_tpu_torch.ops.pool_vjp import max_pool2
+from end2end_asr_tpu_torch.parallel import mesh
 from end2end_asr_tpu_torch.ops.vgg_fused import (VggBlock1, VggBlock2,
                                                  vgg_block1, vgg_block2)
 
@@ -63,13 +64,38 @@ def init_bn_state(c: int) -> Params:
     return {"mean": torch.zeros(c), "var": torch.ones(c)}
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """Sum over the data-parallel ranks: the forward all-reduces x, the
+    backward all-reduces the gradient (each rank's loss reads the sum, so
+    the sum's gradient is the ranks' summed gradients). Identity at world
+    size 1."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return mesh.all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh.all_reduce_(g.clone())
+
+
 def _bn(p: Params, s: Params, x: torch.Tensor,
         train: bool) -> Tuple[torch.Tensor, Params]:
-    """Batch norm over (B, F, T) of NCHW x, per channel."""
+    """Batch norm over (B, F, T) of NCHW x, per channel. In training the
+    statistics are the GLOBAL batch's, as GSPMD computes them for the JAX
+    package's sharded batch: the per-channel sum, then the sum of squared
+    deviations from the global mean, each summed over the ranks
+    (`_SumOverRanks`), over the global count; so every rank's running
+    statistics move alike."""
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), unbiased=False)
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+        dims = (0, 2, 3)
+        n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.world_size()
+        f32 = torch.float32     # the sums travel in f32 at any dtype
+        mean = (_SumOverRanks.apply(x.sum(dim=dims, dtype=f32))
+                / n).to(x.dtype)
+        d = x - mean[None, :, None, None]
+        var = (_SumOverRanks.apply((d * d).sum(dim=dims, dtype=f32))
+               / n).to(x.dtype)
         with torch.no_grad():
             unbiased = var * n / max(n - 1, 1)
             new_s = {"mean": (1 - BN_MOMENTUM) * s["mean"]

@@ -18,7 +18,7 @@ spectrogram.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,18 +37,24 @@ def time_band(u: torch.Tensor, raw_width: torch.Tensor,
 
 def draw(gen: torch.Generator, B: int, F: int, n_frames: torch.Tensor,
          n_freq_masks: int = 2, freq_width: int = 27,
-         n_time_masks: int = 2, time_width: int = 100):
+         n_time_masks: int = 2, time_width: int = 100,
+         rows: Optional[Tuple[int, int]] = None):
     """(f_start, f_width (B, n_freq_masks), t_start, t_width
     (B, n_time_masks)) int64 on n_frames' device, drawn from `gen` (a
-    generator on that device)."""
+    generator on that device). `rows` = (first, total): the draws of a
+    batch of `total` rows are made and rows [first, first + B) kept, so
+    that a data-parallel rank masks its slice of the global batch as one
+    process masks those rows."""
     dev = n_frames.device
     n_frames = n_frames.to(torch.int64)
-    ri = lambda hi, n: torch.randint(0, hi, (B, n), generator=gen,
-                                     device=dev, dtype=torch.int64)
+    first, total = rows or (0, B)
+    keep = slice(first, first + B)
+    ri = lambda hi, n: torch.randint(0, hi, (total, n), generator=gen,
+                                     device=dev, dtype=torch.int64)[keep]
     f_width = ri(freq_width + 1, n_freq_masks)
     f_start = ri(max(F - freq_width, 1), n_freq_masks)
     raw = ri(time_width + 1, n_time_masks)
-    u = torch.rand((B, n_time_masks), generator=gen, device=dev)
+    u = torch.rand((total, n_time_masks), generator=gen, device=dev)[keep]
     t_start, t_width = time_band(u, raw, n_frames)
     return f_start, f_width, t_start, t_width
 
@@ -75,8 +81,10 @@ def mask(spect: torch.Tensor, n_frames: torch.Tensor, f_start: torch.Tensor,
 def apply_spec_augment(gen: torch.Generator, spect: torch.Tensor,
                        n_frames: torch.Tensor, n_freq_masks: int = 2,
                        freq_width: int = 27, n_time_masks: int = 2,
-                       time_width: int = 100) -> torch.Tensor:
+                       time_width: int = 100,
+                       rows: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
     B, F, _ = spect.shape
     bands = draw(gen, B, F, n_frames, n_freq_masks, freq_width,
-                 n_time_masks, time_width)
+                 n_time_masks, time_width, rows)
     return mask(spect, n_frames, *bands)

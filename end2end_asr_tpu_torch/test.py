@@ -13,8 +13,18 @@ explicitly typed flag from the command line, quantises the dense weights
 to int8 with --quantize-int8 (models/quantize.py), loads the rescoring
 LM with --lm-rescoring (models/lm.py; .npz or a reference .pt), builds
 the test loader and runs batch evaluation (greedy or --beam-search).
-Without a GPU it raises unless --device cpu is given. --parallel is not
-ported yet and raises, naming its ROADMAP item.
+Without a GPU it raises unless --device cpu is given.
+
+``--parallel`` under torchrun (parallel/mesh.py): each rank builds,
+encodes and decodes its slice of every batch (ragged bins cycled to the
+full batch), the hypotheses are gathered in row order and rank 0 scores
+and prints them, as the one-process run would:
+
+    torchrun --standalone --nproc_per_node N -m end2end_asr_tpu_torch.test \
+        --parallel --continue-from ... [--device cpu]
+
+``--mesh-model`` (tensor-parallel inference) is not ported yet and raises,
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,9 +56,10 @@ def main(argv=None, timings: Optional[list] = None):
     if not cli.continue_from:
         print("need --continue-from checkpoint")
         sys.exit(1)
-    if cli.parallel:
-        raise NotImplementedError("--parallel is not ported yet: "
-                                  "parallelism (ROADMAP §1, parallelism)")
+    if cli.parallel and cli.mesh_model > 1:
+        raise NotImplementedError(
+            "--mesh-model is not ported yet: tensor parallelism (ROADMAP "
+            "§1, parallelism: TP, SP, then PP)")
 
     from end2end_asr_tpu_torch.data.dataset import ManifestDataset
     from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
@@ -56,12 +67,19 @@ def main(argv=None, timings: Optional[list] = None):
     from end2end_asr_tpu_torch.evaluation import (evaluate, prepare_params,
                                                   resolve_device)
     from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.parallel import mesh
     from end2end_asr_tpu_torch.training.checkpoint import load_checkpoint
 
-    device = resolve_device(device_name)
+    device = mesh.rank_device(resolve_device(device_name))
+    world, started = (mesh.join_group(device, cli.mesh_data, cli.batch_size)
+                      if cli.parallel else (1, False))
+    main_rank = mesh.is_main()
     logging.basicConfig(stream=sys.stdout,
                         format="%(asctime)s - %(message)s",
-                        level=logging.INFO)
+                        level=logging.INFO if main_rank else logging.WARNING)
+    if cli.parallel:
+        logging.getLogger("end2end_asr_tpu_torch").info(
+            mesh.describe(device))
 
     cfg, _, params, _, model_state, label2id, id2label, _ = load_checkpoint(
         cli.continue_from)
@@ -90,7 +108,11 @@ def main(argv=None, timings: Optional[list] = None):
     test_loader = AudioBatchLoader(
         test_data, cfg,
         sampler=BucketingSampler(len(test_data), cfg.batch_size,
-                                 seed=cfg.seed))
+                                 seed=cfg.seed),
+        process_index=mesh.rank(), process_count=world)
+    # one static shape a batch over the ranks: a ragged bin is cycled to
+    # the full batch; evaluate() cuts the duplicates
+    test_loader.pad_to_full = cli.parallel
     lm = None
     if cfg.lm_rescoring:
         from end2end_asr_tpu_torch.models.lm import LM
@@ -99,6 +121,10 @@ def main(argv=None, timings: Optional[list] = None):
                             model_state)
     results = evaluate(params, cfg, test_loader, id2label, device,
                        verbose=cfg.verbose, timings=timings, lm=lm)
+    if started:     # a rank that raised exits; torchrun stops the others
+        mesh.shutdown()
+    if not main_rank:
+        return results
     print("TEST CER:{:.2f}% WER:{:.2f}% CER_EN:{:.2f}% CER_ZH:{:.2f}%".format(
         results["cer"], results["wer"], results["cer_en"],
         results["cer_zh"]))

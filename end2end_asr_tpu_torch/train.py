@@ -22,9 +22,24 @@ torch.profiler trace of the first epoch. Without a GPU it raises unless
 (``evaluation.resolve_device``). ``--spec-augment``, ``--loss ctc``,
 ``--remat`` and ``--feat_extractor emb_cnn`` (whose batch-norm statistics
 are saved and resumed as the checkpoint's model state) are taken as root
-``train.py`` takes them. Data / model parallelism, ZeRO, sequence
-parallelism and orbax checkpoints are not ported yet and raise, naming
-the ROADMAP item.
+``train.py`` takes them.
+
+Data parallelism: ``--parallel`` under torchrun, one process a rank
+(parallel/mesh.py; ``nccl`` when each rank has a card of its own,
+``gloo`` when ranks share one or run on the CPU), each loader building
+its rank's slice of every batch (ragged bins cycled to the full batch);
+``--zero1`` / ``--fsdp`` shard the optimizer state / and the parameters
+over the ranks (parallel/zero.py). Rank 0 alone logs and writes
+checkpoints. Without torchrun's environment ``--parallel`` runs one rank.
+
+    torchrun --standalone --nproc_per_node N -m end2end_asr_tpu_torch.train \
+        --parallel [--zero1 | --fsdp] ...        # N cards
+    torchrun --standalone --nproc_per_node 2 -m end2end_asr_tpu_torch.train \
+        --parallel --device cpu ...              # gloo on the CPU
+
+Tensor, sequence and pipeline parallelism (``--mesh-model``,
+``--seq-parallel``, ``--mesh-pipe``) and orbax checkpoints are not ported
+yet and raise, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,15 +63,19 @@ logger = logging.getLogger("end2end_asr_tpu_torch")
 
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for every option of root train.py that
-    the port does not have yet."""
+    the port does not have yet (and root train.py's SystemExit where a
+    flag needs --parallel)."""
+    if cfg.mesh_pipe > 1 and not cfg.parallel:
+        raise SystemExit("--mesh-pipe requires --parallel")
     # items named by title, not number, so a renumbering cannot stale them
     todo = [
-        (cfg.parallel or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
-         "--parallel / --mesh-*", "ROADMAP §1, parallelism"),
-        (cfg.zero1 or cfg.fsdp, "--zero1 / --fsdp",
-         "ZeRO (ROADMAP §1, parallelism)"),
+        (cfg.mesh_model > 1, "--mesh-model",
+         "tensor parallelism (ROADMAP §1, parallelism: TP, SP, then PP)"),
+        (cfg.mesh_pipe > 1, "--mesh-pipe",
+         "pipeline parallelism (ROADMAP §1, parallelism: TP, SP, then PP)"),
         (cfg.seq_parallel, "--seq-parallel",
-         "sequence parallelism (ROADMAP §1, parallelism)"),
+         "sequence parallelism (ROADMAP §1, parallelism: TP, SP, then "
+         "PP)"),
         (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
          "orbax checkpoints (ROADMAP §1, parallelism: sharded "
          "checkpoints)"),
@@ -67,6 +86,10 @@ def refuse_unported(cfg: Config) -> None:
     if cfg.quantize_int8:
         raise SystemExit("--quantize-int8 is eval-only (test/transcribe); "
                          "training runs f32 master weights")
+    if (cfg.zero1 or cfg.fsdp) and not cfg.parallel:
+        raise SystemExit("--zero1/--fsdp require --parallel: they "
+                         "shard optimizer moments (and, for --fsdp, "
+                         "parameters) over the 'data' mesh axis")
 
 
 def _warn_duplicate_labels(labels_path: str) -> None:
@@ -96,33 +119,48 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
     from end2end_asr_tpu_torch.evaluation import resolve_device
     from end2end_asr_tpu_torch.models.transformer import (init_params,
                                                           init_state)
+    from end2end_asr_tpu_torch.parallel import mesh
     from end2end_asr_tpu_torch.training import checkpoint as ckpt
     from end2end_asr_tpu_torch.training.trainer import Trainer
 
-    device = resolve_device(device_name)
+    device = mesh.rank_device(resolve_device(device_name))
+    world, started = (mesh.join_group(device, cfg.mesh_data, cfg.batch_size,
+                                      cfg.grad_accum)
+                      if cfg.parallel else (1, False))
+    main_rank = mesh.is_main()
     os.makedirs("log", exist_ok=True)
     # append on resume: a resumed run keeps the history of the runs before
     resuming = bool(cfg.continue_from or cfg.auto_resume)
     mode = "a" if resuming else "w"
-    # the console output goes to log/<name>.stdout too (root train.py's tee)
-    tee = Logger("log/" + cfg.name + ".stdout", mode=mode)
-    sys.stdout = tee
-    handler = logging.FileHandler("log/" + cfg.name, mode=mode,
-                                  encoding="utf-8")
-    handler.setFormatter(logging.Formatter("%(asctime)s - %(message)s"))
+    # rank 0 alone logs: the console output goes to log/<name>.stdout too
+    # (root train.py's tee); the other ranks log warnings only
+    tee = Logger("log/" + cfg.name + ".stdout", mode=mode) if main_rank \
+        else None
+    if tee is not None:
+        sys.stdout = tee
+        handler = logging.FileHandler("log/" + cfg.name, mode=mode,
+                                      encoding="utf-8")
+        handler.setFormatter(logging.Formatter("%(asctime)s - %(message)s"))
+    else:
+        handler = logging.NullHandler()
     logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if main_rank else logging.WARNING)
     try:
-        print("=" * 50)
-        print("THE EXPERIMENT LOG IS SAVED IN: log/" + cfg.name)
-        print("TRAINING MANIFEST: ", list(cfg.train_manifest_list))
-        print("VALID MANIFEST: ", list(cfg.valid_manifest_list))
-        print("=" * 50)
+        if cfg.parallel:
+            logger.info(mesh.describe(device))
+        if main_rank:
+            print("=" * 50)
+            print("THE EXPERIMENT LOG IS SAVED IN: log/" + cfg.name)
+            print("TRAINING MANIFEST: ", list(cfg.train_manifest_list))
+            print("VALID MANIFEST: ", list(cfg.valid_manifest_list))
+            print("=" * 50)
         start_epoch, metrics, opt_state = 0, None, None
         if cfg.auto_resume and not cfg.continue_from:
+            # every rank reads the same checkpoint
             latest = ckpt.find_latest_checkpoint(cfg.save_folder, cfg.name)
             if latest:
-                print("AUTO-RESUME from", latest)
+                if main_rank:
+                    print("AUTO-RESUME from", latest)
                 cfg = cfg.replace(continue_from=latest)
         if cfg.continue_from:
             logger.info("Continue from checkpoint: %s", cfg.continue_from)
@@ -153,7 +191,8 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
             start_epoch = epoch
         else:
             label2id, id2label = load_vocab(cfg.labels_path)
-            _warn_duplicate_labels(cfg.labels_path)
+            if main_rank:
+                _warn_duplicate_labels(cfg.labels_path)
             if cfg.model not in ("TRFS", "LRTRFS"):
                 raise SystemExit("The model is not supported, check args --h")
             params = init_params(cfg, len(label2id),
@@ -167,24 +206,38 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
             list(cfg.train_manifest_list), label2id,
             sample_rate=cfg.sample_rate, augment=cfg.augment,
             noise_injector=noise, noise_prob=cfg.noise_prob)
+        # each rank builds its slice of every batch
+        part = dict(process_index=mesh.rank(), process_count=world)
         train_loader = AudioBatchLoader(
             train_data, cfg, sampler=BucketingSampler(
-                len(train_data), cfg.batch_size, seed=cfg.seed))
+                len(train_data), cfg.batch_size, seed=cfg.seed), **part)
         valid_loaders = [
             AudioBatchLoader(ManifestDataset([m], label2id,
                                              sample_rate=cfg.sample_rate),
-                             cfg)
+                             cfg, **part)
             for m in cfg.valid_manifest_list]
+        if cfg.parallel:
+            # one static shape a batch: a ragged bin is cycled to the full
+            # batch (Batch.real_rows marks the real prefix at world 1)
+            for loader in [train_loader, *valid_loaders]:
+                loader.pad_to_full = True
         trainer = (trainer_cls or Trainer)(cfg, label2id, id2label, device,
                                            metrics_every=cfg.metrics_every)
-        return trainer.train(params, opt_state, train_loader, valid_loaders,
-                             start_epoch=start_epoch, num_epochs=cfg.epochs,
-                             last_metrics=metrics, model_state=model_state)
+        result = trainer.train(params, opt_state, train_loader,
+                               valid_loaders, start_epoch=start_epoch,
+                               num_epochs=cfg.epochs, last_metrics=metrics,
+                               model_state=model_state)
+        # the group ends after a run that ended well; a rank that raised
+        # exits, and torchrun stops the others
+        if started:
+            mesh.shutdown()
+        return result
     finally:
         logger.removeHandler(handler)
         handler.close()
-        sys.stdout = tee.terminal
-        tee.close()
+        if tee is not None:
+            sys.stdout = tee.terminal
+            tee.close()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ Adam is torch.optim.Adam's rule (betas 0.9/0.98, eps 1e-9 for Noam):
     m̂ = m/(1-β1^t), v̂ = v/(1-β2^t), p -= lr · m̂ / (sqrt(v̂) + eps),
 with optional bf16 moment storage (the update computes in f32).
 `sgd_annealing_update` is the intended nesterov SGD with lr /= anneal per
-step. Clipping is torch.nn.utils.clip_grad_norm_'s global L2 norm.
+step. Clipping is torch.nn.utils.clip_grad_norm_'s global L2 norm. The
+updates are elementwise, so they take a slice of a flat buffer and of its
+state as they take the whole (ZeRO, parallel/zero.py).
 """
 
 from __future__ import annotations
@@ -75,10 +77,13 @@ def init_adam_state(params, moments_dtype: Optional[torch.dtype] = None,
             "mu": z, "nu": z2}
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, reduce_sq=None):
+    """Scale grads to a global L2 norm of at most max_norm. `reduce_sq`,
+    where given, maps the squared sum of these grads to that of the
+    whole buffer (a slice's, summed over the ranks under ZeRO)."""
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in leaves))
+    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+    gnorm = torch.sqrt(sq if reduce_sq is None else reduce_sq(sq))
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
 
@@ -106,10 +111,13 @@ def adam_update(params, grads, state: Dict, lr, beta1: float = 0.9,
 
 
 def adam_noam_update(params, grads, state: Dict, c: NoamConfig,
-                     clip: bool = False, max_norm: float = 400.0):
-    """One optimizer step. Returns (new_params, new_state, lr)."""
+                     clip: bool = False, max_norm: float = 400.0,
+                     reduce_sq=None):
+    """One optimizer step. Returns (new_params, new_state, lr). Params,
+    grads and moments may be matching slices of flat buffers (ZeRO,
+    parallel/zero.py); `reduce_sq` then completes the clip's norm."""
     if clip:
-        grads, _ = clip_by_global_norm(grads, max_norm)
+        grads, _ = clip_by_global_norm(grads, max_norm, reduce_sq)
     lr = noam_rate(state["step"] + 1, c)
     new_params, new_state = adam_update(params, grads, state, lr, c.beta1,
                                         c.beta2, c.eps)
@@ -135,9 +143,10 @@ def init_sgd_state(params, lr: float, device=None) -> Dict:
 
 def sgd_annealing_update(params, grads, state: Dict, momentum: float,
                          lr_anneal: float, clip: bool = False,
-                         max_norm: float = 400.0):
+                         max_norm: float = 400.0, reduce_sq=None):
+    """As adam_noam_update, for annealing SGD."""
     if clip:
-        grads, _ = clip_by_global_norm(grads, max_norm)
+        grads, _ = clip_by_global_norm(grads, max_norm, reduce_sq)
     lr = state["lr"] / lr_anneal
 
     def upd(p, g, b):

@@ -15,14 +15,26 @@ like it, and the optimizer runs a few elementwise passes over it instead
 of a dozen launches per parameter tensor. The sinusoid tables (``pe``) are not in
 it: they get no gradient and no update (the JAX package's stop_gradient).
 
+Data parallelism (parallel/mesh.py): each rank runs this step on its
+slice of the global batch and produces, for the ranks' sum, its loss and
+gradient weighted by its non-PAD token count (CE) or by 1 (CTC: the
+shards are equal), and that weight. One all_reduce of the flat gradient
+and one of the scalars (loss, weight, num_correct, num_token), then a
+division by the summed weight, give every rank the global batch's values,
+so every rank takes the same update and the same skip decision. At world
+size 1 both collectives are no-ops: the one-process step is this code.
+ZeRO-1 / FSDP (parallel/zero.py) reduce-scatter the gradient instead and
+update this rank's slice.
+
 Reference behaviours kept (steps.py:56-228 of the JAX package):
   * a non-finite loss skips the update: parameters, optimizer state and
     step stay as they were — chosen on the device by `torch.where`, with
     no host round trip; the model state is NOT held back (steps.py:226
     returns the new state whatever the loss was);
   * ``--grad-accum K`` splits the batch interleaved (microbatch m = rows
-    [m::K]) and re-weights each microbatch's loss and gradients by its
-    non-PAD token count, so the result equals the full batch's;
+    [m::K]) and weights each microbatch's loss and gradients by its
+    non-PAD token count, so the result equals the full batch's (nested
+    inside the sum over the ranks: the split of the local batch);
   * the teacher-forced argmax and gold come back for the train-CER log.
 ``--steps-per-dispatch K`` needs nothing here: the trainer runs K single
 steps, which the JAX package pins equal to its K-step scan.
@@ -39,6 +51,7 @@ from end2end_asr_tpu_torch.models.transformer import (ModelDims, forward,
                                                       forward_state)
 from end2end_asr_tpu_torch.ops.specaugment import apply_spec_augment
 from end2end_asr_tpu_torch.ops.stft import batched_features
+from end2end_asr_tpu_torch.parallel import mesh
 from end2end_asr_tpu_torch.training.checkpoint import (SEP, flatten_params,
                                                        unflatten)
 from end2end_asr_tpu_torch.training.loss import (calculate_loss,
@@ -68,6 +81,8 @@ class FlatParams:
         self.sizes = [flat[k].numel() for k in self.train_keys]
         self.data = torch.cat([flat[k].reshape(-1).to(torch.float32)
                                for k in self.train_keys]).to(device)
+        self.device = self.data.device
+        self.numel = self.data.numel()
 
     def views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
         out, off = {}, 0
@@ -99,7 +114,7 @@ class FlatParams:
         on the parameters' device."""
         flat = flatten_params(tree)
         return torch.cat([flat[k].reshape(-1) for k in self.train_keys]
-                         ).to(self.data.device)
+                         ).to(self.device)
 
 
 def noam_config_from(cfg: Config) -> NoamConfig:
@@ -126,15 +141,23 @@ def ctc_input_lengths(n_frames: torch.Tensor, spect_T: int,
     return (n_frames.to(torch.float32) / spect_T * U_out).to(torch.int32)
 
 
-def make_train_step_impl(cfg: Config, dims: ModelDims):
+def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None):
     """step(fp, data, opt_state, rng, pcm, n_frames, targets, tgt_lengths,
     spect_T, model_state=None) → (new_data, new_opt_state, new_model_state,
     metrics, hyp_seq, gold). `fp` gives the tree structure, `data` the flat
     parameters; nothing is modified in place. metrics: loss (0 when
-    skipped), finite, lr, num_correct, num_token — device tensors."""
+    skipped), finite, lr, num_correct, num_token — device tensors, the
+    global batch's. hyp_seq and gold are this rank's rows.
+
+    Under data parallelism (parallel/mesh.py) the batch is this rank's
+    slice of the global batch; the step is built after the process group
+    is up. `zero` (a parallel.zero.ZeroShard) shards the optimizer state
+    (--zero1) and the parameters (--fsdp): `data` and the moments are then
+    this rank's slices at stage 3, the moments alone at stage 1."""
     noam = noam_config_from(cfg)
     smoothing, loss_type = cfg.label_smoothing, cfg.loss
     accum = max(1, int(cfg.grad_accum))
+    world, rank = mesh.world_size(), mesh.rank()
     if loss_type not in ("ce", "ctc"):
         raise ValueError(f"loss is not defined: {loss_type}")
 
@@ -150,80 +173,102 @@ def make_train_step_impl(cfg: Config, dims: ModelDims):
             if rng is None:
                 raise ValueError("--spec-augment needs the step's random "
                                  "streams (rng)")
+            # the bands of the global microbatch, this rank's rows kept
+            b = targets.shape[0]
             spect = apply_spec_augment(
                 rng.spec, spect, n_frames, n_freq_masks=cfg.n_freq_masks,
                 freq_width=cfg.freq_mask_width,
                 n_time_masks=cfg.n_time_masks,
-                time_width=cfg.time_mask_width)
+                time_width=cfg.time_mask_width, rows=(rank * b, world * b))
         pred, gold, new_state = forward_state(
             fp.assemble(leaves), state, spect, n_frames, targets, dims,
             train=True, rng=rng)
         in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
         loss = calculate_loss(pred, gold, in_lens, tgt_lengths, smoothing,
                               loss_type)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
+        # the weight of this microbatch in the sum over microbatches and
+        # ranks: its non-PAD tokens for CE; CTC 'mean' weighs the equal
+        # shards alike. The backward runs on the weighted loss, so that a
+        # collective inside it (emb_cnn's global batch norm) sums
+        # gradients of the weighted losses of all ranks
+        w = ((gold != PAD_TOKEN).sum().to(torch.float32)
+             if loss_type == "ce" else torch.ones((), device=data.device))
+        grads = torch.autograd.grad(loss * w, list(leaves.values()),
                                     allow_unused=True, materialize_grads=True)
         grad = torch.cat([g.reshape(-1) for g in grads])
-        return loss.detach(), grad, pred.detach(), gold, new_state
+        return loss.detach() * w, grad, w, pred.detach(), gold, new_state
 
-    def accumulated(fp, data, state, rng, pcm, n_frames, targets,
-                    tgt_lengths, spect_T):
+    def local_sums(fp, data, state, rng, pcm, n_frames, targets,
+                   tgt_lengths, spect_T):
+        """This rank's weighted loss and gradient sums over the
+        microbatches (`--grad-accum`: the interleaved split, microbatch m
+        = rows [m::K]), their weight, and its rows' metrics."""
         B = targets.shape[0]
         if B % accum:
             raise ValueError(f"--grad-accum {accum} must divide the batch "
                              f"size {B}")
-        g_acc = torch.zeros_like(data)
-        loss_acc = torch.zeros((), device=data.device)
-        w_acc = torch.zeros((), device=data.device)
+        g_acc = loss_acc = w_acc = None
         hyps, golds, ncorr = [], [], 0
         for m in range(accum):
             # the state advances once per microbatch (steps.py:104-105)
-            loss, grad, pred, gold, state = micro(
+            loss_w, grad, w, pred, gold, state = micro(
                 fp, data, state, rng, pcm[m::accum], n_frames[m::accum],
                 targets[m::accum], tgt_lengths[m::accum], spect_T)
-            # CTC 'mean' weights the equal-sized microbatches uniformly
-            w = ((gold != PAD_TOKEN).sum().to(torch.float32)
-                 if loss_type == "ce" else torch.ones((), device=data.device))
-            g_acc += grad * w
-            loss_acc = loss_acc + loss * w
-            w_acc = w_acc + w
+            if g_acc is None:
+                g_acc, loss_acc, w_acc = grad, loss_w, w
+            else:
+                g_acc, loss_acc, w_acc = g_acc + grad, loss_acc + loss_w, \
+                    w_acc + w
             hyps.append(pred.argmax(dim=-1))
             golds.append(gold)
             ncorr = ncorr + token_accuracy(pred, gold)
-        inv = 1.0 / w_acc.clamp_min(1.0)
         # invert the interleave: row m + accum·i of the batch
         order = lambda xs: torch.stack(xs, dim=1).reshape(B, -1)
         gold = order(golds)
-        return (loss_acc * inv, g_acc * inv, order(hyps), gold, ncorr,
+        return (loss_acc, g_acc, w_acc, order(hyps), gold, ncorr,
                 (gold != PAD_TOKEN).sum(), state)
 
     def step(fp, data, opt_state, rng, pcm, n_frames, targets, tgt_lengths,
              spect_T, model_state=None):
-        if accum > 1:
-            (loss, grads, hyp_seq, gold, num_correct, num_token,
-             new_state) = accumulated(fp, data, model_state, rng, pcm,
-                                      n_frames, targets, tgt_lengths, spect_T)
-        else:
-            loss, grads, pred, gold, new_state = micro(
-                fp, data, model_state, rng, pcm, n_frames, targets,
-                tgt_lengths, spect_T)
-            hyp_seq = pred.argmax(dim=-1)
-            num_correct = token_accuracy(pred, gold)
-            num_token = (gold != PAD_TOKEN).sum()
+        full = zero.gather(data) if zero is not None and zero.stage == 3 \
+            else data
+        (loss_w, g, w, hyp_seq, gold, ncorr, ntok,
+         new_state) = local_sums(fp, full, model_state, rng, pcm, n_frames,
+                                 targets, tgt_lengths, spect_T)
+        del full        # --fsdp: the gathered parameters go here
         with torch.no_grad():
+            # the sums over the ranks: one collective for the gradient,
+            # one for the scalars (world size 1: neither runs)
+            small = mesh.all_reduce_(torch.stack(
+                [loss_w.to(torch.float32), w, ncorr.to(torch.float32),
+                 ntok.to(torch.float32)]))
+            g = (mesh.all_reduce_(g) if zero is None
+                 else zero.reduce_scatter(g))
+            inv = 1.0 / small[1].clamp_min(1.0)
+            loss, grads = small[0] * inv, g * inv
+            num_correct = small[2].round().to(torch.int64)
+            num_token = small[3].round().to(torch.int64)
             finite = torch.isfinite(loss)
+            # the update runs on the whole buffer, or on this rank's slice
+            params = data if zero is None or zero.stage == 3 \
+                else zero.shard(data)
+            # under ZeRO the clip's squared sum is the slices' over ranks
+            reduce_sq = None if zero is None else mesh.all_reduce_
             if cfg.opt == "sgd_annealing":
                 upd, upd_opt, upd_lr = sgd_annealing_update(
-                    data, grads, opt_state, cfg.momentum, cfg.lr_anneal,
-                    clip=cfg.clip, max_norm=cfg.max_norm)
+                    params, grads, opt_state, cfg.momentum, cfg.lr_anneal,
+                    clip=cfg.clip, max_norm=cfg.max_norm,
+                    reduce_sq=reduce_sq)
                 skip_lr = opt_state["lr"]
             else:
                 upd, upd_opt, upd_lr = adam_noam_update(
-                    data, grads, opt_state, noam, clip=cfg.clip,
-                    max_norm=cfg.max_norm)
+                    params, grads, opt_state, noam, clip=cfg.clip,
+                    max_norm=cfg.max_norm, reduce_sq=reduce_sq)
                 skip_lr = noam_rate(opt_state["step"] + 1, noam)
             pick = lambda new, old: torch.where(finite, new, old)
-            new_data = pick(upd, data)
+            new_data = pick(upd, params)
+            if zero is not None and zero.stage == 1:
+                new_data = zero.gather(new_data)
             new_opt = tree_map(pick, upd_opt, opt_state)
             metrics = {"loss": torch.where(finite, loss,
                                            torch.zeros_like(loss)),

@@ -9,6 +9,17 @@ epochs and `best_model` on the valid loss → optional sampler shuffle.
 Metrics are read on the host two steps behind the step that made them,
 so the device runs ahead of the logging. `MultiTrainer` (joint training,
 `multi_train.py`) overrides the three validation hooks.
+
+Data parallelism (parallel/mesh.py): each rank trains on its loaders'
+slices; the step's loss is already the global batch's. The train CER
+counts, each valid batch's loss (weighted by its non-PAD tokens, 1 a rank
+for CTC) and the valid CER / WER counts are summed over the ranks, so the
+log lines (rank 0's; train.py silences the others) carry global values and
+every rank picks the same best model. Rank 0 alone writes checkpoints,
+then all ranks meet at a barrier. Under --zero1 / --fsdp
+(parallel/zero.py) the moments, and with --fsdp the parameters, are this
+rank's slices: they are gathered for validation and for checkpoints, so
+a checkpoint is the unsharded run's file and resumes at any world size.
 """
 
 from __future__ import annotations
@@ -21,12 +32,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from end2end_asr_tpu_torch.config import Config
+from end2end_asr_tpu_torch.config import PAD_TOKEN, Config
 from end2end_asr_tpu_torch.evaluation import (ids_to_string_until_pad,
                                               strip_specials)
 from end2end_asr_tpu_torch.models.layers import DropoutRng
 from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
                                                       to_device, with_state)
+from end2end_asr_tpu_torch.parallel import mesh
+from end2end_asr_tpu_torch.parallel.zero import MOMENT_KEYS, ZeroShard
 from end2end_asr_tpu_torch.training import checkpoint as ckpt
 from end2end_asr_tpu_torch.training.optimizer import init_opt_state
 from end2end_asr_tpu_torch.training.steps import (FlatParams,
@@ -37,12 +50,13 @@ from end2end_asr_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger("end2end_asr_tpu_torch")
 
-PARAM_LIKE = ("mu", "nu", "buf")   # optimizer entries shaped like params
+# the running counts summed over the ranks for the log lines
+CER_KEYS = ("cer", "wer", "char")   # the loss is global already
 
 
 def opt_to_flat(fp: FlatParams, opt_tree: Dict, device) -> Dict:
     """A checkpoint's optimizer tree as the step's flat buffers."""
-    return {k: (fp.flatten(v) if k in PARAM_LIKE
+    return {k: (fp.flatten(v) if k in MOMENT_KEYS
                 else v.to(device, torch.int32 if k == "step" else None))
             for k, v in opt_tree.items()}
 
@@ -50,8 +64,30 @@ def opt_to_flat(fp: FlatParams, opt_tree: Dict, device) -> Dict:
 def opt_to_tree(fp: FlatParams, opt: Dict) -> Dict:
     """The step's flat optimizer state as the JAX package's tree (zero
     moments at the fixed tables)."""
-    return {k: (fp.tree(v, fixed="zeros") if k in PARAM_LIKE else v)
+    return {k: (fp.tree(v, fixed="zeros") if k in MOMENT_KEYS else v)
             for k, v in opt.items()}
+
+
+def summed_over_ranks(values: Dict, keys, device) -> Dict:
+    """`values` with the entries `keys` summed over the ranks (a copy;
+    the values themselves at world size 1)."""
+    if mesh.world_size() == 1:
+        return dict(values)
+    t = mesh.all_reduce_(torch.tensor([float(values[k]) for k in keys],
+                                      dtype=torch.float64, device=device))
+    return {**values, **dict(zip(keys, t.tolist()))}
+
+
+def valid_batch_loss(loss: torch.Tensor, gold: torch.Tensor,
+                     loss_type: str) -> float:
+    """A valid batch's loss over the ranks: weighted by each rank's
+    non-PAD tokens (CE) or alike (CTC: equal shards)."""
+    if mesh.world_size() == 1:
+        return loss.item()
+    w = ((gold != PAD_TOKEN).sum().to(torch.float64) if loss_type == "ce"
+         else torch.ones((), dtype=torch.float64, device=loss.device))
+    lw = mesh.all_reduce_(torch.stack([loss.to(torch.float64) * w, w]))
+    return (lw[0] / lw[1]).item()
 
 
 def batch_tensors(batch, device):
@@ -112,11 +148,28 @@ class Trainer:
         best_valid_loss = (last_metrics or {}).get("valid_loss", 1e9)
         fp = FlatParams(params, dev)
         data = fp.data
-        opt = (init_opt_state(cfg, data) if opt_state is None
-               else opt_to_flat(fp, opt_state, dev))
+        zero = (ZeroShard.for_config(cfg, fp.numel)
+                if cfg.zero1 or cfg.fsdp else None)
+        if zero is None:
+            opt = (init_opt_state(cfg, data) if opt_state is None
+                   else opt_to_flat(fp, opt_state, dev))
+        else:
+            logger.info(zero.describe())
+            part = zero.shard(data)
+            opt = (init_opt_state(cfg, part) if opt_state is None
+                   else zero.shard_opt(opt_to_flat(fp, opt_state, dev)))
+            if zero.stage == 3:     # only the slice lives between steps
+                data, fp.data = part, None
+        full_params = (lambda: zero.gather(data)) if (
+            zero is not None and zero.stage == 3) else (lambda: data)
+        full_opt = (lambda: opt) if zero is None else (
+            lambda: zero.gather_opt(opt))
         state = to_device(model_state or {}, dev)
+        # every rank seeds the dropout streams from the run's seed, so the
+        # ranks draw the same masks by local row: the replica-correlated
+        # dropout of the JAX package's sharded kernel
         rng = DropoutRng(cfg.seed + start_epoch, dev)
-        step = make_train_step_impl(cfg, self.dims)
+        step = make_train_step_impl(cfg, self.dims, zero=zero)
         eval_step = make_eval_step(cfg, self.dims)
         metrics: Dict = {}
 
@@ -143,11 +196,12 @@ class Trainer:
                     self._accumulate_cer(hyp[:rows].tolist(),
                                          gold[:rows].tolist(), totals)
                 if i % 20 == 0:
+                    g = summed_over_ranks(totals, CER_KEYS, dev)
                     logger.info(
                         "(Epoch %d) it %d TRAIN LOSS:%.4f CER:%.2f%% "
                         "LR:%.7f", epoch + 1, i,
-                        totals["loss"] / max(totals["batches"], 1),
-                        totals["cer"] * 100 / totals["char"], lr)
+                        g["loss"] / max(g["batches"], 1),
+                        g["cer"] * 100 / g["char"], lr)
 
             # --trace-dir: a torch.profiler trace of the first epoch's steps
             with trace(cfg.trace_dir if epoch == start_epoch else "", dev):
@@ -164,6 +218,7 @@ class Trainer:
                 for entry in pending:
                     drain(entry)
             wall = time.time() - t0
+            totals = summed_over_ranks(totals, CER_KEYS + ("utts",), dev)
             train_loss = totals["loss"] / max(totals["batches"], 1)
             logger.info("(Epoch %d) TRAIN LOSS:%.4f CER:%.2f%% LR:%.7f "
                         "utt/s:%.2f wall:%.1fs", epoch + 1, train_loss,
@@ -175,7 +230,7 @@ class Trainer:
                                  for (t, u), n in sorted(buckets.items())))
 
             logger.info("VALID")
-            params_now = fp.tree(data)
+            params_now = fp.tree(full_params())
             valid_losses: List[float] = []
             valid_cer_total, valid_wer_total = 0, 0
             for ind, loader in enumerate(valid_loader_list):
@@ -187,7 +242,7 @@ class Trainer:
                     loss, hyp, gold = eval_step(
                         with_state(params_now, state),
                         *batch_tensors(batch, dev), batch.src_bucket)
-                    loss = loss.item()
+                    loss = valid_batch_loss(loss, gold, cfg.loss)
                     if not np.isfinite(loss):
                         logger.info("Found infinity loss, masking")
                         continue
@@ -195,6 +250,7 @@ class Trainer:
                     vtot["batches"] += 1
                     self._accumulate_cer(hyp[:rows].tolist(),
                                          gold[:rows].tolist(), vtot)
+                vtot = summed_over_ranks(vtot, CER_KEYS, dev)
                 vloss = vtot["loss"] / max(vtot["batches"], 1)
                 self._log_valid(epoch, ind, vloss,
                                 vtot["cer"] * 100 / vtot["char"])
@@ -216,12 +272,15 @@ class Trainer:
             def save(best: bool):
                 base = ckpt.checkpoint_paths(cfg.save_folder, cfg.name,
                                              epoch + 1, best=best)
-                logger.info("SAVE %sMODEL to %s", "BEST " if best else "",
-                            base)
-                ckpt.save_checkpoint(base, cfg, epoch + 1, params_now,
-                                     self.label2id, self.id2label,
-                                     model_state=state, metrics=metrics,
-                                     opt_state=opt_to_tree(fp, opt))
+                opt_tree = opt_to_tree(fp, full_opt())   # on every rank
+                if mesh.is_main():
+                    logger.info("SAVE %sMODEL to %s",
+                                "BEST " if best else "", base)
+                    ckpt.save_checkpoint(base, cfg, epoch + 1, params_now,
+                                         self.label2id, self.id2label,
+                                         model_state=state, metrics=metrics,
+                                         opt_state=opt_tree)
+                mesh.barrier()
 
             if epoch % cfg.save_every == 0:
                 save(best=False)
@@ -232,7 +291,8 @@ class Trainer:
                 logger.info("SHUFFLE")
                 train_loader.shuffle(epoch)
 
-        return {"params": fp.tree(data), "opt_state": opt_to_tree(fp, opt),
+        return {"params": fp.tree(full_params()),
+                "opt_state": opt_to_tree(fp, full_opt()),
                 "model_state": state, "metrics": metrics,
                 "epochs_run": max(0, num_epochs - start_epoch),
                 "opt_step": int(opt["step"].item())}

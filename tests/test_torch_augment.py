@@ -1,7 +1,9 @@
 """Tempo/gain augmentation, noise injection and the loader's per-row
-generators: the port against the JAX package's pure-Python paths (its C++
-library switched off through `_native.available`), bit for bit, on the
-same files and the same seeded RandomStates.
+generators: the port against the JAX package, bit for bit, on the same
+files and the same seeded RandomStates. Most cases run both packages'
+pure-Python paths (the JAX C++ library switched off through
+`_native.available`, the port's through `audio_host._load`); the
+`native_on` cases run both C++ WSOLAs, the JAX package's default path.
 
 The loader case is the `--num-workers` fault: with num_workers > 1 the
 JAX loader gives each row its own RandomState seeded from the epoch's
@@ -28,9 +30,23 @@ SR = 16000
 
 
 @pytest.fixture(autouse=True)
-def no_native(monkeypatch):
-    """The JAX package's Python fallbacks: the port copies those."""
+def no_native(request, monkeypatch):
+    """Both packages' Python fallbacks, unless the case asks for
+    `native_on`."""
+    if "native_on" in request.fixturenames:
+        return
     monkeypatch.setattr(JA._native, "available", lambda: False)
+    monkeypatch.setattr(PA.audio_host, "_load", lambda: None)
+    assert PA.audio_host.active() == "python"
+
+
+@pytest.fixture
+def native_on():
+    """Both C++ libraries loaded; skipped only where the JAX package's
+    own library is unavailable (no g++)."""
+    if not JA._native.available():
+        pytest.skip("the JAX package's native library is unavailable")
+    assert PA.audio_host.active() == "native", PA.audio_host.build_error()
 
 
 def write_au(path, y, sr, encoding, channels=1):
@@ -85,6 +101,34 @@ def test_wsola_equals_jax(tempo):
     want = JA._wsola_py(y, tempo, SR)
     got = PA._wsola_py(y, tempo, SR)
     assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("tempo", [0.85, 1.0, 1.15])
+@pytest.mark.parametrize("seconds", [7.99, "short"])
+def test_native_wsola_equals_jax(native_on, tempo, seconds):
+    """The port's C++ WSOLA against the JAX package's, on 7.99 s and on a
+    signal shorter than two windows (their `resample_linear` branch),
+    and `apply_tempo` (which skips tempo 1.0) on both sides."""
+    y = tone(700 if seconds == "short" else int(seconds * SR), 10)
+    want = JA._native.tempo_wsola(y, tempo, SR)
+    got = PA.audio_host.tempo_wsola(y, tempo, SR)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert np.array_equal(PA.apply_tempo(y, tempo, SR),
+                          JA.apply_tempo(y, tempo, SR))
+    if tempo != 1.0:
+        assert np.array_equal(PA.apply_tempo(y, tempo, SR), want)
+        if seconds != "short":
+            # the Python WSOLA is another function
+            assert not np.array_equal(PA._wsola_py(y, tempo, SR), want)
+
+
+@pytest.mark.parametrize("sr_in", [8000, 44100])
+def test_resample_equals_jax_native(native_on, sr_in):
+    """The port's NumPy resampler against the JAX package's C++ one (its
+    default path): bit-equal."""
+    y = tone(sr_in // 2 + 37, 11, sr=sr_in)
+    want = JA._native.resample(y, sr_in, SR)
+    assert np.array_equal(PA.resample(y, sr_in, SR), want)
 
 
 @pytest.mark.parametrize("sr", [16000, 8000])
@@ -170,12 +214,7 @@ def test_get_item_with_augment_and_noise_equals_jax(two_corpora, noise_dir):
         assert gt == wt and np.array_equal(gy, wy)
 
 
-@pytest.mark.parametrize("num_workers,augment", [(0, False), (4, False),
-                                                 (4, True)])
-def test_loader_batches_equal_jax(two_corpora, noise_dir, num_workers,
-                                  augment):
-    """Two manifests, batch 4, sampler seed 7, two epochs: pcm (int16 on
-    the wire), targets, n_frames and the bucket equal the JAX loader's."""
+def _loaders_equal(two_corpora, noise_dir, num_workers, augment):
     manifests, label2id = two_corpora
     cfg = Config(batch_size=4, num_workers=num_workers)
     pcfg = TorchConfig.from_dict(cfg.to_dict())
@@ -195,3 +234,20 @@ def test_loader_batches_equal_jax(two_corpora, noise_dir, num_workers,
             assert np.array_equal(got.targets, want.targets)
             assert np.array_equal(got.n_frames, want.n_frames)
             assert got.src_bucket == want.src_bucket
+
+
+@pytest.mark.parametrize("num_workers,augment", [(0, False), (4, False),
+                                                 (4, True)])
+def test_loader_batches_equal_jax(two_corpora, noise_dir, num_workers,
+                                  augment):
+    """Two manifests, batch 4, sampler seed 7, two epochs: pcm (int16 on
+    the wire), targets, n_frames and the bucket equal the JAX loader's."""
+    _loaders_equal(two_corpora, noise_dir, num_workers, augment)
+
+
+@pytest.mark.parametrize("num_workers", [0, 4])
+def test_loader_batches_with_native_equal_jax(native_on, two_corpora,
+                                              noise_dir, num_workers):
+    """As above with --augment on the JAX package's default path: both
+    C++ WSOLAs."""
+    _loaders_equal(two_corpora, noise_dir, num_workers, True)

@@ -1048,3 +1048,59 @@ def test_quantized_f32_serving_on_the_card_equals_cpu(dev):
     assert outs[0][0].shape == (2, T // 4, 128)
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=2e-3)
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=2e-3)
+
+
+def test_group_of_one_nccl_step_equals_the_plain_step(dev, monkeypatch):
+    """A world-1 NCCL group, joined as under torchrun (the port's
+    parallel/mesh.py: NCCL, since the one rank has a card): one train
+    step of a narrow model equals the step without a group (at world size
+    1 no collective runs): the loss within 1e-6, the parameters within
+    Adam's first-step bound of 2·lr (library backward kernels with
+    atomics may sum a gradient in another order, and a gradient at noise
+    level may then move its parameter the other way)."""
+    import socket
+
+    import torch.distributed as dist
+    from end2end_asr_tpu_torch.config import Config
+    from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                          init_params)
+    from end2end_asr_tpu_torch.parallel import mesh
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams,
+                                                      make_train_step_impl)
+    cfg = Config(feat_extractor="vgg_cnn", num_layers=1, num_heads=2,
+                 dim_model=64, dim_key=32, dim_value=32, dim_inner=128,
+                 dim_emb=64, dropout=0.0, dtype="bfloat16")
+    g = torch.Generator().manual_seed(0)
+    params = init_params(cfg, 12, g)
+    T = 200
+    pcm = (torch.randn(2, (T - 1) * 160 + 320, generator=g) * 0.2).to(dev)
+    n_frames = torch.tensor([T, T - 30], device=dev)
+    targets = torch.tensor([[1, 5, 6, 7, 2, 0], [1, 8, 9, 2, 0, 0]],
+                           device=dev)
+    lengths = torch.tensor([5, 4], device=dev)
+
+    def one_step():
+        fp = FlatParams(params, dev)
+        step = make_train_step_impl(cfg, dims_from_config(cfg))
+        out = step(fp, fp.data, init_opt_state(cfg, fp.data), None, pcm,
+                   n_frames, targets, lengths, T)
+        torch.cuda.synchronize()
+        return out[0], out[3]["loss"], out[3]["lr"].item()
+
+    want_data, want_loss, lr = one_step()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                 ("LOCAL_WORLD_SIZE", "1"), ("MASTER_ADDR", "localhost"),
+                 ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(k, v)
+    assert mesh.maybe_initialize_distributed(dev) == 1
+    try:
+        assert dist.get_backend() == "nccl"
+        got_data, got_loss, _ = one_step()
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(got_loss, want_loss, rtol=1e-6, atol=0)
+    assert (got_data - want_data).abs().max().item() <= 2 * lr

@@ -513,12 +513,20 @@ def test_train_entry_point_needs_a_card_or_device_cpu(corpus, tmp_path,
     # --noise-dir is ported: a missing directory raises IOError, as the JAX
     # package's NoiseInjector does
     for flag, exc, match in (
-            (["--parallel"], NotImplementedError, "ROADMAP"),
             (["--seq-parallel"], NotImplementedError, "ROADMAP"),
             (["--noise-dir", "x"], IOError, "Directory doesn't exist: x"),
-            (["--zero1"], NotImplementedError, "ROADMAP"),
             (["--checkpoint-format", "orbax"], NotImplementedError,
              "ROADMAP")):
         with pytest.raises(exc, match=match):
             port_train.main(_train_argv(corpus, str(tmp_path),
                                         ["--device", "cpu", *flag]))
+    # data parallelism and ZeRO are ported: without torchrun's environment
+    # --parallel is one rank on the CPU (tests/test_torch_parallel.py runs
+    # two)
+    for flags in (["--parallel"], ["--parallel", "--zero1"]):
+        res = port_train.main(_train_argv(
+            corpus, str(tmp_path), ["--device", "cpu", "--epochs", "1",
+                                    "--name", "p" + str(len(flags)),
+                                    *flags]))
+        assert res["epochs_run"] == 1 and res["opt_step"] == 2
+        assert np.isfinite(res["metrics"]["train_loss"])
