@@ -114,12 +114,26 @@ Phases (any failure exits non-zero without the final result line):
      0) plain DDP's within ZERO_RTOL; then `test --parallel` on two ranks
      over phase 3's checkpoint must give phase 3's strings at
      --batch-size 24 (rank 0 decodes phase 3's 12 rows; bf16 sums depend
-     on the row count), and at 12 the strings equal to phase 3's are
-     counted;
-  10. the streaming probe's entry point, its four lines printed;
-  11. one JSON line of per-kernel numbers (and the serving, training,
-     serve-option and augmented-training numbers, the script's seconds),
-     then the result line {"ok": true, "device": {...}}.
+     on the row count);
+  10. tensor and sequence parallelism at the same width (gloo ranks
+     sharing the card through the --ddp-rank mode, one epoch of 2 steps
+     at dropout 0 each): --mesh-model 2 (2 ranks), --mesh-model 2
+     --seq-parallel (2), --mesh-data 2 --mesh-model 2 --zero1 (4) and
+     --mesh-model 2 --fsdp --checkpoint-format orbax (2): each rank must
+     launch the hand kernels as in phase 9 (attention on its 4 local
+     heads), each run's loss and gathered parameters must be phase 9's
+     one-process run's within its rules; on a model rank, attn_fwd /
+     attn_bwd at 4 heads against their plain versions at rate 0.1, and
+     the keep mask of each local head the plain one and the same on both
+     ranks; the sharded save (`<base>.dcp`) must load in one process equal
+     to the run's gathered parameters and serve their strings through
+     `test`; `test --parallel --mesh-model 2` over phase 3's checkpoint
+     (12 rows a rank) must give the one-process strings at --dtype
+     float32; at bf16 the equal strings are counted;
+  11. the streaming probe's entry point, its four lines printed;
+  12. one JSON line of per-kernel numbers (and the serving, training,
+     serve-option, augmented-training and parallelism numbers, the
+     script's seconds), then the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -2728,22 +2742,34 @@ def torchrun(work, nproc, args, name, timeout=300):
 def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
     """Median host ms of the train step on `batch` (this rank's rows),
     each step between two synchronizes, after one untimed step; --zero1 /
-    --fsdp in `cfg` shard it over the group."""
+    --fsdp in `cfg` shard it over the data axis, and a data x model
+    layout (phase 10) runs this rank's shard of the parameters."""
     from end2end_asr_tpu_torch.models.layers import DropoutRng
     from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.parallel import mesh, tp
     from end2end_asr_tpu_torch.parallel.zero import ZeroShard
+    from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
+                                                           model_rank_tree)
     from end2end_asr_tpu_torch.training.optimizer import init_opt_state
     from end2end_asr_tpu_torch.training.steps import (FlatParams,
                                                       make_train_step_impl)
     from end2end_asr_tpu_torch.training.trainer import batch_tensors
+    n_model, plan = mesh.model_size(), None
+    shapes = {k: tuple(v.shape) for k, v in flatten_params(params).items()}
+    if n_model > 1:
+        params = model_rank_tree(params, n_model, mesh.model_rank())
     fp = FlatParams(params, dev)
+    if n_model > 1:
+        plan = tp.FlatPlan(fp, [k for k in fp.train_keys if tp.leaf_dim(
+            k, shapes[k], n_model) is not None], n_model, cfg.seq_parallel)
     data = fp.data
     zero = (ZeroShard.for_config(cfg, fp.numel) if cfg.zero1 or cfg.fsdp
             else None)
     opt = init_opt_state(cfg, data if zero is None else zero.shard(data))
     if zero is not None and zero.stage == 3:
         data = zero.shard(data)
-    step = make_train_step_impl(cfg, dims_from_config(cfg), zero=zero)
+    step = make_train_step_impl(cfg, dims_from_config(cfg), zero=zero,
+                                plan=plan)
     rng = DropoutRng(SEED, dev)
     tensors = batch_tensors(batch, dev)
     one = lambda: step(fp, data, opt, rng, *tensors, batch.src_bucket)
@@ -2753,12 +2779,16 @@ def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
 
 
 def ddp_rank(spec_path):
-    """One rank of phase 9 (`chip_smoke.py --ddp-rank SPEC`, started by
-    torch.distributed.run): joins the group, runs the train entry point
-    with the spec's argv (--parallel, each rank on cuda:0 with gloo), then
-    times the step at dropout 0.1 on its slice of the first batch; writes
-    the launch counts of both, the run's peak memory, the step time and
-    the backend to <out>.r<rank>.json."""
+    """One rank of phases 9 and 10 (`chip_smoke.py --ddp-rank SPEC`,
+    started by torch.distributed.run): joins the group, runs the train
+    entry point with the spec's argv (--parallel, each rank on cuda:0 with
+    gloo), then times the step at dropout 0.1 on its slice of the first
+    batch; writes the launch counts of both, the run's peak memory, the
+    step time and the backend to <out>.r<rank>.json. With the spec's
+    "local_heads", the attention kernels' checks on a model rank's local
+    heads (`local_head_checks`) after the counts are read; with
+    "save_npz", rank 0 writes the run's returned (gathered) parameters
+    there as an npz checkpoint."""
     import torch
     from end2end_asr_tpu_torch import train as port_train
     from end2end_asr_tpu_torch.config import config_from_args, load_vocab
@@ -2787,14 +2817,22 @@ def ddp_rank(spec_path):
            "train_s": time.time() - t0, "opt_step": res["opt_step"],
            "train_loss": res["metrics"]["train_loss"]}
     cfg = config_from_args(split_device_arg(spec["argv"])[1])
-    label2id, _ = load_vocab(cfg.labels_path)
+    label2id, id2label = load_vocab(cfg.labels_path)
     loader = AudioBatchLoader(
         ManifestDataset(list(cfg.train_manifest_list), label2id), cfg,
-        process_index=rank, process_count=world)
+        process_index=mesh.data_rank(), process_count=mesh.data_size())
     reset_kernels(kernels)
     out["step_ms"] = rank_step_ms(torch, cfg.replace(dropout=0.1),
                                   res["params"], next(iter(loader)), dev)
     out["step_launches"] = kernel_counts(kernels)
+    out["layout"] = [mesh.data_size(), mesh.model_size()]
+    if spec.get("local_heads"):
+        out["local_heads"] = local_head_checks(torch, dev)
+    if spec.get("save_npz") and mesh.is_main():
+        from end2end_asr_tpu_torch.training.checkpoint import \
+            save_checkpoint
+        save_checkpoint(spec["save_npz"], cfg, 1, res["params"], label2id,
+                        id2label)
     with open(f"{spec['out']}.r{rank}.json", "w") as f:
         json.dump(out, f)
     mesh.shutdown()
@@ -2958,41 +2996,263 @@ def phase_ddp(torch, dev, kernels, serve_kernels, work, labels_path, model,
 
     # test --parallel on two ranks over phase 3's checkpoint. A bf16
     # product's sums depend on its row count, and the random weights' greedy
-    # picks are often near ties: 6 rows a rank flipped a few characters of
-    # phase 3's strings (PERF.md §6). At --batch-size 24 the 12
-    # utterances' bin is cycled to 24 rows and rank 0 decodes phase 3's
-    # batch as it stood, so the gathered strings must be phase 3's; at 12
-    # (6 rows a rank) the strings equal to phase 3's are counted
+    # picks are often near ties: 6 rows a rank flipped 16 characters of
+    # phase 3's strings (PERF.md §6; no longer run). At
+    # --batch-size 24 the 12 utterances' bin is cycled to 24 rows and rank
+    # 0 decodes phase 3's batch as it stood, so the gathered strings must
+    # be phase 3's
     serve_argv = ["--continue-from", model.ckpt, "--test-manifest-list",
                   model.manifest]
     ref_hyps, _, _ = greedy_strings(
         torch, serve_kernels,
         serve_argv + ["--batch-size", str(B), "--device", str(dev)])
-    for batch_size in (2 * B, B):
-        out, secs = torchrun(work, 2, [
-            "-m", "end2end_asr_tpu_torch.test", "--parallel", "--verbose",
-            *serve_argv, "--batch-size", str(batch_size), "--device",
-            "cuda"], f"test_parallel_{batch_size}")
-        hyps = [ln.split("HYP: ", 1)[1].split(" || GOLD: ")[0]
-                for ln in out.splitlines() if "HYP: " in ln]
-        same = sum(h == r for h, r in zip(hyps, ref_hyps))
-        flips = sum(a != b for h, r in zip(hyps, ref_hyps)
-                    for a, b in zip(h, r))
-        log(f"torchrun 2 ranks test --parallel --batch-size {batch_size} "
-            f"({batch_size // 2} rows a rank): {secs:.1f} s, {len(hyps)} "
-            f"strings, {same} equal to phase 3's ({flips} characters "
-            f"differ)")
-        res[f"test_parallel_batch{batch_size}"] = {
-            "seconds": secs, "strings": len(hyps),
-            "equal_to_phase3": same, "characters_differing": flips}
-        if batch_size == 2 * B and hyps != ref_hyps:
-            fail(f"test --parallel strings differ from phase 3's: "
-                 f"{list(zip(hyps, ref_hyps))[:3]}")
-        if len(hyps) != B:
-            fail(f"test --parallel scored {len(hyps)} strings, not {B}")
+    batch_size = 2 * B
+    out, secs = torchrun(work, 2, [
+        "-m", "end2end_asr_tpu_torch.test", "--parallel", "--verbose",
+        *serve_argv, "--batch-size", str(batch_size), "--device", "cuda"],
+        f"test_parallel_{batch_size}")
+    hyps = [ln.split("HYP: ", 1)[1].split(" || GOLD: ")[0]
+            for ln in out.splitlines() if "HYP: " in ln]
+    same = sum(h == r for h, r in zip(hyps, ref_hyps))
+    flips = sum(a != b for h, r in zip(hyps, ref_hyps) for a, b in zip(h, r))
+    log(f"torchrun 2 ranks test --parallel --batch-size {batch_size} "
+        f"({batch_size // 2} rows a rank): {secs:.1f} s, {len(hyps)} "
+        f"strings, {same} equal to phase 3's ({flips} characters differ)")
+    res[f"test_parallel_batch{batch_size}"] = {
+        "seconds": secs, "strings": len(hyps), "equal_to_phase3": same,
+        "characters_differing": flips}
+    if hyps != ref_hyps or len(hyps) != B:
+        fail(f"test --parallel strings differ from phase 3's: "
+             f"{list(zip(hyps, ref_hyps))[:3]}")
     return {n: [{k: (rk["launches"][k], rk["step_launches"][k])
                  for k in rk["launches"]} for rk in r["ranks"]]
             for n, r in runs.items()}, res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: tensor and sequence parallelism, sharded checkpoints
+# ---------------------------------------------------------------------------
+
+# the runs of phase 10: (name, ranks, flags). bf16 against the one-process
+# run of phase 9 (12 rows, dropout 0, 2 steps): each rank's local heads and
+# inner columns are the one-process products' own columns; the row-parallel
+# partial products sum in f32 before the one bf16 rounding, and the input
+# gradients' partial sums round to bf16 a rank: phase 9's loss and
+# parameter rules hold
+TP_RUNS = (("tp2", 2, ["--mesh-model", "2"]),
+           ("tp2_sp", 2, ["--mesh-model", "2", "--seq-parallel"]),
+           ("tp4_zero1", 4, ["--mesh-data", "2", "--mesh-model", "2",
+                             "--zero1"]),
+           ("tp2_fsdp_dcp", 2, ["--mesh-model", "2", "--fsdp",
+                                "--checkpoint-format", "orbax"]))
+LOCAL_HEADS = 4          # 8 heads over 2 model ranks
+
+
+def local_head_checks(torch, dev):
+    """In a model rank: attn_fwd / attn_bwd on LOCAL_HEADS heads of the
+    encoder's self-attention (the step's layout: transposed views of
+    (B, T, H, D), rate 0.1; this rank's own data) against their plain
+    versions; and the keep mask that attn_fwd draws at the run's seed for
+    each local head (q = k = 0 makes the probabilities uniform, V = I makes
+    the output's non-zeros the kept ones), against the plain Philox mask,
+    and as a digest that the ranks compare."""
+    import hashlib
+    from end2end_asr_tpu_torch.ops import attention_fused as AF
+    from end2end_asr_tpu_torch.parallel import mesh
+    H, D, T = LOCAL_HEADS, 64, 200
+    g0 = torch.Generator().manual_seed(SEED + 10 + mesh.model_rank())
+    q, k, v = (torch.randn(B, T, H, D, generator=g0).to(
+        dev, torch.bfloat16).transpose(1, 2) for _ in range(3))
+    bias = torch.where(torch.rand(B, T, T, generator=g0) < 0.1, -1e9,
+                       0.0).to(dev)
+    dout = torch.randn(B, T, H, D, generator=g0).to(
+        dev, torch.bfloat16).transpose(1, 2)
+    runs, layout = attention_runs(torch, AF, (q, k, v), bias, dout, SEED,
+                                  0.1)
+    qf = [t.float().requires_grad_() for t in (q, k, v)]
+    want = AF.flash_mha_train_plain(*qf, bias, SEED, 0.1)
+    want_g = torch.autograd.grad(want, qf, dout.float())
+    out, *grads = runs[0]
+    errs = [rel_err(out, want)] + [rel_err(a, b)
+                                   for a, b in zip(grads, want_g)]
+    Tm = 64
+    zero = torch.zeros(2, H, Tm, Tm, device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(Tm, device=dev, dtype=torch.bfloat16).expand(
+        2, H, Tm, Tm).contiguous()
+    o = AF.flash_mha_train(zero, zero, eye,
+                           torch.zeros(2, Tm, Tm, device=dev), SEED, 0.1)
+    keep = o != 0
+    plain = AF.keep_mask(SEED, 2, H, Tm, Tm, AF.dropout_thresh16(0.1), dev)
+    torch.cuda.synchronize()
+    return {"errs": errs, "two_runs_bit_identical": all(
+                torch.equal(a, b) for a, b in zip(*runs)),
+            "layout": layout,
+            "mask_equals_plain": bool(torch.equal(keep, plain)),
+            "keep_fraction": keep.float().mean().item(),
+            "mask_digest": hashlib.sha256(
+                keep.cpu().numpy().tobytes()).hexdigest()}
+
+
+def phase_tp(torch, dev, serve_kernels, work, labels_path, model, manifest,
+             valid, gpu):
+    """Tensor and sequence parallelism at the AiShell width (batch 12,
+    bf16, dropout 0, one epoch = 2 steps, phase 9's one-process run the
+    reference), gloo ranks sharing cuda:0 through phase 9's --ddp-rank
+    mode: --mesh-model 2 (2 ranks), --mesh-model 2 --seq-parallel (2),
+    --mesh-data 2 --mesh-model 2 --zero1 (4) and --mesh-model 2 --fsdp
+    --checkpoint-format orbax (2), each rank's launches and step time
+    read, each run's loss and checkpoint against the one-process run; the
+    attention kernels on 4 local heads at rate 0.1; then `test` in one
+    process on the sharded save against the npz of the same run's
+    parameters, and `test --parallel --mesh-model 2` over phase 3's
+    checkpoint, whose strings must be one process's at f32 (counted at
+    bf16)."""
+    import numpy as np
+    from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
+                                                           load_checkpoint)
+    from end2end_asr_tpu_torch.training.optimizer import noam_rate
+    from end2end_asr_tpu_torch.training.steps import noam_config_from
+    cfg = aishell_config(dropout=0.0)
+    ref_ck = flat_npz(os.path.join(work, "models", "ddp_ref", "epoch_1"))
+    with open(os.path.join(work, "models", "ddp_ref", "epoch_1.json"),
+              encoding="utf-8") as f:
+        ref_loss = json.load(f)["metrics"]["train_loss"]
+    lr_sum = sum(float(noam_rate(torch.tensor(s), noam_config_from(cfg)))
+                 for s in (1, 2))
+    res, counts = {"gpu": gpu, "one_process_loss": ref_loss}, {}
+    npz_base = os.path.join(work, "models", "tp2_fsdp_npz", "epoch_1")
+    for name, nproc, extra in TP_RUNS:
+        spec = os.path.join(work, f"{name}.json")
+        with open(spec, "w") as f:
+            json.dump({"argv": train_argv(
+                cfg, manifest, valid, labels_path,
+                ["--epochs", "1", "--parallel", "--device", "cuda", *extra],
+                name=name), "out": os.path.join(work, name),
+                "local_heads": name == "tp2",
+                "save_npz": npz_base if name.endswith("dcp") else None}, f)
+        _, secs = torchrun(work, nproc, [os.path.abspath(__file__),
+                                         "--ddp-rank", spec], name)
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(work, f"{name}.r{r}.json")) as f:
+                ranks.append(json.load(f))
+        for rk in ranks:
+            missing = [n for n in NO_DROPOUT_KERNELS
+                       if rk["launches"][n] < 1] + [
+                n for n, c in rk["step_launches"].items() if c < 1]
+            if missing or rk["backend"] != "gloo" or rk["opt_step"] != 2:
+                fail(f"{name} rank {rk['rank']}: kernels not launched "
+                     f"{missing}, backend {rk['backend']}, step "
+                     f"{rk['opt_step']}")
+        base = os.path.join(work, "models", name, "epoch_1")
+        if name.endswith("dcp"):
+            if not os.path.isdir(base + ".dcp") or os.path.exists(
+                    base + ".npz"):
+                fail(f"{name}: no {base}.dcp, or an npz beside it")
+            files = sorted(os.listdir(base + ".dcp"))
+            res["dcp_files"] = {fn: os.path.getsize(
+                os.path.join(base + ".dcp", fn)) for fn in files}
+            t0 = time.time()
+            _, _, params, opt, _, _, _, _ = load_checkpoint(base)
+            res["dcp_load_s"] = time.time() - t0
+            log(f"{name}: {base}.dcp holds {res['dcp_files']} (bytes), "
+                f"loaded in one process in {res['dcp_load_s']:.2f} s")
+            ck = {"params::" + k: v.float().numpy()
+                  for k, v in flatten_params(params).items()}
+            saved = flat_npz(npz_base)
+            same = all(np.array_equal(saved[k], v) for k, v in ck.items())
+            res["dcp_equals_the_runs_npz"] = same
+            if not same or int(opt["step"]) != 2:
+                fail(f"{name}: the sharded checkpoint loaded in one process "
+                     f"differs from the run's gathered parameters")
+        else:
+            ck = flat_npz(base)
+        loss = ranks[0]["train_loss"]
+        dp = max(float(np.abs(ck[k].astype(np.float64)
+                              - ref_ck[k].astype(np.float64)).max())
+                 for k in ref_ck if k.startswith("params::"))
+        res[name] = {
+            "seconds": secs, "train_loss": loss,
+            "params_max_abs_vs_1_process": dp,
+            "layout": ranks[0]["layout"],
+            "step_ms": [rk["step_ms"] for rk in ranks],
+            "peak_mem_mib": [rk["peak_mem_bytes"] / 2 ** 20
+                             for rk in ranks]}
+        counts[name] = [{k: (rk["launches"][k], rk["step_launches"][k])
+                         for k in rk["launches"]} for rk in ranks]
+        log(f"torchrun {nproc} ranks --parallel {' '.join(extra)} ({gpu}): "
+            f"{secs:.1f} s; train loss {loss:.6f} against the one-process "
+            f"{ref_loss:.6f}; parameters {dp:.3g} from it (bound "
+            f"{2 * lr_sum:.3g}); " + "; ".join(
+                f"rank {rk['rank']} (data x model {rk['layout']}): launches "
+                f"{rk['launches']} in the run, {rk['step_launches']} in the "
+                f"{DDP_STEPS + 1} timed steps at dropout 0.1, step "
+                f"{rk['step_ms']:.2f} ms, peak "
+                f"{rk['peak_mem_bytes'] / 2 ** 20:.1f} MiB" for rk in ranks))
+        if abs(loss - ref_loss) > DDP_LOSS_RTOL * abs(ref_loss):
+            fail(f"{name}: train loss {loss} against the one-process "
+                 f"{ref_loss} (rtol {DDP_LOSS_RTOL})")
+        if dp > 2 * lr_sum * 1.01:
+            fail(f"{name}: parameters moved {dp:.3g} from the one-process "
+                 f"run's, beyond 2 * (lr1 + lr2) = {2 * lr_sum:.3g}")
+        if name == "tp2":
+            heads = [rk["local_heads"] for rk in ranks]
+            log(f"attention on {LOCAL_HEADS} local heads, rate 0.1, each "
+                f"rank: {heads}")
+            res["local_heads"] = heads
+            if not (all(max(h["errs"]) <= ATTN_TOL
+                        and h["two_runs_bit_identical"]
+                        and all(h["layout"].values())
+                        and h["mask_equals_plain"] for h in heads)
+                    and len({h["mask_digest"] for h in heads}) == 1):
+                fail(f"attention at {LOCAL_HEADS} local heads: {heads}")
+
+    # serving: the sharded save in one process, against the npz of the
+    # same run; then TP inference over phase 3's checkpoint
+    serve = lambda base, extra=(): greedy_strings(torch, serve_kernels, [
+        "--continue-from", base, "--test-manifest-list", model.manifest,
+        "--batch-size", str(B), "--device", str(dev), *extra])[0]
+    dcp_hyps = serve(os.path.join(work, "models", "tp2_fsdp_dcp",
+                                  "epoch_1"))
+    npz_hyps = serve(npz_base)
+    res["dcp_strings_equal_npz"] = dcp_hyps == npz_hyps
+    log(f"test in one process on the sharded save: {len(dcp_hyps)} strings, "
+        f"equal to the npz's: {dcp_hyps == npz_hyps}")
+    if dcp_hyps != npz_hyps or len(dcp_hyps) != B:
+        fail(f"the sharded save serves other strings than the npz: "
+             f"{list(zip(dcp_hyps, npz_hyps))[:3]}")
+    # TP inference over phase 3's checkpoint, 12 rows a rank. In bf16 the
+    # shards' products are cuBLAS GEMMs of other widths (the local heads'
+    # 256 columns, not 512), whose f32 sums run in another order before
+    # their bf16 rounding, and the random weights' greedy picks are often
+    # near ties (phase 9): the strings equal to phase 3's are counted. In
+    # f32 (TF32 off) the sums differ by ~1e-7 relative: the strings must
+    # be the one-process f32 run's
+    for dtype in ("bfloat16", "float32"):
+        extra = ["--dtype", dtype]
+        ref_hyps = serve(model.ckpt, extra)
+        out, secs = torchrun(work, 2, [
+            "-m", "end2end_asr_tpu_torch.test", "--parallel", "--mesh-model",
+            "2", "--verbose", "--continue-from", model.ckpt,
+            "--test-manifest-list", model.manifest, "--batch-size", str(B),
+            "--device", "cuda", *extra], "test_tp_" + dtype)
+        hyps = [ln.split("HYP: ", 1)[1].split(" || GOLD: ")[0]
+                for ln in out.splitlines() if "HYP: " in ln]
+        flips = sum(a != b for h, r in zip(hyps, ref_hyps)
+                    for a, b in zip(h, r))
+        res["test_tp_" + dtype] = {
+            "seconds": secs, "strings": len(hyps),
+            "equal_to_one_process": sum(
+                h == r for h, r in zip(hyps, ref_hyps)),
+            "characters_differing": flips}
+        log(f"torchrun 2 ranks test --parallel --mesh-model 2 --batch-size "
+            f"{B} --dtype {dtype} ({B} rows a rank, 4 local heads): "
+            f"{res['test_tp_' + dtype]} against phase 3's checkpoint "
+            f"served by one process at {dtype}")
+        if len(hyps) != B or (dtype == "float32" and hyps != ref_hyps):
+            fail(f"test --parallel --mesh-model 2 --dtype {dtype}: strings "
+                 f"differ from one process's: {list(zip(hyps, ref_hyps))[:3]}")
+    return counts, res
 
 
 def phase_probe(torch):
@@ -3132,6 +3392,10 @@ def main():
                                     work, labels_path, model, manifest,
                                     valid, gpu)
         log(f"data parallelism done at {time.time() - t0:.1f} s")
+        tp_counts, tpar = phase_tp(torch, dev, kernels, work, labels_path,
+                                   model, manifest, valid, gpu)
+        log(f"tensor and sequence parallelism done at "
+            f"{time.time() - t0:.1f} s")
     probe_counts = phase_probe(torch)
     for e in entries:
         # each path was driven with the counts set to 0 just before it: the
@@ -3154,6 +3418,9 @@ def main():
             # dropout 0.1)
             for run, ranks in ddp_counts.items():
                 e[f"launches_{run}_2_ranks"] = [r[e["name"]] for r in ranks]
+            # phase 10, per rank: (the dropout-0 run, the timed steps)
+            for run, ranks in tp_counts.items():
+                e[f"launches_{run}"] = [r[e["name"]] for r in ranks]
         if e["name"] in probe_counts:
             e["launches"] = probe_counts[e["name"]]
         if e["name"] in ("attn_fwd_f32", "attn_bwd_f32"):
@@ -3166,13 +3433,13 @@ def main():
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
         f"ctc / emb_cnn: {ctc}; serve options: {options}; augmented joint "
-        f"training and tools: {augment}; data parallelism: {ddp}; total "
-        f"{time.time() - t0:.1f} s")
+        f"training and tools: {augment}; data parallelism: {ddp}; tensor "
+        f"and sequence parallelism: {tpar}; total {time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
                       "gate_on": gate, "ctc_embcnn": ctc,
                       "serve_options": options, "augment_multi": augment,
-                      "data_parallel": ddp,
+                      "data_parallel": ddp, "tensor_parallel": tpar,
                       "total_s": time.time() - t0, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

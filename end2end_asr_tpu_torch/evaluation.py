@@ -193,7 +193,7 @@ def evaluate(params, cfg: Config, test_loader, id2label: Dict[int, str],
                             "batch": len(hyps)})
         golds = [ids_to_string_until_pad(row, id2label)
                  for row in batch.targets]
-        if mesh.world_size() > 1:
+        if mesh.data_size() > 1:
             # the ranks' slices in rank order: the bin's rows, then its
             # cycled duplicates
             parts = mesh.gather_objects((hyps, golds))

@@ -156,6 +156,7 @@ def init_cache(p: Params, enc_out: torch.Tensor, max_len: int,
     the unreplicated (B_utt, T, H))."""
     B, T_enc = enc_out.shape[0], enc_out.shape[1]
     dev = enc_out.device
+    num_heads = L.local_heads(num_heads)    # this rank's shard under TP
     fused = fused_qkv_weights(p, dtype)
     cache = []
     for lp, wqkv in zip(p["layers"], fused):
@@ -252,6 +253,7 @@ def decode_step(p: Params, cache, token: torch.Tensor, t: int,
     B = token.shape[0]
     scale = logit_scale(dim_model, emb_trg_sharing)
     x = p["embedding"][token] * scale + p["pe"][t]  # (B, H) f32
+    num_heads = L.local_heads(num_heads)    # this rank's shard under TP
 
     nk = num_heads * dim_key
     for lp, c in zip(p["layers"], cache):
@@ -282,7 +284,7 @@ def decode_step(p: Params, cache, token: torch.Tensor, t: int,
             out = _attend(q, c["k_self"][:, :t + 1], c["v_self"][:, :t + 1],
                           dim_key)
         out = out.reshape(B, num_heads * dim_value)
-        out = L.dense(sa["out"], out.to(dtype), dtype).to(torch.float32)
+        out = L.row_dense(sa["out"], out.to(dtype), dtype)
         x = L.layer_norm(sa["ln"], out + residual)
 
         residual = x
@@ -294,7 +296,7 @@ def decode_step(p: Params, cache, token: torch.Tensor, t: int,
         else:
             out = _attend(q, c["k_cross"], c["v_cross"], dim_key)
         out = out.reshape(B, num_heads * dim_value)
-        out = L.dense(ea["out"], out.to(dtype), dtype).to(torch.float32)
+        out = L.row_dense(ea["out"], out.to(dtype), dtype)
         x = L.layer_norm(ea["ln"], out + residual)
 
         x = L.ffn(lp["ffn"], x, dtype=dtype)

@@ -89,8 +89,9 @@ def _bn(p: Params, s: Params, x: torch.Tensor,
     statistics move alike."""
     if train:
         dims = (0, 2, 3)
-        n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.world_size()
-        f32 = torch.float32     # the sums travel in f32 at any dtype
+        n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.data_size()
+        # the sums travel in f32 at any dtype (f64 at f64)
+        f32 = torch.promote_types(x.dtype, torch.float32)
         mean = (_SumOverRanks.apply(x.sum(dim=dims, dtype=f32))
                 / n).to(x.dtype)
         d = x - mean[None, :, None, None]

@@ -35,6 +35,7 @@ import torch.nn.functional as Fn
 
 from end2end_asr_tpu_torch.ops import attention_fused as AF
 from end2end_asr_tpu_torch.ops.attention_fused import dropout_thresh16
+from end2end_asr_tpu_torch.parallel import mesh, tp
 
 Params = Dict[str, object]
 
@@ -123,6 +124,20 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng] = None,
     return torch.where(bits < thresh, x * scale, torch.zeros_like(x))
 
 
+def dropout_rows(x: torch.Tensor, rate: float, rng: DropoutRng,
+                 seq: bool = False) -> torch.Tensor:
+    """`dropout` of (B, T, H) x; under sequence parallelism (`seq`) x is
+    this rank's T slice and its mask is that slice of the mask drawn for
+    the whole sequence, so the streams advance as without it."""
+    if not (seq and tp.active()) or rate <= 0.0:
+        return dropout(x, rate, rng)
+    lo, T = tp.seq_rows(x.shape[1])
+    thresh = dropout_thresh16(rate)
+    bits = (rng.bits16((x.shape[0], T, x.shape[2]), x.device)
+            [:, lo:lo + x.shape[1]] if 0 < thresh < 65536 else None)
+    return dropout(x, rate, rng, bits=bits)
+
+
 def dense(p: Params, x: torch.Tensor,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w + b, or the low-rank (x @ u) @ v + b when p holds "u"/"v"
@@ -147,6 +162,28 @@ def dense(p: Params, x: torch.Tensor,
     else:
         w = p["w"] if dtype is None else p["w"].to(dtype)
     return Fn.linear(x, w.T, None if b is None else b.to(w.dtype))
+
+
+def row_dense(p: Params, x: torch.Tensor, dtype: torch.dtype,
+              seq: bool = False) -> torch.Tensor:
+    """The row-parallel product (mha out, ffn w2) in f32: `dense` on one
+    rank; under tensor parallelism the rank's partial product, summed
+    over the model group by `tp.row_exit` (this rank's T slice of the sum
+    under sequence parallelism), and then the bias, added once. The
+    partial products take the operands rounded to `dtype` and sum in
+    f32, and the sum plus the bias rounds to `dtype` once, as `dense`'s
+    one product does on one rank (bf16 products accumulate in f32)."""
+    if not tp.active():
+        return dense(p, x, dtype).to(torch.float32)
+    f32 = torch.float32
+    y = x.to(dtype).to(f32) @ p["w"].to(dtype).to(f32)
+    y = tp.row_exit(y, seq) + p["b"].to(dtype).to(f32)
+    return y.to(dtype).to(f32)
+
+
+def local_heads(num_heads: int) -> int:
+    """The heads of this rank's shard of an attention layer."""
+    return num_heads // mesh.model_size()
 
 
 def layer_norm(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -239,7 +276,8 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
         rng: Optional[DropoutRng] = None,
-        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        bias: Optional[torch.Tensor] = None,
+        seq: bool = False) -> torch.Tensor:
     """Post-LN residual MHA. query/key_/value: (B, T, H). mask: (B, T_q,
     T_k) bool, True = masked (-inf before the softmax). The projections
     and both attention products run in `dtype`; the softmax and the
@@ -247,10 +285,22 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
     dropout_rate > 0, the attention probabilities and the output
     projection are dropped; with a mask the attention runs through the
     fused kernel (flash_mha_train), as the JAX package's training path,
-    with `bias` (attn_bias(mask), built here when not given)."""
+    with `bias` (attn_bias(mask), built here when not given).
+
+    Under tensor parallelism (parallel/tp.py) this rank's shard runs
+    num_heads / M local heads; `seq` (encoder self-attention under
+    sequence parallelism) takes query = key_ = value as this rank's T
+    slice and returns its slice."""
+    residual = query
+    if tp.active():
+        num_heads = local_heads(num_heads)
+        same = key_ is query
+        cross = value is key_
+        query = tp.column_entry(query, seq)
+        key_ = query if same else tp.column_entry(key_)
+        value = key_ if cross else tp.column_entry(value)
     B, Tq, _ = query.shape
     Tk = key_.shape[1]
-    residual = query
     q = dense(p["q"], query, dtype).reshape(B, Tq, num_heads, dim_key)
     k = dense(p["k"], key_, dtype).reshape(B, Tk, num_heads, dim_key)
     v = dense(p["v"], value, dtype).reshape(B, Tk, num_heads, dim_value)
@@ -278,9 +328,9 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
             attn = dropout(attn, dropout_rate, rng)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(
             B, Tq, num_heads * dim_value)
-    out = dense(p["out"], out.to(dtype), dtype).to(torch.float32)
+    out = row_dense(p["out"], out.to(dtype), dtype, seq)
     if training:
-        out = dropout(out, dropout_rate, rng)
+        out = dropout_rows(out, dropout_rate, rng, seq)
     return layer_norm(p["ln"], out + residual)
 
 
@@ -290,10 +340,12 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
 
 def ffn(p: Params, x: torch.Tensor,
         dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.0,
-        rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        rng: Optional[DropoutRng] = None, seq: bool = False) -> torch.Tensor:
+    """Post-LN residual FFN; under tensor parallelism on this rank's
+    dim_inner / M inner columns (and T slice, with `seq`)."""
     residual = x
-    h = torch.relu(dense(p["w1"], x, dtype))
-    h = dense(p["w2"], h, dtype).to(torch.float32)
+    h = torch.relu(dense(p["w1"], tp.column_entry(x, seq), dtype))
+    h = row_dense(p["w2"], h, dtype, seq)
     if rng is not None:
-        h = dropout(h, dropout_rate, rng)
+        h = dropout_rows(h, dropout_rate, rng, seq)
     return layer_norm(p["ln"], h + residual)

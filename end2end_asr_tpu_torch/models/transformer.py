@@ -41,6 +41,7 @@ class ModelDims(NamedTuple):
     ref_compat_masks: bool
     dropout: float = 0.0
     remat: bool = False
+    seq_parallel: bool = False
 
 
 def dims_from_config(cfg: Config) -> ModelDims:
@@ -51,7 +52,7 @@ def dims_from_config(cfg: Config) -> ModelDims:
         feat_extractor=cfg.feat_extractor,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
         ref_compat_masks=cfg.ref_compat_masks, dropout=cfg.dropout,
-        remat=cfg.remat)
+        remat=cfg.remat, seq_parallel=cfg.seq_parallel)
 
 
 def encoder_lengths(dims: ModelDims, src_lengths: torch.Tensor
@@ -91,7 +92,8 @@ def encode_train(params: Params, state: Optional[Params],
                               dims.num_heads, dims.dim_key, dims.dim_value,
                               dtype=dims.dtype, dropout_rate=dims.dropout,
                               rng=rng if train else None,
-                              remat=dims.remat and train)
+                              remat=dims.remat and train,
+                              seq_par=dims.seq_parallel)
     new_state = dict(state or {})
     if new_fe_state:
         new_state["frontend"] = new_fe_state

@@ -218,14 +218,15 @@ def vgg_block1_bwd_plain(spect: torch.Tensor, w1: torch.Tensor,
                          cdt: torch.dtype = torch.bfloat16):
     """Plain block-1 backward: out/idx/g (B, F//2, T//2, 64) NHWC from the
     forward. Returns f32 (dW1 (3,3,1,64), db1 (64,), dW2 (3,3,64,64),
-    db2 (64,)); x1 is recomputed as vgg_block1_plain computes it."""
-    f32 = torch.float32
+    db2 (64,)), f64 at cdt float64 (a CPU reference, no kernel); x1 is
+    recomputed as vgg_block1_plain computes it."""
+    f32 = torch.promote_types(cdt, torch.float32)   # the sums' dtype
     B, F, T = spect.shape
     Fp, Tp = F // 2, T // 2
     x = spect.to(cdt)[:, None]                                # (B,1,F,T)
     x1 = torch.relu(Fn.conv2d(x, w1.to(cdt).permute(3, 2, 0, 1), padding=1)
                     + b1.to(cdt)[None, :, None, None])
-    gm = torch.where(out.float() > 0, g.to(cdt).float(),
+    gm = torch.where(out.to(f32) > 0, g.to(cdt).to(f32),
                      torch.zeros((), dtype=f32, device=g.device))
     db2 = gm.sum(dim=(0, 1, 2))
     # route each pooled gradient to its window's argmax (window order
@@ -235,16 +236,16 @@ def vgg_block1_bwd_plain(spect: torch.Tensor, w1: torch.Tensor,
                                                       device=g.device))
     dy2 = (dyw.reshape(B, Fp, Tp, C, 2, 2).permute(0, 3, 1, 4, 2, 5)
            .reshape(B, C, 2 * Fp, 2 * Tp))
-    dy2 = Fn.pad(dy2, (0, T - 2 * Tp, 0, F - 2 * Fp)).to(cdt).float()
-    x1f = x1.float()
-    w2f = w2.to(cdt).float().permute(3, 2, 0, 1)              # (co,ci,3,3)
+    dy2 = Fn.pad(dy2, (0, T - 2 * Tp, 0, F - 2 * Fp)).to(cdt).to(f32)
+    x1f = x1.to(f32)
+    w2f = w2.to(cdt).to(f32).permute(3, 2, 0, 1)              # (co,ci,3,3)
     dw2 = torch.nn.grad.conv2d_weight(x1f, w2f.shape, dy2, padding=1)
     dx1 = torch.nn.grad.conv2d_input(x1f.shape, w2f, dy2, padding=1)
     dx1 = torch.where(x1f > 0, dx1, torch.zeros((), dtype=f32,
                                                 device=dx1.device))
     db1 = dx1.sum(dim=(0, 2, 3))
-    dw1 = torch.nn.grad.conv2d_weight(x.float(), (C, 1, 3, 3),
-                                      dx1.to(cdt).float(), padding=1)
+    dw1 = torch.nn.grad.conv2d_weight(x.to(f32), (C, 1, 3, 3),
+                                      dx1.to(cdt).to(f32), padding=1)
     return (dw1.permute(2, 3, 1, 0).contiguous(), db1,
             dw2.permute(2, 3, 1, 0).contiguous(), db2)
 

@@ -1,0 +1,343 @@
+"""Tensor parallelism (``--mesh-model``) and sequence parallelism
+(``--seq-parallel``): the JAX package's ``parallel/tp.py`` and
+``parallel/sp.py``, with the collectives written out (Megatron-LM).
+
+The ranks form a data x model grid (parallel/mesh.py `set_layout`). Each
+model coordinate holds a shard of every attention projection and FFN
+inner dimension, by the JAX package's rule (`param_pspecs`):
+
+  column-parallel: mha q/k/v (dim_model, H·d) and ffn w1 (dim_model,
+      inner): ``w`` split on dim 1, ``b`` on dim 0;
+  row-parallel: mha out (H·d, dim_model) and ffn w2 (inner, dim_model):
+      ``w`` split on dim 0, ``b`` replicated;
+  replicated: everything else (LayerNorms, tables, the conv front end,
+      the embedding and output projection), and any leaf whose split
+      dimension does not divide.
+
+training/checkpoint.py `model_rank_tree` cuts a model coordinate's
+shard out of the full tree by that rule. `models/layers.py` runs `mha`
+and `ffn` on a rank's local heads and
+local inner width: the input enters the column-parallel products through
+`column_entry` (identity forward, all-reduce of the input gradient over
+the model group) and the row-parallel product's partial output leaves
+through `row_exit` (all-reduce forward, identity backward); the
+row-parallel bias is added once, after it. The dropout streams stay in
+lockstep on the ranks of a model group (each draws the full shape), so
+they drop the same elements; the attention kernel seeds by LOCAL head,
+as the JAX package's sharded kernel does ("head shards draw the same
+mask pattern").
+
+Sequence parallelism (encoder only, as in the JAX package): between the
+products the residual stream, LayerNorm, dropout and the non-pad mask
+run on this rank's T/M slice of the time axis. `column_entry` becomes an
+all-gather over T (backward: reduce-scatter) and `row_exit` a
+reduce-scatter over T (backward: all-gather). The encoder's input enters
+the slices through `split_seq` and leaves through `gather_seq`. A dropout
+mask on a slice is that slice of the mask of the whole sequence, so the
+SP step equals the TP step. The gradients of the leaves used only on the
+slices (the encoder layers' LayerNorms and row-parallel biases,
+`seq_partial_keys`) are partial sums: the step adds them over the model
+group.
+
+Low-rank (``--model LRTRFS``) and int8 layers keep their factors /
+quantised weights replicated in the JAX package while their biases shard;
+the port does not run that mix (`check_tp_divisibility` refuses it).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from end2end_asr_tpu_torch.parallel import mesh
+
+SEP = "::"
+COLUMN_PARENTS = ("q", "k", "v", "w1")   # w on dim 1, b on dim 0
+ROW_PARENTS = ("out", "w2")              # w on dim 0, b replicated
+
+
+# ---------------------------------------------------------------------------
+# the shard map (the JAX package's param_pspecs / _leaf_spec)
+# ---------------------------------------------------------------------------
+
+def leaf_dim(key: str, shape, n_model: int) -> Optional[int]:
+    """The dimension of the leaf `key` ("a::b::q::w") split over the model
+    axis, or None where it is replicated."""
+    parts = key.split(SEP)
+    leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else None)
+    if n_model <= 1:
+        return None
+    if leaf == "w" and parent in COLUMN_PARENTS:
+        return 1 if shape[1] % n_model == 0 else None
+    if leaf == "b" and parent in COLUMN_PARENTS:
+        return 0 if shape[0] % n_model == 0 else None
+    if leaf == "w" and parent in ROW_PARENTS:
+        return 0 if shape[0] % n_model == 0 else None
+    return None
+
+
+def param_pspecs(flat: Dict[str, torch.Tensor],
+                 n_model: int) -> Dict[str, Optional[int]]:
+    """{key: split dimension or None} for a flat param tree (also for its
+    Adam moments, which mirror it)."""
+    return {k: leaf_dim(k, tuple(v.shape), n_model) for k, v in flat.items()}
+
+
+def check_tp_divisibility(cfg, n_model: int) -> None:
+    """The JAX package's check (whole heads a shard, and dim_inner), and
+    the mixes the port does not run."""
+    if n_model <= 1:
+        return
+    if cfg.num_heads % n_model != 0:
+        raise ValueError(
+            f"--num-heads {cfg.num_heads} must be divisible by "
+            f"--mesh-model {n_model} (whole attention heads per shard)")
+    if cfg.dim_inner % n_model != 0:
+        raise ValueError(
+            f"--dim-inner {cfg.dim_inner} must be divisible by "
+            f"--mesh-model {n_model}")
+    if cfg.model == "LRTRFS" or getattr(cfg, "quantize_int8", False):
+        raise NotImplementedError(
+            "--mesh-model with low-rank (LRTRFS) or --quantize-int8 "
+            "layers is not ported: their factors / int8 weights stay "
+            "replicated while their biases shard")
+
+
+def unshard_flat(shards: List[Dict[str, torch.Tensor]],
+                 full_shapes: Dict[str, Tuple[int, ...]]
+                 ) -> Dict[str, torch.Tensor]:
+    """The full flat tree from the model coordinates' flat shards (in
+    coordinate order); `full_shapes` gives each leaf's unsharded shape."""
+    n = len(shards)
+    out = {}
+    for k, shape in full_shapes.items():
+        d = leaf_dim(k, shape, n)
+        out[k] = (shards[0][k] if d is None
+                  else torch.cat([s[k] for s in shards], dim=d))
+    return out
+
+
+def gather_tree(tree, full_shapes: Dict[str, Tuple[int, ...]]):
+    """The unsharded tree on every rank of the model group, from each
+    coordinate's shard `tree`: one all-gather a split leaf."""
+    from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
+                                                           unflatten)
+    n = mesh.model_size()
+    flat = flatten_params(tree)
+    if n == 1:
+        return tree
+    out = {}
+    for k, v in flat.items():
+        d = leaf_dim(k, full_shapes[k], n)
+        if d is None:
+            out[k] = v
+            continue
+        parts = [torch.empty_like(v) for _ in range(n)]
+        dist.all_gather(parts, v.contiguous(), group=mesh.model_group())
+        out[k] = torch.cat(parts, dim=d)
+    return unflatten(out)
+
+
+def seq_partial_keys(keys) -> List[str]:
+    """The leaves that sequence parallelism applies to a T slice only:
+    their gradients are partial over the model group."""
+    out = []
+    for k in keys:
+        p = k.split(SEP)
+        if (p[0] == "encoder" and len(p) >= 4 and p[1] == "layers"
+                and (p[-2] == "ln" or (p[-1] == "b"
+                                       and p[-2] in ROW_PARENTS))):
+            out.append(k)
+    return out
+
+
+class FlatPlan:
+    """What the train step needs to know of the flat buffer of one model
+    coordinate (training/steps.FlatParams): the weight of each element in
+    the clip's squared norm (1 on a split leaf; 1/M on a replicated leaf,
+    whose M identical copies then count once) and, under sequence
+    parallelism, the ranges of the leaves whose gradients are partial."""
+
+    def __init__(self, fp, split_keys, n_model: int, seq_parallel: bool):
+        w, ranges, off = [], [], 0
+        partial = set(seq_partial_keys(fp.train_keys)) if seq_parallel \
+            else set()
+        for k, n in zip(fp.train_keys, fp.sizes):
+            split = k in split_keys
+            w.append(torch.full((n,), 1.0 if split else 1.0 / n_model))
+            if k in partial:
+                ranges.append((off, n))
+            off += n
+        self.sq_weight = torch.cat(w).to(fp.device)
+        self.partial = ranges
+
+    def reduce_partial_(self, g: torch.Tensor) -> torch.Tensor:
+        """Sum the partial leaves of the flat gradient `g` over the model
+        group, in place."""
+        if not self.partial:
+            return g
+        parts = torch.cat([g[o:o + n] for o, n in self.partial])
+        dist.all_reduce(parts, group=mesh.model_group())
+        i = 0
+        for o, n in self.partial:
+            g[o:o + n] = parts[i:i + n]
+            i += n
+        return g
+
+
+# ---------------------------------------------------------------------------
+# the collectives of the layers (identities with one model rank)
+# ---------------------------------------------------------------------------
+
+def active() -> bool:
+    return mesh.model_size() > 1
+
+
+def sum_over_model(t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the model group (a copy)."""
+    return _all_reduce(t) if active() else t
+
+
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=mesh.model_group())
+    return x
+
+
+def _gather_t(x: torch.Tensor) -> torch.Tensor:
+    """(B, T/M, H) slices → (B, T, H), the model ranks' slices in order."""
+    n = mesh.model_size()
+    B, t, H = x.shape
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.reshape(-1).contiguous(),
+                                group=mesh.model_group())
+    return out.view(n, B, t, H).permute(1, 0, 2, 3).reshape(B, n * t, H)
+
+
+def _reduce_scatter_t(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H) partial sums → this rank's (B, T/M, H) slice of their sum
+    over the model group."""
+    n = mesh.model_size()
+    B, T, H = x.shape
+    src = x.reshape(B, n, T // n, H).permute(1, 0, 2, 3).reshape(-1)
+    out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, src.contiguous(),
+                               group=mesh.model_group())
+    return out.view(B, T // n, H)
+
+
+def _slice_t(x: torch.Tensor) -> torch.Tensor:
+    t = x.shape[1] // mesh.model_size()
+    r = mesh.model_rank()
+    return x[:, r * t:(r + 1) * t].contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather over T; the backward reduce-scatters the partial input
+    gradients of the local products."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _gather_t(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_t(g)
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _reduce_scatter_t(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_t(g)
+
+
+class _SplitSeq(torch.autograd.Function):
+    """This rank's slice of a replicated (B, T, H); the backward gathers
+    the slices' gradients, so the replicated computation before it gets
+    the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _slice_t(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_t(g)
+
+
+class _GatherSeqOut(torch.autograd.Function):
+    """The whole (B, T, H) from the slices, for replicated computation
+    after it: the backward keeps this rank's slice of its (whole)
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _gather_t(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice_t(g)
+
+
+def column_entry(x: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """The input of the column-parallel products: `x` itself (its slice
+    gathered over T under sequence parallelism)."""
+    if not active():
+        return x
+    return _GatherSeq.apply(x) if seq else _CopyToModel.apply(x)
+
+
+def row_exit(y: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """The row-parallel product's partial output summed over the model
+    group (this rank's T slice of the sum under sequence parallelism)."""
+    if not active():
+        return y
+    return _ReduceScatterSeq.apply(y) if seq else _ReduceFromModel.apply(y)
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    return _SplitSeq.apply(x) if active() else x
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    return _GatherSeqOut.apply(x) if active() else x
+
+
+def seq_rows(T_local: int) -> Tuple[int, int]:
+    """(first row, whole T) of this rank's slice of T_local rows."""
+    return mesh.model_rank() * T_local, T_local * mesh.model_size()
+
+
+def check_seq_divisible(T: int) -> None:
+    """The JAX package's check: T splits evenly over the model axis."""
+    n = mesh.model_size()
+    if n > 1 and T % n != 0:
+        raise ValueError(
+            f"--seq-parallel: encoder time dim {T} must be divisible by "
+            f"the model-axis size {n} (adjust --src-buckets)")

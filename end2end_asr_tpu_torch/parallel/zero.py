@@ -50,7 +50,7 @@ class ZeroShard:
 
     @classmethod
     def for_config(cls, cfg, n: int) -> "ZeroShard":
-        return cls(n, mesh.world_size(), mesh.rank(),
+        return cls(n, mesh.data_size(), mesh.data_rank(),
                    3 if cfg.fsdp else 1)
 
     def coverage(self) -> float:

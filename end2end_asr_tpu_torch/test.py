@@ -23,8 +23,12 @@ and prints them, as the one-process run would:
     torchrun --standalone --nproc_per_node N -m end2end_asr_tpu_torch.test \
         --parallel --continue-from ... [--device cpu]
 
-``--mesh-model`` (tensor-parallel inference) is not ported yet and raises,
-naming its ROADMAP item.
+``--parallel --mesh-model M`` is tensor-parallel inference
+(parallel/tp.py): the ranks form a data x model grid, each model
+coordinate encodes and decodes with its shard of the attention and FFN
+weights (greedy and beam, the KV caches holding its local heads), and
+the strings are the one-process run's. Checkpoints in the port's
+sharded format (``<base>.dcp``) load as npz ones do.
 """
 
 from __future__ import annotations
@@ -56,10 +60,6 @@ def main(argv=None, timings: Optional[list] = None):
     if not cli.continue_from:
         print("need --continue-from checkpoint")
         sys.exit(1)
-    if cli.parallel and cli.mesh_model > 1:
-        raise NotImplementedError(
-            "--mesh-model is not ported yet: tensor parallelism (ROADMAP "
-            "§1, parallelism: TP, SP, then PP)")
 
     from end2end_asr_tpu_torch.data.dataset import ManifestDataset
     from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
@@ -71,7 +71,8 @@ def main(argv=None, timings: Optional[list] = None):
     from end2end_asr_tpu_torch.training.checkpoint import load_checkpoint
 
     device = mesh.rank_device(resolve_device(device_name))
-    world, started = (mesh.join_group(device, cli.mesh_data, cli.batch_size)
+    world, started = (mesh.join_group(device, cli.mesh_data, cli.batch_size,
+                                      mesh_model=cli.mesh_model)
                       if cli.parallel else (1, False))
     main_rank = mesh.is_main()
     logging.basicConfig(stream=sys.stdout,
@@ -96,7 +97,11 @@ def main(argv=None, timings: Optional[list] = None):
         decode_max_len=cli.decode_max_len,
         decode_stage_len=cli.decode_stage_len,
         verbose=cli.verbose, continue_from=cli.continue_from)
-    cfg = cfg.replace(**overrides)
+    # sequence parallelism is a layout of training, as in root test.py
+    cfg = cfg.replace(**overrides, seq_parallel=False)
+    if mesh.model_size() > 1:
+        from end2end_asr_tpu_torch.parallel.tp import check_tp_divisibility
+        check_tp_divisibility(cfg, mesh.model_size())
 
     if cfg.quantize_int8:
         from end2end_asr_tpu_torch.models.quantize import \
@@ -109,7 +114,7 @@ def main(argv=None, timings: Optional[list] = None):
         test_data, cfg,
         sampler=BucketingSampler(len(test_data), cfg.batch_size,
                                  seed=cfg.seed),
-        process_index=mesh.rank(), process_count=world)
+        process_index=mesh.data_rank(), process_count=world)
     # one static shape a batch over the ranks: a ragged bin is cycled to
     # the full batch; evaluate() cuts the duplicates
     test_loader.pad_to_full = cli.parallel
@@ -117,6 +122,11 @@ def main(argv=None, timings: Optional[list] = None):
     if cfg.lm_rescoring:
         from end2end_asr_tpu_torch.models.lm import LM
         lm = LM(cfg.lm_path, device)
+    if mesh.model_size() > 1:
+        from end2end_asr_tpu_torch.training.checkpoint import \
+            model_rank_tree
+        params = model_rank_tree(params, mesh.model_size(),
+                                 mesh.model_rank())
     params = prepare_params(params, dims_from_config(cfg), device,
                             model_state)
     results = evaluate(params, cfg, test_loader, id2label, device,

@@ -37,9 +37,20 @@ checkpoints. Without torchrun's environment ``--parallel`` runs one rank.
     torchrun --standalone --nproc_per_node 2 -m end2end_asr_tpu_torch.train \
         --parallel --device cpu ...              # gloo on the CPU
 
-Tensor, sequence and pipeline parallelism (``--mesh-model``,
-``--seq-parallel``, ``--mesh-pipe``) and orbax checkpoints are not ported
-yet and raise, naming the ROADMAP item.
+Tensor parallelism: ``--parallel --mesh-model M`` lays the ranks out as
+data x model, model innermost (``--mesh-data`` x M ranks), and each
+model coordinate trains its shard of the attention projections and FFN
+inner columns (parallel/tp.py); ``--seq-parallel`` also shards the
+encoder's time axis between them. ``--checkpoint-format orbax`` writes
+the port's sharded checkpoint, ``<base>.dcp/`` (training/checkpoint.py),
+which loads at any layout and in one process.
+
+    torchrun --standalone --nproc_per_node 4 -m end2end_asr_tpu_torch.train \
+        --parallel --mesh-data 2 --mesh-model 2 [--seq-parallel] \
+        [--zero1 | --fsdp] [--checkpoint-format orbax] ...
+
+Pipeline parallelism (``--mesh-pipe``) is not ported yet and raises,
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -68,28 +79,24 @@ def refuse_unported(cfg: Config) -> None:
     if cfg.mesh_pipe > 1 and not cfg.parallel:
         raise SystemExit("--mesh-pipe requires --parallel")
     # items named by title, not number, so a renumbering cannot stale them
-    todo = [
-        (cfg.mesh_model > 1, "--mesh-model",
-         "tensor parallelism (ROADMAP §1, parallelism: TP, SP, then PP)"),
-        (cfg.mesh_pipe > 1, "--mesh-pipe",
-         "pipeline parallelism (ROADMAP §1, parallelism: TP, SP, then PP)"),
-        (cfg.seq_parallel, "--seq-parallel",
-         "sequence parallelism (ROADMAP §1, parallelism: TP, SP, then "
-         "PP)"),
-        (cfg.checkpoint_format != "npz", "--checkpoint-format orbax",
-         "orbax checkpoints (ROADMAP §1, parallelism: sharded "
-         "checkpoints)"),
-    ]
-    for bad, flag, item in todo:
-        if bad:
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
+    if cfg.mesh_pipe > 1:
+        raise NotImplementedError(
+            "--mesh-pipe is not ported yet: pipeline parallelism (ROADMAP "
+            "§1, parallelism: pipeline parallelism)")
     if cfg.quantize_int8:
         raise SystemExit("--quantize-int8 is eval-only (test/transcribe); "
                          "training runs f32 master weights")
+    if cfg.seq_parallel and not (cfg.parallel and cfg.mesh_model > 1):
+        raise SystemExit("--seq-parallel requires --parallel "
+                         "--mesh-model N (N > 1): it shards the "
+                         "encoder time axis across the 'model' axis")
     if (cfg.zero1 or cfg.fsdp) and not cfg.parallel:
         raise SystemExit("--zero1/--fsdp require --parallel: they "
                          "shard optimizer moments (and, for --fsdp, "
                          "parameters) over the 'data' mesh axis")
+    if cfg.parallel:
+        from end2end_asr_tpu_torch.parallel.tp import check_tp_divisibility
+        check_tp_divisibility(cfg, cfg.mesh_model)
 
 
 def _warn_duplicate_labels(labels_path: str) -> None:
@@ -125,7 +132,7 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
 
     device = mesh.rank_device(resolve_device(device_name))
     world, started = (mesh.join_group(device, cfg.mesh_data, cfg.batch_size,
-                                      cfg.grad_accum)
+                                      cfg.grad_accum, cfg.mesh_model)
                       if cfg.parallel else (1, False))
     main_rank = mesh.is_main()
     os.makedirs("log", exist_ok=True)
@@ -207,7 +214,7 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
             sample_rate=cfg.sample_rate, augment=cfg.augment,
             noise_injector=noise, noise_prob=cfg.noise_prob)
         # each rank builds its slice of every batch
-        part = dict(process_index=mesh.rank(), process_count=world)
+        part = dict(process_index=mesh.data_rank(), process_count=world)
         train_loader = AudioBatchLoader(
             train_data, cfg, sampler=BucketingSampler(
                 len(train_data), cfg.batch_size, seed=cfg.seed), **part)

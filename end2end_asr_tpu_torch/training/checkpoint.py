@@ -14,6 +14,21 @@ The serving path reads ``params`` and ``state``; training also carries
 the optimizer group both ways (``opt::step``, ``opt::mu::…``,
 ``opt::nu::…`` for Adam; ``opt::lr``, ``opt::buf::…`` for annealing SGD),
 the epoch and the metrics, so a run resumes in either package.
+
+``--checkpoint-format orbax`` (the JAX package's sharded format, whose
+name the flag keeps) writes the port's own sharded checkpoint:
+`<base>.dcp/`, a ``torch.distributed.checkpoint`` directory, beside the
+same `<base>.json` sidecar, which rank 0 writes first (`save_sharded`).
+Every rank saves only the pieces it holds, and nothing is gathered: the
+flat buffer of its model coordinate's parameters (parallel/tp.py) or,
+under --fsdp, its slice of it (parallel/zero.py), and its moments, or
+their slice under --zero1 / --fsdp. A piece that several ranks hold
+(a model coordinate's buffer on every rank of the data axis, the step,
+the model state, the tables) has one key, and DCP writes it once. The
+sidecar's ``dcp`` entry records the layout, so `load_checkpoint` reads
+the pieces in one process, with no group, and builds the unsharded
+trees: a run resumes, and serves, at any layout. A JAX ``.orbax``
+directory stays unread: orbax imports jax.
 """
 
 from __future__ import annotations
@@ -37,6 +52,20 @@ def params_from_jax(flat: Dict[str, np.ndarray]):
     return unflatten({k: (v.clone() if isinstance(v, torch.Tensor)
                           else torch.from_numpy(np.array(v)))
                       for k, v in flat.items()})
+
+
+def model_rank_tree(tree, n_model: int, r: int):
+    """Model coordinate r's shard of the port's full param tree (or of a
+    tree shaped like it: the Adam moments) under tensor parallelism over
+    n_model ranks, by parallel/tp.py's rule (the JAX package's
+    `param_pspecs`); leaves copied."""
+    from end2end_asr_tpu_torch.parallel.tp import leaf_dim
+    out = {}
+    for k, v in flatten_params(tree).items():
+        d = leaf_dim(k, tuple(v.shape), n_model)
+        out[k] = (v.clone() if d is None
+                  else v.chunk(n_model, dim=d)[r].contiguous())
+    return unflatten(out)
 
 
 def unflatten(flat: Dict[str, object]):
@@ -103,7 +132,15 @@ def save_checkpoint(base_path: str, cfg: Config, epoch: int, params,
             if is_bf16:
                 bf16_keys.append(key)
     np.savez(base_path + ".npz", **arrays)
-    meta = {
+    meta = _meta(cfg, epoch, label2id, id2label, metrics)
+    if bf16_keys:
+        meta["bf16_keys"] = sorted(bf16_keys)
+    with open(base_path + ".json", "w", encoding="utf-8") as f:
+        json.dump(meta, f, ensure_ascii=False)
+
+
+def _meta(cfg: Config, epoch: int, label2id, id2label, metrics) -> Dict:
+    return {
         "args": cfg.to_dict(),
         "epoch": epoch,
         "label2id": label2id,
@@ -111,38 +148,120 @@ def save_checkpoint(base_path: str, cfg: Config, epoch: int, params,
         "metrics": metrics or {},
         "format_version": 1,
     }
-    if bf16_keys:
-        meta["bf16_keys"] = sorted(bf16_keys)
-    with open(base_path + ".json", "w", encoding="utf-8") as f:
-        json.dump(meta, f, ensure_ascii=False)
+
+
+def save_sharded(base_path: str, cfg: Config, epoch: int, label2id,
+                 id2label, pieces: Dict[str, torch.Tensor], layout: Dict,
+                 metrics: Optional[Dict] = None) -> None:
+    """`<base_path>.json`, written by rank 0 before the save, and
+    `<base_path>.dcp/`: `pieces` ({key: tensor} of this rank,
+    training/trainer.py `sharded_pieces`) through
+    torch.distributed.checkpoint, collectively over the ranks of the
+    group (one process without one). `layout` goes into the sidecar's
+    ``dcp`` entry."""
+    import torch.distributed.checkpoint as dcp
+    from end2end_asr_tpu_torch.parallel import mesh
+    d = os.path.dirname(base_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    if mesh.is_main():
+        meta = _meta(cfg, epoch, label2id, id2label, metrics)
+        meta["dcp"] = layout
+        with open(base_path + ".json", "w", encoding="utf-8") as f:
+            json.dump(meta, f, ensure_ascii=False)
+    state = {k: v.detach().cpu() for k, v in pieces.items()}
+    dcp.save(state, checkpoint_id=base_path + ".dcp",
+             no_dist=not mesh.active())
+
+
+def _load_sharded(base_path: str, layout: Dict):
+    """The unsharded (flat params, flat opt, flat state) of a `.dcp`
+    checkpoint, read in this process alone."""
+    import torch.distributed.checkpoint as dcp
+    from end2end_asr_tpu_torch.parallel.tp import leaf_dim, unshard_flat
+    path = base_path + ".dcp"
+    md = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+             for k, m in md.items()}
+    dcp.load(state, checkpoint_id=path, no_dist=True)
+    n_data, n_model = layout["n_data"], layout["n_model"]
+    keys = layout["train_keys"]
+    full = {k: tuple(v) for k, v in layout["shapes"].items()}
+
+    def local_shape(k):
+        shape, dim = list(full[k]), leaf_dim(k, full[k], n_model)
+        if dim is not None:
+            shape[dim] //= n_model
+        return shape
+
+    def unflat(name: str) -> Dict[str, torch.Tensor]:
+        """The full flat tree of buffer `name` ("params", "mu", ...)."""
+        shards = []
+        for m in range(n_model):
+            one = f"{name}{SEP}m{m}"
+            buf = (state[one] if one in state else torch.cat(
+                [state[f"{one}{SEP}d{d}"] for d in range(n_data)]))
+            flat, off = {}, 0
+            for k in keys:
+                shape = local_shape(k)
+                n = int(np.prod(shape))
+                flat[k] = buf[off:off + n].reshape(shape)
+                off += n
+            shards.append(flat)
+        return unshard_flat(shards, {k: full[k] for k in keys})
+
+    params = unflat("params")
+    fixed = {k[len("fixed" + SEP):]: v for k, v in state.items()
+             if k.startswith("fixed" + SEP)}
+    params.update(fixed)
+    params = {k: params[k] for k in layout["order"]}
+    opt = {}
+    for k in layout["opt_keys"]:
+        if k in layout["moment_keys"]:
+            tree = unflat(k)
+            tree.update({f: torch.zeros(v.shape, dtype=tree[keys[0]].dtype)
+                         for f, v in fixed.items()})
+            opt.update({k + SEP + f: tree[f] for f in layout["order"]})
+        else:
+            opt[k] = state["opt" + SEP + k]
+    model_state = {k[len("state" + SEP):]: v for k, v in state.items()
+                   if k.startswith("state" + SEP)}
+    return params, opt, model_state
 
 
 def load_checkpoint(base_path: str):
     """As the JAX package's load_checkpoint: (cfg, epoch, params,
     opt_state or None, model_state, label2id, id2label, metrics) with CPU
     tensors. Accepts the path with or without extension. bfloat16 leaves
-    come back as bfloat16 tensors."""
-    if base_path.endswith(".npz") or base_path.endswith(".json"):
-        base_path = base_path.rsplit(".", 1)[0]
+    come back as bfloat16 tensors. A `.dcp` checkpoint (`save_sharded`)
+    comes back unsharded, whatever layout wrote it."""
+    for ext in (".npz", ".json", ".dcp", ".orbax"):
+        if base_path.endswith(ext):
+            base_path = base_path[:-len(ext)]
     if os.path.isdir(base_path + ".orbax"):
         raise NotImplementedError(
-            f"{base_path}.orbax: orbax checkpoints are not read by the "
-            "port yet (ROADMAP §1, parallelism: sharded checkpoints); save "
-            "with --checkpoint-format npz")
+            f"{base_path}.orbax: a JAX orbax checkpoint is not read by the "
+            "port: orbax imports jax. Convert it with the JAX package "
+            "(--checkpoint-format npz), or save the port's sharded format "
+            "(<base>.dcp, --checkpoint-format orbax)")
     with open(base_path + ".json", encoding="utf-8") as f:
         meta = json.load(f)
-    bf16_keys = set(meta.get("bf16_keys", ()))
     groups: Dict[str, Dict] = {"params": {}, "opt": {}, "state": {}}
-    with np.load(base_path + ".npz") as data:
-        for key in data.files:
-            g, rest = key.split(SEP, 1)
-            arr = data[key]
-            if key in bf16_keys:  # stored as uint16 bit patterns
-                t = torch.from_numpy(arr.view(np.int16).copy()).view(
-                    torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.array(arr))
-            groups[g][rest] = t
+    if os.path.isdir(base_path + ".dcp"):
+        (groups["params"], groups["opt"],
+         groups["state"]) = _load_sharded(base_path, meta["dcp"])
+    else:
+        bf16_keys = set(meta.get("bf16_keys", ()))
+        with np.load(base_path + ".npz") as data:
+            for key in data.files:
+                g, rest = key.split(SEP, 1)
+                arr = data[key]
+                if key in bf16_keys:  # stored as uint16 bit patterns
+                    t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                        torch.bfloat16)
+                else:
+                    t = torch.from_numpy(np.array(arr))
+                groups[g][rest] = t
     params = unflatten(groups["params"])
     opt_state = unflatten(groups["opt"]) if groups["opt"] else None
     model_state = unflatten(groups["state"]) if groups["state"] else {}
@@ -153,15 +272,17 @@ def load_checkpoint(base_path: str):
 
 
 def find_latest_checkpoint(save_folder: str, name: str) -> Optional[str]:
-    """Newest epoch_N checkpoint base path under <save_folder>/<name>, or
-    None (train --auto-resume)."""
+    """Newest epoch_N checkpoint base path under <save_folder>/<name>
+    (an `.npz` or a `.dcp` one), or None (train --auto-resume)."""
     d = os.path.join(save_folder, name)
     if not os.path.isdir(d):
         return None
     best, best_epoch = None, -1
     for f in os.listdir(d):
         m = re.fullmatch(r"epoch_(\d+)\.json", f)
-        if m and os.path.exists(os.path.join(d, f[:-5] + ".npz")):
+        base = os.path.join(d, f[:-5])
+        if m and (os.path.exists(base + ".npz")
+                  or os.path.isdir(base + ".dcp")):
             if int(m.group(1)) > best_epoch:
                 best_epoch = int(m.group(1))
                 best = os.path.join(d, f[:-5])

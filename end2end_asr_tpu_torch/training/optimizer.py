@@ -77,12 +77,19 @@ def init_adam_state(params, moments_dtype: Optional[torch.dtype] = None,
             "mu": z, "nu": z2}
 
 
-def clip_by_global_norm(grads, max_norm: float, reduce_sq=None):
+def clip_by_global_norm(grads, max_norm: float, reduce_sq=None,
+                        sq_weight=None):
     """Scale grads to a global L2 norm of at most max_norm. `reduce_sq`,
     where given, maps the squared sum of these grads to that of the
-    whole buffer (a slice's, summed over the ranks under ZeRO)."""
+    whole buffer (a slice's, summed over the ranks under ZeRO; a model
+    coordinate's, summed over the model group under tensor parallelism).
+    `sq_weight` (a flat buffer's shape) weighs each element's square
+    (parallel/tp.FlatPlan: replicated leaves count once over the model
+    group)."""
     leaves = tree_leaves(grads)
-    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+    w = 1.0 if sq_weight is None else sq_weight
+    sq = sum(torch.sum(torch.square(g.to(torch.float32)) * w)
+             for g in leaves)
     gnorm = torch.sqrt(sq if reduce_sq is None else reduce_sq(sq))
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
@@ -112,12 +119,14 @@ def adam_update(params, grads, state: Dict, lr, beta1: float = 0.9,
 
 def adam_noam_update(params, grads, state: Dict, c: NoamConfig,
                      clip: bool = False, max_norm: float = 400.0,
-                     reduce_sq=None):
+                     reduce_sq=None, sq_weight=None):
     """One optimizer step. Returns (new_params, new_state, lr). Params,
     grads and moments may be matching slices of flat buffers (ZeRO,
-    parallel/zero.py); `reduce_sq` then completes the clip's norm."""
+    parallel/zero.py) or shards (parallel/tp.py); `reduce_sq` and
+    `sq_weight` then complete the clip's norm."""
     if clip:
-        grads, _ = clip_by_global_norm(grads, max_norm, reduce_sq)
+        grads, _ = clip_by_global_norm(grads, max_norm, reduce_sq,
+                                       sq_weight)
     lr = noam_rate(state["step"] + 1, c)
     new_params, new_state = adam_update(params, grads, state, lr, c.beta1,
                                         c.beta2, c.eps)
@@ -143,10 +152,12 @@ def init_sgd_state(params, lr: float, device=None) -> Dict:
 
 def sgd_annealing_update(params, grads, state: Dict, momentum: float,
                          lr_anneal: float, clip: bool = False,
-                         max_norm: float = 400.0, reduce_sq=None):
+                         max_norm: float = 400.0, reduce_sq=None,
+                         sq_weight=None):
     """As adam_noam_update, for annealing SGD."""
     if clip:
-        grads, _ = clip_by_global_norm(grads, max_norm, reduce_sq)
+        grads, _ = clip_by_global_norm(grads, max_norm, reduce_sq,
+                                       sq_weight)
     lr = state["lr"] / lr_anneal
 
     def upd(p, g, b):

@@ -24,7 +24,12 @@ division by the summed weight, give every rank the global batch's values,
 so every rank takes the same update and the same skip decision. At world
 size 1 both collectives are no-ops: the one-process step is this code.
 ZeRO-1 / FSDP (parallel/zero.py) reduce-scatter the gradient instead and
-update this rank's slice.
+update this rank's slice. Under tensor parallelism (parallel/tp.py) the
+buffer holds this model coordinate's shard: those collectives run over
+the data axis only, the gradients that sequence parallelism leaves
+partial are first summed over the model group, and the clip's norm
+counts the split leaves of every coordinate and the replicated ones once
+(`plan`, a parallel.tp.FlatPlan).
 
 Reference behaviours kept (steps.py:56-228 of the JAX package):
   * a non-finite loss skips the update: parameters, optimizer state and
@@ -51,7 +56,7 @@ from end2end_asr_tpu_torch.models.transformer import (ModelDims, forward,
                                                       forward_state)
 from end2end_asr_tpu_torch.ops.specaugment import apply_spec_augment
 from end2end_asr_tpu_torch.ops.stft import batched_features
-from end2end_asr_tpu_torch.parallel import mesh
+from end2end_asr_tpu_torch.parallel import mesh, tp
 from end2end_asr_tpu_torch.training.checkpoint import (SEP, flatten_params,
                                                        unflatten)
 from end2end_asr_tpu_torch.training.loss import (calculate_loss,
@@ -141,7 +146,8 @@ def ctc_input_lengths(n_frames: torch.Tensor, spect_T: int,
     return (n_frames.to(torch.float32) / spect_T * U_out).to(torch.int32)
 
 
-def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None):
+def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
+                         plan=None):
     """step(fp, data, opt_state, rng, pcm, n_frames, targets, tgt_lengths,
     spect_T, model_state=None) → (new_data, new_opt_state, new_model_state,
     metrics, hyp_seq, gold). `fp` gives the tree structure, `data` the flat
@@ -153,11 +159,12 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None):
     slice of the global batch; the step is built after the process group
     is up. `zero` (a parallel.zero.ZeroShard) shards the optimizer state
     (--zero1) and the parameters (--fsdp): `data` and the moments are then
-    this rank's slices at stage 3, the moments alone at stage 1."""
+    this rank's slices at stage 3, the moments alone at stage 1. `plan`
+    (a parallel.tp.FlatPlan) is given under tensor parallelism."""
     noam = noam_config_from(cfg)
     smoothing, loss_type = cfg.label_smoothing, cfg.loss
     accum = max(1, int(cfg.grad_accum))
-    world, rank = mesh.world_size(), mesh.rank()
+    world, rank = mesh.data_size(), mesh.data_rank()
     if loss_type not in ("ce", "ctc"):
         raise ValueError(f"loss is not defined: {loss_type}")
 
@@ -237,6 +244,8 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None):
                                  targets, tgt_lengths, spect_T)
         del full        # --fsdp: the gathered parameters go here
         with torch.no_grad():
+            if plan is not None:
+                plan.reduce_partial_(g)     # sequence parallelism
             # the sums over the ranks: one collective for the gradient,
             # one for the scalars (world size 1: neither runs)
             small = mesh.all_reduce_(torch.stack(
@@ -252,18 +261,27 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None):
             # the update runs on the whole buffer, or on this rank's slice
             params = data if zero is None or zero.stage == 3 \
                 else zero.shard(data)
-            # under ZeRO the clip's squared sum is the slices' over ranks
+            # under ZeRO the clip's squared sum is the slices' over the
+            # data axis; under TP the coordinates' over the model group
             reduce_sq = None if zero is None else mesh.all_reduce_
+            sq_weight = None
+            if plan is not None:
+                sq_weight = plan.sq_weight if zero is None \
+                    else zero.shard(plan.sq_weight)
+                over_data = reduce_sq
+                reduce_sq = lambda sq: tp.sum_over_model(
+                    sq if over_data is None else over_data(sq))
             if cfg.opt == "sgd_annealing":
                 upd, upd_opt, upd_lr = sgd_annealing_update(
                     params, grads, opt_state, cfg.momentum, cfg.lr_anneal,
                     clip=cfg.clip, max_norm=cfg.max_norm,
-                    reduce_sq=reduce_sq)
+                    reduce_sq=reduce_sq, sq_weight=sq_weight)
                 skip_lr = opt_state["lr"]
             else:
                 upd, upd_opt, upd_lr = adam_noam_update(
                     params, grads, opt_state, noam, clip=cfg.clip,
-                    max_norm=cfg.max_norm, reduce_sq=reduce_sq)
+                    max_norm=cfg.max_norm, reduce_sq=reduce_sq,
+                    sq_weight=sq_weight)
                 skip_lr = noam_rate(opt_state["step"] + 1, noam)
             pick = lambda new, old: torch.where(finite, new, old)
             new_data = pick(upd, params)

@@ -20,6 +20,13 @@ then all ranks meet at a barrier. Under --zero1 / --fsdp
 (parallel/zero.py) the moments, and with --fsdp the parameters, are this
 rank's slices: they are gathered for validation and for checkpoints, so
 a checkpoint is the unsharded run's file and resumes at any world size.
+Under tensor parallelism (parallel/tp.py) each rank trains its model
+coordinate's shard of the parameters and moments; validation runs the
+sharded model, and an npz checkpoint gathers the shards over the model
+group first, so it is the one-process run's file.
+``--checkpoint-format orbax`` writes the sharded format instead
+(training/checkpoint.save_sharded): each rank saves the pieces it holds
+(`sharded_pieces`), and nothing is gathered.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from end2end_asr_tpu_torch.evaluation import (ids_to_string_until_pad,
 from end2end_asr_tpu_torch.models.layers import DropoutRng
 from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
                                                       to_device, with_state)
-from end2end_asr_tpu_torch.parallel import mesh
+from end2end_asr_tpu_torch.parallel import mesh, tp
 from end2end_asr_tpu_torch.parallel.zero import MOMENT_KEYS, ZeroShard
 from end2end_asr_tpu_torch.training import checkpoint as ckpt
 from end2end_asr_tpu_torch.training.optimizer import init_opt_state
@@ -71,7 +78,7 @@ def opt_to_tree(fp: FlatParams, opt: Dict) -> Dict:
 def summed_over_ranks(values: Dict, keys, device) -> Dict:
     """`values` with the entries `keys` summed over the ranks (a copy;
     the values themselves at world size 1)."""
-    if mesh.world_size() == 1:
+    if mesh.data_size() == 1:
         return dict(values)
     t = mesh.all_reduce_(torch.tensor([float(values[k]) for k in keys],
                                       dtype=torch.float64, device=device))
@@ -82,12 +89,40 @@ def valid_batch_loss(loss: torch.Tensor, gold: torch.Tensor,
                      loss_type: str) -> float:
     """A valid batch's loss over the ranks: weighted by each rank's
     non-PAD tokens (CE) or alike (CTC: equal shards)."""
-    if mesh.world_size() == 1:
+    if mesh.data_size() == 1:
         return loss.item()
     w = ((gold != PAD_TOKEN).sum().to(torch.float64) if loss_type == "ce"
          else torch.ones((), dtype=torch.float64, device=loss.device))
     lw = mesh.all_reduce_(torch.stack([loss.to(torch.float64) * w, w]))
     return (lw[0] / lw[1]).item()
+
+
+def sharded_pieces(fp: FlatParams, data: torch.Tensor, opt: Dict, zero,
+                   model_state, full_shapes: Dict):
+    """(this rank's pieces, the layout) of a sharded checkpoint
+    (training/checkpoint.save_sharded): its model coordinate's flat
+    parameters (its slice under --fsdp) and moments (their slices under
+    ZeRO), keyed by coordinate; the optimizer's scalars, the model state
+    and the fixed tables under keys that every rank shares."""
+    m, d = mesh.model_rank(), mesh.data_rank()
+    stage = zero.stage if zero is not None else 0
+    own = lambda name, sliced: (f"{name}{ckpt.SEP}m{m}"
+                                + (f"{ckpt.SEP}d{d}" if sliced else ""))
+    pieces = {own("params", stage == 3): data}
+    for k, v in opt.items():
+        pieces[own(k, stage > 0) if k in MOMENT_KEYS
+               else "opt" + ckpt.SEP + k] = v
+    for k, v in fp.fixed.items():
+        pieces["fixed" + ckpt.SEP + k] = v
+    for k, v in ckpt.flatten_params(model_state or {}).items():
+        pieces["state" + ckpt.SEP + k] = v
+    layout = {"n_data": mesh.data_size(), "n_model": mesh.model_size(),
+              "stage": stage, "train_keys": fp.train_keys,
+              "order": fp.order,
+              "shapes": {k: list(full_shapes[k]) for k in fp.train_keys},
+              "opt_keys": list(opt),
+              "moment_keys": [k for k in opt if k in MOMENT_KEYS]}
+    return pieces, layout
 
 
 def batch_tensors(batch, device):
@@ -146,7 +181,26 @@ class Trainer:
         num_epochs = cfg.epochs if num_epochs is None else num_epochs
         history: List[Dict] = list((last_metrics or {}).get("history", []))
         best_valid_loss = (last_metrics or {}).get("valid_loss", 1e9)
+        # tensor parallelism: this rank trains its model coordinate's shard
+        n_model, plan = mesh.model_size(), None
+        full_shapes = {k: tuple(v.shape)
+                       for k, v in ckpt.flatten_params(params).items()}
+        if n_model > 1:
+            shard = lambda t: ckpt.model_rank_tree(t, n_model,
+                                                   mesh.model_rank())
+            params = shard(params)
+            if opt_state is not None:
+                opt_state = {k: (shard(v) if k in MOMENT_KEYS else v)
+                             for k, v in opt_state.items()}
+        unshard = lambda t: tp.gather_tree(t, full_shapes)
+        unshard_opt = lambda o: {k: (unshard(v) if k in MOMENT_KEYS else v)
+                                 for k, v in o.items()}
         fp = FlatParams(params, dev)
+        if n_model > 1:
+            plan = tp.FlatPlan(
+                fp, [k for k in fp.train_keys
+                     if tp.leaf_dim(k, full_shapes[k], n_model) is not None],
+                n_model, cfg.seq_parallel)
         data = fp.data
         zero = (ZeroShard.for_config(cfg, fp.numel)
                 if cfg.zero1 or cfg.fsdp else None)
@@ -169,7 +223,7 @@ class Trainer:
         # ranks draw the same masks by local row: the replica-correlated
         # dropout of the JAX package's sharded kernel
         rng = DropoutRng(cfg.seed + start_epoch, dev)
-        step = make_train_step_impl(cfg, self.dims, zero=zero)
+        step = make_train_step_impl(cfg, self.dims, zero=zero, plan=plan)
         eval_step = make_eval_step(cfg, self.dims)
         metrics: Dict = {}
 
@@ -272,11 +326,22 @@ class Trainer:
             def save(best: bool):
                 base = ckpt.checkpoint_paths(cfg.save_folder, cfg.name,
                                              epoch + 1, best=best)
-                opt_tree = opt_to_tree(fp, full_opt())   # on every rank
                 if mesh.is_main():
                     logger.info("SAVE %sMODEL to %s",
                                 "BEST " if best else "", base)
-                    ckpt.save_checkpoint(base, cfg, epoch + 1, params_now,
+                if cfg.checkpoint_format == "orbax":
+                    pieces, layout = sharded_pieces(fp, data, opt, zero,
+                                                    state, full_shapes)
+                    ckpt.save_sharded(base, cfg, epoch + 1, self.label2id,
+                                      self.id2label, pieces, layout,
+                                      metrics=metrics)
+                    mesh.barrier()
+                    return
+                # on every rank: the collectives of ZeRO and TP
+                opt_tree = unshard_opt(opt_to_tree(fp, full_opt()))
+                params_full = unshard(params_now)
+                if mesh.is_main():
+                    ckpt.save_checkpoint(base, cfg, epoch + 1, params_full,
                                          self.label2id, self.id2label,
                                          model_state=state, metrics=metrics,
                                          opt_state=opt_tree)
@@ -291,8 +356,8 @@ class Trainer:
                 logger.info("SHUFFLE")
                 train_loader.shuffle(epoch)
 
-        return {"params": fp.tree(full_params()),
-                "opt_state": opt_to_tree(fp, full_opt()),
+        return {"params": unshard(fp.tree(full_params())),
+                "opt_state": unshard_opt(opt_to_tree(fp, full_opt())),
                 "model_state": state, "metrics": metrics,
                 "epochs_run": max(0, num_epochs - start_epoch),
                 "opt_step": int(opt["step"].item())}

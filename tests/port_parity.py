@@ -2,6 +2,7 @@
 small model configuration, JAX-initialised params, and their conversion
 to the PyTorch port's param pytree through the weight bridge."""
 
+import functools
 import importlib.util
 import os
 
@@ -84,3 +85,99 @@ def root_cli(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# ---------------------------------------------------------------------------
+# float64 references of the conv front ends. Their max pools and relu /
+# 0..20 clips route the gradient by comparisons, and the f32 roundings of
+# the spectrogram (~3e-6 on either package) and of the convolutions flip
+# near-ties: a different element of a window or a clipped activation gets
+# the gradient. So a front-end weight's f32 gradient may lie ~1e-3 of the
+# leaf from the exact one on either package; in float64 the two packages
+# agree.
+# ---------------------------------------------------------------------------
+
+def spect_f64(pcm, n_frames, cfg, T_out):
+    """The JAX package's normalised log-spectrogram (ops/features.py
+    batched_features on its f32 DFT bases) computed in float64:
+    (B, F, T_out)."""
+    from end2end_asr_tpu.ops.features import _dft_matrices
+    cos, sin = (a.astype(np.float64)
+                for a in _dft_matrices(cfg.n_fft, cfg.window))
+    idx = (np.arange(T_out)[:, None] * cfg.hop_length
+           + np.arange(cfg.n_fft)[None, :])
+    frames = np.asarray(pcm, np.float64)[:, idx]
+    spect = np.log1p(np.sqrt((frames @ cos) ** 2 + (frames @ sin) ** 2))
+    n = np.asarray(n_frames)
+    valid = (np.arange(T_out)[None, :] < n[:, None])[:, :, None]
+    spect = spect * valid
+    count = (n * cos.shape[1]).astype(np.float64)[:, None, None]
+    mean = spect.sum(axis=(1, 2), keepdims=True) / count
+    sq = ((spect - mean) ** 2 * valid).sum(axis=(1, 2), keepdims=True)
+    std = np.sqrt(sq / np.maximum(count - 1.0, 1.0))
+    spect = (spect - mean) / np.maximum(std, 1e-10) * valid
+    return spect.transpose(0, 2, 1)
+
+
+_COTANGENTS = {}
+
+
+def feature_cotangent(loss_of, params, feats, *args):
+    """dL/d(front-end output) of a JAX loss `loss_of(params, *args)` that
+    runs the JAX transformer: its front-end call returns `feats` (f32,
+    the front end's output) while the loss is differentiated. One
+    compile for each `loss_of`."""
+    from end2end_asr_tpu.models import transformer as JT
+    fn = _COTANGENTS.get(loss_of)
+    if fn is None:
+        real = JT.F.apply_frontend
+
+        def loss_of_feats(f, p, *a):
+            JT.F.apply_frontend = lambda p, s, *_, **__: (f, s)
+            try:
+                return loss_of(p, *a)
+            finally:
+                JT.F.apply_frontend = real
+        fn = _COTANGENTS[loss_of] = jax.jit(jax.grad(loss_of_feats))
+    return np.asarray(fn(jax.numpy.asarray(feats), params, *args))
+
+
+@functools.partial(jax.jit, static_argnames=("feat_extractor",))
+def _jax_frontend_vjp(fe, st, spect, g, feat_extractor):
+    from end2end_asr_tpu.models import frontend as JF
+    _, vjp = jax.vjp(lambda p: JF.apply_frontend(
+        p, st, spect, feat_extractor, train=True, dtype=spect.dtype)[0], fe)
+    return vjp(g)[0]
+
+
+def jax_frontend_grads_f64(fe, st, spect, g, feat_extractor):
+    """The JAX front end's float64 weight gradients for cotangent g (the
+    f32 front-end output's) on the float64 spectrogram, flat by
+    "conv1::w" keys. `fe` / `st` are its params and state. ~5 s on the
+    CPU at 4 x 161 x 48 (XLA's float64 convolutions)."""
+    with jax.enable_x64(True):
+        jnp = jax.numpy
+        f64 = lambda t: jax.tree_util.tree_map(
+            lambda a: jnp.asarray(np.asarray(a, np.float64)), t)
+        jg = _jax_frontend_vjp(f64(fe), st and f64(st), jnp.asarray(spect),
+                               jnp.asarray(g, jnp.float32), feat_extractor)
+        return {k: np.asarray(v) for k, v in flatten_tree(jg).items()}
+
+
+def port_frontend_grads_f64(fe, st, spect, g, feat_extractor):
+    """`jax_frontend_grads_f64` from the port's front end (its plain
+    versions in float64)."""
+    import torch
+    from end2end_asr_tpu_torch.models import frontend as PF
+    from end2end_asr_tpu_torch.training.checkpoint import flatten_params
+    tree = {c: {n: torch.tensor(np.array(v), dtype=torch.float64,
+                                requires_grad=True) for n, v in p.items()}
+            for c, p in fe.items()}
+    state = st and {c: {n: torch.tensor(np.array(v), dtype=torch.float64)
+                        for n, v in p.items()} for c, p in st.items()}
+    y, _ = PF.apply_frontend(tree, state, torch.from_numpy(spect),
+                             feat_extractor, train=True, dtype=torch.float64)
+    leaves = flatten_params(tree)
+    got = torch.autograd.grad(y, list(leaves.values()),
+                              torch.from_numpy(np.array(g)))
+    return {k: v.numpy() for k, v in zip(leaves, got)}

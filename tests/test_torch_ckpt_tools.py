@@ -75,7 +75,7 @@ def test_average_equals_jax_and_rejects_mismatch(tmp_path):
     with pytest.raises(SystemExit):
         PAV.main([out, bases[0], "--device", "cpu"])
     os.makedirs(str(tmp_path / "sharded.orbax"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, parallelism"):
+    with pytest.raises(NotImplementedError, match="orbax imports jax"):
         PAV.main([out, bases[0], str(tmp_path / "sharded"),
                   "--device", "cpu"])
 

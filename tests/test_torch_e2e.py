@@ -130,7 +130,8 @@ def test_port_imports_no_jax():
         "          'data.lm_loader', 'lm_train', 'multi_train',\n"
         "          'tools.average_checkpoints',\n"
         "          'tools.convert_reference_checkpoint',\n"
-        "          'parallel.mesh', 'parallel.zero', 'data.audio_host'):\n"
+        "          'parallel.mesh', 'parallel.zero', 'parallel.tp',\n"
+        "          'data.audio_host'):\n"
         "    assert pkg.__name__ + '.' + m in mods, m\n"
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -25,6 +25,7 @@ from end2end_asr_tpu.training.steps import make_train_step_impl
 from end2end_asr_tpu_torch.models import frontend as TF
 from end2end_asr_tpu_torch.models import transformer as TT
 from end2end_asr_tpu_torch.training import checkpoint as TC
+from end2end_asr_tpu_torch.training import loss as TL
 from end2end_asr_tpu_torch.training import optimizer as TO
 from end2end_asr_tpu_torch.training import steps as TS
 
@@ -163,6 +164,43 @@ def _batch(seed=0, tgt_lengths=(7, 10, 4, 6)):
         targets[i, :L] = rng.randint(3, VOCAB, size=L)
         targets[i, 0], targets[i, L - 1] = 1, 2
     return pcm, n_frames, targets, tgt_lengths
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_forward_loss_and_all_gradients_match_jax(model, seed):
+    """tests/test_torch_train.py's test of the same name on emb_cnn: the
+    loss, every gradient outside the front end within GRAD_TOL of JAX's,
+    and the front end's against float64 (`frontend_against_f64`). The
+    biases of the two convolutions feed a batch norm, so their exact
+    gradient is zero and each side holds its cancellation noise: up to
+    7.8e-3 of the floor on JAX's side at f32 and ~2e-4 on the port's."""
+    from test_torch_train import (GRAD_TOL, _jax_value_and_grad, _rel,
+                                  _jax_batch_loss, frontend_against_f64)
+    cfg, params, state = model
+    batch = _batch(seed)
+    want_loss, want_g = _jax_value_and_grad(cfg)(params, batch, state)
+    fp = TS.FlatParams(to_port(params), torch.device("cpu"))
+    leaf = fp.data.clone().requires_grad_()
+    tcfg = torch_config(cfg)
+    pcm, n_frames, targets, tgt_lengths = (
+        torch.from_numpy(a.astype(np.int64) if a.dtype != np.float32 else a)
+        for a in batch)
+    spect = TS.features(tcfg, pcm, n_frames, T_FRAMES)
+    pred, gold, _ = TT.forward_state(fp.tree(leaf), to_port(state), spect,
+                                     n_frames, targets,
+                                     TT.dims_from_config(tcfg), train=True)
+    loss = TL.calculate_loss(pred, gold, None, tgt_lengths,
+                             cfg.label_smoothing)
+    grad, = torch.autograd.grad(loss, leaf)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=TOL)
+    got = {k: v.numpy() for k, v in fp.views(grad).items()}
+    want = flatten_tree(want_g)
+    floor = 1e-3 * max(np.abs(v).max() for v in want.values())
+    for k, g in got.items():
+        if not k.startswith("frontend::"):
+            assert _rel(g, want[k], floor) < GRAD_TOL, k
+    frontend_against_f64(cfg, params, state, batch, _jax_batch_loss(cfg),
+                         got, want, floor)
 
 
 @pytest.mark.parametrize("loss", ["ce", "ctc"])

@@ -319,6 +319,58 @@ def test_attention_kernels_match_plain(dev, rate, Tq, Tk):
         assert _rel_err(a, b, floor) < ATTN_TOL
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [2, 4])
+def test_attention_on_local_heads_matches_plain(dev, dtype, H):
+    """Tensor parallelism runs the kernels on a rank's local heads: 4 or 2
+    of 8, on the projections' (B, T, H_local·64) layout (transposed
+    views), at the encoder's shape, rate 0.1: forward and backward against
+    the plain version."""
+    B, T = 12, 200
+    g0 = torch.Generator().manual_seed(H)
+    q, k, v, dout = (torch.randn(B, T, H, 64, generator=g0).to(dev, dtype)
+                     .transpose(1, 2) for _ in range(4))
+    bias = torch.where(torch.rand(B, T, T, generator=g0) < 0.1, -1e9,
+                       0.0).to(dev)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = AF.flash_mha_train(*qkv, bias, 0x10CA1, 0.1)
+    grads = torch.autograd.grad(out, qkv, dout)
+    assert out.transpose(1, 2).is_contiguous()
+    qf = [t.float().requires_grad_() for t in (q, k, v)]
+    want = AF.flash_mha_train_plain(*qf, bias, 0x10CA1, 0.1)
+    want_g = torch.autograd.grad(want, qf, dout.float())
+    tol = ATTN_TOL if dtype == torch.bfloat16 else 2e-5
+    assert _rel_err(out, want) < tol
+    for a, b in zip(grads, want_g):
+        assert _rel_err(a, b) < tol
+
+
+@pytest.mark.parametrize("H", [2, 4])
+def test_local_heads_draw_the_same_masks_on_every_rank(dev, H):
+    """The kernel seeds by LOCAL head: two model ranks' calls on their own
+    H of the heads, with the run's seed, keep the same elements for each
+    local head (q = k = 0 makes the probabilities uniform and V = I makes
+    the output's non-zeros the kept ones), and that mask is the plain
+    Philox mask of H heads."""
+    T = 64
+    zero = torch.zeros(2, H, T, T, device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(T, device=dev, dtype=torch.bfloat16).expand(
+        2, H, T, T).contiguous()
+    bias = torch.zeros(2, T, T, device=dev)
+    g0 = torch.Generator().manual_seed(5)
+    masks = []
+    for rank in range(2):
+        # each rank's own scores leave the mask alone; uniform ones show it
+        q = torch.randn(2, H, T, T, generator=g0).to(dev, torch.bfloat16)
+        assert torch.isfinite(AF.flash_mha_train(q, q, eye, bias, 0xFACE,
+                                                 0.1).float()).all()
+        masks.append(AF.flash_mha_train(zero, zero, eye, bias, 0xFACE,
+                                        0.1) != 0)
+    assert torch.equal(masks[0], masks[1])
+    assert torch.equal(masks[0], AF.keep_mask(
+        0xFACE, 2, H, T, T, AF.dropout_thresh16(0.1), dev))
+
+
 def _grads_of(q, k, v, bias, dout, seed, rate):
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
     out = AF.flash_mha_train(*qkv, bias, seed, rate)

@@ -170,14 +170,16 @@ def _one_process(cfg, params, root, name, state=None, steps=W.STEPS,
                        steps=steps, **kw)
 
 
-def _leaves_close(fp, got, want, tol):
+def _leaves_close(fp, got, want, tol, but=None):
     """Per leaf, relative to the leaf's largest |value|, floored at 1e-3
-    of the model's (tests/test_torch_train.py's gradient rule)."""
+    of the model's (tests/test_torch_train.py's gradient rule); leaves
+    whose name starts with `but` are left out."""
     want = fp.views(torch.from_numpy(want))
     got = fp.views(torch.from_numpy(got))
     floor = 1e-3 * max(v.abs().max().item() for v in want.values())
     for k in want:
-        assert _rel(got[k].numpy(), want[k].numpy(), floor) < tol, k
+        if not (but and k.startswith(but)):
+            assert _rel(got[k].numpy(), want[k].numpy(), floor) < tol, k
 
 
 def _check_against_jax(got, cfg, params, batch, root, name, state=None,
@@ -187,10 +189,14 @@ def _check_against_jax(got, cfg, params, batch, root, name, state=None,
     parameter whose gradient is at noise level by ~lr either way) match
     the JAX step on the whole batch, and so does the state. The Adam
     moments of the first step equal the port's one-process run's within
-    MOMENT_TOL per leaf, and, for CE, JAX's within GRAD_TOL per leaf (for
-    CTC and emb_cnn the port's ONE-process first-step moments lie up to
-    1.8e-3 and 6.3e-3 per leaf from JAX's, which no earlier test held;
-    world 2 reads the same)."""
+    MOMENT_TOL per leaf, and JAX's within GRAD_TOL per leaf: every leaf
+    for CE on _batch(0); outside the front end for CTC on
+    _ctc_batch(6, ...) and emb_cnn. There the front end's f32 gradient
+    follows where each package's roundings flip near-ties of its pools
+    and clips (up to 1.8e-3 and 6.3e-3 of a leaf from JAX's, on one
+    process as on two: the audio's doing, not the loss's); its float64
+    gradient equals JAX's, and its f32 one lies no further from that
+    than JAX's (tests/test_torch_train.py::frontend_against_f64)."""
     other = got[1]
     got = got[0]
     for k in got:
@@ -210,11 +216,12 @@ def _check_against_jax(got, cfg, params, batch, root, name, state=None,
                                    atol=LOSS_TOL)
     one = _one_process(cfg.replace(grad_accum=accum), params, root, name,
                        state, steps)
+    but = None if (cfg.loss == "ce" and cfg.feat_extractor == "vgg_cnn") \
+        else "frontend::"
     for m in ("mu", "nu"):
         _leaves_close(fp, got[m + "1"], one[m + "1"], MOMENT_TOL)
-        if cfg.loss == "ce" and cfg.feat_extractor == "vgg_cnn":
-            _leaves_close(fp, got[m + "1"],
-                          _flat(jopts[0][m], fp.train_keys), GRAD_TOL)
+        _leaves_close(fp, got[m + "1"], _flat(jopts[0][m], fp.train_keys),
+                      GRAD_TOL, but)
 
 
 def test_ddp_ce_with_grad_accum_equals_the_unsharded_jax_step(group):

@@ -177,15 +177,18 @@ def test_zero_slices_cover_the_buffer_and_update_elementwise():
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--parallel", "--mesh-model", "2"], NotImplementedError,
-     r"--mesh-model is not ported yet: tensor parallelism \(ROADMAP"),
+    # tensor parallelism is ported: the JAX package's check of the heads
+    (["--parallel", "--mesh-model", "2"], ValueError,
+     r"--num-heads 5 must be divisible by --mesh-model 2 \(whole"),
     (["--parallel", "--mesh-pipe", "2"], NotImplementedError,
      r"--mesh-pipe is not ported yet: pipeline parallelism \(ROADMAP"),
     (["--mesh-pipe", "2"], SystemExit, "--mesh-pipe requires --parallel"),
-    (["--parallel", "--seq-parallel"], NotImplementedError,
-     r"sequence parallelism \(ROADMAP"),
-    (["--checkpoint-format", "orbax"], NotImplementedError,
-     r"orbax checkpoints \(ROADMAP §1, parallelism: sharded"),
+    (["--parallel", "--seq-parallel"], SystemExit,
+     r"--seq-parallel requires --parallel --mesh-model N \(N > 1\)"),
+    # sharded checkpoints are ported; low-rank layers under TP are not
+    (["--parallel", "--mesh-model", "2", "--num-heads", "4", "--model",
+      "LRTRFS", "--rank", "8"], NotImplementedError,
+     r"--mesh-model with low-rank \(LRTRFS\)"),
     (["--zero1"], SystemExit, "require --parallel"),
     (["--fsdp"], SystemExit, "require --parallel")])
 def test_train_refuses_what_is_not_ported(flags, exc, match):
@@ -194,6 +197,11 @@ def test_train_refuses_what_is_not_ported(flags, exc, match):
 
 
 def test_test_refuses_tensor_parallel_inference():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    """Tensor-parallel inference is ported
+    (tests/test_torch_tp.py runs it on two ranks): one process without
+    torchrun's group has one rank, too few for the model axis, and says
+    so as the JAX package's make_mesh_2d does."""
+    with pytest.raises(ValueError, match="--mesh-model 2 exceeds the 1 "
+                                         "visible devices"):
         port_test.main(["--continue-from", "x", "--parallel",
                         "--mesh-model", "2", "--device", "cpu"])

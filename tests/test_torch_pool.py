@@ -101,3 +101,56 @@ def test_plain_backward_keeps_the_memory_format():
     assert _channels_last(dy)
     assert torch.equal(dy, PV.pool_bwd(y.contiguous(),
                                        g.contiguous())[:, ::2])
+
+
+def test_a_near_tie_is_routed_by_the_rounded_values():
+    """Where the stage's f32 gradients leave JAX's: two elements of a
+    window 2**-40 apart are one value at f32, so both packages route the
+    gradient to the first element; in float64 it goes to the larger. The
+    front end's f32 gradient therefore follows each package's roundings
+    near a tie (tests/test_torch_train.py::frontend_against_f64)."""
+    y = np.zeros((1, 2, 2, 64))
+    y[0, 0, 0], y[0, 0, 1] = 1.0, 1.0 + 2.0 ** -40
+    g = np.ones((1, 1, 1, 64), np.float32)
+    want = np.asarray(jax.grad(lambda v: jnp.sum(
+        jax_max_pool2(v) * g))(jnp.asarray(y, jnp.float32)))
+    for dt, first in ((torch.float32, True), (torch.float64, False)):
+        t = torch.tensor(y, dtype=dt).permute(0, 3, 1, 2).requires_grad_()
+        dy, = torch.autograd.grad(PV.max_pool2(t), t,
+                                  torch.from_numpy(g).permute(0, 3, 1, 2))
+        dy = dy.permute(0, 2, 3, 1).numpy()
+        assert (dy[0, 0, 0] == 1).all() == first
+        assert (dy[0, 0, 1] == 1).all() != first
+        if dt == torch.float32:
+            np.testing.assert_array_equal(dy, want)
+
+
+@pytest.mark.parametrize("feat_extractor", ["vgg_cnn", "emb_cnn"])
+def test_frontend_gradients_in_float64_equal_jax(feat_extractor):
+    """The conv front ends' weight gradients in float64: the port's plain
+    versions equal the JAX package's within 1e-6 of each leaf's largest
+    (floored at 1e-3 of the largest of all): the same function, whose
+    f32 gradients differ only by where the roundings flip near-ties."""
+    from end2end_asr_tpu.models.transformer import init_transformer
+    from port_parity import (jax_frontend_grads_f64,
+                             port_frontend_grads_f64, small_config)
+    params, state = init_transformer(
+        jax.random.PRNGKey(1), small_config(feat_extractor=feat_extractor),
+        12)
+    r = np.random.RandomState(2)
+    spect = r.randn(2, 161, 24)
+    spect[1, :, 17:] = 0.0                   # padded frames, as batches have
+    from end2end_asr_tpu.models.frontend import frontend_out_time
+    T_out = frontend_out_time(feat_extractor, 24)
+    width = 40 * 128 if feat_extractor == "vgg_cnn" else 672
+    g = r.randn(2, T_out, width).astype(np.float32)
+    st = state.get("frontend")
+    want = jax_frontend_grads_f64(params["frontend"], st, spect, g,
+                                  feat_extractor)
+    got = port_frontend_grads_f64(params["frontend"], st, spect, g,
+                                  feat_extractor)
+    assert set(got) == set(want)
+    floor = 1e-3 * max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        d = np.abs(got[k] - v).max() / max(np.abs(v).max(), floor)
+        assert d < 1e-6, (k, d)

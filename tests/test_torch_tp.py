@@ -1,0 +1,328 @@
+"""Tensor and sequence parallelism of the port (parallel/tp.py), in one
+spawn of gloo ranks on the CPU for the module.
+
+A module-scoped fixture spawns 4 processes once (tests/torch_tp_worker.py,
+which imports no JAX): ranks 0-1 run the world-2 scenarios at
+--mesh-model 2, then all four the world-4 ones at --mesh-data 2
+--mesh-model 2. Each writes its results to files, and the tests below
+assert on them:
+  * steps against the JAX package's UNSHARDED step on the whole batch
+    (its tests/test_tensor_parallel.py and tests/test_seq_parallel.py hold
+    JAX's TP and SP equal to that step): plain TP, TP + SP, and with
+    --clip under --zero1 / --fsdp, at both layouts; the losses within
+    LOSS_TOL, the parameters after two steps by tests/test_torch_train.py's
+    rule, the first step's moments within GRAD_TOL of JAX's per leaf;
+  * SP with dropout equals TP with dropout (the masks of the slices are
+    the slices of the masks);
+  * train --parallel --mesh-model 2 (and 2 x 2 with --zero1 and
+    --seq-parallel) gathers the one-process run's parameters, and
+    test --parallel --mesh-model 2 prints the one-process strings, greedy
+    and beam.
+Without a group: the shard map equals JAX's `param_pspecs`, the local-head
+rule of the attention's dropout, and the refusals.
+"""
+
+import functools
+import json
+import logging
+import os
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from end2end_asr_tpu.parallel import tp as JTP
+from end2end_asr_tpu_torch import test as port_test
+from end2end_asr_tpu_torch import train as port_train
+from end2end_asr_tpu_torch.config import config_from_args
+from end2end_asr_tpu_torch.parallel import tp as PTP
+from end2end_asr_tpu_torch.training import checkpoint as TC
+from end2end_asr_tpu_torch.training import steps as TS
+
+import torch_tp_worker as W
+from port_parity import jax_params, small_config, to_port, torch_config
+from synth import make_corpus
+from test_torch_parallel import (TEXTS, _argv, _cfg, _flat, _jax_run,
+                                 _leaves_close, _save_batch, _save_tree,
+                                 load)
+from test_torch_train import GRAD_TOL, LOSS_TOL, T_FRAMES, VOCAB, _batch, \
+    _params_close
+
+WORLD = 4
+GROUP_TIMEOUT_S = 600
+# SP against TP with the same dropout masks: the sums over the model
+# group in another order (reduce-scatter against all-reduce)
+SP_TOL = 1e-5
+CLIP = dict(clip=True, max_norm=0.5)
+
+STEPS = {
+    "2": {"tp": {}, "tp_sp": {"cfg": {"seq_parallel": True}},
+          "tp_zero1_clip": {"cfg": CLIP, "zero": 1},
+          "tp_fsdp_sp_clip": {"cfg": dict(CLIP, seq_parallel=True),
+                              "zero": 3},
+          "tp_drop": {"cfg": {"dropout": 0.1}, "rng": 3},
+          "tp_sp_drop": {"cfg": {"dropout": 0.1, "seq_parallel": True},
+                         "rng": 3}},
+    "4": {"dm": {}, "dm_sp": {"cfg": {"seq_parallel": True}},
+          "dm_clip": {"cfg": CLIP},
+          "dm_zero1_sp_clip": {"cfg": dict(CLIP, seq_parallel=True),
+                               "zero": 1},
+          "dm_fsdp_clip": {"cfg": CLIP, "zero": 3}},
+}
+# scenario -> whether the JAX step it is held against clips
+AGAINST_JAX = {
+    "tp": False, "tp_sp": False, "tp_zero1_clip": True,
+    "tp_fsdp_sp_clip": True, "dm": False, "dm_sp": False, "dm_clip": True,
+    "dm_zero1_sp_clip": True, "dm_fsdp_clip": True}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(clip: bool):
+    cfg = _cfg().replace(**(CLIP if clip else {}))
+    return _jax_run(cfg, jax_params(_cfg(), VOCAB, seed=4), _batch(0),
+                    steps=W.STEPS)
+
+
+def _model_argv(corpus, root):
+    """tests/test_torch_parallel.py's entry-point model with 4 heads and
+    dim_inner 64, so that they split in two, at dropout 0 (a rank's
+    attention draws its masks by local head)."""
+    argv = _argv(corpus, root)
+    for flag, val in (("--num-heads", "4"), ("--dim-inner", "64")):
+        argv[argv.index(flag) + 1] = val
+    return argv + ["--dropout", "0"]
+
+
+@pytest.fixture(scope="module")
+def group(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tp"))
+    cfg = _cfg()
+    params = jax_params(cfg, VOCAB, seed=4)
+    _save_tree(os.path.join(root, "params.npz"), params)
+    _save_batch(os.path.join(root, "ce.npz"), _batch(0))
+    corpus = make_corpus(os.path.join(root, "corpus"), texts=TEXTS)
+    train = _model_argv(corpus, root) + ["--device", "cpu"]
+    ck = lambda name: os.path.join(root, "models", name, "epoch_1")
+    test = ["--test-manifest-list", corpus[0], "--batch-size", "4",
+            "--device", "cpu", "--verbose"]
+    entry = {
+        "2": [{"name": "train_tp", "train": train + [
+                  "--name", "tp", "--parallel", "--mesh-model", "2"]},
+              {"name": "test_tp", "test": test + [
+                  "--continue-from", ck("one"), "--parallel",
+                  "--mesh-model", "2"]},
+              {"name": "test_tp_beam", "test": test + [
+                  "--continue-from", ck("one"), "--parallel",
+                  "--mesh-model", "2", "--beam-search", "--beam-width",
+                  "3"]}],
+        "4": [{"name": "train_dm", "train": train + [
+                  "--name", "dm", "--parallel", "--mesh-data", "2",
+                  "--mesh-model", "2", "--zero1", "--seq-parallel"]}]}
+    spec = {"cfg": torch_config(cfg).to_dict(), "T": T_FRAMES,
+            "steps": STEPS, "entry": entry}
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    # the one-process run whose checkpoint the tests serve (--parallel at
+    # one rank: the ragged bin cycled to the full batch, as on the ranks)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        one = port_train.main(train + ["--name", "one", "--parallel"])
+    finally:
+        os.chdir(cwd)
+    ctx = mp.spawn(W.run, args=(WORLD, root), nprocs=WORLD, join=False)
+    deadline = time.time() + GROUP_TIMEOUT_S
+    while not ctx.join(timeout=5):     # a rank's exception raises here
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            pytest.fail(f"the {WORLD}-rank group ran over "
+                        f"{GROUP_TIMEOUT_S} s")
+    return root, (cfg, params), corpus, one
+
+
+def _ranks(name):
+    return 2 if name.startswith("tp") else 4
+
+
+@pytest.mark.parametrize("name", sorted(AGAINST_JAX))
+def test_step_equals_the_unsharded_jax_step(group, name):
+    root, (cfg, params), _, _ = group
+    got = [load(root, name, r) for r in range(_ranks(name))]
+    for other in got[1:]:
+        for k in got[0]:
+            assert np.array_equal(got[0][k], other[k]), k
+    got = got[0]
+    jp, jopts, _, jms = _jax_reference(AGAINST_JAX[name])
+    for i, jm in enumerate(jms):
+        np.testing.assert_allclose(got["loss"][i], float(jm["loss"]),
+                                   rtol=LOSS_TOL)
+        assert got["num_token"][i] == int(jm["num_token"])
+        assert got["num_correct"][i] == int(jm["num_correct"])
+    assert int(got["step"]) == W.STEPS
+    fp = TS.FlatParams(to_port(params), torch.device("cpu"))
+    _params_close(got["data"], _flat(jp, fp.train_keys),
+                  [float(jm["lr"]) for jm in jms])
+    for m in ("mu", "nu"):
+        _leaves_close(fp, got[m + "1"], _flat(jopts[0][m], fp.train_keys),
+                      GRAD_TOL)
+
+
+def test_sp_with_dropout_equals_tp_with_dropout(group):
+    """The same masks: the losses within SP_TOL, the first step's moments
+    per leaf within GRAD_TOL and the parameters after two steps by the
+    parameter rule (sums over the model group in another order)."""
+    root, (_, params), _, _ = group
+    a, b = load(root, "tp_drop"), load(root, "tp_sp_drop")
+    np.testing.assert_allclose(b["loss"], a["loss"], rtol=SP_TOL)
+    fp = TS.FlatParams(to_port(params), torch.device("cpu"))
+    for m in ("mu1", "nu1"):
+        _leaves_close(fp, b[m], a[m], GRAD_TOL)
+    _params_close(b["data"], a["data"], list(a["lr"]))
+    # and the dropout did act: the losses differ from the dropout-0 run's
+    assert abs(a["loss"][0] - load(root, "tp")["loss"][0]) > 1e-3
+
+
+@pytest.mark.parametrize("name", ["train_tp", "train_dm"])
+def test_train_entry_point_gathers_the_one_process_parameters(group, name):
+    """train --parallel --mesh-model 2 (world 2), and --mesh-data 2
+    --mesh-model 2 --zero1 --seq-parallel (world 4): one epoch of 2 steps
+    on the 5-utterance corpus, its returned (gathered) parameters against
+    the one-process run's, by the parameter rule; its checkpoint is the
+    gathered npz file."""
+    root, _, _, one = group
+    got = load(root, name)
+    want = {k: v.numpy()
+            for k, v in TC.flatten_params(one["params"]).items()}
+    assert set(got) == set(want)
+    cat = lambda d: np.concatenate([d[k].ravel() for k in sorted(d)])
+    d = np.abs(cat(got) - cat(want))
+    assert (d <= 1e-5).mean() >= 0.999 and d.max() < 1e-2, name
+    base = os.path.join(root, "models", name[len("train_"):], "epoch_1")
+    _, _, saved, opt, _, _, _, _ = TC.load_checkpoint(base)
+    for k, v in TC.flatten_params(saved).items():
+        np.testing.assert_array_equal(v.numpy(), got[k])
+    assert int(opt["step"]) == 2
+
+
+@pytest.mark.parametrize("name", ["test_tp", "test_tp_beam"])
+def test_test_entry_point_prints_the_one_process_strings(group, name):
+    root, _, corpus, _ = group
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda r: lines.append(r.getMessage())
+    log = logging.getLogger("end2end_asr_tpu_torch")
+    log.addHandler(handler)
+    level = log.level
+    log.setLevel(logging.INFO)
+    argv = ["--test-manifest-list", corpus[0], "--batch-size", "4",
+            "--device", "cpu", "--verbose", "--continue-from",
+            os.path.join(root, "models", "one", "epoch_1")]
+    if name.endswith("beam"):
+        argv += ["--beam-search", "--beam-width", "3"]
+    try:
+        want = port_test.main(argv)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    got = load(root, name)
+    hyps = [ln for ln in lines if ln.startswith("HYP: ")]
+    assert len(hyps) == len(TEXTS)
+    assert list(got["hyps"]) == hyps
+    assert float(got["cer"]) == want["cer"]
+    assert load(root, name, 1)["hyps"].size == 0   # rank 0 alone prints
+
+
+# ---------------------------------------------------------------------------
+# without a group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_param_pspecs_equal_jax(n_model):
+    """The port's shard map is JAX's on the same tree, with an
+    indivisible leaf (w1 of 6 inner columns at n_model 4) replicated."""
+    cfg = small_config(num_heads=4, dim_inner=8 if n_model == 2 else 6)
+    params = jax_params(cfg, VOCAB, seed=1)
+    specs = jax.tree_util.tree_flatten_with_path(
+        JTP.param_pspecs(params, n_model),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    want = {}
+    for path, spec in specs:
+        key = "::".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                        for p in path)
+        dims = [i for i, a in enumerate(spec) if a == "model"]
+        want[key] = dims[0] if dims else None
+    got = PTP.param_pspecs(TC.flatten_params(to_port(params)), n_model)
+    assert got == want
+    assert sum(d is not None for d in got.values()) > 0
+    if n_model == 4:
+        assert got["encoder::layers::0::ffn::w1::w"] is None
+        assert got["encoder::layers::0::ffn::w2::w"] is None
+
+
+def test_local_heads_draw_the_same_dropout_masks():
+    """The attention's dropout seeds by LOCAL head: each rank's call on
+    its 4 of 8 heads, with the run's seed, drops for local head h what
+    the other rank's call drops for its local head h (the kernels' rule,
+    the JAX package's sharded kernel's), whatever the data. V = I makes
+    the output's non-zeros the kept probabilities."""
+    from end2end_asr_tpu_torch.ops import attention_fused as AF
+    r = np.random.RandomState(0)
+    B, H, T = 2, 8, 16
+    q, k = (torch.from_numpy(r.randn(B, H, T, T).astype(np.float32))
+            for _ in range(2))
+    v = torch.eye(T).expand(B, 4, T, T)
+    bias = torch.zeros(B, T, T)
+    kept = [AF.flash_mha_train(q[:, h].contiguous(), k[:, h].contiguous(),
+                               v, bias, 1234, 0.3) != 0
+            for h in (slice(0, 4), slice(4, 8))]
+    assert torch.equal(kept[0], kept[1])
+    assert torch.equal(kept[0], AF.keep_mask(1234, B, 4, T, T,
+                                             AF.dropout_thresh16(0.3)))
+    assert not torch.equal(kept[0][:, 0], kept[0][:, 1])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--parallel", "--mesh-model", "4", "--num-heads", "4",
+      "--dim-inner", "6"], "--dim-inner 6 must be divisible by "
+                           "--mesh-model 4"),
+    (["--parallel", "--mesh-model", "4", "--num-heads", "6"],
+     r"--num-heads 6 must be divisible by --mesh-model 4 \(whole"),
+])
+def test_indivisible_heads_or_inner_width_refuse(flags, match):
+    with pytest.raises(ValueError, match=match):
+        port_train.refuse_unported(config_from_args(flags))
+
+
+def test_seq_parallel_refuses_an_indivisible_time_axis():
+    """check_seq_divisible, as the JAX package words it, at a layout of
+    two model ranks."""
+    from end2end_asr_tpu_torch.parallel import mesh
+    lay = mesh._LAYOUT
+    mesh._LAYOUT = type("L", (), {"n_model": 2, "n_data": 1})()
+    try:
+        with pytest.raises(ValueError, match="encoder time dim 7 must be "
+                           "divisible by the model-axis size 2"):
+            PTP.check_seq_divisible(7)
+        PTP.check_seq_divisible(8)
+    finally:
+        mesh._LAYOUT = lay
+
+
+@pytest.mark.parametrize("n_model,n_data,world", [(2, 0, 3), (4, 0, 2),
+                                                  (2, 2, 2)])
+def test_layout_checks_are_make_mesh_2d_s(n_model, n_data, world):
+    """The data x model grid refuses what the JAX package's make_mesh_2d
+    refuses, with its words (ranks for devices)."""
+    from end2end_asr_tpu_torch.parallel import mesh
+    with pytest.raises(ValueError) as want:
+        JTP.make_mesh_2d(n_model, n_data, devices=list(range(world)))
+    with pytest.raises(ValueError) as got:
+        mesh.make_layout(n_model, n_data, world)
+    assert str(got.value) == str(want.value)
+    # a subset of the ranks is refused: each rank is one device
+    with pytest.raises(ValueError, match="must equal the number of ranks"):
+        mesh.make_layout(2, 1, 4)

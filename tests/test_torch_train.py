@@ -10,6 +10,7 @@ by tests/test_torch_attention.py. Then the port's train entry point runs
 one epoch on the CPU and refuses to start without a card unless asked.
 """
 
+import functools
 import os
 
 import jax
@@ -186,7 +187,7 @@ def model():
     return cfg, jax_params(cfg, VOCAB, seed=4)
 
 
-def _jax_loss_fn(cfg, batch):
+def _jax_loss_fn(cfg, batch, state=None):
     dims = JT.dims_from_config(cfg)
     pcm, n_frames, targets, tgt_lengths = (jnp.asarray(a) for a in batch)
     from end2end_asr_tpu.ops.features import batched_features
@@ -194,18 +195,73 @@ def _jax_loss_fn(cfg, batch):
                              cfg.window, T_out=T_FRAMES, normalize=True)
 
     def loss_fn(p):
-        pred, gold, _ = JT.forward(p, {}, spect, n_frames, targets, dims,
-                                   train=True, rng=None)
+        pred, gold, _ = JT.forward(p, state or {}, spect, n_frames,
+                                   targets, dims, train=True, rng=None)
         return JL.calculate_loss(pred, gold, None, tgt_lengths,
                                  cfg.label_smoothing, "ce")
     return loss_fn
 
 
-def test_forward_loss_and_all_gradients_match_jax(model):
+@functools.lru_cache(maxsize=None)
+def _jax_batch_loss(cfg):
+    """JAX's loss as a function of (params, batch, state)."""
+    return lambda p, batch, state: _jax_loss_fn(cfg, batch, state)(p)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad(cfg):
+    return jax.jit(jax.value_and_grad(_jax_batch_loss(cfg)))
+
+
+def frontend_against_f64(cfg, params, state, batch, loss_of, got, want,
+                         floor):
+    """The front end's leaves of the port's f32 gradient `got` and JAX's
+    `want` (flat, full model) against the float64 gradient. The max pools
+    and relu / clip of a conv front end route the gradient by comparisons,
+    and the f32 roundings of the spectrogram and of the convolutions flip
+    near-ties on either package (tests/port_parity.py), so neither f32
+    side need lie within GRAD_TOL of the other. The float64 gradient is
+    the port's plain front end in float64, which equals the JAX
+    package's float64 front end
+    (tests/test_torch_pool.py::test_frontend_gradients_in_float64_equal_jax).
+    At f32 the port lies no further from it than JAX does, within
+    GRAD_TOL: the largest distance over the front end's leaves (which
+    leaf a flipped near-tie moves most differs between the two: at
+    _batch(2) the port's conv1::w lies 1.72e-3 from float64 and JAX's
+    1.48e-3, while JAX's conv2::w lies 1.9e-3 and the port's 1.9e-4).
+    `loss_of(params, batch, state)` is JAX's loss. Returns {leaf: (port's,
+    JAX's) distance}."""
+    from end2end_asr_tpu.models import frontend as JF
+    from end2end_asr_tpu.ops.features import batched_features
+    from port_parity import (feature_cotangent, port_frontend_grads_f64,
+                             spect_f64)
+    pcm, n_frames = batch[:2]
+    fe = params["frontend"]
+    st = state.get("frontend") if state else None
+    spect = batched_features(jnp.asarray(pcm), jnp.asarray(n_frames),
+                             cfg.n_fft, cfg.hop_length, cfg.window,
+                             T_out=T_FRAMES, normalize=True)
+    feats, _ = JF.apply_frontend(fe, st, spect, cfg.feat_extractor,
+                                 train=True, dtype=jnp.float32)
+    g = feature_cotangent(loss_of, params, feats, batch, state or {})
+    ref = port_frontend_grads_f64(fe, st, spect_f64(pcm, n_frames, cfg,
+                                                    T_FRAMES),
+                                  g, cfg.feat_extractor)
+    out = {k: (_rel(np.asarray(got["frontend::" + k]), r, floor),
+               _rel(want["frontend::" + k], r, floor))
+           for k, r in ref.items()}
+    port, jax_ = (max(d[i] for d in out.values()) for i in (0, 1))
+    assert port <= jax_ + GRAD_TOL, out
+    return out
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_forward_loss_and_all_gradients_match_jax(model, seed):
+    """The loss, and every gradient outside the front end within GRAD_TOL
+    of JAX's; the front end's against float64 (`frontend_against_f64`)."""
     cfg, params = model
-    batch = _batch(0)
-    want_loss, want_g = jax.jit(jax.value_and_grad(_jax_loss_fn(cfg, batch)))(
-        params)
+    batch = _batch(seed)
+    want_loss, want_g = _jax_value_and_grad(cfg)(params, batch, {})
     fp = TS.FlatParams(to_port(params), torch.device("cpu"))
     leaf = fp.data.clone().requires_grad_()
     dims = TT.dims_from_config(torch_config(cfg))
@@ -222,7 +278,11 @@ def test_forward_loss_and_all_gradients_match_jax(model):
     assert set(got) == {k for k in flat_want if not k.endswith("::pe")}
     floor = 1e-3 * max(np.abs(v).max() for v in flat_want.values())
     for k, g in got.items():
-        assert _rel(g.numpy(), flat_want[k], floor) < GRAD_TOL, k
+        if not k.startswith("frontend::"):
+            assert _rel(g.numpy(), flat_want[k], floor) < GRAD_TOL, k
+    frontend_against_f64(cfg, params, None, batch, _jax_batch_loss(cfg),
+                         {k: v.numpy() for k, v in got.items()}, flat_want,
+                         floor)
     # the JAX package's stop_gradient: the tables get exactly zero
     for k in ("encoder::pe", "decoder::pe"):
         assert not np.any(flat_want[k])
@@ -512,11 +572,13 @@ def test_train_entry_point_needs_a_card_or_device_cpu(corpus, tmp_path,
         port_train.main(_train_argv(corpus, str(tmp_path), ["--epochs", "1"]))
     # --noise-dir is ported: a missing directory raises IOError, as the JAX
     # package's NoiseInjector does
+    # --seq-parallel needs --parallel --mesh-model (root train.py's
+    # SystemExit); pipeline parallelism is the item still to port
     for flag, exc, match in (
-            (["--seq-parallel"], NotImplementedError, "ROADMAP"),
+            (["--seq-parallel"], SystemExit, "requires --parallel"),
             (["--noise-dir", "x"], IOError, "Directory doesn't exist: x"),
-            (["--checkpoint-format", "orbax"], NotImplementedError,
-             "ROADMAP")):
+            (["--parallel", "--mesh-pipe", "2"], NotImplementedError,
+             "ROADMAP .*pipeline parallelism")):
         with pytest.raises(exc, match=match):
             port_train.main(_train_argv(corpus, str(tmp_path),
                                         ["--device", "cpu", *flag]))
@@ -530,3 +592,16 @@ def test_train_entry_point_needs_a_card_or_device_cpu(corpus, tmp_path,
                                     *flags]))
         assert res["epochs_run"] == 1 and res["opt_step"] == 2
         assert np.isfinite(res["metrics"]["train_loss"])
+    # --checkpoint-format orbax: the port's sharded format, one process
+    # here (tests/test_torch_dcp.py runs the layouts)
+    res = port_train.main(_train_argv(
+        corpus, str(tmp_path), ["--device", "cpu", "--epochs", "1",
+                                "--name", "dcp", "--checkpoint-format",
+                                "orbax"]))
+    base = str(tmp_path / "models" / "dcp" / "epoch_1")
+    assert os.path.isdir(base + ".dcp") and not os.path.exists(base + ".npz")
+    _, epoch, params, opt, _, _, _, _ = TC.load_checkpoint(base)
+    assert epoch == 1 and int(opt["step"]) == res["opt_step"]
+    want = TC.flatten_params(res["params"])
+    for k, v in TC.flatten_params(params).items():
+        assert torch.equal(v, want[k]), k
