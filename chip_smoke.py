@@ -17,10 +17,13 @@ Phases (any failure exits non-zero without the final result line):
      decoder cross-attention, rates 0 and 0.1) on the step's layout
      (transposed views of (B, T, H, D) tensors; out must come back in
      (B, Tq, H, D) memory, bit-equal to contiguous inputs), the dropout
-     bits (bit-exact), the block-2 pool backward (exact, channels-last as
-     in the step and NCHW), the fused vgg block-2
-     forward and backward at (12, 80, 400, 64) and at a second even shape,
-     and the two streaming probes at (38400, 1024); time the kernel, the
+     bits (bit-exact at the encoder shapes of the 800- and 1600-frame
+     buckets and three seeds; the kernel's own device time beside its
+     bound from bytes and from its SASS's integer instructions), the
+     block-2 pool backward (exact, channels-last as in the step and NCHW),
+     the fused vgg block-2 forward and backward at (12, 80, 400, 64) and at
+     a second even shape, and the two streaming probes at (38400, 1024)
+     (the copy and torch.add(x, 1) in rounds of turns); time the kernel, the
      plain version and one PyTorch library yardstick the port never calls
      (the STFT also by its device time under the profiler; the vgg block 1
      also beside cuDNN in f32 with TF32 off; the block-2 forward also
@@ -300,17 +303,13 @@ def device_ms(torch, fn, iters=20, name=None):
     names hold `name`, where given), mean over `iters` calls under
     torch.profiler (no host time), or None where the profiler saw no
     device time."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from end2end_asr_tpu_torch.tools import probe_lib as PL
     fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with PL.profiled(torch, cpu=True) as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and (name is None or name in e.name)]
+    us = [e.time_range.elapsed_us() for e in PL.device_events(torch, prof)
+          if name is None or name in e.name]
     return sum(us) / 1e3 / iters if us else None
 
 
@@ -757,21 +756,42 @@ def check_attention(torch, dev):
             f"{bwd_ms:.4f} ms, device {bwd_dev} (plain {pb_ms:.4f}, SDPA "
             f"backward ~{lb_ms:.4f})")
 
-    # kernel 9: bit-exact with the plain Philox, and deterministic
-    seed = 0xDEADBEEF_00C0FFEE
-    bits = AF.dropout_bits(seed, B, 8, 200, 200, device=dev)
-    want = AF.dropout_bits_plain(seed, B, 8, 200, 200, device=dev)
-    same = torch.equal(bits, want) and torch.equal(
-        bits, AF.dropout_bits(seed, B, 8, 200, 200, device=dev))
-    keep = (bits < AF.dropout_thresh16(0.1) * 65536).double().mean().item()
-    log(f"dropout_bits (12, 8*200, 200): bit-exact {same}; keep fraction "
-        f"{keep:.6f} (expected {AF.dropout_thresh16(0.1) / 65536:.6f})")
-    if not same:
-        fail("dropout_bits differs from the plain Philox stream")
-    bits_ms = time_ms(torch, lambda: AF.dropout_bits(seed, B, 8, 200, 200,
-                                                     device=dev), iters=20)
-    bits_plain = time_ms(torch, lambda: AF.dropout_bits_plain(
-        seed, B, 8, 200, 200, device=dev), iters=3)
+    # kernel 9 at the encoder shapes of the 800- and 1600-frame buckets:
+    # bit-exact with the plain Philox at three seeds, and deterministic; the
+    # wrapper's events, the kernel's own device time, and its bound (bytes
+    # written; integer instructions of the built kernel from its SASS)
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_dropout_bits as PD
+    from end2end_asr_tpu_torch.tools import probe_lib as PL
+    ops = PD.int_ops(PD.sass_opcodes(cuda_lib.library_path("attention"),
+                                     "dropout_bits_kernelILb1E"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = PD.max_sm_clock_hz()
+    bits_t = {}
+    for label, (Bb, Hb, Tq, Tk) in PD.SHAPES.items():
+        for seed in PD.SEEDS:
+            bits = AF.dropout_bits(seed, Bb, Hb, Tq, Tk, device=dev)
+            want = AF.dropout_bits_plain(seed, Bb, Hb, Tq, Tk, device=dev)
+            if not (torch.equal(bits, want) and torch.equal(
+                    bits, AF.dropout_bits(seed, Bb, Hb, Tq, Tk, device=dev))):
+                fail(f"dropout_bits {label} seed {seed:#x} differs from the "
+                     "plain Philox stream")
+        keep = (bits < AF.dropout_thresh16(0.1) * 65536).double().mean()
+        wrap = lambda: AF.dropout_bits(seed, Bb, Hb, Tq, Tk, device=dev)
+        by_kernel = PL.kernel_ms(torch, wrap)
+        b = PD.bound(Bb, Hb, Tq, Tk, ops, sms, clock)
+        bits_t[label] = dict(
+            ms=time_ms(torch, wrap), bound=b,
+            device_ms=sum(v for n, v in by_kernel.items()
+                          if "dropout_bits_kernel" in n),
+            widen_device_ms=sum(v for n, v in by_kernel.items()
+                                if "dropout_bits_kernel" not in n),
+            plain_ms=time_ms(torch, lambda: AF.dropout_bits_plain(
+                seed, Bb, Hb, Tq, Tk, device=dev), iters=3))
+        log(f"dropout_bits {label} ({Bb}, {Hb}*{Tq}, {Tk}): bit-exact at "
+            f"seeds {[hex(x) for x in PD.SEEDS]}; keep fraction "
+            f"{keep.item():.6f} (expected "
+            f"{AF.dropout_thresh16(0.1) / 65536:.6f}); {bits_t[label]}")
     t = times["enc_self"]
     fwd_err = max(v[0] for v in out_entries.values())
     bwd_err = max(v[1] for v in out_entries.values())
@@ -806,11 +826,24 @@ def check_attention(torch, dev):
               device_ms_dec_self=dself["dev"][1], ms_dec_self=dself["bwd"][0],
               library_ms_dec_self=dself["bwd"][4],
               bound_ms_dec_self=1e3 * max(dself["bwd"][2], dself["bwd"][3])),
-        # the bound counts the bytes written; Philox is integer work with
-        # no peak rate in the table, so operations are not counted
+        # the bound: bytes written over 3.35 TB/s, or the kernel's integer
+        # instructions (its SASS) over 132 SMs x 64 INT32 lanes at the
+        # card's highest SM clock, whichever is larger
         entry("dropout_bits", "attention.cu",
-              "end2end_asr_tpu/ops/attention_fused.py:273", 0.0, bits_ms,
-              bits_plain, 0.0, 4 * B * 8 * 200 * 200 / HBM_BPS, None)]
+              "end2end_asr_tpu/ops/attention_fused.py:273", 0.0,
+              bits_t["enc_800"]["ms"], bits_t["enc_800"]["plain_ms"],
+              bits_t["enc_800"]["bound"]["ops_ms"] / 1e3,
+              bits_t["enc_800"]["bound"]["bytes_ms"] / 1e3, None,
+              shape="(12, 8*200, 200) uint32, widened to int64",
+              device_ms=bits_t["enc_800"]["device_ms"],
+              widen_device_ms=bits_t["enc_800"]["widen_device_ms"],
+              int_ops_per_group=ops, clocks_max_sm_hz=clock,
+              ms_1600=bits_t["enc_1600"]["ms"],
+              device_ms_1600=bits_t["enc_1600"]["device_ms"],
+              widen_device_ms_1600=bits_t["enc_1600"]["widen_device_ms"],
+              plain_ms_1600=bits_t["enc_1600"]["plain_ms"],
+              bound_ms_1600=bits_t["enc_1600"]["bound"]["bound_ms"],
+              bound_by_1600=bits_t["enc_1600"]["bound"]["bound_by"])]
 
 
 def check_attention_f32(torch, dev):
@@ -1190,9 +1223,12 @@ def check_stream(torch, dev):
         f"max_abs_err {aerr:.3g} (tol {STREAM_ADAM_TOL})")
     if cerr != 0.0 or not aerr <= STREAM_ADAM_TOL:
         fail("a streaming kernel disagrees with its plain version")
-    copy_ms = time_ms(torch, lambda: PS.stream_copy(p))
+    # the copy and torch.add(x, 1) in 3 rounds of turns (add, copy, copy,
+    # add), each reading device ms (the profiler) and events ms
+    pairs = PS.copy_arms(dev, rounds=3)
+    copy_r, add_r = pairs["stream_copy"], pairs["torch_add"]
+    copy_ms, copy_lib = copy_r["events_ms_median"], add_r["events_ms_median"]
     copy_plain = time_ms(torch, lambda: PS.copy_plain(p))
-    copy_lib = time_ms(torch, lambda: torch.add(p, 1))
     adam_ms = time_ms(torch, lambda: PS.stream_adam(pk, mk, vk, g, 3.0))
     adam_plain = time_ms(torch, lambda: PS.adam_plain(p, m, v, g, 3.0))
     # one PyTorch call that computes the same update, if it agrees within
@@ -1214,14 +1250,23 @@ def check_stream(torch, dev):
             note = f"none: torch._fused_adam_ is {lerr:.3g} off"
     n = 4 * PS.N_ROWS * PS.N_COLS
     log(f"stream_copy ms {copy_ms:.4f} plain {copy_plain:.4f} torch.add "
-        f"{copy_lib:.4f}, bound {1e3 * 2 * n / HBM_BPS:.4f} "
+        f"{copy_lib:.4f}, device {copy_r['device_ms']} against torch.add's "
+        f"{add_r['device_ms']} (medians {copy_r['device_ms_median']:.4f} / "
+        f"{add_r['device_ms_median']:.4f}), bound "
+        f"{1e3 * 2 * n / HBM_BPS:.4f} "
         f"({2 * n / 1e6:.1f} MB); stream_adam ms {adam_ms:.4f} plain "
         f"{adam_plain:.4f} library {adam_lib} ({note}), bound "
         f"{1e3 * 7 * n / HBM_BPS:.4f} ({7 * n / 1e6:.1f} MB)")
     rep = "tools/probe_stream.py:"
     return [entry("stream_copy", "stream.cu", rep + "59", cerr, copy_ms,
                   copy_plain, 0.0, 2 * n / HBM_BPS, copy_lib,
-                  gbps=2 * n / copy_ms / 1e6),
+                  gbps=2 * n / copy_ms / 1e6,
+                  device_ms=copy_r["device_ms_median"],
+                  library_device_ms=add_r["device_ms_median"],
+                  device_ms_rounds=copy_r["device_ms"],
+                  library_device_ms_rounds=add_r["device_ms"],
+                  library_note="torch.add(x, 1); medians of 3 rounds of "
+                               "turns"),
             entry("stream_adam", "stream.cu", rep + "89", aerr, adam_ms,
                   adam_plain, 0.0, 7 * n / HBM_BPS, adam_lib,
                   library_note=note, gbps=7 * n / adam_ms / 1e6)]
@@ -3278,17 +3323,14 @@ def profile(torch, fn, top=6, sums=(ATTN_FWD_KERNEL_NAME, ATTN_BWD_KERNEL_NAME,
     share; the rest is idle, waiting on the host), launches, the kernels
     with the most device time, and the device ms and launches of the
     kernels whose names hold each of `sums`."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from end2end_asr_tpu_torch.tools import probe_lib as PL
     fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with PL.profiled(torch, cpu=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = PL.device_events(torch, prof)
     by_name = {}
     for e in kernels:
         by_name[e.name] = (by_name.get(e.name, 0.0)

@@ -1136,21 +1136,58 @@ attn_bwd_kernel(const BwdParams<T> p) {
 // ---------------------------------------------------------------------------
 // kernel 9: the bits themselves, (B, H*Tq, Tk) uint32
 // ---------------------------------------------------------------------------
+//
+// What bounds it on the H100: the bytes it writes (4 a bit) and its integer
+// work (one Philox call, ten rounds of two 32x32 -> 64-bit products and two
+// three-way XORs, for each 16 bytes: 76 vector integer instructions a group
+// as built) take about the same time at the card's peaks, bytes slightly
+// more (PERF.md, row 9). So a thread does nothing else: the grid is (blocks
+// over the Tq * ceil(Tk / 4) word groups of one (b, h), H, B), one group a
+// thread, whose (q, c) come from its flat index by a multiply-high with a
+// magic number (no division), with 32-bit offsets inside the (b, h) slab; a
+// group is one streaming 16-byte store where Tk % 4 == 0 (every row then
+// starts on a 16-byte boundary; write-back stores measured the same), and
+// up to four scalar ones otherwise.
 
-__global__ void dropout_bits_kernel(uint32_t* __restrict__ out, int B, int H,
-                                    int Tq, int Tk, uint32_t k0,
-                                    uint32_t k1) {
-  const int kw = (Tk + 3) / 4;
-  const size_t n = (size_t)B * H * Tq * kw;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int c = e % kw;
-    const size_t row = e / kw;  // (b, h, q)
-    const int q = row % Tq, h = (row / Tq) % H, b = row / ((size_t)Tq * H);
-    const U4 r = philox(c, q, h, b, k0, k1);
+constexpr int BITS_THREADS = 256;
+
+// n / d for 0 <= n < 2^31 by one multiply-high and a shift (the method of
+// CUTLASS's FastDivmod; mirrored in ops/attention_fused.py, fast_div_magic)
+struct FastDiv {
+  uint32_t d, mul, shr;
+};
+
+FastDiv make_fast_div(uint32_t d) {
+  if (d == 1) return FastDiv{1, 0, 0};
+  uint32_t l = 0;  // ceil(log2 d)
+  while ((1ull << l) < d) ++l;
+  const uint32_t p = 31 + l;
+  return FastDiv{d, (uint32_t)(((1ull << p) + d - 1) / d), p - 32};
+}
+
+__device__ __forceinline__ uint32_t fast_div(uint32_t n, const FastDiv& f) {
+  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(BITS_THREADS)
+dropout_bits_kernel(uint32_t* __restrict__ out, int Tq, int Tk, FastDiv kw,
+                    uint32_t k0, uint32_t k1) {
+  const uint32_t f = blockIdx.x * BITS_THREADS + threadIdx.x;
+  const uint32_t q = fast_div(f, kw);
+  if (q >= (uint32_t)Tq) return;
+  const uint32_t c = f - q * kw.d, h = blockIdx.y, b = blockIdx.z;
+  const U4 r = philox(c, q, h, b, k0, k1);
+  uint32_t* o = out + ((size_t)b * gridDim.y + h) * ((size_t)Tq * Tk) +
+                (q * (uint32_t)Tk + 4 * c);
+  if (VEC) {
+    __stcs(reinterpret_cast<uint4*>(o),
+           make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]));
+  } else {
+    const int n = Tk - 4 * (int)c;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (4 * c + j < Tk) out[row * Tk + 4 * c + j] = r.w[j];
+      if (j < n) __stcs(o + j, r.w[j]);
   }
 }
 
@@ -1314,15 +1351,28 @@ extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v,
                          stream);
 }
 
-// out: (B, H*Tq, Tk) uint32
+// out: (B, H*Tq, Tk) uint32; B, H < 65536, Tq * ceil(Tk / 4) < 2^31 - 256
+// and Tq * Tk < 2^32
 extern "C" int dropout_bits_u32(void* out, int B, int H, int Tq, int Tk,
                                 unsigned long long seed, void* stream) {
   cudaGetLastError();
-  const size_t n = (size_t)B * H * Tq * ((Tk + 3) / 4);
-  if (n == 0) return cudaSuccess;
-  const int blocks = (int)((n + 255) / 256 < 65535 ? (n + 255) / 256 : 65535);
-  dropout_bits_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)out, B, H, Tq, Tk, (uint32_t)(seed & 0xffffffffull),
-      (uint32_t)(seed >> 32));
+  if (B < 0 || H < 0 || Tq < 0 || Tk < 0) return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || Tq == 0 || Tk == 0) return cudaSuccess;
+  const long long kw = (Tk + 3) / 4, groups = (long long)Tq * kw;
+  if (B > 65535 || H > 65535 || groups > (1ll << 31) - BITS_THREADS ||
+      (long long)Tq * Tk > 0xffffffffll)
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((groups + BITS_THREADS - 1) / BITS_THREADS), H,
+                  B);
+  const FastDiv fd = make_fast_div((uint32_t)kw);
+  const uint32_t k0 = (uint32_t)(seed & 0xffffffffull),
+                 k1 = (uint32_t)(seed >> 32);
+  if (Tk % 4 == 0 && ((uintptr_t)out & 15) == 0)
+    dropout_bits_kernel<true><<<grid, BITS_THREADS, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, Tq, Tk, fd, k0, k1);
+  else
+    dropout_bits_kernel<false><<<grid, BITS_THREADS, 0,
+                                 (cudaStream_t)stream>>>((uint32_t*)out, Tq,
+                                                         Tk, fd, k0, k1);
   return cudaGetLastError();
 }

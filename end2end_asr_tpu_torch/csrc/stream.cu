@@ -6,8 +6,21 @@
 //
 // Replace end2end_asr_tpu's tools/probe_stream.py::_copy_kernel and
 // ::_adam_kernel. Both are bound by bytes: every element is read once and
-// written once with 16-byte accesses, a grid-stride loop over float4s with
-// a scalar tail. The Adam step is _adam_math of the probe:
+// written once.
+//
+// stream_copy: a block takes one contiguous tile of COPY_THREADS *
+// COPY_VEC float4s (each warp reads and writes 512 contiguous bytes an
+// access; a thread loads its COPY_VEC float4s before it stores any), and
+// there are as many blocks as tiles (19200 of 512 threads at (38400,
+// 1024)), so the accesses in flight lie in a window that moves through the
+// array in order; the last n % 4 floats are a scalar tail. On the H100
+// that beat, in one call, a grid-stride loop over 2112 blocks (the first
+// design), one wave of blocks with four float4s in flight a thread and
+// streaming hints, and a ring of bulk copies through shared memory (PERF.md
+// row 10): the depth and the hints did not help, the order did.
+//
+// stream_adam: a grid-stride loop over float4s with a scalar tail; the Adam
+// step is _adam_math of the probe:
 //   m = b1*m + (1-b1)*g;  v = b2*v + (1-b2)*g*g
 //   p = p - lr * (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps)
 // with the two bias corrections 1-b1^t and 1-b2^t computed on the host
@@ -20,20 +33,34 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int COPY_THREADS = 512;
+constexpr int COPY_VEC = 1;  // float4 loads in flight a thread
+
+__device__ __forceinline__ float4 copy_load(const float4* p) { return *p; }
+__device__ __forceinline__ void copy_store(float4* p, float4 v) { *p = v; }
+
+__global__ void __launch_bounds__(COPY_THREADS)
 stream_copy_kernel(const float* __restrict__ x, float* __restrict__ out,
                    long n) {
   const long n4 = n / 4;
-  const long stride = (long)gridDim.x * blockDim.x;
-  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long base = (long)blockIdx.x * (COPY_THREADS * COPY_VEC) +
+                    threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* o4 = reinterpret_cast<float4*>(out);
-  for (long i = tid; i < n4; i += stride) {
-    float4 v = x4[i];
-    v.x += 1.f; v.y += 1.f; v.z += 1.f; v.w += 1.f;
-    o4[i] = v;
+  float4 v[COPY_VEC];
+#pragma unroll
+  for (int u = 0; u < COPY_VEC; ++u)
+    if (base + u * COPY_THREADS < n4)
+      v[u] = copy_load(x4 + base + u * COPY_THREADS);
+#pragma unroll
+  for (int u = 0; u < COPY_VEC; ++u) {
+    if (base + u * COPY_THREADS < n4) {
+      v[u].x += 1.f; v[u].y += 1.f; v[u].z += 1.f; v[u].w += 1.f;
+      copy_store(o4 + base + u * COPY_THREADS, v[u]);
+    }
   }
-  for (long i = 4 * n4 + tid; i < n; i += stride) out[i] = x[i] + 1.f;
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4)
+    out[4 * n4 + threadIdx.x] = x[4 * n4 + threadIdx.x] + 1.f;
 }
 
 struct AdamArgs {
@@ -94,8 +121,11 @@ extern "C" const char* error_string(int err) {
 extern "C" int stream_copy(const void* x, void* out, long n, void* stream) {
   cudaGetLastError();  // report only this launch's error
   if (n == 0) return cudaSuccess;
-  stream_copy_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, n);
+  constexpr long tile = COPY_THREADS * COPY_VEC;
+  const long tiles = (n / 4 + tile - 1) / tile;
+  stream_copy_kernel<<<(unsigned)(tiles < 1 ? 1 : tiles), COPY_THREADS, 0,
+                       (cudaStream_t)stream>>>((const float*)x, (float*)out,
+                                               n);
   return cudaGetLastError();
 }
 

@@ -49,7 +49,7 @@ bf16 kernels are bound by launch cost at this size, the f32 ones by FMA.
 `flash_mha_train` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernels, and raises if it cannot. `dropout_bits`
 returns the uint32 bits held in int64 (PyTorch has no comparisons on
-uint32 tensors).
+uint32 tensors): the kernel writes uint32, widened in one pass.
 """
 
 from __future__ import annotations
@@ -169,12 +169,64 @@ def dropout_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
         return dropout_bits_plain(seed, B, H, Tq, Tk, device)
     if device.type != "cuda":
         raise ValueError(f"dropout_bits: unsupported device {device}")
-    out = torch.empty((B, H * Tq, Tk), dtype=torch.int32, device=device)
+    out = torch.empty((B, H * Tq, Tk), dtype=torch.uint32, device=device)
     if out.numel():
         with torch.cuda.device(device):
             BITS.launch(out.data_ptr(), B, H, Tq, Tk, seed & (2 ** 64 - 1),
                         torch.cuda.current_stream().cuda_stream)
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out.to(torch.int64)       # zero-extended: one pass
+
+
+# the kernel's launch (csrc/attention.cu, dropout_bits_u32): one thread a
+# group of four words, grid (groups of one (b, h) / BITS_THREADS, H, B)
+BITS_THREADS = 256
+
+
+def fast_div_magic(d: int) -> Tuple[int, int]:
+    """(mul, shr) with n // d == (n · mul >> 32) >> shr for 0 <= n < 2^31
+    and d >= 2 (csrc/attention.cu, make_fast_div; d = 1 divides by
+    nothing)."""
+    l = (d - 1).bit_length()                    # ceil(log2 d)
+    p = 31 + l
+    return ((1 << p) + d - 1) // d, p - 32
+
+
+def dropout_bits_by_threads(seed: int, B: int, H: int, Tq: int, Tk: int,
+                            device=None):
+    """The bits as dropout_bits_kernel's threads write them (tests only):
+    thread t of block (x, h, b) takes flat group f = 256x + t of the (b, h)
+    slab, q = f / ceil(Tk/4) by `fast_div_magic`, c = f - q·ceil(Tk/4),
+    stops where q >= Tq, draws Philox (c, q, h, b) and writes its words at
+    (b·H + h)·Tq·Tk + q·Tk + 4c + j: all four where Tk % 4 == 0 (one
+    16-byte store), else those with 4c + j < Tk. Returns ((B, H·Tq, Tk)
+    int64 bits, (B, H·Tq, Tk) int64 count of writes per element)."""
+    s = seed & 0xFFFFFFFFFFFFFFFF
+    kw = -(-Tk // 4)
+    nx = -(-(Tq * kw) // BITS_THREADS)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    f = (BITS_THREADS * ar(nx).view(nx, 1) + ar(BITS_THREADS)).reshape(-1)
+    if kw == 1:
+        q = f
+    else:
+        mul, shr = fast_div_magic(kw)
+        q = ((f * mul) >> 32) >> shr
+    f, q = f[q < Tq], q[q < Tq]
+    c = f - q * kw
+    shape = (B, H, f.numel())
+    c0, c1 = c.expand(shape), q.expand(shape)
+    c2 = ar(H).view(1, H, 1).expand(shape)
+    c3 = ar(B).view(B, 1, 1).expand(shape)
+    words = philox4x32_10(c0, c1, c2, c3, s & _MASK32, s >> 32)
+    base = (c3 * H + c2) * (Tq * Tk) + c1 * Tk + 4 * c0
+    bits = torch.zeros(B * H * Tq * Tk, dtype=torch.int64, device=device)
+    count = torch.zeros_like(bits)
+    for j, w in enumerate(words):
+        # the 16-byte store writes all four; the scalar ones stop at Tk
+        sel = (4 * c0 + j < Tk) | (Tk % 4 == 0)
+        idx = (base + j)[sel]
+        bits[idx] = w[sel]
+        count.index_add_(0, idx, torch.ones_like(idx))
+    return bits.view(B, H * Tq, Tk), count.view(B, H * Tq, Tk)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ nothing at import time that needs either.
 from __future__ import annotations
 
 import ast
+import contextlib
 import ctypes
 import operator
 import os
@@ -103,24 +104,73 @@ def constexprs(path: str) -> Dict[str, int]:
     return out
 
 
+# A profiling window on this card can lose the first kernel launched in
+# it: in a process that had loaded more of the port's kernel libraries,
+# every window lost its first launch (PERF.md, §6), so a one-call window
+# around an entry caught only its later kernels, or none. The window opens
+# with two kernels of its own, torch.cuda._sleep's, which device_events
+# leaves out; where the profiler kept neither, it lost the whole window
+# (one in hundreds), and a caller looks again.
+LEAD_KERNEL = "spin_kernel"
+
+
+@contextlib.contextmanager
+def profiled(torch, cpu: bool = False):
+    """torch.profiler over CUDA activity (and the host's, with `cpu`)
+    whose window opens with two lead kernels and closes after the card
+    has finished the block's work; yields the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def window_kept(torch, prof) -> bool:
+    """Whether the profiler kept a `profiled` window (a lead kernel's
+    event is in it)."""
+    return any(e.device_type == torch.autograd.DeviceType.CUDA
+               and LEAD_KERNEL in e.name for e in prof.events())
+
+
+def device_events(torch, prof) -> list:
+    """The kernel events of a `profiled` window in launch order, its lead
+    kernels left out."""
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and LEAD_KERNEL not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
+def kernel_names(torch, fn, key: str, tries: int = 5) -> List[str]:
+    """The device kernels of one fn() call whose names hold `key`, in
+    launch order (fn runs again where the profiler lost the window, up to
+    `tries` times)."""
+    for _ in range(tries):
+        with profiled(torch) as prof:
+            fn()
+        if window_kept(torch, prof):
+            break
+    return [e.name for e in device_events(torch, prof) if key in e.name]
+
+
 def kernel_ms(torch, fn, iters=20, tries=3) -> Dict[str, float]:
     """Mean device ms of one fn() call, by kernel name. Each kernel of a
     call runs the same number of times in every call, so a profile in
-    which a kernel's count is not a multiple of `iters` (the profiler
-    drops events now and then) is taken again."""
-    from torch.profiler import ProfilerActivity, profile
+    which a kernel's count is not a multiple of `iters` is taken again."""
     fn()
-    torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled(torch) as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         by, seen = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
-                seen[e.name] = seen.get(e.name, 0) + 1
+        for e in device_events(torch, prof):
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+            seen[e.name] = seen.get(e.name, 0) + 1
         if by and all(c % iters == 0 for c in seen.values()):
             return {n: us / 1e3 / iters for n, us in by.items()}
     raise RuntimeError("the profiler missed kernel events in "

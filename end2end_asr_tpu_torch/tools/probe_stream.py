@@ -15,15 +15,32 @@ eager chain's (max abs error < 1e-6).
 `stream_copy` / `stream_adam` launch the kernel for CUDA tensors and raise
 if they cannot; for CPU tensors they take the plain version.
 
+``--copy-arms`` (the card only) times the copy's designs against
+``torch.add(x, 1)`` instead: the package's ``stream_copy``, that of each
+``--source`` file (another design, e.g. an earlier commit's file unpacked
+with ``git show``) and that of each copy of ``csrc/stream.cu`` with one
+knob turned that ``--variants`` names (``COPY_VARIANTS``), each first
+checked exact (out == x + 1 bit for bit), in ``COPY_ROUNDS`` rounds of turns
+(torch.add, the designs, the designs again in reverse, torch.add again);
+each reading the device ms of the call's kernels (torch.profiler) and the
+ms between CUDA events around back-to-back calls. One JSON line: each
+arm's readings, their medians and spreads, and the card's line.
+
 Run on the card:  python -m end2end_asr_tpu_torch.tools.probe_stream
+                  [--copy-arms [--source path/stream.cu]
+                   [--variants vec2,cs_hints,...]]
 On the CPU (small arrays, plain versions only): add --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import json
+import os
+import statistics
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +48,7 @@ import torch
 from end2end_asr_tpu_torch.ops import cuda_lib
 
 N_ROWS, N_COLS = 38400, 1024       # 39.3M f32 = 157 MB per array
+COPY_ROUNDS = 5
 LR, B1, B2, EPS = 1e-3, 0.9, 0.98, 1e-9
 
 _COPY = cuda_lib.CudaKernel("stream", "stream_copy",
@@ -181,6 +199,77 @@ def run(device: torch.device, rows: int = N_ROWS, cols: int = N_COLS,
     return arms
 
 
+# copies of csrc/stream.cu with one knob of stream_copy turned, each timed
+# by its stream_copy entry (--variants)
+COPY_VARIANTS = {
+    "vec2": [("constexpr int COPY_VEC = 1;", "constexpr int COPY_VEC = 2;")],
+    "vec4": [("constexpr int COPY_VEC = 1;", "constexpr int COPY_VEC = 4;")],
+    "threads128": [("constexpr int COPY_THREADS = 512;",
+                    "constexpr int COPY_THREADS = 128;")],
+    "threads256": [("constexpr int COPY_THREADS = 512;",
+                    "constexpr int COPY_THREADS = 256;")],
+    "cs_hints": [("{ return *p; }", "{ return __ldcs(p); }"),
+                 ("{ *p = v; }", "{ __stcs(p, v); }")],
+    "nc_loads": [("{ return *p; }", "{ return __ldg(p); }")],
+}
+
+
+def variant_sources(names) -> Dict[str, str]:
+    """{name: edited copy of csrc/stream.cu} for COPY_VARIANTS' `names`."""
+    from end2end_asr_tpu_torch.tools import probe_lib as P
+    with open(os.path.join(cuda_lib.CSRC_DIR, "stream.cu")) as f:
+        src = f.read()
+    return P.edited_copies(src, COPY_VARIANTS, names, "probe_stream")
+
+
+def copy_arms(device: torch.device, rows: int = N_ROWS, rounds: int = 3,
+              sources: Tuple[str, ...] = (),
+              variants: Tuple[str, ...] = ()) -> Dict[str, dict]:
+    """{arm: {"device_ms": [...], "events_ms": [...], medians, spreads}}:
+    torch.add(x, 1), the wrapper's stream_copy, and the stream_copy of
+    each file of `sources` and of each copy COPY_VARIANTS' `variants`
+    name, timed in `rounds` rounds of turns (add, arms, arms reversed,
+    add) on one (rows, N_COLS) f32 array; each arm is first checked exact
+    against x + 1."""
+    from end2end_asr_tpu_torch.tools import probe_lib as P
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (rows, N_COLS)).astype(np.float32)).to(device)
+    want = x + 1.0
+    arms = {"stream_copy": lambda: stream_copy(x)}
+    paths = list(sources) + [P.write_source(f"stream_{name}", src)
+                             for name, src in variant_sources(variants)
+                             .items()]
+    libs = P.build({p: p for p in paths}, "probe_stream") if paths else {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for p in paths:
+        fn = getattr(ctypes.CDLL(libs[p][0]), _COPY.symbol)
+        fn.argtypes, fn.restype = _COPY.argtypes, ctypes.c_int
+        out = torch.empty_like(x)
+
+        def call(fn=fn, out=out, p=p):
+            if fn(x.data_ptr(), out.data_ptr(), x.numel(), stream):
+                raise RuntimeError(f"probe_stream: {p}'s stream_copy failed")
+            return out
+        arms[p] = call
+    for name, fn in arms.items():
+        got = fn()
+        torch.cuda.synchronize(device)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"probe_stream: {name} is not x + 1")
+    calls = {"torch_add": lambda: torch.add(x, 1), **arms}
+    order = list(calls)
+    res = {n: {"device_ms": [], "events_ms": []} for n in order}
+    for _ in range(rounds):
+        for n in order + order[::-1]:
+            res[n]["device_ms"].append(P.device_ms(torch, calls[n]))
+            res[n]["events_ms"].append(P.events_ms(torch, calls[n]))
+    for r in res.values():
+        for key in ("device_ms", "events_ms"):
+            r[key + "_median"] = statistics.median(r[key])
+            r[key + "_spread"] = max(r[key]) - min(r[key])
+    return res
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -188,12 +277,29 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help=f"rows of {N_COLS} f32 (default {N_ROWS}; 64 on "
                          "the CPU)")
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--copy-arms", action="store_true",
+                    help="time the copy's designs against torch.add in "
+                         "rounds of turns (the card only)")
+    ap.add_argument("--source", action="append", default=[],
+                    help="another stream.cu for --copy-arms (repeatable)")
+    ap.add_argument("--variants", default="",
+                    help="comma-separated COPY_VARIANTS for --copy-arms")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the probe measures the card "
                            "(--device cpu runs the plain arms on small "
                            "arrays)")
     rows = args.rows or (N_ROWS if args.device == "cuda" else 64)
+    if args.copy_arms:
+        if args.device != "cuda":
+            raise RuntimeError("--copy-arms times kernels: the card only")
+        from end2end_asr_tpu_torch.tools import probe_lib as P
+        res = copy_arms(torch.device("cuda", 0), rows, COPY_ROUNDS,
+                        tuple(args.source),
+                        tuple(v for v in args.variants.split(",") if v))
+        print(json.dumps({"shape": [rows, N_COLS], "rounds": COPY_ROUNDS,
+                          "arms": res, "gpu": P.gpu_line()}))
+        return
     run(torch.device(args.device), rows=rows, iters=args.iters)
 
 

@@ -13,6 +13,7 @@ chip_smoke.py).
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -473,3 +474,90 @@ def test_forward_probe_cuts_apply_to_the_source():
     assert src not in copies.values()
     assert len(set(copies.values())) == len(PF.CUTS)
     assert PF.cut(src, "philox+bias") == PF.cut(copies["philox"], "bias")
+
+
+# ---------------------------------------------------------------------------
+# kernel 9, dropout_bits: one thread a group of four words, its (q, c) from
+# the flat index of its (b, h) slab by a multiply-high (no division)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Tk", [3, 4, 200, 201])
+@pytest.mark.parametrize("seed", [0, 2 ** 64 - 1])
+def test_bits_threads_write_every_element_once_by_the_spec(Tk, seed):
+    """The kernel's grid (groups of a (b, h) / 256, H, B) and its threads'
+    (q, c), through the magic division as the source computes it: every
+    element of (B, H·Tq, Tk) written exactly once (the 16-byte store where
+    Tk % 4 == 0, the scalar ones short of Tk otherwise), with the word the
+    spec's counter (c, q, h, b) draws for it."""
+    bits, writes = AF.dropout_bits_by_threads(seed, 2, 3, 37, Tk)
+    assert bool((writes == 1).all())
+    assert torch.equal(bits, AF.dropout_bits_plain(seed, 2, 3, 37, Tk))
+
+
+def test_bits_magic_division_and_launch_match_the_source():
+    """n // d by (n · mul >> 32) >> shr for every d up to 1024 and n at the
+    ends of [0, 2^31) and around every multiple of d below 4096 (the
+    method holds for all n < 2^31), d = 1 left to the kernel's own branch;
+    the wrapper's block size is the source's."""
+    import os
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_lib
+    k = probe_lib.constexprs(os.path.join(cuda_lib.CSRC_DIR, "attention.cu"))
+    assert k["BITS_THREADS"] == AF.BITS_THREADS
+    ends = torch.cat([torch.arange(4096), 2 ** 31 - 1 - torch.arange(4096)])
+    for d in range(2, 1025):
+        mul, shr = AF.fast_div_magic(d)
+        assert 0 < mul < 2 ** 32 and shr >= 0
+        assert torch.equal(((ends * mul) >> 32) >> shr, ends // d), d
+
+
+def test_bits_probe_variants_apply_to_the_source():
+    """tools/probe_dropout_bits.py --variants times copies of
+    csrc/attention.cu with one knob of the bits kernel turned: each edit
+    must still find its text once and give a source of its own."""
+    import os
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_dropout_bits as PD
+    from end2end_asr_tpu_torch.tools import probe_lib
+    with open(os.path.join(cuda_lib.CSRC_DIR, PD.SOURCE)) as f:
+        src = f.read()
+    copies = probe_lib.edited_copies(src, PD.VARIANTS, list(PD.VARIANTS),
+                                     "test")
+    assert src not in copies.values()
+    assert len(set(copies.values())) == len(PD.VARIANTS)
+
+
+def test_bits_bound_counts_bytes_and_the_kernels_integer_work(tmp_path,
+                                                              monkeypatch):
+    """chip_smoke.py's bound for kernel 9: the larger of 4 bytes a bit over
+    3.35 TB/s and the kernel's vector integer instructions (its SASS,
+    uniform-datapath, memory and control instructions left out) a group
+    of four words times the groups over 132 SMs x 64 lanes x the clock."""
+    from end2end_asr_tpu_torch.tools import probe_dropout_bits as PD
+    sass = "\n".join([
+        "Function : _ZN1a19dropout_bits_kernelILb0EEEvv",
+        "        /*0000*/                   IMAD R1, R2, R3, RZ ;",
+        "Function : _ZN1a19dropout_bits_kernelILb1EEEvv",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        "        /*0010*/                   IMAD.WIDE.U32 R4, R3, R5, RZ ;",
+        "        /*0020*/         LOP3.LUT R6, R4, R7, R8, 0x96, !PT ;",
+        "        /*0030*/              @!P0 EXIT ;",
+        "        /*0040*/                   UIADD3 UR4, UR4, 0x1, URZ ;",
+        "        /*0050*/                   VIADD R9, R9, 0x9e3779b9 ;",
+        "        /*0060*/         STG.E.EF.128 desc[UR4][R2.64], R4 ;",
+        "        /*0070*/                   NOP;",
+        "Function : _ZN1a5otherEv"])
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!/bin/sh\ncat <<'X'\n{sass}\nX\n")
+    tool.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+    ops = PD.sass_opcodes("lib.so", "dropout_bits_kernelILb1E")
+    assert ops == {"LDC": 1, "IMAD": 1, "LOP3": 1, "EXIT": 1, "UIADD3": 1,
+                   "VIADD": 1, "STG": 1}
+    assert PD.int_ops(ops) == 3
+    b = PD.bound(12, 8, 200, 200, 76, 132, 1.98e9)
+    assert b["groups"] == 960000 and b["bound_by"] == "bytes"
+    assert abs(b["bytes_ms"] - 4 * 12 * 8 * 200 * 200 / 3.35e9) < 1e-12
+    assert abs(b["ops_ms"] - 76 * 960000 / (132 * 64 * 1.98e6)) < 1e-12
+    assert PD.bound(12, 8, 200, 200, 200, 132, 1.98e9)["bound_by"] == \
+        "operations"

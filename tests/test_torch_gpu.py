@@ -396,7 +396,6 @@ def test_attention_backward_is_one_kernel_on_the_projections_layout(dev,
     (B, T, H, D) views): the backward launches exactly one kernel (no
     copies), and its gradients come back in the projections' layout, equal
     to those of contiguous inputs."""
-    from torch.profiler import ProfilerActivity, profile
     B, H, Tq, Tk = 2, 8, 51, 200
     g0 = torch.Generator().manual_seed(4)
     qp, kp, vp, gp = (torch.randn(B, T, H, 64, generator=g0).to(dev, dtype)
@@ -408,14 +407,11 @@ def test_attention_backward_is_one_kernel_on_the_projections_layout(dev,
     want = AF.attn_bwd(*(t.contiguous() for t in (q, k, v)), bias, out,
                        stats, g.contiguous(), 9, 0.1)
     AF.attn_bwd(q, k, v, bias, out, stats, g, 9, 0.1)   # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = AF.attn_bwd(q, k, v, bias, out, stats, g, 9, 0.1)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    runs = []
+    names = _kernel_names(lambda: runs.append(
+        AF.attn_bwd(q, k, v, bias, out, stats, g, 9, 0.1)), "")
     assert len(names) == 1 and "attn_bwd_kernel" in names[0], names
-    for a, b, t in zip(got, want, (q, k, v)):
+    for a, b, t in zip(runs[0], want, (q, k, v)):
         assert a.stride() == t.stride() and torch.equal(a, b)
 
 
@@ -427,7 +423,6 @@ def test_attention_forward_on_the_projections_layout(dev, dtype, Tq, Tk):
     of contiguous inputs bit for bit, two runs too; through the autograd
     Function, as the step calls it, the forward and the backward are one
     kernel each and nothing else (no copy of q, k, v, out or g)."""
-    from torch.profiler import ProfilerActivity, profile
     B, H = 2, 8
     g0 = torch.Generator().manual_seed(Tq + Tk)
     q, k, v, g = (torch.randn(B, T, H, 64, generator=g0).to(dev, dtype)
@@ -443,13 +438,13 @@ def test_attention_forward_on_the_projections_layout(dev, dtype, Tq, Tk):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o = AF.flash_mha_train(*leaves, bias, 9, 0.1)     # warm
     torch.autograd.grad(o, leaves, g)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    runs = []
+
+    def step():
         o = AF.flash_mha_train(*leaves, bias, 9, 0.1)
-        grads = torch.autograd.grad(o, leaves, g)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        runs.append((o, torch.autograd.grad(o, leaves, g)))
+    names = _kernel_names(step, "")
+    o, grads = runs[0]
     assert len(names) == 2, names
     assert "attn_fwd_kernel" in names[0] and "attn_bwd_kernel" in names[1]
     assert torch.equal(o, out)
@@ -506,12 +501,17 @@ def test_attention_fully_masked_row_is_uniform(dev):
                                atol=1e-2)
 
 
-def test_dropout_bits_kernel_is_the_plain_stream(dev):
+@pytest.mark.parametrize("B,H,Tq,Tk", [(2, 3, 37, 201), (2, 3, 37, 200),
+                                       (12, 8, 400, 400)])
+def test_dropout_bits_kernel_is_the_plain_stream(dev, B, H, Tq, Tk):
+    """Tk % 4 != 0 (scalar stores) and == 0 (one 16-byte store a group),
+    the latter also at the 1600-frame bucket's encoder shape; int64 holding
+    the uint32 bits."""
     for seed in (0, 1, 2 ** 64 - 1, 0xDEADBEEF_00C0FFEE):
-        got = AF.dropout_bits(seed, 2, 3, 37, 201, device=dev)
-        want = AF.dropout_bits_plain(seed, 2, 3, 37, 201, device=dev)
-        assert torch.equal(got, want)
-        assert torch.equal(got, AF.dropout_bits(seed, 2, 3, 37, 201,
+        got = AF.dropout_bits(seed, B, H, Tq, Tk, device=dev)
+        want = AF.dropout_bits_plain(seed, B, H, Tq, Tk, device=dev)
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+        assert torch.equal(got, AF.dropout_bits(seed, B, H, Tq, Tk,
                                                 device=dev))
 
 
@@ -825,7 +825,6 @@ def test_vgg_block2_bf16_forward_wgmma_kernel(dev, B, F, T):
     best window values lie more than 2^-6 * max(|best|, 1) apart, out
     with and without idx bit-identical, and one launch of its kernel a
     call."""
-    from torch.profiler import ProfilerActivity, profile
     import torch.nn.functional as Fn
     cdt = torch.bfloat16
     args = _block2_args(dev, cdt, B, F, T, seed=7 * F + T)
@@ -844,17 +843,13 @@ def test_vgg_block2_bf16_forward_wgmma_kernel(dev, B, F, T):
         ).clamp_min(1.0)
     assert clear.float().mean() > 0.9
     assert bool((idx == want_idx)[clear].all())
-    for _ in range(3):  # the profiler drops a call's events now and then
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            V.reset_launches2()
-            noidx = V.vgg_block2(*args, cdt=cdt)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "vgg_block2" in e.name]
-        if names:
-            break
-    assert torch.equal(noidx, got)
+    runs = []
+
+    def call():  # once more where the profiler lost the window
+        V.reset_launches2()
+        runs.append(V.vgg_block2(*args, cdt=cdt))
+    names = _kernel_names(call, "vgg_block2")
+    assert torch.equal(runs[0], got)
     assert V.launches2() == 1
     assert len(names) == 1 and FWD2_BF16_KERNEL in names[0], names
 
@@ -873,7 +868,6 @@ def test_vgg_block2_bwd_bf16_kernels(dev, B, F, T, all_on):
     with every activation positive (b3 + 10: the relu mask out of play):
     within BLOCK2_BWD_BF16_TOL of the plain backward on the same out / idx,
     two runs bit-identical, and one launch of each of its two kernels."""
-    from torch.profiler import ProfilerActivity, profile
     cdt = torch.bfloat16
     x, w3, b3, w4, b4 = _block2_args(dev, cdt, B, F, T, seed=B * F + T)
     if all_on:
@@ -887,17 +881,11 @@ def test_vgg_block2_bwd_bf16_kernels(dev, B, F, T, all_on):
     for name, a, b in zip(("dx", "dw3", "db3", "dw4", "db4"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert _rel_l2(a, b) < BLOCK2_BWD_BF16_TOL, name
-    for _ in range(3):  # the profiler drops a call's events now and then
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt)
-            torch.cuda.synchronize()
-        for a, b in zip(got, again):
-            assert torch.equal(a, b)          # fixed-order sums
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "vgg_block2_bwd" in e.name]
-        if names:
-            break
+    again = []
+    names = _kernel_names(lambda: again.append(
+        V.vgg_block2_bwd(x, w3, b3, w4, out, idx, g, cdt)), "vgg_block2_bwd")
+    for a, b in zip(got, again[0]):
+        assert torch.equal(a, b)          # fixed-order sums
     assert len(names) == len(BWD2_BF16_KERNELS), names
     assert sorted(k for n in names for k in BWD2_BF16_KERNELS if k in n) \
         == sorted(BWD2_BF16_KERNELS), names
@@ -920,18 +908,12 @@ BLOCK2_F32_MASK_TOL = 1e-3
 
 
 def _kernel_names(fn, key):
-    """The device kernels of one fn() call whose names hold `key`."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):  # the profiler drops a call's events now and then
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and key in e.name]
-        if names:
-            return names
-    return names
+    """The device kernels of one fn() call whose names hold `key`, in
+    launch order, from a profiling window that opens with kernels of its
+    own (probe_lib.kernel_names: a window can lose its first launch, and
+    now and then all of it)."""
+    from end2end_asr_tpu_torch.tools import probe_lib as P
+    return P.kernel_names(torch, fn, key)
 
 
 @pytest.mark.parametrize("B,F,T,all_on", [
@@ -1024,8 +1006,12 @@ def test_vgg_block2_autograd_function_and_rejections(dev):
             V.vgg_block2(x.half(), w3, b3, w4, b4, torch.float16)
 
 
-@pytest.mark.parametrize("n", [4, 1023, 4096 * 33 + 5])
+@pytest.mark.parametrize("n", [4, 1023, 4096 * 33 + 5, 5 * 2 ** 20 + 3,
+                               38400 * 1024 - 5])
 def test_stream_kernels_match_plain(dev, n):
+    """stream_copy's tiles, the last one partial, and its scalar tail (n +
+    4 not a multiple of 4 floats, nor of a tile), up to the probe's size;
+    and stream_adam."""
     from end2end_asr_tpu_torch.tools import probe_stream as PS
     g = torch.Generator().manual_seed(n)
     p, m, v, gr = (torch.randn(n + 4, generator=g).to(dev) for _ in range(4))

@@ -82,3 +82,73 @@ def test_probe_runs_on_the_cpu_and_refuses_a_missing_card(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TP.main([])
+
+
+def _copy_writes(n, threads, vec):
+    """(writes per float4 of the body, writes per float of the tail) as
+    stream_copy_kernel's threads make them (csrc/stream.cu): the grid is
+    one block a tile of threads·vec float4s (at least one block); thread t
+    of block b takes float4s b·threads·vec + u·threads + t (u < vec) below
+    n // 4, and thread t of block 0 the float 4·(n // 4) + t of the last
+    n % 4."""
+    n4, tile = n // 4, threads * vec
+    grid = max(1, -(-n4 // tile))
+    i = (tile * torch.arange(grid).view(grid, 1, 1)
+         + threads * torch.arange(vec).view(1, vec, 1)
+         + torch.arange(threads).view(1, 1, threads)).reshape(-1)
+    body = torch.bincount(i[i < n4], minlength=n4)
+    t = torch.arange(threads)
+    tail = torch.bincount(t[t < n - 4 * n4], minlength=n - 4 * n4)
+    return body, tail
+
+
+@pytest.mark.parametrize("n", [4, 1023, 4096 * 33 + 5, 38400 * 1024])
+def test_copy_threads_write_every_float_once(n):
+    """The kept design's tiles (a block's COPY_VEC float4s a thread, each
+    warp on 512 contiguous bytes a load) and its scalar tail write every
+    float once, at the source's block size and depth and at others."""
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.tools import probe_lib
+    k = probe_lib.constexprs(os.path.join(cuda_lib.CSRC_DIR, "stream.cu"))
+    for threads, vec in {(k["COPY_THREADS"], k["COPY_VEC"]), (128, 2),
+                         (512, 8)}:
+        body, tail = _copy_writes(n, threads, vec)
+        assert bool((body == 1).all()) and bool((tail == 1).all()), (
+            threads, vec)
+
+
+def test_copy_probe_variants_apply_to_the_source():
+    """--copy-arms --variants times copies of csrc/stream.cu with one knob
+    of stream_copy turned: each edit must still find its text once and
+    give a source of its own that keeps the stream_copy entry; the timing
+    refuses the CPU."""
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    with open(os.path.join(cuda_lib.CSRC_DIR, "stream.cu")) as f:
+        src = f.read()
+    copies = TP.variant_sources(list(TP.COPY_VARIANTS))
+    assert src not in copies.values()
+    assert len(set(copies.values())) == len(TP.COPY_VARIANTS)
+    assert all('extern "C" int stream_copy(' in c for c in copies.values())
+    with pytest.raises(RuntimeError, match="the card only"):
+        TP.main(["--device", "cpu", "--copy-arms"])
+
+
+def test_profiled_windows_leave_their_lead_kernels_out():
+    """probe_lib.profiled opens each window with two kernels of its own (a
+    window can lose its first launch); device_events gives the rest in
+    launch order, the probes' and the card tests' kernel names and times
+    read it; a window with no lead kernel left is one the profiler lost."""
+    from types import SimpleNamespace as NS
+    from end2end_asr_tpu_torch.tools import probe_lib
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = lambda name, t, dev=cuda: NS(name=name, device_type=dev,
+                                      time_range=NS(start=t))
+    prof = NS(events=lambda: [
+        ev("void b_kernel()", 3.0), ev("at::cuda::spin_kernel(long)", 1.0),
+        ev("void a_kernel()", 2.0), ev("aten::add", 2.5,
+                                       torch.autograd.DeviceType.CPU)])
+    assert [e.name for e in probe_lib.device_events(torch, prof)] == [
+        "void a_kernel()", "void b_kernel()"]
+    assert probe_lib.window_kept(torch, prof)
+    assert not probe_lib.window_kept(torch, NS(events=lambda: [
+        ev("void a_kernel()", 2.0)]))
