@@ -133,8 +133,23 @@ Phases (any failure exits non-zero without the final result line):
      `test`; `test --parallel --mesh-model 2` over phase 3's checkpoint
      (12 rows a rank) must give the one-process strings at --dtype
      float32; at bf16 the equal strings are counted;
-  11. the streaming probe's entry point, its four lines printed;
-  12. one JSON line of per-kernel numbers (and the serving, training,
+  11. pipeline parallelism at the same width (gloo ranks sharing the card
+     through the --ddp-rank mode, the runs of a world size one after the
+     other in one group, each one epoch of 2 steps at dropout 0, then the
+     timed steps at dropout 0.1; the hand-offs between stages through
+     pinned host memory): --mesh-pipe 2 at M 2 and at
+     --pipe-microbatches 4 (2 ranks), --mesh-pipe 4 --remat (4, one layer a
+     stage), --mesh-pipe 2 --mesh-model 2 (4) and --mesh-data 2
+     --mesh-pipe 2 --zero1 (4): each rank must launch its stage's hand
+     kernels (stage 0 the front end's, every stage the attention's) and
+     no other stage's, each run's loss and gathered parameters must be
+     phase 9's one-process run's within its rules; each rank's step time,
+     peak memory and hand-offs a step (count, MB, ms) are printed; the
+     first run's gathered checkpoint served through one-process `test` on
+     phase 3's 12 rows must give the one-process run's strings at --dtype
+     float32; at bf16 the equal strings are counted;
+  12. the streaming probe's entry point, its four lines printed;
+  13. one JSON line of per-kernel numbers (and the serving, training,
      serve-option, augmented-training and parallelism numbers, the
      script's seconds), then the result line {"ok": true, "device": {...}}.
 
@@ -2755,7 +2770,7 @@ DDP_LOSS_RTOL = 2e-2
 # the gradient sum of two ranks rounds once either way and the update is
 # elementwise, so only a reordered sum may move a last bit
 ZERO_RTOL = 1e-6
-DDP_STEPS = 5           # timed steps a rank (host clock, median)
+DDP_STEPS = 3           # timed steps a rank (host clock, median)
 # at dropout 0 the training attention runs the plain core, as the JAX
 # package's attn_core: the dropout kernels launch in the timed steps, which
 # run at the train cell's dropout 0.1
@@ -2788,25 +2803,30 @@ def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
     """Median host ms of the train step on `batch` (this rank's rows),
     each step between two synchronizes, after one untimed step; --zero1 /
     --fsdp in `cfg` shard it over the data axis, and a data x model
-    layout (phase 10) runs this rank's shard of the parameters."""
+    layout (phase 10) runs this rank's shard of the parameters, a pipe
+    layout (phase 11) its stage's."""
     from end2end_asr_tpu_torch.models.layers import DropoutRng
     from end2end_asr_tpu_torch.models.transformer import dims_from_config
     from end2end_asr_tpu_torch.parallel import mesh, tp
     from end2end_asr_tpu_torch.parallel.zero import ZeroShard
     from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
-                                                           model_rank_tree)
+                                                           model_rank_tree,
+                                                           pipe_stage_tree)
     from end2end_asr_tpu_torch.training.optimizer import init_opt_state
     from end2end_asr_tpu_torch.training.steps import (FlatParams,
                                                       make_train_step_impl)
     from end2end_asr_tpu_torch.training.trainer import batch_tensors
-    n_model, plan = mesh.model_size(), None
+    n_model, n_pipe, plan = mesh.model_size(), mesh.pipe_size(), None
+    if n_pipe > 1:
+        params = pipe_stage_tree(params, n_pipe, mesh.pipe_rank())
     shapes = {k: tuple(v.shape) for k, v in flatten_params(params).items()}
     if n_model > 1:
         params = model_rank_tree(params, n_model, mesh.model_rank())
     fp = FlatParams(params, dev)
-    if n_model > 1:
+    if n_model > 1 or n_pipe > 1:
         plan = tp.FlatPlan(fp, [k for k in fp.train_keys if tp.leaf_dim(
-            k, shapes[k], n_model) is not None], n_model, cfg.seq_parallel)
+            k, shapes[k], n_model) is not None], n_model, cfg.seq_parallel,
+            n_pipe)
     data = fp.data
     zero = (ZeroShard.for_config(cfg, fp.numel) if cfg.zero1 or cfg.fsdp
             else None)
@@ -2824,22 +2844,10 @@ def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
 
 
 def ddp_rank(spec_path):
-    """One rank of phases 9 and 10 (`chip_smoke.py --ddp-rank SPEC`,
-    started by torch.distributed.run): joins the group, runs the train
-    entry point with the spec's argv (--parallel, each rank on cuda:0 with
-    gloo), then times the step at dropout 0.1 on its slice of the first
-    batch; writes the launch counts of both, the run's peak memory, the
-    step time and the backend to <out>.r<rank>.json. With the spec's
-    "local_heads", the attention kernels' checks on a model rank's local
-    heads (`local_head_checks`) after the counts are read; with
-    "save_npz", rank 0 writes the run's returned (gathered) parameters
-    there as an npz checkpoint."""
+    """One rank of phases 9-11 (`chip_smoke.py --ddp-rank SPEC`,
+    started by torch.distributed.run): joins the group and runs the spec's
+    run, or each of its "runs" in turn in the same group (`rank_run`)."""
     import torch
-    from end2end_asr_tpu_torch import train as port_train
-    from end2end_asr_tpu_torch.config import config_from_args, load_vocab
-    from end2end_asr_tpu_torch.test import split_device_arg
-    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
-    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
     from end2end_asr_tpu_torch.parallel import mesh
     with open(spec_path) as f:
         spec = json.load(f)
@@ -2848,6 +2856,27 @@ def ddp_rank(spec_path):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh.maybe_initialize_distributed(dev)
+    for run in spec.get("runs", [spec]):
+        rank_run(torch, run, dev)
+    mesh.shutdown()
+
+
+def rank_run(torch, spec, dev):
+    """One run on this rank: the train entry point with the spec's argv
+    (--parallel, each rank on cuda:0 with gloo), then the step timed at
+    dropout 0.1 on its slice of the first batch; writes the launch counts
+    of both, the run's peak memory, the step time, the backend and, under
+    a pipe layout, the stage and its hand-offs a step to
+    <out>.r<rank>.json. With the spec's "local_heads", the attention
+    kernels' checks on a model rank's local heads (`local_head_checks`)
+    after the counts are read; with "save_npz", rank 0 writes the run's
+    returned (gathered) parameters there as an npz checkpoint."""
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.config import config_from_args, load_vocab
+    from end2end_asr_tpu_torch.test import split_device_arg
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.parallel import mesh, pp
     rank, world = mesh.rank(), mesh.world_size()
     kernels = train_kernel_table()
     reset_kernels(kernels)
@@ -2867,10 +2896,20 @@ def ddp_rank(spec_path):
         ManifestDataset(list(cfg.train_manifest_list), label2id), cfg,
         process_index=mesh.data_rank(), process_count=mesh.data_size())
     reset_kernels(kernels)
+    pp.reset_handoffs()
     out["step_ms"] = rank_step_ms(torch, cfg.replace(dropout=0.1),
                                   res["params"], next(iter(loader)), dev)
     out["step_launches"] = kernel_counts(kernels)
     out["layout"] = [mesh.data_size(), mesh.model_size()]
+    if mesh.pipe_size() > 1:
+        # data x pipe x model; the hand-offs of the DDP_STEPS + 1 steps
+        n = DDP_STEPS + 1
+        out.update(layout=[mesh.data_size(), mesh.pipe_size(),
+                           mesh.model_size()], stage=mesh.pipe_rank(),
+                   transport=mesh.TRANSPORT,
+                   handoffs_a_step=pp.HANDOFFS["count"] / n,
+                   handoff_MB_a_step=pp.HANDOFFS["bytes"] / n / 1e6,
+                   handoff_ms_a_step=pp.HANDOFFS["seconds"] * 1e3 / n)
     if spec.get("local_heads"):
         out["local_heads"] = local_head_checks(torch, dev)
     if spec.get("save_npz") and mesh.is_main():
@@ -2880,7 +2919,6 @@ def ddp_rank(spec_path):
                         id2label)
     with open(f"{spec['out']}.r{rank}.json", "w") as f:
         json.dump(out, f)
-    mesh.shutdown()
 
 
 def flat_npz(path):
@@ -3300,6 +3338,150 @@ def phase_tp(torch, dev, serve_kernels, work, labels_path, model, manifest,
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: pipeline parallelism
+# ---------------------------------------------------------------------------
+
+# the runs of phase 11: (name, ranks, flags), against the one-process run of
+# phase 9 by its rules: each microbatch runs the one-process layers on its
+# rows (6 or 3 of 12, as DDP's ranks), and the stages' gradients of the
+# leaves outside the stacks sum zeros with the one stage's own
+PP_RUNS = (("pp2", 2, ["--mesh-pipe", "2"]),
+           ("pp2_m4", 2, ["--mesh-pipe", "2", "--pipe-microbatches", "4"]),
+           ("pp4_remat", 4, ["--mesh-pipe", "4", "--remat"]),
+           ("pp2_tp2", 4, ["--mesh-pipe", "2", "--mesh-model", "2"]),
+           ("dp2_pp2_zero1", 4, ["--mesh-data", "2", "--mesh-pipe", "2",
+                                 "--zero1"]))
+# the kernels stage 0 alone launches: the features and the vgg front end
+FRONT_KERNELS = ("stft_logmag", "vgg_block1_fwd", "vgg_block1_bwd",
+                 "pool_bwd")
+STACK_KERNELS = ("attn_fwd", "attn_bwd")
+
+
+def phase_pp(torch, dev, serve_kernels, work, labels_path, model, manifest,
+             valid, gpu):
+    """Pipeline parallelism at the AiShell width (batch 12, bf16, dropout
+    0, one epoch = 2 steps, phase 9's one-process run the reference),
+    gloo ranks sharing cuda:0 through phase 9's --ddp-rank mode (their
+    hand-offs through pinned host memory): --mesh-pipe 2 at M 2 and 4,
+    --mesh-pipe 4 --remat, --mesh-pipe 2 --mesh-model 2, --mesh-data 2
+    --mesh-pipe 2 --zero1. Each rank must launch its stage's kernels (stage
+    0 the front end's and the attention's, the others the attention's and
+    none of the front end's; the attention's in the timed steps at dropout
+    0.1); each run's loss and gathered parameters must be the one-process
+    run's within phase 9's rules; the step ms, peak memory and hand-offs
+    a rank are read. Then the first run's gathered checkpoint serves phase
+    3's 12 rows through one-process `test`, against the one-process run's
+    checkpoint: the same strings at f32, the equal ones counted at
+    bf16."""
+    import numpy as np
+    from end2end_asr_tpu_torch.training.optimizer import noam_rate
+    from end2end_asr_tpu_torch.training.steps import noam_config_from
+    cfg = aishell_config(dropout=0.0)
+    ref_base = os.path.join(work, "models", "ddp_ref", "epoch_1")
+    ref_ck = flat_npz(ref_base)
+    with open(ref_base + ".json", encoding="utf-8") as f:
+        ref_loss = json.load(f)["metrics"]["train_loss"]
+    lr_sum = sum(float(noam_rate(torch.tensor(s), noam_config_from(cfg)))
+                 for s in (1, 2))
+    res, counts = {"gpu": gpu, "one_process_loss": ref_loss}, {}
+    # the runs of each world size in one group, one after the other
+    for nproc in sorted({n for _, n, _ in PP_RUNS}):
+        runs = [(name, extra) for name, n, extra in PP_RUNS if n == nproc]
+        spec = os.path.join(work, f"pp_{nproc}_ranks.json")
+        with open(spec, "w") as f:
+            json.dump({"runs": [{"argv": train_argv(
+                cfg, manifest, valid, labels_path,
+                ["--epochs", "1", "--parallel", "--device", "cuda", *extra],
+                name=name), "out": os.path.join(work, name)}
+                for name, extra in runs]}, f)
+        _, secs = torchrun(work, nproc, [os.path.abspath(__file__),
+                                         "--ddp-rank", spec],
+                           f"pp_{nproc}_ranks")
+        res[f"seconds_{nproc}_ranks"] = secs
+        log(f"torchrun {nproc} ranks, runs {[n for n, _ in runs]}: "
+            f"{secs:.1f} s")
+    for name, nproc, extra in PP_RUNS:
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(work, f"{name}.r{r}.json")) as f:
+                ranks.append(json.load(f))
+        for rk in ranks:
+            front = rk["stage"] == 0
+            missing = [n for n in FRONT_KERNELS if front and (
+                rk["launches"][n] < 1 or rk["step_launches"][n] < 1)]
+            missing += [n for n in STACK_KERNELS
+                        if rk["step_launches"][n] < 1]
+            stray = [n for n in FRONT_KERNELS if not front and (
+                rk["launches"][n] or rk["step_launches"][n])]
+            if (missing or stray or rk["backend"] != "gloo"
+                    or rk["opt_step"] != 2 or rk["transport"] != "host"):
+                fail(f"{name} rank {rk['rank']} (stage {rk['stage']}): "
+                     f"kernels not launched {missing}, launched off their "
+                     f"stage {stray}, backend {rk['backend']}, hand-off "
+                     f"{rk['transport']}, step {rk['opt_step']}")
+        ck = flat_npz(os.path.join(work, "models", name, "epoch_1"))
+        loss = ranks[0]["train_loss"]
+        dp = max(float(np.abs(ck[k].astype(np.float64)
+                              - ref_ck[k].astype(np.float64)).max())
+                 for k in ref_ck if k.startswith("params::"))
+        res[name] = {
+            "train_s": [rk["train_s"] for rk in ranks], "train_loss": loss,
+            "params_max_abs_vs_1_process": dp,
+            "layout": ranks[0]["layout"],
+            "step_ms": [rk["step_ms"] for rk in ranks],
+            "peak_mem_mib": [rk["peak_mem_bytes"] / 2 ** 20
+                             for rk in ranks],
+            "handoffs_a_step": [rk["handoffs_a_step"] for rk in ranks],
+            "handoff_MB_a_step": [rk["handoff_MB_a_step"] for rk in ranks],
+            "handoff_ms_a_step": [rk["handoff_ms_a_step"] for rk in ranks]}
+        counts[name] = [{k: (rk["launches"][k], rk["step_launches"][k])
+                         for k in rk["launches"]} for rk in ranks]
+        log(f"{nproc} ranks --parallel {' '.join(extra)} ({gpu}), "
+            f"hand-off {ranks[0]['transport']}: the entry point "
+            f"{ranks[0]['train_s']:.1f} s on rank 0; train loss "
+            f"{loss:.6f} against the one-process {ref_loss:.6f}; parameters "
+            f"{dp:.3g} from it (bound {2 * lr_sum:.3g}); " + "; ".join(
+                f"rank {rk['rank']} (stage {rk['stage']}, data x pipe x "
+                f"model {rk['layout']}): launches {rk['launches']} in the "
+                f"run, {rk['step_launches']} in the {DDP_STEPS + 1} timed "
+                f"steps at dropout 0.1, step {rk['step_ms']:.2f} ms, peak "
+                f"{rk['peak_mem_bytes'] / 2 ** 20:.1f} MiB, "
+                f"{rk['handoffs_a_step']:.0f} hand-offs a step of "
+                f"{rk['handoff_MB_a_step']:.2f} MB in "
+                f"{rk['handoff_ms_a_step']:.2f} ms (waits included)"
+                for rk in ranks))
+        if abs(loss - ref_loss) > DDP_LOSS_RTOL * abs(ref_loss):
+            fail(f"{name}: train loss {loss} against the one-process "
+                 f"{ref_loss} (rtol {DDP_LOSS_RTOL})")
+        if dp > 2 * lr_sum * 1.01:
+            fail(f"{name}: parameters moved {dp:.3g} from the one-process "
+                 f"run's, beyond 2 * (lr1 + lr2) = {2 * lr_sum:.3g}")
+
+    # the pipelined run's gathered checkpoint served by one process (test
+    # never pipelines), against the one-process run's checkpoint
+    for dtype in ("float32", "bfloat16"):
+        serve = lambda base: greedy_strings(torch, serve_kernels, [
+            "--continue-from", base, "--test-manifest-list", model.manifest,
+            "--batch-size", str(B), "--device", str(dev), "--dtype",
+            dtype])[0]
+        hyps = serve(os.path.join(work, "models", "pp2", "epoch_1"))
+        ref_hyps = serve(ref_base)
+        flips = sum(a != b for h, r in zip(hyps, ref_hyps)
+                    for a, b in zip(h, r))
+        res["serve_pp2_" + dtype] = {
+            "strings": len(hyps), "equal_to_one_process": sum(
+                h == r for h, r in zip(hyps, ref_hyps)),
+            "characters_differing": flips}
+        log(f"test in one process on pp2's checkpoint --dtype {dtype}: "
+            f"{res['serve_pp2_' + dtype]} against the one-process run's "
+            f"checkpoint")
+        if len(hyps) != B or (dtype == "float32" and hyps != ref_hyps):
+            fail(f"pp2's checkpoint --dtype {dtype}: strings differ from "
+                 f"the one-process run's: {list(zip(hyps, ref_hyps))[:3]}")
+    return counts, res
+
+
 def phase_probe(torch):
     """The streaming probe through its entry point (its four lines go to
     the standard output); returns its kernels' launch counts."""
@@ -3438,6 +3620,9 @@ def main():
                                    model, manifest, valid, gpu)
         log(f"tensor and sequence parallelism done at "
             f"{time.time() - t0:.1f} s")
+        pp_counts, ppar = phase_pp(torch, dev, kernels, work, labels_path,
+                                   model, manifest, valid, gpu)
+        log(f"pipeline parallelism done at {time.time() - t0:.1f} s")
     probe_counts = phase_probe(torch)
     for e in entries:
         # each path was driven with the counts set to 0 just before it: the
@@ -3456,12 +3641,12 @@ def main():
         if e["name"] in augment_counts:
             e["launches_augment_multi"] = augment_counts[e["name"]]
         if e["name"] in ddp_counts["ddp"][0]:
-            # per rank: (the dropout-0 run of 2 steps, the 6 timed steps at
-            # dropout 0.1)
+            # per rank: (the dropout-0 run of 2 steps, the DDP_STEPS + 1
+            # timed steps at dropout 0.1)
             for run, ranks in ddp_counts.items():
                 e[f"launches_{run}_2_ranks"] = [r[e["name"]] for r in ranks]
-            # phase 10, per rank: (the dropout-0 run, the timed steps)
-            for run, ranks in tp_counts.items():
+            # phases 10-11, per rank: (the dropout-0 run, the timed steps)
+            for run, ranks in {**tp_counts, **pp_counts}.items():
                 e[f"launches_{run}"] = [r[e["name"]] for r in ranks]
         if e["name"] in probe_counts:
             e["launches"] = probe_counts[e["name"]]
@@ -3476,12 +3661,14 @@ def main():
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
         f"ctc / emb_cnn: {ctc}; serve options: {options}; augmented joint "
         f"training and tools: {augment}; data parallelism: {ddp}; tensor "
-        f"and sequence parallelism: {tpar}; total {time.time() - t0:.1f} s")
+        f"and sequence parallelism: {tpar}; pipeline parallelism: {ppar}; "
+        f"total {time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
                       "gate_on": gate, "ctc_embcnn": ctc,
                       "serve_options": options, "augment_multi": augment,
                       "data_parallel": ddp, "tensor_parallel": tpar,
+                      "pipeline_parallel": ppar,
                       "total_s": time.time() - t0, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

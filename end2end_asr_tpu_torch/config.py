@@ -189,16 +189,17 @@ class Config:
     # activation memory in those segments). Numerics identical up to fp
     # reduction order. False = plain TP.
     seq_parallel: bool = False
-    # pipeline parallelism (parallel/pp.py): devices on a 'pipe' mesh
+    # pipeline parallelism (parallel/pp.py): ranks on a 'pipe' mesh
     # axis; the encoder/decoder layer stacks split into mesh_pipe equal
     # stages and each batch flows through them as GPipe microbatches
-    # (shard_map + ppermute, forward AND backward pipelined by
-    # autodiff). Composes with mesh_data and mesh_model (TP inside each
-    # stage). num_layers must divide evenly. 1 = off.
+    # (the activations handed from rank to rank, then the backwards in
+    # reverse order, the gradients handed back). Composes with mesh_data
+    # and mesh_model (TP inside each stage). num_layers must divide
+    # evenly. 1 = off.
     mesh_pipe: int = 1
     # microbatches per batch for the pipeline schedule (0 = mesh_pipe);
     # more microbatches shrink the (S-1)/(M+S-1) bubble but each must
-    # divide batch_size
+    # divide the per-device microbatch (ModelDims.pipe_microbatches)
     pipe_microbatches: int = 0
     # ZeRO-1 optimizer-state sharding (parallel/zero.py): Adam moments
     # (SGD momentum buffers) lay out sharded over the 'data' mesh axis —

@@ -26,6 +26,7 @@ import torch
 
 from end2end_asr_tpu_torch.config import EOS_TOKEN, PAD_TOKEN, SOS_TOKEN
 from end2end_asr_tpu_torch.models import layers as L
+from end2end_asr_tpu_torch.parallel import pp
 
 Params = Dict[str, object]
 
@@ -78,11 +79,16 @@ def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
                   emb_trg_sharing: bool = False, dropout_rate: float = 0.0,
                   rng: Optional[L.DropoutRng] = None,
                   dtype: torch.dtype = torch.bfloat16,
-                  remat: bool = False) -> torch.Tensor:
+                  remat: bool = False, pipe: bool = False,
+                  n_micro: int = 0) -> Optional[torch.Tensor]:
     """Teacher-forced forward (transformer.py:268-305): logits (B, U, V)
     f32. `rng` turns on training dropout (embedding, attention, FFN);
     `remat` checkpoints each layer (decoder.py:196-197 of the JAX
-    package)."""
+    package). With `pipe` (pipeline parallelism, decoder.py:171-191 of
+    the JAX package) this stage's layers run on the microbatches through
+    parallel/pp.py `pipeline_apply` with the constants (enc_out, non_pad,
+    the two masks and their biases): the embedding runs on stage 0, the
+    output projection on the last stage, which alone returns logits."""
     B, U = seq_in.shape
     T_enc = enc_out.shape[1]
     dev = seq_in.device
@@ -93,30 +99,41 @@ def apply_decoder(p: Params, seq_in: torch.Tensor, enc_out: torch.Tensor,
     self_bias = L.train_attn_bias(self_mask, dropout_rate, rng)
     cross_bias = L.train_attn_bias(cross_mask, dropout_rate, rng)
 
-    scale = logit_scale(dim_model, emb_trg_sharing)
-    out = p["embedding"][seq_in] * scale + p["pe"].detach()[None, :U]
-    if rng is not None:
-        out = L.dropout(out, dropout_rate, rng)
+    out = None
+    if not pipe or pp.first():
+        scale = logit_scale(dim_model, emb_trg_sharing)
+        out = p["embedding"][seq_in] * scale + p["pe"].detach()[None, :U]
+        if rng is not None:
+            out = L.dropout(out, dropout_rate, rng)
 
-    def layer(lp, out, enc_out):
+    def layer(lp, out, cs, r):
+        enc_out, non_pad, self_mask, cross_mask, self_bias, cross_bias = cs
         out = L.mha(lp["self_attn"], out, out, out, num_heads, dim_key,
                     dim_value, mask=self_mask, dtype=dtype,
-                    dropout_rate=dropout_rate, rng=rng, bias=self_bias)
+                    dropout_rate=dropout_rate, rng=r, bias=self_bias)
         out = out * non_pad
         out = L.mha(lp["enc_attn"], out, enc_out, enc_out, num_heads,
                     dim_key, dim_value, mask=cross_mask, dtype=dtype,
-                    dropout_rate=dropout_rate, rng=rng, bias=cross_bias)
+                    dropout_rate=dropout_rate, rng=r, bias=cross_bias)
         out = out * non_pad
         out = L.ffn(lp["ffn"], out, dtype=dtype, dropout_rate=dropout_rate,
-                    rng=rng)
+                    rng=r)
         return out * non_pad
 
+    consts = (enc_out, non_pad, self_mask, cross_mask, self_bias, cross_bias)
+    if pipe:
+        out = pp.pipeline_apply(
+            p["layers"], out, consts, layer, n_micro, remat,
+            stack="decoder", shape=(B, U, p["pe"].shape[1]), rng=rng,
+            device=dev)
+        return None if out is None else output_logits(p, out, dtype)
     for lp in p["layers"]:
         if remat:
-            out = L.remat(lambda o, e, lp=lp: layer(lp, o, e), rng, out,
-                          enc_out)
+            out = L.remat(lambda o, e, lp=lp: layer(lp, o, (e, *consts[1:]),
+                                                    rng),
+                          rng, out, enc_out)
         else:
-            out = layer(lp, out, enc_out)
+            out = layer(lp, out, consts, rng)
     return output_logits(p, out, dtype)
 
 

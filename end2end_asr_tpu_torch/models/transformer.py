@@ -12,6 +12,13 @@ other front ends) is a tree beside the params, {"frontend": {...}}, as in
 the JAX package. Training passes it in and gets the new one back
 (`forward_state`); the evaluation paths (`encode`, `forward`) read it from
 the params tree's "state" entry, where `with_state` puts it.
+
+`ModelDims.pipeline` (--mesh-pipe > 1, JAX transformer.py:40-53) runs the
+training and eval forwards (`forward_state`, `forward`) through the
+pipeline of parallel/pp.py when a pipe layout is up: the front end on
+stage 0 (the other stages take `spect` None and `spect_T`), the logits on
+the last stage (None on the others). Serving (`encode`, the decoder's
+cached step) never pipelines.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from end2end_asr_tpu_torch.models import decoder as D
 from end2end_asr_tpu_torch.models import encoder as E
 from end2end_asr_tpu_torch.models import frontend as Fe
 from end2end_asr_tpu_torch.models.layers import DropoutRng, sinusoid_table
+from end2end_asr_tpu_torch.parallel import pp
 
 Params = Dict[str, object]
 
@@ -42,6 +50,10 @@ class ModelDims(NamedTuple):
     dropout: float = 0.0
     remat: bool = False
     seq_parallel: bool = False
+    # GPipe pipeline over the encoder/decoder layer stacks (parallel/pp.py;
+    # active only under a pipe layout) and its microbatches (0: stages)
+    pipeline: bool = False
+    pipe_microbatches: int = 0
 
 
 def dims_from_config(cfg: Config) -> ModelDims:
@@ -52,7 +64,8 @@ def dims_from_config(cfg: Config) -> ModelDims:
         feat_extractor=cfg.feat_extractor,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
         ref_compat_masks=cfg.ref_compat_masks, dropout=cfg.dropout,
-        remat=cfg.remat, seq_parallel=cfg.seq_parallel)
+        remat=cfg.remat, seq_parallel=cfg.seq_parallel,
+        pipeline=cfg.mesh_pipe > 1, pipe_microbatches=cfg.pipe_microbatches)
 
 
 def encoder_lengths(dims: ModelDims, src_lengths: torch.Tensor
@@ -76,24 +89,37 @@ def with_state(params: Params, state: Optional[Params]) -> Params:
 
 
 def encode_train(params: Params, state: Optional[Params],
-                 spect: torch.Tensor, src_lengths: torch.Tensor,
+                 spect: Optional[torch.Tensor], src_lengths: torch.Tensor,
                  dims: ModelDims, train: bool,
-                 rng: Optional[DropoutRng] = None
+                 rng: Optional[DropoutRng] = None,
+                 spect_T: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """`encode` that keeps gradients; `train` selects the front end's
     training kernels and batch statistics and, with `rng`, dropout.
-    Returns (enc_out, enc_lengths, new state)."""
-    fe_state = state.get("frontend") if state else None
-    feats, new_fe_state = Fe.apply_frontend(
-        params.get("frontend"), fe_state, spect, dims.feat_extractor,
-        train=train, dtype=dims.dtype)
+    Returns (enc_out, enc_lengths, new state). Pipelined, the front end
+    runs on stage 0 (the others take spect None and its frame count
+    `spect_T`) and every stage gets the last stage's enc_out."""
+    pipe = dims.pipeline and pp.active()
+    feats, new_fe_state = None, None
+    if pipe and not pp.first():
+        T = Fe.frontend_out_time(dims.feat_extractor, spect_T)
+    else:
+        fe_state = state.get("frontend") if state else None
+        feats, new_fe_state = Fe.apply_frontend(
+            params.get("frontend"), fe_state, spect, dims.feat_extractor,
+            train=train, dtype=dims.dtype)
+        T = feats.shape[1]
     enc_lens = encoder_lengths(dims, src_lengths)
     enc_out = E.apply_encoder(params["encoder"], feats, enc_lens,
                               dims.num_heads, dims.dim_key, dims.dim_value,
                               dtype=dims.dtype, dropout_rate=dims.dropout,
                               rng=rng if train else None,
                               remat=dims.remat and train,
-                              seq_par=dims.seq_parallel)
+                              seq_par=dims.seq_parallel, pipe=pipe,
+                              n_micro=dims.pipe_microbatches, T=T)
+    if pipe:
+        enc_out = pp.share_last(enc_out, (src_lengths.shape[0], T,
+                                          dims.dim_model), src_lengths.device)
     new_state = dict(state or {})
     if new_fe_state:
         new_state["frontend"] = new_fe_state
@@ -105,39 +131,43 @@ def encode(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
            dims: ModelDims) -> Tuple[torch.Tensor, torch.Tensor]:
     """spect: (B, F, T). Returns (enc_out (B, T', H) f32, enc_lengths)."""
     return encode_train(params, params.get("state"), spect, src_lengths,
-                        dims, train=False)[:2]
+                        dims._replace(pipeline=False), train=False)[:2]
 
 
 def forward_state(params: Params, state: Optional[Params],
-                  spect: torch.Tensor, src_lengths: torch.Tensor,
+                  spect: Optional[torch.Tensor], src_lengths: torch.Tensor,
                   targets: torch.Tensor, dims: ModelDims, train: bool = False,
-                  rng: Optional[DropoutRng] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+                  rng: Optional[DropoutRng] = None,
+                  spect_T: Optional[int] = None
+                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor, Params]:
     """Teacher-forced forward (transformer.py:59-85 of the reference):
     (pred logits (B, U, V) f32, gold (B, U), new state). `train` with
     `rng` turns on dropout; `dims.remat` checkpoints the layers in
-    training."""
+    training. Pipelined, pred is the last stage's (None elsewhere)."""
     rng = rng if train else None
     enc_out, enc_lens, new_state = encode_train(
-        params, state, spect, src_lengths, dims, train, rng)
+        params, state, spect, src_lengths, dims, train, rng, spect_T)
     seq_in, seq_out = D.preprocess_targets(targets)
     pred = D.apply_decoder(params["decoder"], seq_in, enc_out, enc_lens,
                            dims.num_heads, dims.dim_key, dims.dim_value,
                            dims.dim_model,
                            emb_trg_sharing=dims.emb_trg_sharing,
                            dropout_rate=dims.dropout, rng=rng,
-                           dtype=dims.dtype, remat=dims.remat and train)
+                           dtype=dims.dtype, remat=dims.remat and train,
+                           pipe=dims.pipeline and pp.active(),
+                           n_micro=dims.pipe_microbatches)
     return pred, seq_out, new_state
 
 
-def forward(params: Params, spect: torch.Tensor, src_lengths: torch.Tensor,
-            targets: torch.Tensor, dims: ModelDims, train: bool = False,
-            rng: Optional[DropoutRng] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, spect: Optional[torch.Tensor],
+            src_lengths: torch.Tensor, targets: torch.Tensor,
+            dims: ModelDims, train: bool = False,
+            rng: Optional[DropoutRng] = None, spect_T: Optional[int] = None
+            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """`forward_state` with the state read from params["state"] and the
     new state dropped: (pred, gold)."""
     return forward_state(params, params.get("state"), spect, src_lengths,
-                         targets, dims, train, rng)[:2]
+                         targets, dims, train, rng, spect_T)[:2]
 
 
 # ---------------------------------------------------------------------------

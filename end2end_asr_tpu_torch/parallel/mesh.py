@@ -17,16 +17,30 @@ rank of the host has a card of its own, ``gloo`` when ranks share a card
 (NCCL refuses two ranks on one device: "Duplicate GPU detected") or run
 on the CPU. Nothing retries on another backend after a failure. gloo runs
 every collective used here (all_reduce, reduce_scatter_tensor,
-all_gather_into_tensor, all_gather_object) on CUDA tensors directly on
-the card's PyTorch, so none is staged through the host.
+all_gather_into_tensor, all_gather_object, broadcast) on CUDA tensors
+directly on the card's PyTorch, so none is staged through the host.
 
-With ``--mesh-model M`` (`set_layout`) the ranks form a ``data`` x
-``model`` grid with ``model`` innermost, as ``make_mesh_2d`` lays the
-devices out: rank = d·M + m. Each data row d (M ranks) is one model
-group, which parallel/tp.py's collectives run over; each model column m
-(the ranks of one model coordinate) is one data group, which the
-data-parallel collectives below run over. Without a layout the data
-group is the whole world.
+With ``--mesh-model T`` and / or ``--mesh-pipe S`` (`set_layout`) the
+ranks form a ``data`` x ``pipe`` x ``model`` grid with ``model``
+innermost, as ``make_mesh_2d`` and pipeline parallelism's
+``make_mesh_pipe`` lay the devices out: rank = (d·S + s)·T + m. The
+ranks of one (d, s) are a model group, which parallel/tp.py's
+collectives run over; those of one (s, m) a data group, which the
+data-parallel collectives below run over; those of one (d, m) a pipe
+group, the stages of one pipeline (parallel/pp.py). Without a layout
+the data group is the whole world.
+
+The pipeline's hand-offs between neighbouring stages (`TRANSPORT`) are
+chosen once, like the backend: ``send`` / ``recv`` of the tensor where
+the backend carries the tensor's device (NCCL; gloo on the CPU), and
+over gloo on a card a copy through pinned host memory and ``send`` /
+``recv`` of that. gloo's point-to-point takes a device tensor's pointer
+for host memory and fails ("writev: Bad address"); a broadcast over a
+group of the two ranks and the host copy both run, at 2.09 and 2.10 ms
+for the encoder's 2.46 MB microbatch and 1.02 and 0.80 ms for the
+decoder's 0.29 MB (tools/probe_pipe_transport.py on an NVIDIA H100 80GB
+HBM3 at 700 W), and the host copy needs no group for each pair of
+stages.
 """
 
 from __future__ import annotations
@@ -39,48 +53,82 @@ import torch.distributed as dist
 
 
 class Layout:
-    """The data x model grid of the ranks and this rank's groups."""
+    """The data x pipe x model grid of the ranks and this rank's groups."""
 
-    def __init__(self, n_data: int, n_model: int):
-        self.n_data, self.n_model = n_data, n_model
-        r = dist.get_rank()
-        self.data_rank, self.model_rank = divmod(r, n_model)
-        # every rank creates every group, in the same order
-        self.model_group = self.data_group = None
-        for d in range(n_data):
-            g = dist.new_group([d * n_model + m for m in range(n_model)])
-            if d == self.data_rank:
-                self.model_group = g
-        for m in range(n_model):
-            g = dist.new_group([d * n_model + m for d in range(n_data)])
-            if m == self.model_rank:
-                self.data_group = g
+    def __init__(self, n_data: int, n_model: int, n_pipe: int = 1):
+        self.n_data, self.n_pipe, self.n_model = n_data, n_pipe, n_model
+        at = lambda d, s, m: (d * n_pipe + s) * n_model + m
+        self.data_rank, rest = divmod(dist.get_rank(), n_pipe * n_model)
+        self.pipe_rank, self.model_rank = divmod(rest, n_model)
+        d0, s0, m0 = self.data_rank, self.pipe_rank, self.model_rank
+        # the global ranks of this rank's pipeline, stage by stage
+        self.pipe_ranks = [at(d0, s, m0) for s in range(n_pipe)]
+        # every rank creates every group of more than one rank, in the
+        # same order (an axis of one rank has no collective to run)
+        self.model_group = self.data_group = self.pipe_group = None
+        if n_model > 1:
+            for d in range(n_data):
+                for s in range(n_pipe):
+                    g = dist.new_group([at(d, s, m) for m in range(n_model)])
+                    if (d, s) == (d0, s0):
+                        self.model_group = g
+        if n_data > 1:
+            for s in range(n_pipe):
+                for m in range(n_model):
+                    g = dist.new_group([at(d, s, m) for d in range(n_data)])
+                    if (s, m) == (s0, m0):
+                        self.data_group = g
+        if n_pipe > 1:
+            for d in range(n_data):
+                for m in range(n_model):
+                    g = dist.new_group([at(d, s, m) for s in range(n_pipe)])
+                    if (d, m) == (d0, m0):
+                        self.pipe_group = g
 
 
 _LAYOUT: Optional[Layout] = None
-_LAYOUTS = {}        # (n_data, n_model) -> Layout: the groups are kept
+_LAYOUTS = {}        # (n_data, n_model, n_pipe) -> Layout: groups kept
+TRANSPORT: Optional[str] = None    # the pipeline's hand-off (`set_layout`)
 
 
 def active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def make_layout(n_model: int, n_data: int, world: int):
-    """(n_data, n_model) of the grid: `make_mesh_2d`'s checks, with the
-    ranks for devices. n_data 0 takes every rank."""
+def make_layout(n_model: int, n_data: int, world: int, n_pipe: int = 1):
+    """(n_data, n_model, n_pipe) of the grid: the checks of `make_mesh_2d`
+    (n_pipe 1) or of `make_mesh_pipe`, with the ranks for devices.
+    n_data 0 takes every rank."""
     if n_model < 1:
         raise ValueError(f"n_model must be >= 1, got {n_model}")
+    if n_pipe < 1:
+        raise ValueError(f"n_pipe must be >= 1, got {n_pipe}")
+    per_data = n_pipe * n_model
     if n_data and n_data > 0:
-        need = n_data * n_model
+        need = n_data * per_data
         if world < need:
-            raise ValueError(f"mesh {n_data}x{n_model} needs {need} "
-                             f"devices, have {world}")
+            grid = (f"{n_data}x{n_pipe}x{n_model}" if n_pipe > 1
+                    else f"{n_data}x{n_model}")
+            raise ValueError(f"mesh {grid} needs {need} devices, have "
+                             f"{world}")
         if world != need:
-            raise ValueError(f"--mesh-data {n_data} x --mesh-model "
-                             f"{n_model} must equal the number of ranks "
-                             f"({world}): each rank is one device")
-        return n_data, n_model
-    n_data = world // n_model
+            what = (f"--mesh-pipe {n_pipe} x " if n_pipe > 1 else "") + \
+                f"--mesh-model {n_model}"
+            raise ValueError(f"--mesh-data {n_data} x {what} must equal "
+                             f"the number of ranks ({world}): each rank is "
+                             f"one device")
+        return n_data, n_model, n_pipe
+    n_data = world // per_data
+    if n_pipe > 1:
+        if n_data < 1:
+            raise ValueError(f"--mesh-pipe {n_pipe} x --mesh-model "
+                             f"{n_model} exceeds the {world} visible devices")
+        if n_data * per_data != world:
+            raise ValueError(
+                f"--mesh-pipe {n_pipe} x --mesh-model {n_model} does not "
+                f"divide the {world} visible devices — pass --mesh-data to "
+                f"use a subset explicitly")
+        return n_data, n_model, n_pipe
     if n_data < 1:
         raise ValueError(f"--mesh-model {n_model} exceeds the {world} "
                          f"visible devices")
@@ -89,21 +137,34 @@ def make_layout(n_model: int, n_data: int, world: int):
             f"--mesh-model {n_model} does not divide the {world} visible "
             f"devices — pass --mesh-data to use a subset explicitly "
             f"instead of silently dropping chips")
-    return n_data, n_model
+    return n_data, n_model, n_pipe
 
 
-def set_layout(n_model: int, n_data: int = 0) -> None:
-    """Lay the group's ranks out as data x model (`make_layout`); n_model
-    1 returns to plain data parallelism over every rank. Collective: the
-    first call for a grid creates its groups on every rank."""
-    global _LAYOUT
-    n_data, n_model = make_layout(n_model, n_data, world_size())
-    if n_model == 1:
+def choose_transport(backend: str, device: torch.device) -> str:
+    """The pipeline's hand-off: ``p2p`` (send / recv of the tensor) where
+    the backend carries the tensor's device, ``host`` (through pinned
+    host memory) for gloo on a card."""
+    return "host" if backend == "gloo" and device.type == "cuda" else "p2p"
+
+
+def set_layout(n_model: int, n_data: int = 0, n_pipe: int = 1,
+               device: Optional[torch.device] = None) -> None:
+    """Lay the group's ranks out as data x pipe x model (`make_layout`);
+    n_model 1 and n_pipe 1 return to plain data parallelism over every
+    rank. `device` (this rank's) picks the pipeline's hand-off. Collective:
+    the first call for a grid creates its groups on every rank."""
+    global _LAYOUT, TRANSPORT
+    n_data, n_model, n_pipe = make_layout(n_model, n_data, world_size(),
+                                          n_pipe)
+    if n_model == 1 and n_pipe == 1:
         _LAYOUT = None
         return
-    if (n_data, n_model) not in _LAYOUTS:
-        _LAYOUTS[n_data, n_model] = Layout(n_data, n_model)
-    _LAYOUT = _LAYOUTS[n_data, n_model]
+    key = (n_data, n_model, n_pipe)
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = Layout(n_data, n_model, n_pipe)
+    _LAYOUT = _LAYOUTS[key]
+    TRANSPORT = choose_transport(dist.get_backend(),
+                                 device or torch.device("cpu"))
 
 
 def data_size() -> int:
@@ -121,6 +182,24 @@ def model_size() -> int:
 
 def model_rank() -> int:
     return _LAYOUT.model_rank if _LAYOUT else 0
+
+
+def pipe_size() -> int:
+    """Stages on the pipe axis (1 without pipeline parallelism)."""
+    return _LAYOUT.n_pipe if _LAYOUT else 1
+
+
+def pipe_rank() -> int:
+    return _LAYOUT.pipe_rank if _LAYOUT else 0
+
+
+def pipe_group():
+    return _LAYOUT.pipe_group if _LAYOUT else None
+
+
+def stage_rank(s: int) -> int:
+    """The global rank of stage `s` of this rank's pipeline."""
+    return _LAYOUT.pipe_ranks[s]
 
 
 def data_group():
@@ -193,24 +272,28 @@ def describe(device: torch.device) -> str:
         return f"process group: none, one rank on {device}"
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size()))
-    grid = (f", data x model mesh {data_size()}x{model_size()}"
-            if _LAYOUT else "")
+    grid = ""
+    if _LAYOUT and pipe_size() > 1:
+        grid = (f", data x pipe x model mesh {data_size()}x{pipe_size()}x"
+                f"{model_size()}, pipeline hand-off {TRANSPORT}")
+    elif _LAYOUT:
+        grid = f", data x model mesh {data_size()}x{model_size()}"
     return (f"process group: {world_size()} ranks, backend "
             f"{dist.get_backend()} ({local} ranks on this host, {cards} "
             f"cards), rank 0 on {device}{grid}")
 
 
 def join_group(device: torch.device, mesh_data: int, batch_size: int,
-               grad_accum: int = 1, mesh_model: int = 1):
-    """--parallel: join torchrun's group, lay it out as data x model
-    (--mesh-model; `set_layout`) and check --mesh-data, the batch and
-    --grad-accum against the data axis. Returns (ranks on the data
-    axis, whether this call started the group: the caller then ends it
-    with `shutdown`)."""
+               grad_accum: int = 1, mesh_model: int = 1, mesh_pipe: int = 1):
+    """--parallel: join torchrun's group, lay it out as data x pipe x
+    model (--mesh-pipe, --mesh-model; `set_layout`) and check
+    --mesh-data, the batch and --grad-accum against the data axis.
+    Returns (ranks on the data axis, whether this call started the group:
+    the caller then ends it with `shutdown`)."""
     started = not active()
     world = maybe_initialize_distributed(device)
-    if mesh_model > 1:
-        set_layout(mesh_model, mesh_data)
+    if mesh_model > 1 or mesh_pipe > 1:
+        set_layout(mesh_model, mesh_data, mesh_pipe, device)
     else:
         check_mesh_data(mesh_data, world)
         set_layout(1)
@@ -219,10 +302,10 @@ def join_group(device: torch.device, mesh_data: int, batch_size: int,
 
 
 def shutdown() -> None:
-    global _LAYOUT
+    global _LAYOUT, TRANSPORT
     if active():
         dist.barrier()
-        _LAYOUT = None
+        _LAYOUT = TRANSPORT = None
         _LAYOUTS.clear()
         dist.destroy_process_group()
 

@@ -153,38 +153,72 @@ def seq_partial_keys(keys) -> List[str]:
     return out
 
 
+def layer_key(key: str) -> bool:
+    """Whether the leaf `key` lies in the encoder's or the decoder's layer
+    stack (split over the pipeline's stages; every other leaf is on each
+    stage)."""
+    p = key.split(SEP)
+    return len(p) > 2 and p[0] in ("encoder", "decoder") and p[1] == "layers"
+
+
 class FlatPlan:
     """What the train step needs to know of the flat buffer of one model
-    coordinate (training/steps.FlatParams): the weight of each element in
-    the clip's squared norm (1 on a split leaf; 1/M on a replicated leaf,
-    whose M identical copies then count once) and, under sequence
-    parallelism, the ranges of the leaves whose gradients are partial."""
+    coordinate and pipeline stage (training/steps.FlatParams): the weight
+    of each element in the clip's squared norm (1 on a leaf of its own;
+    1/M on a leaf replicated over the M model ranks and 1/S on one that
+    every one of the S stages holds, whose copies then count once); under
+    sequence parallelism, the ranges of the leaves whose gradients are
+    partial over the model group; under pipeline parallelism, the ranges
+    of the leaves outside the layer stacks, whose gradients the stages sum
+    (a stage that did not use a leaf adds zeros)."""
 
-    def __init__(self, fp, split_keys, n_model: int, seq_parallel: bool):
-        w, ranges, off = [], [], 0
+    def __init__(self, fp, split_keys, n_model: int, seq_parallel: bool,
+                 n_pipe: int = 1):
+        w, off = [], 0
+        self.partial, self.pipe = [], []
         partial = set(seq_partial_keys(fp.train_keys)) if seq_parallel \
             else set()
         for k, n in zip(fp.train_keys, fp.sizes):
-            split = k in split_keys
-            w.append(torch.full((n,), 1.0 if split else 1.0 / n_model))
+            weight = 1.0 if k in split_keys else 1.0 / n_model
+            if n_pipe > 1 and not layer_key(k):
+                weight /= n_pipe
+                self.pipe.append((off, n))
+            w.append(torch.full((n,), weight))
             if k in partial:
-                ranges.append((off, n))
+                self.partial.append((off, n))
             off += n
         self.sq_weight = torch.cat(w).to(fp.device)
-        self.partial = ranges
+
+    @staticmethod
+    def _sum_ranges_(g: torch.Tensor, ranges, group) -> torch.Tensor:
+        if not ranges:
+            return g
+        parts = torch.cat([g[o:o + n] for o, n in ranges])
+        dist.all_reduce(parts, group=group)
+        i = 0
+        for o, n in ranges:
+            g[o:o + n] = parts[i:i + n]
+            i += n
+        return g
 
     def reduce_partial_(self, g: torch.Tensor) -> torch.Tensor:
         """Sum the partial leaves of the flat gradient `g` over the model
         group, in place."""
-        if not self.partial:
-            return g
-        parts = torch.cat([g[o:o + n] for o, n in self.partial])
-        dist.all_reduce(parts, group=mesh.model_group())
-        i = 0
-        for o, n in self.partial:
-            g[o:o + n] = parts[i:i + n]
-            i += n
-        return g
+        return self._sum_ranges_(g, self.partial, mesh.model_group())
+
+    def reduce_pipe_(self, g: torch.Tensor) -> torch.Tensor:
+        """Sum the gradient of the leaves outside the stacks over the pipe
+        group, in place."""
+        return self._sum_ranges_(g, self.pipe, mesh.pipe_group())
+
+    def sum_sq(self, sq: torch.Tensor) -> torch.Tensor:
+        """The clip's weighted squared sum over the model coordinates and
+        the stages."""
+        sq = sum_over_model(sq)
+        if mesh.pipe_size() > 1:
+            sq = sq.contiguous().clone()
+            dist.all_reduce(sq, group=mesh.pipe_group())
+        return sq
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,20 @@ which loads at any layout and in one process.
         --parallel --mesh-data 2 --mesh-model 2 [--seq-parallel] \
         [--zero1 | --fsdp] [--checkpoint-format orbax] ...
 
-Pipeline parallelism (``--mesh-pipe``) is not ported yet and raises,
-naming the ROADMAP item.
+Pipeline parallelism: ``--parallel --mesh-pipe S`` splits the encoder's
+and the decoder's layers into S stages (the layers must divide by S),
+ranks laid out data x pipe x model (parallel/mesh.py), and each batch
+runs as ``--pipe-microbatches M`` microbatches (0: S; M must divide the
+per-device microbatch) on GPipe's schedule (parallel/pp.py). It composes
+with --mesh-data, --mesh-model (TP inside each stage), --zero1 / --fsdp
+(each stage's buffer sliced over the data axis), --remat, --grad-accum
+and --clip, not with --seq-parallel. Stage 0 (rank 0) logs and saves the
+gathered checkpoint, the one-process run's file; ``test`` and
+``transcribe`` serve it without a pipeline.
+
+    torchrun --standalone --nproc_per_node 4 -m end2end_asr_tpu_torch.train \
+        --parallel --mesh-pipe 2 [--pipe-microbatches 4] [--mesh-data 2 |
+        --mesh-model 2] [--zero1 | --fsdp] [--remat] ...
 """
 
 from __future__ import annotations
@@ -78,11 +90,6 @@ def refuse_unported(cfg: Config) -> None:
     flag needs --parallel)."""
     if cfg.mesh_pipe > 1 and not cfg.parallel:
         raise SystemExit("--mesh-pipe requires --parallel")
-    # items named by title, not number, so a renumbering cannot stale them
-    if cfg.mesh_pipe > 1:
-        raise NotImplementedError(
-            "--mesh-pipe is not ported yet: pipeline parallelism (ROADMAP "
-            "§1, parallelism: pipeline parallelism)")
     if cfg.quantize_int8:
         raise SystemExit("--quantize-int8 is eval-only (test/transcribe); "
                          "training runs f32 master weights")
@@ -90,12 +97,20 @@ def refuse_unported(cfg: Config) -> None:
         raise SystemExit("--seq-parallel requires --parallel "
                          "--mesh-model N (N > 1): it shards the "
                          "encoder time axis across the 'model' axis")
+    if cfg.seq_parallel and cfg.mesh_pipe > 1:
+        raise SystemExit(
+            "--seq-parallel does not compose with --mesh-pipe: the "
+            "pipeline's microbatch activations are already 1/M "
+            "size, and SP's time-axis constraints inside the "
+            "pipelined region are untested — pick one")
     if (cfg.zero1 or cfg.fsdp) and not cfg.parallel:
         raise SystemExit("--zero1/--fsdp require --parallel: they "
                          "shard optimizer moments (and, for --fsdp, "
                          "parameters) over the 'data' mesh axis")
     if cfg.parallel:
+        from end2end_asr_tpu_torch.parallel.pp import check_pp_divisibility
         from end2end_asr_tpu_torch.parallel.tp import check_tp_divisibility
+        check_pp_divisibility(cfg, cfg.mesh_pipe)
         check_tp_divisibility(cfg, cfg.mesh_model)
 
 
@@ -132,8 +147,13 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
 
     device = mesh.rank_device(resolve_device(device_name))
     world, started = (mesh.join_group(device, cfg.mesh_data, cfg.batch_size,
-                                      cfg.grad_accum, cfg.mesh_model)
+                                      cfg.grad_accum, cfg.mesh_model,
+                                      cfg.mesh_pipe)
                       if cfg.parallel else (1, False))
+    if cfg.parallel and cfg.mesh_pipe > 1:
+        from end2end_asr_tpu_torch.parallel import pp
+        pp.check_microbatches(cfg.batch_size, world, cfg.grad_accum,
+                              pp.n_micro(cfg.pipe_microbatches))
     main_rank = mesh.is_main()
     os.makedirs("log", exist_ok=True)
     # append on resume: a resumed run keeps the history of the runs before
@@ -155,6 +175,9 @@ def main(argv: Optional[List[str]] = None, trainer_cls=None) -> Dict:
     try:
         if cfg.parallel:
             logger.info(mesh.describe(device))
+        if cfg.parallel and cfg.mesh_pipe > 1:
+            logger.info("pipeline: %d stages, %d microbatches",
+                        cfg.mesh_pipe, pp.n_micro(cfg.pipe_microbatches))
         if main_rank:
             print("=" * 50)
             print("THE EXPERIMENT LOG IS SAVED IN: log/" + cfg.name)

@@ -20,9 +20,10 @@ name the flag keeps) writes the port's own sharded checkpoint:
 `<base>.dcp/`, a ``torch.distributed.checkpoint`` directory, beside the
 same `<base>.json` sidecar, which rank 0 writes first (`save_sharded`).
 Every rank saves only the pieces it holds, and nothing is gathered: the
-flat buffer of its model coordinate's parameters (parallel/tp.py) or,
-under --fsdp, its slice of it (parallel/zero.py), and its moments, or
-their slice under --zero1 / --fsdp. A piece that several ranks hold
+flat buffer of its model coordinate's parameters (parallel/tp.py) of its
+pipeline stage (`pipe_stage_tree`) or, under --fsdp, its slice of it
+(parallel/zero.py), and its moments, or their slice under --zero1 /
+--fsdp. A piece that several ranks hold
 (a model coordinate's buffer on every rank of the data axis, the step,
 the model state, the tables) has one key, and DCP writes it once. The
 sidecar's ``dcp`` entry records the layout, so `load_checkpoint` reads
@@ -66,6 +67,33 @@ def model_rank_tree(tree, n_model: int, r: int):
         out[k] = (v.clone() if d is None
                   else v.chunk(n_model, dim=d)[r].contiguous())
     return unflatten(out)
+
+
+def pipe_stage_tree(tree, n_pipe: int, s: int):
+    """Stage s's part of the port's full param tree (or of a tree shaped
+    like it: the Adam moments) under pipeline parallelism over n_pipe
+    stages: layers [s·L/S, (s+1)·L/S) of the encoder and of the decoder,
+    renumbered from 0, and every leaf outside the stacks; leaves copied."""
+    from end2end_asr_tpu_torch.parallel.pp import STACKS, stage_range
+    out = dict(tree)
+    for k in STACKS:
+        if k in tree and "layers" in tree[k]:
+            layers = tree[k]["layers"]
+            keep = stage_range(len(layers), n_pipe, s)
+            out[k] = {**tree[k], "layers": [layers[i] for i in keep]}
+    return unflatten({k: v.clone() for k, v in flatten_params(out).items()})
+
+
+def pipe_join_trees(trees):
+    """The full tree from the stages' trees (in stage order): the layers
+    of each stack concatenated, every other leaf stage 0's."""
+    from end2end_asr_tpu_torch.parallel.pp import STACKS
+    out = dict(trees[0])
+    for k in STACKS:
+        if k in out and "layers" in out[k]:
+            out[k] = {**out[k], "layers": [lp for t in trees
+                                           for lp in t[k]["layers"]]}
+    return out
 
 
 def unflatten(flat: Dict[str, object]):
@@ -185,6 +213,7 @@ def _load_sharded(base_path: str, layout: Dict):
              for k, m in md.items()}
     dcp.load(state, checkpoint_id=path, no_dist=True)
     n_data, n_model = layout["n_data"], layout["n_model"]
+    n_pipe = layout.get("n_pipe", 1)
     keys = layout["train_keys"]
     full = {k: tuple(v) for k, v in layout["shapes"].items()}
 
@@ -194,11 +223,12 @@ def _load_sharded(base_path: str, layout: Dict):
             shape[dim] //= n_model
         return shape
 
-    def unflat(name: str) -> Dict[str, torch.Tensor]:
-        """The full flat tree of buffer `name` ("params", "mu", ...)."""
+    def unflat(name: str, s: int) -> Dict[str, torch.Tensor]:
+        """Stage s's flat tree of buffer `name` ("params", "mu", ...)."""
+        stage = f"s{s}{SEP}" if n_pipe > 1 else ""
         shards = []
         for m in range(n_model):
-            one = f"{name}{SEP}m{m}"
+            one = f"{name}{SEP}{stage}m{m}"
             buf = (state[one] if one in state else torch.cat(
                 [state[f"{one}{SEP}d{d}"] for d in range(n_data)]))
             flat, off = {}, 0
@@ -210,18 +240,26 @@ def _load_sharded(base_path: str, layout: Dict):
             shards.append(flat)
         return unshard_flat(shards, {k: full[k] for k in keys})
 
-    params = unflat("params")
     fixed = {k[len("fixed" + SEP):]: v for k, v in state.items()
              if k.startswith("fixed" + SEP)}
-    params.update(fixed)
-    params = {k: params[k] for k in layout["order"]}
+
+    def whole(name: str, zeros: bool) -> Dict[str, torch.Tensor]:
+        """The full flat tree of buffer `name`: the stages' trees joined,
+        with the fixed tables (zeros for the moments)."""
+        stages = []
+        for s in range(n_pipe):
+            flat = unflat(name, s)
+            dt = flat[keys[0]].dtype
+            flat.update({f: torch.zeros(v.shape, dtype=dt) if zeros else v
+                         for f, v in fixed.items()})
+            stages.append(unflatten({k: flat[k] for k in layout["order"]}))
+        return flatten_params(pipe_join_trees(stages))
+
+    params = whole("params", zeros=False)
     opt = {}
     for k in layout["opt_keys"]:
         if k in layout["moment_keys"]:
-            tree = unflat(k)
-            tree.update({f: torch.zeros(v.shape, dtype=tree[keys[0]].dtype)
-                         for f, v in fixed.items()})
-            opt.update({k + SEP + f: tree[f] for f in layout["order"]})
+            opt.update({k + SEP + f: v for f, v in whole(k, True).items()})
         else:
             opt[k] = state["opt" + SEP + k]
     model_state = {k[len("state" + SEP):]: v for k, v in state.items()

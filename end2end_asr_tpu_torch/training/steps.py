@@ -29,7 +29,15 @@ buffer holds this model coordinate's shard: those collectives run over
 the data axis only, the gradients that sequence parallelism leaves
 partial are first summed over the model group, and the clip's norm
 counts the split leaves of every coordinate and the replicated ones once
-(`plan`, a parallel.tp.FlatPlan).
+(`plan`, a parallel.tp.FlatPlan). Under pipeline parallelism
+(parallel/pp.py) the buffer holds this stage's layers and the leaves
+outside the stacks; each microbatch of the step runs the recorded
+pipelined forward, the loss on the last stage and GPipe's backward
+schedule (pp.Schedule); the stages then sum the gradients of the leaves
+outside the stacks, before the data axis's sum, and the clip's norm
+counts those leaves once; the last stage's loss, argmax and token count,
+and stage 0's model state, are shared with the pipe group, so the skip
+decision is the same on every rank.
 
 Reference behaviours kept (steps.py:56-228 of the JAX package):
   * a non-finite loss skips the update: parameters, optimizer state and
@@ -47,6 +55,7 @@ steps, which the JAX package pins equal to its K-step scan.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -56,7 +65,7 @@ from end2end_asr_tpu_torch.models.transformer import (ModelDims, forward,
                                                       forward_state)
 from end2end_asr_tpu_torch.ops.specaugment import apply_spec_augment
 from end2end_asr_tpu_torch.ops.stft import batched_features
-from end2end_asr_tpu_torch.parallel import mesh, tp
+from end2end_asr_tpu_torch.parallel import mesh, pp
 from end2end_asr_tpu_torch.training.checkpoint import (SEP, flatten_params,
                                                        unflatten)
 from end2end_asr_tpu_torch.training.loss import (calculate_loss,
@@ -160,11 +169,13 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
     is up. `zero` (a parallel.zero.ZeroShard) shards the optimizer state
     (--zero1) and the parameters (--fsdp): `data` and the moments are then
     this rank's slices at stage 3, the moments alone at stage 1. `plan`
-    (a parallel.tp.FlatPlan) is given under tensor parallelism."""
+    (a parallel.tp.FlatPlan) is given under tensor and pipeline
+    parallelism."""
     noam = noam_config_from(cfg)
     smoothing, loss_type = cfg.label_smoothing, cfg.loss
     accum = max(1, int(cfg.grad_accum))
     world, rank = mesh.data_size(), mesh.data_rank()
+    pipe = dims.pipeline and pp.active()
     if loss_type not in ("ce", "ctc"):
         raise ValueError(f"loss is not defined: {loss_type}")
 
@@ -175,8 +186,10 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
         # zero-filled buffer of the whole model before they are summed
         leaves = {k: t.detach().requires_grad_()
                   for k, t in fp.views(data).items()}
-        spect = features(cfg, pcm, n_frames, spect_T)
-        if cfg.spec_augment:
+        spect = None
+        if not pipe or pp.first():
+            spect = features(cfg, pcm, n_frames, spect_T)
+        if cfg.spec_augment and spect is not None:
             if rng is None:
                 raise ValueError("--spec-augment needs the step's random "
                                  "streams (rng)")
@@ -187,12 +200,10 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
                 freq_width=cfg.freq_mask_width,
                 n_time_masks=cfg.n_time_masks,
                 time_width=cfg.time_mask_width, rows=(rank * b, world * b))
-        pred, gold, new_state = forward_state(
-            fp.assemble(leaves), state, spect, n_frames, targets, dims,
-            train=True, rng=rng)
-        in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
-        loss = calculate_loss(pred, gold, in_lens, tgt_lengths, smoothing,
-                              loss_type)
+        with (pp.recording() if pipe else contextlib.nullcontext()) as sched:
+            pred, gold, new_state = forward_state(
+                fp.assemble(leaves), state, spect, n_frames, targets, dims,
+                train=True, rng=rng, spect_T=spect_T)
         # the weight of this microbatch in the sum over microbatches and
         # ranks: its non-PAD tokens for CE; CTC 'mean' weighs the equal
         # shards alike. The backward runs on the weighted loss, so that a
@@ -200,10 +211,31 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
         # gradients of the weighted losses of all ranks
         w = ((gold != PAD_TOKEN).sum().to(torch.float32)
              if loss_type == "ce" else torch.ones((), device=data.device))
-        grads = torch.autograd.grad(loss * w, list(leaves.values()),
-                                    allow_unused=True, materialize_grads=True)
+        loss = hyp = ncorr = None
+        if pred is not None:
+            in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
+            loss = calculate_loss(pred, gold, in_lens, tgt_lengths,
+                                  smoothing, loss_type)
+            hyp, ncorr = pred.detach().argmax(dim=-1), token_accuracy(
+                pred.detach(), gold)
+        if not pipe:
+            grads = torch.autograd.grad(loss * w, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        else:
+            # GPipe's backward (parallel/pp.py): the loss on the last
+            # stage, then the stacks' schedules; the last stage's loss,
+            # hyp and count on every stage
+            if loss is not None:
+                torch.autograd.backward(loss * w)
+            sched.backward()
+            grads = [torch.zeros_like(t) if t.grad is None else t.grad
+                     for t in leaves.values()]
+            loss, hyp, ncorr = pp.share_metrics(loss, hyp, ncorr, gold)
+            if new_state:
+                new_state = pp.share_state(new_state)
         grad = torch.cat([g.reshape(-1) for g in grads])
-        return loss.detach() * w, grad, w, pred.detach(), gold, new_state
+        return loss.detach() * w, grad, w, hyp, ncorr, gold, new_state
 
     def local_sums(fp, data, state, rng, pcm, n_frames, targets,
                    tgt_lengths, spect_T):
@@ -218,7 +250,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
         hyps, golds, ncorr = [], [], 0
         for m in range(accum):
             # the state advances once per microbatch (steps.py:104-105)
-            loss_w, grad, w, pred, gold, state = micro(
+            loss_w, grad, w, hyp, nc, gold, state = micro(
                 fp, data, state, rng, pcm[m::accum], n_frames[m::accum],
                 targets[m::accum], tgt_lengths[m::accum], spect_T)
             if g_acc is None:
@@ -226,9 +258,9 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
             else:
                 g_acc, loss_acc, w_acc = g_acc + grad, loss_acc + loss_w, \
                     w_acc + w
-            hyps.append(pred.argmax(dim=-1))
+            hyps.append(hyp)
             golds.append(gold)
-            ncorr = ncorr + token_accuracy(pred, gold)
+            ncorr = ncorr + nc
         # invert the interleave: row m + accum·i of the batch
         order = lambda xs: torch.stack(xs, dim=1).reshape(B, -1)
         gold = order(golds)
@@ -246,6 +278,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
         with torch.no_grad():
             if plan is not None:
                 plan.reduce_partial_(g)     # sequence parallelism
+                plan.reduce_pipe_(g)        # the pipeline's stages
             # the sums over the ranks: one collective for the gradient,
             # one for the scalars (world size 1: neither runs)
             small = mesh.all_reduce_(torch.stack(
@@ -262,14 +295,14 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
             params = data if zero is None or zero.stage == 3 \
                 else zero.shard(data)
             # under ZeRO the clip's squared sum is the slices' over the
-            # data axis; under TP the coordinates' over the model group
+            # data axis; under TP and PP the coordinates' and the stages'
             reduce_sq = None if zero is None else mesh.all_reduce_
             sq_weight = None
             if plan is not None:
                 sq_weight = plan.sq_weight if zero is None \
                     else zero.shard(plan.sq_weight)
                 over_data = reduce_sq
-                reduce_sq = lambda sq: tp.sum_over_model(
+                reduce_sq = lambda sq: plan.sum_sq(
                     sq if over_data is None else over_data(sq))
             if cfg.opt == "sgd_annealing":
                 upd, upd_opt, upd_lr = sgd_annealing_update(
@@ -300,17 +333,25 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
 def make_eval_step(cfg: Config, dims: ModelDims):
     """eval_step(params, pcm, n_frames, targets, tgt_lengths, spect_T) →
     (loss, hyp_seq, gold): the teacher-forced forward, no dropout, the
-    model state read from params["state"] (transformer.with_state)."""
+    model state read from params["state"] (transformer.with_state);
+    pipelined under a pipe layout, as the JAX package's eval forward, the
+    last stage's loss and hyp shared with every stage."""
+    pipe = dims.pipeline and pp.active()
 
     @torch.no_grad()
     def eval_step(params, pcm, n_frames, targets, tgt_lengths, spect_T):
-        spect = features(cfg, pcm, n_frames, spect_T)
+        spect = (features(cfg, pcm, n_frames, spect_T)
+                 if not pipe or pp.first() else None)
         pred, gold = forward(params, spect, n_frames, targets, dims,
-                             train=False)
-        in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
-        loss = calculate_loss(pred, gold, in_lens, tgt_lengths,
-                              cfg.label_smoothing, cfg.loss)
-        return loss, pred.argmax(dim=-1), gold
+                             train=False, spect_T=spect_T)
+        loss = hyp = None
+        if pred is not None:
+            in_lens = ctc_input_lengths(n_frames, spect_T, pred.shape[1])
+            loss = calculate_loss(pred, gold, in_lens, tgt_lengths,
+                                  cfg.label_smoothing, cfg.loss)
+            hyp = pred.argmax(dim=-1)
+        if pipe:
+            loss, hyp, _ = pp.share_metrics(loss, hyp, None, gold)
+        return loss, hyp, gold
 
     return eval_step
-

@@ -26,7 +26,13 @@ sharded model, and an npz checkpoint gathers the shards over the model
 group first, so it is the one-process run's file.
 ``--checkpoint-format orbax`` writes the sharded format instead
 (training/checkpoint.save_sharded): each rank saves the pieces it holds
-(`sharded_pieces`), and nothing is gathered.
+(`sharded_pieces`), and nothing is gathered. Under pipeline parallelism
+(parallel/pp.py) each rank trains its stage's layers and the leaves
+outside the stacks (training/checkpoint.pipe_stage_tree), and its model
+coordinate's shard of those under TP; the step gives every stage the
+last stage's loss and argmax (rank 0, stage 0, logs them) and stage 0's
+model state; an npz checkpoint gathers the stages over the pipe group, so
+it is the one-process run's file.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from end2end_asr_tpu_torch.evaluation import (ids_to_string_until_pad,
 from end2end_asr_tpu_torch.models.layers import DropoutRng
 from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
                                                       to_device, with_state)
-from end2end_asr_tpu_torch.parallel import mesh, tp
+from end2end_asr_tpu_torch.parallel import mesh, pp, tp
 from end2end_asr_tpu_torch.parallel.zero import MOMENT_KEYS, ZeroShard
 from end2end_asr_tpu_torch.training import checkpoint as ckpt
 from end2end_asr_tpu_torch.training.optimizer import init_opt_state
@@ -100,13 +106,15 @@ def valid_batch_loss(loss: torch.Tensor, gold: torch.Tensor,
 def sharded_pieces(fp: FlatParams, data: torch.Tensor, opt: Dict, zero,
                    model_state, full_shapes: Dict):
     """(this rank's pieces, the layout) of a sharded checkpoint
-    (training/checkpoint.save_sharded): its model coordinate's flat
-    parameters (its slice under --fsdp) and moments (their slices under
-    ZeRO), keyed by coordinate; the optimizer's scalars, the model state
+    (training/checkpoint.save_sharded): its pipeline stage's and model
+    coordinate's flat parameters (its slice under --fsdp) and moments
+    (their slices under ZeRO), keyed by stage and coordinate; the optimizer's scalars, the model state
     and the fixed tables under keys that every rank shares."""
     m, d = mesh.model_rank(), mesh.data_rank()
     stage = zero.stage if zero is not None else 0
-    own = lambda name, sliced: (f"{name}{ckpt.SEP}m{m}"
+    pipe = (f"s{mesh.pipe_rank()}{ckpt.SEP}" if mesh.pipe_size() > 1
+            else "")
+    own = lambda name, sliced: (f"{name}{ckpt.SEP}{pipe}m{m}"
                                 + (f"{ckpt.SEP}d{d}" if sliced else ""))
     pieces = {own("params", stage == 3): data}
     for k, v in opt.items():
@@ -117,7 +125,7 @@ def sharded_pieces(fp: FlatParams, data: torch.Tensor, opt: Dict, zero,
     for k, v in ckpt.flatten_params(model_state or {}).items():
         pieces["state" + ckpt.SEP + k] = v
     layout = {"n_data": mesh.data_size(), "n_model": mesh.model_size(),
-              "stage": stage, "train_keys": fp.train_keys,
+              "n_pipe": mesh.pipe_size(), "stage": stage, "train_keys": fp.train_keys,
               "order": fp.order,
               "shapes": {k: list(full_shapes[k]) for k in fp.train_keys},
               "opt_keys": list(opt),
@@ -181,26 +189,30 @@ class Trainer:
         num_epochs = cfg.epochs if num_epochs is None else num_epochs
         history: List[Dict] = list((last_metrics or {}).get("history", []))
         best_valid_loss = (last_metrics or {}).get("valid_loss", 1e9)
-        # tensor parallelism: this rank trains its model coordinate's shard
-        n_model, plan = mesh.model_size(), None
+        # pipeline parallelism: this rank trains its stage's layers and the
+        # leaves outside the stacks; tensor parallelism: its model
+        # coordinate's shard of those
+        n_model, n_pipe, plan = mesh.model_size(), mesh.pipe_size(), None
+        stage = lambda t: (ckpt.pipe_stage_tree(t, n_pipe, mesh.pipe_rank())
+                           if n_pipe > 1 else t)
+        shard = lambda t: (ckpt.model_rank_tree(t, n_model, mesh.model_rank())
+                           if n_model > 1 else t)
+        params = stage(params)
         full_shapes = {k: tuple(v.shape)
                        for k, v in ckpt.flatten_params(params).items()}
-        if n_model > 1:
-            shard = lambda t: ckpt.model_rank_tree(t, n_model,
-                                                   mesh.model_rank())
-            params = shard(params)
-            if opt_state is not None:
-                opt_state = {k: (shard(v) if k in MOMENT_KEYS else v)
-                             for k, v in opt_state.items()}
-        unshard = lambda t: tp.gather_tree(t, full_shapes)
+        params = shard(params)
+        if opt_state is not None:
+            opt_state = {k: (shard(stage(v)) if k in MOMENT_KEYS else v)
+                         for k, v in opt_state.items()}
+        unshard = lambda t: pp.gather_stages(tp.gather_tree(t, full_shapes))
         unshard_opt = lambda o: {k: (unshard(v) if k in MOMENT_KEYS else v)
                                  for k, v in o.items()}
         fp = FlatParams(params, dev)
-        if n_model > 1:
+        if n_model > 1 or n_pipe > 1:
             plan = tp.FlatPlan(
                 fp, [k for k in fp.train_keys
                      if tp.leaf_dim(k, full_shapes[k], n_model) is not None],
-                n_model, cfg.seq_parallel)
+                n_model, cfg.seq_parallel, n_pipe)
         data = fp.data
         zero = (ZeroShard.for_config(cfg, fp.numel)
                 if cfg.zero1 or cfg.fsdp else None)

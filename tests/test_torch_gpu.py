@@ -1142,3 +1142,28 @@ def test_group_of_one_nccl_step_equals_the_plain_step(dev, monkeypatch):
         dist.destroy_process_group()
     torch.testing.assert_close(got_loss, want_loss, rtol=1e-6, atol=0)
     assert (got_data - want_data).abs().max().item() <= 2 * lr
+
+
+def test_pipeline_stage_on_the_card(dev, tmp_path):
+    """Two gloo ranks sharing cuda:0 as the stages of --mesh-pipe 2
+    (tests/torch_pp_worker.py `gpu_run`): the hand-off goes through pinned
+    host memory (gloo's point-to-point takes host tensors) and is exact
+    both ways; one pipelined train step at dropout 0.1 launches each
+    stage's attention kernels, and the vgg front end's on stage 0 alone;
+    the ranks report the same finite loss."""
+    import json
+    import os
+    import sys
+
+    import torch.multiprocessing as mp
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_pp_worker
+    mp.spawn(torch_pp_worker.gpu_run, args=(str(tmp_path),), nprocs=2)
+    ranks = [json.loads((tmp_path / f"gpu.r{r}.json").read_text())
+             for r in range(2)]
+    for r, rk in enumerate(ranks):
+        assert rk["transport"] == "host" and rk["hand_off_exact"], rk
+        assert min(rk["attn"]) > 0, rk
+        assert (min(rk["vgg"]) > 0) == (r == 0), rk
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    assert torch.isfinite(torch.tensor(ranks[0]["loss"]))

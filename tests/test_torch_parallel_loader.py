@@ -180,8 +180,10 @@ def test_zero_slices_cover_the_buffer_and_update_elementwise():
     # tensor parallelism is ported: the JAX package's check of the heads
     (["--parallel", "--mesh-model", "2"], ValueError,
      r"--num-heads 5 must be divisible by --mesh-model 2 \(whole"),
-    (["--parallel", "--mesh-pipe", "2"], NotImplementedError,
-     r"--mesh-pipe is not ported yet: pipeline parallelism \(ROADMAP"),
+    # pipeline parallelism is ported: the JAX package's check of the
+    # layers (3 by default)
+    (["--parallel", "--mesh-pipe", "2"], ValueError,
+     r"--num-layers 3 must be divisible by --mesh-pipe 2 \(equal"),
     (["--mesh-pipe", "2"], SystemExit, "--mesh-pipe requires --parallel"),
     (["--parallel", "--seq-parallel"], SystemExit,
      r"--seq-parallel requires --parallel --mesh-model N \(N > 1\)"),

@@ -573,12 +573,15 @@ def test_train_entry_point_needs_a_card_or_device_cpu(corpus, tmp_path,
     # --noise-dir is ported: a missing directory raises IOError, as the JAX
     # package's NoiseInjector does
     # --seq-parallel needs --parallel --mesh-model (root train.py's
-    # SystemExit); pipeline parallelism is the item still to port
+    # SystemExit); pipeline parallelism is ported: one process without
+    # torchrun's group has one rank, too few for two stages
+    # (make_mesh_pipe's words; tests/test_torch_pp.py runs the stages)
     for flag, exc, match in (
             (["--seq-parallel"], SystemExit, "requires --parallel"),
             (["--noise-dir", "x"], IOError, "Directory doesn't exist: x"),
-            (["--parallel", "--mesh-pipe", "2"], NotImplementedError,
-             "ROADMAP .*pipeline parallelism")):
+            (["--parallel", "--mesh-pipe", "2", "--num-layers", "2"],
+             ValueError, "--mesh-pipe 2 x --mesh-model 1 exceeds the 1 "
+                         "visible devices")):
         with pytest.raises(exc, match=match):
             port_train.main(_train_argv(corpus, str(tmp_path),
                                         ["--device", "cpu", *flag]))
