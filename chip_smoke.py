@@ -132,7 +132,15 @@ Phases (any failure exits non-zero without the final result line):
      to the run's gathered parameters and serve their strings through
      `test`; `test --parallel --mesh-model 2` over phase 3's checkpoint
      (12 rows a rank) must give the one-process strings at --dtype
-     float32; at bf16 the equal strings are counted;
+     float32; at bf16 the equal strings are counted. Then at --model
+     LRTRFS --rank 100 (`phase_tp_lowrank`): the one-process run of the
+     same 2 steps, and one group of 2 gloo ranks that runs --mesh-model 2,
+     + --seq-parallel and --fsdp --checkpoint-format orbax, each held as
+     above against the one-process LRTRFS run (attention on 4 local
+     heads), then `test --parallel --mesh-model 2` over tp2_lr's
+     checkpoint and, with --quantize-int8, over phase 3's (f32: one
+     process's strings; bf16: counted), and over tp2_sp's at f32, which
+     must serve on T slices with one process's strings;
   11. pipeline parallelism at the same width (gloo ranks sharing the card
      through the --ddp-rank mode, the runs of a world size one after the
      other in one group, each one epoch of 2 steps at dropout 0, then the
@@ -1537,7 +1545,9 @@ def train_argv(cfg, manifest, valid, labels_path, extra=(), name="aishell"):
             "--dropout", str(cfg.dropout), "--k-lr", str(cfg.k_lr),
             "--min-lr", str(cfg.min_lr), "--warmup", str(cfg.warmup),
             "--dtype", cfg.dtype, "--seed", str(cfg.seed),
-            "--save-every", "1", *extra]
+            "--save-every", "1",
+            *(["--model", cfg.model, "--rank", str(cfg.rank)]
+              if cfg.rank else []), *extra]
 
 
 def train_kernel_table():
@@ -2857,7 +2867,7 @@ def ddp_rank(spec_path):
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh.maybe_initialize_distributed(dev)
     for run in spec.get("runs", [spec]):
-        rank_run(torch, run, dev)
+        (rank_test if "test" in run else rank_run)(torch, run, dev)
     mesh.shutdown()
 
 
@@ -2918,6 +2928,35 @@ def rank_run(torch, spec, dev):
         save_checkpoint(spec["save_npz"], cfg, 1, res["params"], label2id,
                         id2label)
     with open(f"{spec['out']}.r{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def rank_test(torch, spec, dev):
+    """One `test` run on this rank (phase 10): the serving entry point
+    with the spec's argv (--parallel, in the group); writes rank 0's HYP
+    strings, the CER, whether the run logged sequence-parallel serving
+    and the seconds to <out>.r<rank>.json."""
+    import logging
+    from end2end_asr_tpu_torch import test as port_test
+    from end2end_asr_tpu_torch.parallel import mesh
+    lines = []
+    keep = logging.Handler()
+    keep.emit = lambda r: lines.append(r.getMessage())
+    lg = logging.getLogger("end2end_asr_tpu_torch")
+    lg.addHandler(keep)
+    t0 = time.time()
+    try:
+        res = port_test.main(spec["test"])
+    finally:
+        lg.removeHandler(keep)
+    torch.cuda.synchronize(dev)
+    out = {"rank": mesh.rank(), "seconds": time.time() - t0,
+           "cer": res.get("cer"),
+           "hyps": [ln[5:].split(" || GOLD: ")[0] for ln in lines
+                    if ln.startswith("HYP: ")],
+           "seq_parallel": any(ln.startswith("sequence parallelism")
+                               for ln in lines)}
+    with open(f"{spec['out']}.r{mesh.rank()}.json", "w") as f:
         json.dump(out, f)
 
 
@@ -3338,6 +3377,195 @@ def phase_tp(torch, dev, serve_kernels, work, labels_path, model, manifest,
     return counts, res
 
 
+# the low-rank runs of phase 10: (name, flags), in one group of 2 ranks,
+# against the one-process LRTRFS run of the same 2 steps by phase 9's rules
+LR_RANK = 100
+TP_LR_RUNS = (("tp2_lr", ["--mesh-model", "2"]),
+              ("tp2_lr_sp", ["--mesh-model", "2", "--seq-parallel"]),
+              ("tp2_lr_fsdp_dcp", ["--mesh-model", "2", "--fsdp",
+                                   "--checkpoint-format", "orbax"]))
+
+
+def phase_tp_lowrank(torch, dev, serve_kernels, work, labels_path, model,
+                     manifest, valid, gpu):
+    """Phase 10's low-rank and int8 runs: the AiShell width at --model
+    LRTRFS --rank LR_RANK (batch 12, bf16, dropout 0, one epoch = 2
+    steps): the one-process run in this process, then one group of 2
+    gloo ranks sharing cuda:0 (the --ddp-rank mode) that runs TP_LR_RUNS
+    (each rank's launches, step time and peak memory read; the attention
+    kernels on 4 local heads) and then `test --parallel --mesh-model 2`
+    over tp2_lr's checkpoint and, with --quantize-int8, over phase 3's,
+    at f32 and bf16, and over the checkpoint of phase 10's --seq-parallel
+    run (tp2_sp) at f32, which must serve on T slices. Each train run's
+    loss and gathered parameters against the one-process run's; the
+    served strings against one process's on the same checkpoint (and
+    flags): equal at f32, counted at bf16."""
+    import numpy as np
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.config import load_vocab
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.models.transformer import num_params
+    from end2end_asr_tpu_torch.training.checkpoint import (flatten_params,
+                                                           load_checkpoint)
+    from end2end_asr_tpu_torch.training.optimizer import noam_rate
+    from end2end_asr_tpu_torch.training.steps import noam_config_from
+    cfg = aishell_config(dropout=0.0, model="LRTRFS", rank=LR_RANK)
+    argv = lambda name, extra=(): train_argv(
+        cfg, manifest, valid, labels_path, ["--epochs", "1", *extra],
+        name=name)
+    res, counts = {"gpu": gpu, "rank": LR_RANK}, {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        ref = port_train.main(argv("lr_ref", ["--device", str(dev)]))
+        label2id, _ = load_vocab(labels_path)
+        batch = next(iter(AudioBatchLoader(
+            ManifestDataset([manifest], label2id), cfg)))
+        res["step_ms_1_process"] = rank_step_ms(
+            torch, cfg.replace(dropout=0.1), ref["params"], batch, dev)
+    finally:
+        os.chdir(cwd)
+    res["params_M"] = num_params(ref["params"]) / 1e6
+    ref_base = os.path.join(work, "models", "lr_ref", "epoch_1")
+    ref_ck = flat_npz(ref_base)
+    ref_loss = ref["metrics"]["train_loss"]
+    res["one_process_loss"] = ref_loss
+    log(f"LRTRFS rank {LR_RANK}: {res['params_M']:.2f} M params; the "
+        f"one-process run: train loss {ref_loss:.6f}, step "
+        f"{res['step_ms_1_process']:.2f} ms (12 rows, dropout 0.1)")
+    lr_sum = sum(float(noam_rate(torch.tensor(s), noam_config_from(cfg)))
+                 for s in (1, 2))
+
+    # the group: the train runs, then the serving runs
+    npz_base = os.path.join(work, "models", "tp2_lr_fsdp_npz", "epoch_1")
+    runs = [{"argv": argv(name, ["--parallel", "--device", "cuda",
+                                 *extra]),
+             "out": os.path.join(work, name),
+             "local_heads": name == "tp2_lr",
+             "save_npz": npz_base if name.endswith("dcp") else None}
+            for name, extra in TP_LR_RUNS]
+    serves = {"lr_f32": (os.path.join(work, "models", "tp2_lr", "epoch_1"),
+                         ["--dtype", "float32"]),
+              "lr_bf16": (os.path.join(work, "models", "tp2_lr", "epoch_1"),
+                          ["--dtype", "bfloat16"]),
+              "int8_f32": (model.ckpt, ["--dtype", "float32",
+                                        "--quantize-int8"]),
+              "int8_bf16": (model.ckpt, ["--dtype", "bfloat16",
+                                         "--quantize-int8"]),
+              "sp_f32": (os.path.join(work, "models", "tp2_sp", "epoch_1"),
+                         ["--dtype", "float32"])}
+    serve_argv = lambda base, extra: [
+        "--continue-from", base, "--test-manifest-list", model.manifest,
+        "--batch-size", str(B), *extra]
+    runs += [{"test": serve_argv(base, extra) + [
+                  "--parallel", "--mesh-model", "2", "--verbose",
+                  "--device", "cuda"],
+              "out": os.path.join(work, "test_tp_" + name)}
+             for name, (base, extra) in serves.items()]
+    spec = os.path.join(work, "tp_lowrank.json")
+    with open(spec, "w") as f:
+        json.dump({"runs": runs}, f)
+    _, secs = torchrun(work, 2, [os.path.abspath(__file__), "--ddp-rank",
+                                 spec], "tp_lowrank", timeout=600)
+    res["group_seconds"] = secs
+    log(f"torchrun 2 ranks, runs {[n for n, _ in TP_LR_RUNS]} and "
+        f"{len(serves)} test runs: {secs:.1f} s")
+
+    for name, extra in TP_LR_RUNS:
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"{name}.r{r}.json")) as f:
+                ranks.append(json.load(f))
+        for rk in ranks:
+            missing = [n for n in NO_DROPOUT_KERNELS
+                       if rk["launches"][n] < 1] + [
+                n for n, c in rk["step_launches"].items() if c < 1]
+            if missing or rk["backend"] != "gloo" or rk["opt_step"] != 2:
+                fail(f"{name} rank {rk['rank']}: kernels not launched "
+                     f"{missing}, backend {rk['backend']}, step "
+                     f"{rk['opt_step']}")
+        base = os.path.join(work, "models", name, "epoch_1")
+        if name.endswith("dcp"):
+            if not os.path.isdir(base + ".dcp") or os.path.exists(
+                    base + ".npz"):
+                fail(f"{name}: no {base}.dcp, or an npz beside it")
+            _, _, params, opt, _, _, _, _ = load_checkpoint(base)
+            ck = {"params::" + k: v.float().numpy()
+                  for k, v in flatten_params(params).items()}
+            saved = flat_npz(npz_base)
+            same = all(np.array_equal(saved[k], v) for k, v in ck.items())
+            res["dcp_equals_the_runs_npz"] = same
+            if not same or int(opt["step"]) != 2:
+                fail(f"{name}: the sharded checkpoint loaded in one process "
+                     f"differs from the run's gathered parameters")
+        else:
+            ck = flat_npz(base)
+        loss = ranks[0]["train_loss"]
+        dp = max(float(np.abs(ck[k].astype(np.float64)
+                              - ref_ck[k].astype(np.float64)).max())
+                 for k in ref_ck if k.startswith("params::"))
+        res[name] = {
+            "train_s": [rk["train_s"] for rk in ranks], "train_loss": loss,
+            "loss_rel_vs_1_process": abs(loss - ref_loss) / abs(ref_loss),
+            "params_max_abs_vs_1_process": dp,
+            "layout": ranks[0]["layout"],
+            "step_ms": [rk["step_ms"] for rk in ranks],
+            "peak_mem_mib": [rk["peak_mem_bytes"] / 2 ** 20
+                             for rk in ranks]}
+        counts[name] = [{k: (rk["launches"][k], rk["step_launches"][k])
+                         for k in rk["launches"]} for rk in ranks]
+        log(f"2 ranks --parallel {' '.join(extra)} --model LRTRFS --rank "
+            f"{LR_RANK} ({gpu}): train loss {loss:.6f} against the "
+            f"one-process {ref_loss:.6f}; parameters {dp:.3g} from it "
+            f"(bound {2 * lr_sum:.3g}); " + "; ".join(
+                f"rank {rk['rank']} (data x model {rk['layout']}): launches "
+                f"{rk['launches']} in the run, {rk['step_launches']} in the "
+                f"{DDP_STEPS + 1} timed steps at dropout 0.1, step "
+                f"{rk['step_ms']:.2f} ms, peak "
+                f"{rk['peak_mem_bytes'] / 2 ** 20:.1f} MiB" for rk in ranks))
+        if abs(loss - ref_loss) > DDP_LOSS_RTOL * abs(ref_loss):
+            fail(f"{name}: train loss {loss} against the one-process "
+                 f"{ref_loss} (rtol {DDP_LOSS_RTOL})")
+        if dp > 2 * lr_sum * 1.01:
+            fail(f"{name}: parameters moved {dp:.3g} from the one-process "
+                 f"run's, beyond 2 * (lr1 + lr2) = {2 * lr_sum:.3g}")
+        if name == "tp2_lr":
+            heads = [rk["local_heads"] for rk in ranks]
+            res["local_heads"] = heads
+            if not (all(max(h["errs"]) <= ATTN_TOL
+                        and h["two_runs_bit_identical"]
+                        and all(h["layout"].values())
+                        and h["mask_equals_plain"] for h in heads)
+                    and len({h["mask_digest"] for h in heads}) == 1):
+                fail(f"attention at {LOCAL_HEADS} local heads: {heads}")
+
+    # the served strings against one process's on the same checkpoint
+    for name, (base, extra) in serves.items():
+        with open(os.path.join(work, f"test_tp_{name}.r0.json")) as f:
+            got = json.load(f)
+        want = greedy_strings(torch, serve_kernels, serve_argv(base, extra)
+                              + ["--device", str(dev)])[0]
+        hyps = got["hyps"]
+        flips = sum(a != b for h, r in zip(hyps, want) for a, b in zip(h, r))
+        res["test_tp_" + name] = {
+            "seconds": got["seconds"], "strings": len(hyps),
+            "equal_to_one_process": sum(h == r for h, r in zip(hyps, want)),
+            "characters_differing": flips,
+            "seq_parallel": got["seq_parallel"]}
+        log(f"test --parallel --mesh-model 2 {' '.join(extra)} over "
+            f"{os.path.relpath(base, work)}: {res['test_tp_' + name]} "
+            f"against one process")
+        if len(hyps) != B or (name.endswith("f32") and hyps != want):
+            fail(f"test --parallel --mesh-model 2 {' '.join(extra)} over "
+                 f"{base}: strings differ from one process's: "
+                 f"{list(zip(hyps, want))[:3]}")
+        if got["seq_parallel"] != name.startswith("sp"):
+            fail(f"test_tp_{name}: sequence-parallel serving "
+                 f"{got['seq_parallel']}, expected {name.startswith('sp')}")
+    return counts, res
+
+
 # ---------------------------------------------------------------------------
 # phase 11: pipeline parallelism
 # ---------------------------------------------------------------------------
@@ -3618,6 +3846,10 @@ def main():
         log(f"data parallelism done at {time.time() - t0:.1f} s")
         tp_counts, tpar = phase_tp(torch, dev, kernels, work, labels_path,
                                    model, manifest, valid, gpu)
+        lr_counts, tpar["lowrank"] = phase_tp_lowrank(
+            torch, dev, kernels, work, labels_path, model, manifest, valid,
+            gpu)
+        tp_counts.update(lr_counts)
         log(f"tensor and sequence parallelism done at "
             f"{time.time() - t0:.1f} s")
         pp_counts, ppar = phase_pp(torch, dev, kernels, work, labels_path,

@@ -141,7 +141,10 @@ def fused_qkv_weights(p: Params, dtype: torch.dtype = torch.bfloat16):
     """Per-layer fused self-attention projection [Wq‖Wk‖Wv] so the step
     issues one product instead of three. None for low-rank layers. An
     int8 layer (models/quantize.py) stays int8: its per-output-channel
-    scales concatenate beside the int8 columns."""
+    scales concatenate beside the int8 columns; under tensor parallelism
+    each of the three gives this rank's columns (`layers.shard_cols`: a
+    shard holds its columns of the bias, and the int8 weights whole), so
+    the fused columns are [q's‖k's‖v's] of the local heads."""
     fused = []
     for lp in p["layers"]:
         sa = lp["self_attn"]
@@ -150,9 +153,11 @@ def fused_qkv_weights(p: Params, dtype: torch.dtype = torch.bfloat16):
             continue
         b = torch.cat([sa["q"]["b"], sa["k"]["b"], sa["v"]["b"]])
         if "q8" in sa["q"]:
+            cols = lambda n, leaf, d: L.shard_cols(sa[n][leaf], sa[n]["b"],
+                                                   d)
             fused.append({
-                "q8": torch.cat([sa[n]["q8"] for n in "qkv"], dim=1),
-                "scale": torch.cat([sa[n]["scale"] for n in "qkv"]),
+                "q8": torch.cat([cols(n, "q8", 1) for n in "qkv"], dim=1),
+                "scale": torch.cat([cols(n, "scale", 0) for n in "qkv"]),
                 "b": b})
             continue
         w = torch.cat([sa["q"]["w"], sa["k"]["w"], sa["v"]["w"]],

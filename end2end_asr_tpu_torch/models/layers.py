@@ -144,24 +144,46 @@ def dense(p: Params, x: torch.Tensor,
     (Low-Rank Transformer, Winata et al. ICASSP 2020), or the int8
     weight-only product when p holds "q8"/"scale" (models/quantize.py).
     Operands are cast to `dtype`; the bias is added in the product's
-    dtype."""
+    dtype.
+
+    Under tensor parallelism a column-parallel shard (mha q/k/v, ffn w1)
+    holds its columns of ``b`` while ``v``, ``q8`` and ``scale`` stay
+    whole (parallel/tp.py): the product takes their columns of this
+    rank, after ``x @ u`` computed whole."""
     if dtype is not None:
         x = x.to(dtype)
     b = p.get("b")
     if "q8" in p:
         # int8 values are exact in bf16, so the cast loses nothing; the
         # scale multiplies in f32
-        w = p["q8"].to(dtype or x.dtype)
-        y = ((x @ w).to(torch.float32) * p["scale"]).to(w.dtype)
-        return y if b is None else y + b.to(y.dtype)
+        q8, scale = shard_cols(p["q8"], b, 1), shard_cols(p["scale"], b, 0)
+        w = q8.to(dtype or x.dtype)
+        return _int8_epilogue(x @ w, scale, b)
     if "u" in p:
-        u, v = p["u"], p["v"]
+        u, v = p["u"], shard_cols(p["v"], b, 1)
         if dtype is not None:
             u, v = u.to(dtype), v.to(dtype)
         w, x = v, x @ u
     else:
         w = p["w"] if dtype is None else p["w"].to(dtype)
     return Fn.linear(x, w.T, None if b is None else b.to(w.dtype))
+
+
+def shard_cols(t: torch.Tensor, b: Optional[torch.Tensor],
+               dim: int) -> torch.Tensor:
+    """`t` (a low-rank ``v``, an int8 ``q8`` or ``scale``), or this model
+    rank's columns of it where the bias is a shard's."""
+    if b is None or b.shape[0] == t.shape[dim]:
+        return t
+    return tp.model_part(t, dim, b.shape[0])
+
+
+def _int8_epilogue(xw: torch.Tensor, scale: torch.Tensor,
+                   b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The int8 product's per-output-channel scale, in f32, and its
+    bias, from x @ q8 in the compute dtype."""
+    y = (xw.to(torch.float32) * scale).to(xw.dtype)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def row_dense(p: Params, x: torch.Tensor, dtype: torch.dtype,
@@ -171,12 +193,24 @@ def row_dense(p: Params, x: torch.Tensor, dtype: torch.dtype,
     over the model group by `tp.row_exit` (this rank's T slice of the sum
     under sequence parallelism), and then the bias, added once. The
     partial products take the operands rounded to `dtype` and sum in
-    f32, and the sum plus the bias rounds to `dtype` once, as `dense`'s
-    one product does on one rank (bf16 products accumulate in f32)."""
+    f32, and the sum rounds to `dtype` once, as `dense`'s one product
+    does on one rank (bf16 products accumulate in f32). A low-rank
+    layer's partial product is x @ (this rank's rows of ``u``), r
+    columns wide: ``v`` and the bias apply to its sum; an int8 layer's
+    is x @ (its rows of ``q8``): the whole ``scale`` and the bias apply
+    to its sum."""
     if not tp.active():
         return dense(p, x, dtype).to(torch.float32)
     f32 = torch.float32
-    y = x.to(dtype).to(f32) @ p["w"].to(dtype).to(f32)
+    x = x.to(dtype).to(f32)
+    part = lambda t: tp.model_part(t, 0, x.shape[-1]).to(dtype).to(f32)
+    if "u" in p:
+        xu = tp.row_exit(x @ part(p["u"]), seq).to(dtype)
+        return dense({"w": p["v"], "b": p["b"]}, xu, dtype).to(f32)
+    if "q8" in p:
+        xw = tp.row_exit(x @ part(p["q8"]), seq).to(dtype)
+        return _int8_epilogue(xw, p["scale"], p["b"]).to(f32)
+    y = x @ p["w"].to(dtype).to(f32)
     y = tp.row_exit(y, seq) + p["b"].to(dtype).to(f32)
     return y.to(dtype).to(f32)
 

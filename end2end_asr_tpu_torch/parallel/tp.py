@@ -11,7 +11,8 @@ inner dimension, by the JAX package's rule (`param_pspecs`):
   row-parallel: mha out (H·d, dim_model) and ffn w2 (inner, dim_model):
       ``w`` split on dim 0, ``b`` replicated;
   replicated: everything else (LayerNorms, tables, the conv front end,
-      the embedding and output projection), and any leaf whose split
+      the embedding and output projection, the low-rank factors ``u`` /
+      ``v`` and the int8 ``q8`` / ``scale``), and any leaf whose split
       dimension does not divide.
 
 training/checkpoint.py `model_rank_tree` cuts a model coordinate's
@@ -36,12 +37,22 @@ the slices through `split_seq` and leaves through `gather_seq`. A dropout
 mask on a slice is that slice of the mask of the whole sequence, so the
 SP step equals the TP step. The gradients of the leaves used only on the
 slices (the encoder layers' LayerNorms and row-parallel biases,
-`seq_partial_keys`) are partial sums: the step adds them over the model
+`partial_keys`) are partial sums: the step adds them over the model
 group.
 
-Low-rank (``--model LRTRFS``) and int8 layers keep their factors /
-quantised weights replicated in the JAX package while their biases shard;
-the port does not run that mix (`check_tp_divisibility` refuses it).
+Low-rank (``--model LRTRFS``) and int8 layers keep their factors ``u`` /
+``v`` and their int8 weights ``q8`` / ``scale`` whole on every rank, as
+the JAX package's map replicates them, while a column parent's ``b``
+shards. A column-parallel shard computes ``x @ u`` whole and takes the
+columns of ``v`` (of ``q8`` and ``scale``) that its bias covers; a
+row-parallel shard multiplies its input slice by its rows of ``u`` (of
+``q8``), sums that partial product over the model group (r columns wide
+for a low-rank layer: the all-reduce, or under sequence parallelism the
+reduce-scatter over T, where GSPMD puts it for a sharded contracting
+dimension) and applies ``v`` (the whole ``scale``) and the bias after the
+sum (models/layers.py `dense`, `row_dense`). The gradients of the
+factors a rank touches only through its own columns or rows are partial
+over the model group (`partial_keys`); the step sums them.
 """
 
 from __future__ import annotations
@@ -86,8 +97,7 @@ def param_pspecs(flat: Dict[str, torch.Tensor],
 
 
 def check_tp_divisibility(cfg, n_model: int) -> None:
-    """The JAX package's check (whole heads a shard, and dim_inner), and
-    the mixes the port does not run."""
+    """The JAX package's check: whole heads a shard, and dim_inner."""
     if n_model <= 1:
         return
     if cfg.num_heads % n_model != 0:
@@ -98,11 +108,6 @@ def check_tp_divisibility(cfg, n_model: int) -> None:
         raise ValueError(
             f"--dim-inner {cfg.dim_inner} must be divisible by "
             f"--mesh-model {n_model}")
-    if cfg.model == "LRTRFS" or getattr(cfg, "quantize_int8", False):
-        raise NotImplementedError(
-            "--mesh-model with low-rank (LRTRFS) or --quantize-int8 "
-            "layers is not ported: their factors / int8 weights stay "
-            "replicated while their biases shard")
 
 
 def unshard_flat(shards: List[Dict[str, torch.Tensor]],
@@ -140,15 +145,24 @@ def gather_tree(tree, full_shapes: Dict[str, Tuple[int, ...]]):
     return unflatten(out)
 
 
-def seq_partial_keys(keys) -> List[str]:
-    """The leaves that sequence parallelism applies to a T slice only:
-    their gradients are partial over the model group."""
+def partial_keys(keys, seq_parallel: bool) -> List[str]:
+    """The leaves whose gradients are partial over the model group under
+    tensor parallelism: the replicated low-rank factors that a rank uses
+    through its own columns or rows only (a column parent's ``u`` and
+    ``v``, a row parent's ``u``) and, under sequence parallelism, the
+    leaves it applies to a T slice only (the encoder layers' LayerNorms,
+    and a row parent's ``v`` and ``b``)."""
     out = []
     for k in keys:
         p = k.split(SEP)
-        if (p[0] == "encoder" and len(p) >= 4 and p[1] == "layers"
-                and (p[-2] == "ln" or (p[-1] == "b"
-                                       and p[-2] in ROW_PARENTS))):
+        leaf, parent = p[-1], (p[-2] if len(p) > 1 else None)
+        if ((parent in COLUMN_PARENTS and leaf in ("u", "v"))
+                or (parent in ROW_PARENTS and leaf == "u")):
+            out.append(k)
+        elif (seq_parallel and p[0] == "encoder" and len(p) >= 4
+              and p[1] == "layers"
+              and (parent == "ln"
+                   or (parent in ROW_PARENTS and leaf in ("b", "v")))):
             out.append(k)
     return out
 
@@ -167,17 +181,18 @@ class FlatPlan:
     of each element in the clip's squared norm (1 on a leaf of its own;
     1/M on a leaf replicated over the M model ranks and 1/S on one that
     every one of the S stages holds, whose copies then count once); under
-    sequence parallelism, the ranges of the leaves whose gradients are
-    partial over the model group; under pipeline parallelism, the ranges
-    of the leaves outside the layer stacks, whose gradients the stages sum
-    (a stage that did not use a leaf adds zeros)."""
+    tensor parallelism, the ranges of the leaves whose gradients are
+    partial over the model group (`partial_keys`); under pipeline
+    parallelism, the ranges of the leaves outside the layer stacks, whose
+    gradients the stages sum (a stage that did not use a leaf adds
+    zeros)."""
 
     def __init__(self, fp, split_keys, n_model: int, seq_parallel: bool,
                  n_pipe: int = 1):
         w, off = [], 0
         self.partial, self.pipe = [], []
-        partial = set(seq_partial_keys(fp.train_keys)) if seq_parallel \
-            else set()
+        partial = (set(partial_keys(fp.train_keys, seq_parallel))
+                   if n_model > 1 else set())
         for k, n in zip(fp.train_keys, fp.sizes):
             weight = 1.0 if k in split_keys else 1.0 / n_model
             if n_pipe > 1 and not layer_key(k):
@@ -232,6 +247,19 @@ def active() -> bool:
 def sum_over_model(t: torch.Tensor) -> torch.Tensor:
     """`t` summed over the model group (a copy)."""
     return _all_reduce(t) if active() else t
+
+
+def model_part(t: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+    """This model rank's `width` of the replicated `t` along `dim` (the
+    columns or rows of a low-rank factor or an int8 weight that its shard
+    of a product uses); raises unless `dim` holds the model ranks'
+    widths."""
+    n = mesh.model_size()
+    if t.shape[dim] != width * n:
+        raise ValueError(
+            f"a shard of {width} on dimension {dim} of a {tuple(t.shape)} "
+            f"leaf does not split it over {n} model ranks")
+    return t.narrow(dim, mesh.model_rank() * width, width)
 
 
 def _all_reduce(x: torch.Tensor) -> torch.Tensor:

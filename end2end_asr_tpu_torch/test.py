@@ -27,7 +27,11 @@ and prints them, as the one-process run would:
 (parallel/tp.py): the ranks form a data x model grid, each model
 coordinate encodes and decodes with its shard of the attention and FFN
 weights (greedy and beam, the KV caches holding its local heads), and
-the strings are the one-process run's. Checkpoints in the port's
+the strings are the one-process run's: low-rank (LRTRFS) checkpoints
+and --quantize-int8 too (the factors and the int8 weights whole on each
+rank, their columns or rows taken at use, as the shard map keeps them),
+and a checkpoint trained with --seq-parallel encodes on T slices (each
+bucket's encoder length must divide by M). Checkpoints in the port's
 sharded format (``<base>.dcp``) load as npz ones do.
 """
 
@@ -97,8 +101,15 @@ def main(argv=None, timings: Optional[list] = None):
         decode_max_len=cli.decode_max_len,
         decode_stage_len=cli.decode_stage_len,
         verbose=cli.verbose, continue_from=cli.continue_from)
-    # sequence parallelism is a layout of training, as in root test.py
-    cfg = cfg.replace(**overrides, seq_parallel=False)
+    # a checkpoint trained with --seq-parallel serves its encoder on T
+    # slices under --parallel --mesh-model M > 1, as root test.py installs
+    # parallel/sp.py there; elsewhere the flag does nothing
+    cfg = cfg.replace(**overrides, seq_parallel=bool(
+        cfg.seq_parallel and mesh.model_size() > 1))
+    if cfg.seq_parallel:
+        logging.getLogger("end2end_asr_tpu_torch").info(
+            "sequence parallelism: the encoder on T/%d slices",
+            mesh.model_size())
     if mesh.model_size() > 1:
         from end2end_asr_tpu_torch.parallel.tp import check_tp_divisibility
         check_tp_divisibility(cfg, mesh.model_size())

@@ -26,12 +26,13 @@ size 1 both collectives are no-ops: the one-process step is this code.
 ZeRO-1 / FSDP (parallel/zero.py) reduce-scatter the gradient instead and
 update this rank's slice. Under tensor parallelism (parallel/tp.py) the
 buffer holds this model coordinate's shard: those collectives run over
-the data axis only, the gradients that sequence parallelism leaves
-partial are first summed over the model group, and the clip's norm
-counts the split leaves of every coordinate and the replicated ones once
-(`plan`, a parallel.tp.FlatPlan). Under pipeline parallelism
-(parallel/pp.py) the buffer holds this stage's layers and the leaves
-outside the stacks; each microbatch of the step runs the recorded
+the data axis only, the gradients that are partial over the model group
+(sequence parallelism's, and the low-rank factors' that a rank uses
+through its own columns or rows) are first summed over it, and the
+clip's norm counts the split leaves of every coordinate and the
+replicated ones once (`plan`, a parallel.tp.FlatPlan). Under pipeline
+parallelism (parallel/pp.py) the buffer holds this stage's layers and the
+leaves outside the stacks; each microbatch of the step runs the recorded
 pipelined forward, the loss on the last stage and GPipe's backward
 schedule (pp.Schedule); the stages then sum the gradients of the leaves
 outside the stacks, before the data axis's sum, and the clip's norm
@@ -277,7 +278,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
         del full        # --fsdp: the gathered parameters go here
         with torch.no_grad():
             if plan is not None:
-                plan.reduce_partial_(g)     # sequence parallelism
+                plan.reduce_partial_(g)     # over the model group
                 plan.reduce_pipe_(g)        # the pipeline's stages
             # the sums over the ranks: one collective for the gradient,
             # one for the scalars (world size 1: neither runs)

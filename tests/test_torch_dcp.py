@@ -3,7 +3,8 @@
 in one spawn of gloo ranks on the CPU for the module.
 
 The ranks (tests/torch_tp_worker.py, no JAX) run the train entry point:
-at world 2, --mesh-model 2 --fsdp in both formats; at world 4, --mesh-data
+at world 2, --mesh-model 2 --fsdp in both formats, full rank and at
+--model LRTRFS (whose factors every rank holds whole); at world 4, --mesh-data
 2 --mesh-model 2 --zero1 in both formats, each resumed at another layout
 (--mesh-data 4 --fsdp), and --auto-resume of the sharded run. The tests
 assert on the files: each rank wrote only the pieces it holds; a sharded
@@ -29,7 +30,7 @@ from end2end_asr_tpu_torch.training import checkpoint as TC
 import torch_tp_worker as W
 from synth import make_corpus
 from test_torch_parallel import TEXTS, load
-from test_torch_tp import _model_argv
+from test_torch_tp import LR_ARGS, _model_argv
 
 WORLD = 4
 GROUP_TIMEOUT_S = 600
@@ -45,9 +46,11 @@ def group(tmp_path_factory):
     ck = lambda name: os.path.join(root, "models", name, "epoch_1")
     resume = ["--parallel", "--fsdp", "--epochs", "2"]
     entry = {
-        "2": [{"name": "fsdp_" + f, "train": train + [
-            "--name", "fsdp_" + f, "--parallel", "--mesh-model", "2",
-            "--fsdp", *extra]} for f, extra in (("dcp", DCP), ("npz", []))],
+        "2": [{"name": f"fsdp{lr}_{f}", "train": train + [
+            "--name", f"fsdp{lr}_{f}", "--parallel", "--mesh-model", "2",
+            "--fsdp", *extra, *lr_args]}
+            for lr, lr_args in (("", []), ("_lr", LR_ARGS))
+            for f, extra in (("dcp", DCP), ("npz", []))],
         "4": [*({"name": "z1_" + f, "train": train + [
                    "--name", "z1_" + f, *Z1, *extra]}
                 for f, extra in (("dcp", DCP), ("npz", []))),
@@ -116,7 +119,7 @@ def test_each_rank_writes_only_the_pieces_it_holds(group):
         "params::m0", "params::m1"}
 
 
-@pytest.mark.parametrize("name", ["z1", "fsdp"])
+@pytest.mark.parametrize("name", ["z1", "fsdp", "fsdp_lr"])
 def test_sharded_save_loads_in_one_process_equal_to_the_npz(group, name):
     root = group[0]
     e1, a = _flat_ckpt(_base(root, name + "_dcp"))

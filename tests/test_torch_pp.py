@@ -9,8 +9,9 @@ its results to files, and the tests below assert on them:
     UNSHARDED step on the whole batch (its tests/test_pipeline_parallel.py
     holds JAX's pipeline equal to that step): --mesh-pipe 2 at M 2; at M 4
     with --grad-accum 2; --mesh-pipe 4 (one layer a stage) with --remat;
-    --mesh-pipe 2 --mesh-model 2 with --fsdp; --mesh-data 2 --mesh-pipe 2
-    with --zero1; all with --clip at a norm that clips (JAX's too); the
+    --mesh-pipe 2 --mesh-model 2 with --fsdp, and at LRTRFS (rank 8);
+    --mesh-data 2 --mesh-pipe 2 with --zero1; all with --clip at a norm
+    that clips (JAX's too); the
     losses within LOSS_TOL, the parameters
     after two steps by tests/test_torch_train.py's rule, the first step's
     moments within GRAD_TOL of JAX's per leaf;
@@ -65,6 +66,7 @@ CLIP = dict(clip=True, max_norm=0.5)
 # one model, one 8-row batch (M 4 with --grad-accum 2 needs 8 rows)
 LAYERS = 4
 DROP = {"dropout": 0.1, "pipe_microbatches": 4}
+RANK = 8
 
 # the groups' scenarios: two worlds of 2 side by side, then a world of 4
 STEPS = {
@@ -77,17 +79,19 @@ STEPS = {
     "4": {"p4_remat": {"layout": [1, 4, 1], "cfg": {"remat": True}},
           "drop_p4": {"layout": [1, 4, 1], "cfg": DROP, "rng": 3},
           "p2_tp2_fsdp": {"layout": [1, 2, 2], "zero": 3},
+          "p2_tp2_lr": {"layout": [1, 2, 2], "params": "lr_params",
+                        "cfg": {"model": "LRTRFS", "rank": RANK}},
           "dp2_p2_zero1": {"layout": [2, 2, 1], "zero": 1}},
 }
 # held against the JAX package's unsharded step, with --clip at a norm
 # that clips: the squared norm counts each stage's layers once and the
-# leaves outside the stacks once
-AGAINST_JAX = ("p2", "p2_m4_accum2", "p4_remat", "p2_tp2_fsdp",
-               "dp2_p2_zero1")
+# leaves outside the stacks once (name -> the low-rank rank, or 0)
+AGAINST_JAX = {"p2": 0, "p2_m4_accum2": 0, "p4_remat": 0, "p2_tp2_fsdp": 0,
+               "dp2_p2_zero1": 0, "p2_tp2_lr": RANK}
 
 
-def _model_cfg(**kw):
-    return _cfg(num_layers=LAYERS, batch_size=8, **kw)
+def _model_cfg(rank=0, **kw):
+    return _cfg(num_layers=LAYERS, batch_size=8, rank=rank, **kw)
 
 
 def _batch8():
@@ -96,9 +100,13 @@ def _batch8():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_reference():
-    return _jax_run(_model_cfg(**CLIP), jax_params(_model_cfg(), VOCAB,
-                                                   seed=4), _batch8(),
+def _params(rank=0):
+    return jax_params(_model_cfg(rank), VOCAB, seed=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(rank=0):
+    return _jax_run(_model_cfg(rank, **CLIP), _params(rank), _batch8(),
                     steps=W.STEPS)
 
 
@@ -113,8 +121,9 @@ def _entry_argv(corpus, root):
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("pp"))
-    params = jax_params(_model_cfg(), VOCAB, seed=4)
+    params = _params()
     _save_tree(os.path.join(root, "params.npz"), params)
+    _save_tree(os.path.join(root, "lr_params.npz"), _params(RANK))
     _save_batch(os.path.join(root, "batch.npz"), _batch8())
     ecfg, eparams, estate = _emb_model()
     _save_tree(os.path.join(root, "emb_params.npz"), eparams)
@@ -144,6 +153,7 @@ def group(tmp_path_factory):
     finally:
         os.chdir(cwd)
     _jax_reference()
+    _jax_reference(RANK)
     emb_ref = _jax_run(ecfg, eparams, emb_batch(), estate, steps=1)
     while not ctx.join(timeout=5):     # a rank's exception raises here
         if time.time() > deadline:
@@ -162,22 +172,23 @@ def _fp(params):
     return TS.FlatParams(to_port(params), torch.device("cpu"))
 
 
-@pytest.mark.parametrize("name", AGAINST_JAX)
+@pytest.mark.parametrize("name", list(AGAINST_JAX))
 def test_step_equals_the_unsharded_jax_step(group, name):
-    root, params = group[:2]
+    root = group[0]
     got = [load(root, name, r) for r in range(_ranks(name))]
     for other in got[1:]:          # every rank ends with the same values
         for k in got[0]:
             assert np.array_equal(got[0][k], other[k]), k
     got = got[0]
-    jp, jopts, _, jms = _jax_reference()
+    rank = AGAINST_JAX[name]
+    jp, jopts, _, jms = _jax_reference(rank)
     for i, jm in enumerate(jms):
         np.testing.assert_allclose(got["loss"][i], float(jm["loss"]),
                                    rtol=LOSS_TOL)
         assert got["num_token"][i] == int(jm["num_token"])
         assert got["num_correct"][i] == int(jm["num_correct"])
     assert int(got["step"]) == W.STEPS
-    fp = _fp(params)
+    fp = _fp(_params(rank))
     _params_close(got["data"], _flat(jp, fp.train_keys),
                   [float(jm["lr"]) for jm in jms])
     for m in ("mu", "nu"):

@@ -14,11 +14,20 @@ assert on them:
     rule, the first step's moments within GRAD_TOL of JAX's per leaf;
   * SP with dropout equals TP with dropout (the masks of the slices are
     the slices of the masks);
-  * train --parallel --mesh-model 2 (and 2 x 2 with --zero1 and
-    --seq-parallel) gathers the one-process run's parameters, and
-    test --parallel --mesh-model 2 prints the one-process strings, greedy
-    and beam.
-Without a group: the shard map equals JAX's `param_pspecs`, the local-head
+  * low-rank layers (--model LRTRFS --rank 8, whose factors the shard
+    map keeps whole on every rank): TP, TP + SP, TP + SP with --clip
+    under --fsdp, and 2 x 2 --zero1 + SP, held as above against the JAX
+    package's unsharded LRTRFS step (a gradient a factor of M too small
+    on a leaf shows in its first-step moments);
+  * train --parallel --mesh-model 2 (also at LRTRFS, and 2 x 2 with
+    --zero1 and --seq-parallel) gathers the one-process run's
+    parameters, and test --parallel --mesh-model 2 prints the
+    one-process strings, greedy and beam; at LRTRFS and with
+    --quantize-int8 it prints root test.py's (the JAX package on one
+    device), greedy and beam; over a checkpoint whose config has
+    seq_parallel it encodes on T slices and prints TP serving's strings.
+Without a group: the shard map equals JAX's `param_pspecs` (a low-rank
+and a quantised tree too), the partial-gradient leaves, the local-head
 rule of the attention's dropout, and the refusals.
 """
 
@@ -26,6 +35,7 @@ import functools
 import json
 import logging
 import os
+import shutil
 import time
 
 import jax
@@ -43,11 +53,12 @@ from end2end_asr_tpu_torch.training import checkpoint as TC
 from end2end_asr_tpu_torch.training import steps as TS
 
 import torch_tp_worker as W
-from port_parity import jax_params, small_config, to_port, torch_config
+from port_parity import (jax_params, root_cli, small_config, to_port,
+                         torch_config)
 from synth import make_corpus
 from test_torch_parallel import (TEXTS, _argv, _cfg, _flat, _jax_run,
-                                 _leaves_close, _save_batch, _save_tree,
-                                 load)
+                                 _leaves_close, _one_process, _save_batch,
+                                 _save_tree, load)
 from test_torch_train import GRAD_TOL, LOSS_TOL, T_FRAMES, VOCAB, _batch, \
     _params_close
 
@@ -57,6 +68,9 @@ GROUP_TIMEOUT_S = 600
 # group in another order (reduce-scatter against all-reduce)
 SP_TOL = 1e-5
 CLIP = dict(clip=True, max_norm=0.5)
+RANK = 8
+LR = dict(model="LRTRFS", rank=RANK)
+LR_ARGS = ["--model", "LRTRFS", "--rank", str(RANK)]
 
 STEPS = {
     "2": {"tp": {}, "tp_sp": {"cfg": {"seq_parallel": True}},
@@ -65,25 +79,79 @@ STEPS = {
                               "zero": 3},
           "tp_drop": {"cfg": {"dropout": 0.1}, "rng": 3},
           "tp_sp_drop": {"cfg": {"dropout": 0.1, "seq_parallel": True},
-                         "rng": 3}},
+                         "rng": 3},
+          "tp_lr": {"cfg": LR, "params": "lr_params"},
+          "tp_lr_sp": {"cfg": dict(LR, seq_parallel=True),
+                       "params": "lr_params"},
+          "tp_lr_fsdp_sp_clip": {"cfg": dict(LR, **CLIP, seq_parallel=True),
+                                 "params": "lr_params", "zero": 3}},
     "4": {"dm": {}, "dm_sp": {"cfg": {"seq_parallel": True}},
           "dm_clip": {"cfg": CLIP},
           "dm_zero1_sp_clip": {"cfg": dict(CLIP, seq_parallel=True),
                                "zero": 1},
-          "dm_fsdp_clip": {"cfg": CLIP, "zero": 3}},
+          "dm_fsdp_clip": {"cfg": CLIP, "zero": 3},
+          "dm_lr_zero1_sp": {"cfg": dict(LR, seq_parallel=True),
+                             "params": "lr_params", "zero": 1}},
 }
-# scenario -> whether the JAX step it is held against clips
+# scenario -> (whether the JAX step it is held against clips, its
+# low-rank rank or 0)
 AGAINST_JAX = {
-    "tp": False, "tp_sp": False, "tp_zero1_clip": True,
-    "tp_fsdp_sp_clip": True, "dm": False, "dm_sp": False, "dm_clip": True,
-    "dm_zero1_sp_clip": True, "dm_fsdp_clip": True}
+    "tp": (False, 0), "tp_sp": (False, 0), "tp_zero1_clip": (True, 0),
+    "tp_fsdp_sp_clip": (True, 0), "dm": (False, 0), "dm_sp": (False, 0),
+    "dm_clip": (True, 0), "dm_zero1_sp_clip": (True, 0),
+    "dm_fsdp_clip": (True, 0), "tp_lr": (False, RANK),
+    "tp_lr_sp": (False, RANK), "tp_lr_fsdp_sp_clip": (True, RANK),
+    "dm_lr_zero1_sp": (False, RANK)}
+
+
+# LRTRFS with --clip: the clip scales the front end's gradients down to
+# the order of Adam's eps (1e-9), where a step is no longer ~lr·sign(g)
+# but proportional to g, and so inherits the front end's f32 conditioning
+# against JAX's (its pools and clips route the gradient by comparisons
+# that f32 roundings flip near ties: up to ~4e-3 of a leaf on either
+# package, tests/test_torch_train.py::frontend_against_f64). The port's
+# one-process step moves 835 front-end weights of 628864 more than 1e-5
+# from JAX's after two steps, while its losses and first-step moments
+# equal JAX's. The parameters of these scenarios are held against that
+# one-process step, by the same rule; their losses and moments against
+# JAX's.
+PARAMS_AGAINST_ONE_PROCESS = ("tp_lr_fsdp_sp_clip",)
+
+
+def _params(rank: int = 0):
+    return jax_params(_cfg(rank=rank), VOCAB, seed=4)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_reference(clip: bool):
-    cfg = _cfg().replace(**(CLIP if clip else {}))
-    return _jax_run(cfg, jax_params(_cfg(), VOCAB, seed=4), _batch(0),
-                    steps=W.STEPS)
+def _jax_reference(clip: bool, rank: int = 0):
+    cfg = _cfg(rank=rank).replace(**(CLIP if clip else {}))
+    return _jax_run(cfg, _params(rank), _batch(0), steps=W.STEPS)
+
+
+@functools.lru_cache(maxsize=None)
+def _root_hyps(argv):
+    """The hypotheses that root test.py (the JAX package, one device)
+    logs for `argv`."""
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda r: lines.append(r.getMessage())
+    log = logging.getLogger("end2end_asr_tpu")
+    log.addHandler(handler)
+    level = log.level
+    log.setLevel(logging.INFO)
+    try:
+        root_cli("test").main(list(argv))
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    return [ln.split("HYP: ", 1)[1].split(" || GOLD: ")[0]
+            for ln in lines if ln.startswith("HYP: ")]
+
+
+# the TP serving runs over low-rank and int8 weights: name ->
+# (checkpoint, flags)
+SERVED = {"lr": ("one_lr", []), "int8": ("one", ["--quantize-int8"])}
+BEAM = ["--beam-search", "--beam-width", "3"]
 
 
 def _model_argv(corpus, root):
@@ -100,8 +168,9 @@ def _model_argv(corpus, root):
 def group(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("tp"))
     cfg = _cfg()
-    params = jax_params(cfg, VOCAB, seed=4)
+    params = _params()
     _save_tree(os.path.join(root, "params.npz"), params)
+    _save_tree(os.path.join(root, "lr_params.npz"), _params(RANK))
     _save_batch(os.path.join(root, "ce.npz"), _batch(0))
     corpus = make_corpus(os.path.join(root, "corpus"), texts=TEXTS)
     train = _model_argv(corpus, root) + ["--device", "cpu"]
@@ -117,7 +186,17 @@ def group(tmp_path_factory):
               {"name": "test_tp_beam", "test": test + [
                   "--continue-from", ck("one"), "--parallel",
                   "--mesh-model", "2", "--beam-search", "--beam-width",
-                  "3"]}],
+                  "3"]},
+              {"name": "train_tp_lr", "train": train + LR_ARGS + [
+                  "--name", "tp_lr", "--parallel", "--mesh-model", "2"]},
+              *({"name": "test_tp_" + name + beam, "test": test + [
+                  "--continue-from", ck(ckpt), "--parallel",
+                  "--mesh-model", "2", *extra, *beam_args]}
+                for name, (ckpt, extra) in SERVED.items()
+                for beam, beam_args in (("", []), ("_beam", BEAM))),
+              {"name": "test_sp", "test": test + [
+                  "--continue-from", ck("one_sp"), "--parallel",
+                  "--mesh-model", "2"]}],
         "4": [{"name": "train_dm", "train": train + [
                   "--name", "dm", "--parallel", "--mesh-data", "2",
                   "--mesh-model", "2", "--zero1", "--seq-parallel"]}]}
@@ -125,14 +204,25 @@ def group(tmp_path_factory):
             "steps": STEPS, "entry": entry}
     with open(os.path.join(root, "spec.json"), "w") as f:
         json.dump(spec, f)
-    # the one-process run whose checkpoint the tests serve (--parallel at
-    # one rank: the ragged bin cycled to the full batch, as on the ranks)
+    # the one-process runs whose checkpoints the tests serve (--parallel
+    # at one rank: the ragged bin cycled to the full batch, as on the
+    # ranks); "one_sp" is "one" with seq_parallel in its config, as a
+    # --seq-parallel run writes it
     cwd = os.getcwd()
     os.chdir(root)
     try:
         one = port_train.main(train + ["--name", "one", "--parallel"])
+        one_lr = port_train.main(train + LR_ARGS + ["--name", "one_lr",
+                                                    "--parallel"])
     finally:
         os.chdir(cwd)
+    os.makedirs(os.path.dirname(ck("one_sp")))
+    shutil.copy(ck("one") + ".npz", ck("one_sp") + ".npz")
+    with open(ck("one") + ".json", encoding="utf-8") as f:
+        meta = json.load(f)
+    meta["args"]["seq_parallel"] = True
+    with open(ck("one_sp") + ".json", "w", encoding="utf-8") as f:
+        json.dump(meta, f)
     ctx = mp.spawn(W.run, args=(WORLD, root), nprocs=WORLD, join=False)
     deadline = time.time() + GROUP_TIMEOUT_S
     while not ctx.join(timeout=5):     # a rank's exception raises here
@@ -141,7 +231,7 @@ def group(tmp_path_factory):
                 p.terminate()
             pytest.fail(f"the {WORLD}-rank group ran over "
                         f"{GROUP_TIMEOUT_S} s")
-    return root, (cfg, params), corpus, one
+    return root, (cfg, params), corpus, {"one": one, "one_lr": one_lr}
 
 
 def _ranks(name):
@@ -156,16 +246,21 @@ def test_step_equals_the_unsharded_jax_step(group, name):
         for k in got[0]:
             assert np.array_equal(got[0][k], other[k]), k
     got = got[0]
-    jp, jopts, _, jms = _jax_reference(AGAINST_JAX[name])
+    clip, rank = AGAINST_JAX[name]
+    jp, jopts, _, jms = _jax_reference(clip, rank)
     for i, jm in enumerate(jms):
         np.testing.assert_allclose(got["loss"][i], float(jm["loss"]),
                                    rtol=LOSS_TOL)
         assert got["num_token"][i] == int(jm["num_token"])
         assert got["num_correct"][i] == int(jm["num_correct"])
     assert int(got["step"]) == W.STEPS
-    fp = TS.FlatParams(to_port(params), torch.device("cpu"))
-    _params_close(got["data"], _flat(jp, fp.train_keys),
-                  [float(jm["lr"]) for jm in jms])
+    fp = TS.FlatParams(to_port(_params(rank) if rank else params),
+                       torch.device("cpu"))
+    want = _flat(jp, fp.train_keys)
+    if name in PARAMS_AGAINST_ONE_PROCESS:
+        want = _one_process(_cfg(rank=rank).replace(**CLIP), _params(rank),
+                            root, "ce")["data"]
+    _params_close(got["data"], want, [float(jm["lr"]) for jm in jms])
     for m in ("mu", "nu"):
         _leaves_close(fp, got[m + "1"], _flat(jopts[0][m], fp.train_keys),
                       GRAD_TOL)
@@ -186,15 +281,16 @@ def test_sp_with_dropout_equals_tp_with_dropout(group):
     assert abs(a["loss"][0] - load(root, "tp")["loss"][0]) > 1e-3
 
 
-@pytest.mark.parametrize("name", ["train_tp", "train_dm"])
+@pytest.mark.parametrize("name", ["train_tp", "train_dm", "train_tp_lr"])
 def test_train_entry_point_gathers_the_one_process_parameters(group, name):
-    """train --parallel --mesh-model 2 (world 2), and --mesh-data 2
-    --mesh-model 2 --zero1 --seq-parallel (world 4): one epoch of 2 steps
-    on the 5-utterance corpus, its returned (gathered) parameters against
-    the one-process run's, by the parameter rule; its checkpoint is the
-    gathered npz file."""
-    root, _, _, one = group
+    """train --parallel --mesh-model 2 (world 2; also at LRTRFS), and
+    --mesh-data 2 --mesh-model 2 --zero1 --seq-parallel (world 4): one
+    epoch of 2 steps on the 5-utterance corpus, its returned (gathered)
+    parameters against the one-process run's, by the parameter rule; its
+    checkpoint is the gathered npz file."""
+    root, _, _, ones = group
     got = load(root, name)
+    one = ones["one_lr" if name.endswith("_lr") else "one"]
     want = {k: v.numpy()
             for k, v in TC.flatten_params(one["params"]).items()}
     assert set(got) == set(want)
@@ -236,16 +332,48 @@ def test_test_entry_point_prints_the_one_process_strings(group, name):
     assert load(root, name, 1)["hyps"].size == 0   # rank 0 alone prints
 
 
+@pytest.mark.parametrize("name", sorted(
+    "test_tp_" + n + b for n in SERVED for b in ("", "_beam")))
+def test_low_rank_and_int8_tp_serving_prints_the_jax_strings(group, name):
+    """test --parallel --mesh-model 2 over the one-process LRTRFS run's
+    checkpoint, and over the full-rank one's with --quantize-int8 (each
+    rank quantises the whole checkpoint, then keeps its shard: the int8
+    weights whole, its columns of the column parents' biases), at f32,
+    greedy and beam: the strings and CER of root test.py on one device."""
+    root, _, corpus, _ = group
+    key = name[len("test_tp_"):].replace("_beam", "")
+    ckpt, extra = SERVED[key]
+    argv = ("--test-manifest-list", corpus[0], "--batch-size", "4",
+            "--verbose", "--continue-from",
+            os.path.join(root, "models", ckpt, "epoch_1"), *extra,
+            *(BEAM if name.endswith("_beam") else ()))
+    want = _root_hyps(argv)
+    got = load(root, name)
+    hyps = [h.split("HYP: ", 1)[1].split(" || GOLD: ")[0]
+            for h in got["hyps"]]
+    assert len(want) == len(TEXTS) and hyps == want
+    assert load(root, name, 1)["hyps"].size == 0
+
+
+def test_sp_serving_prints_the_tp_strings_from_t_slices(group):
+    """A checkpoint whose config has seq_parallel, served by test
+    --parallel --mesh-model 2: the encoder runs on T slices (split_seq
+    called on every rank, never under plain TP) and the strings and CER
+    are TP serving's on the same weights."""
+    root = group[0]
+    sp, plain = load(root, "test_sp"), load(root, "test_tp")
+    assert list(sp["hyps"]) == list(plain["hyps"]) and len(sp["hyps"]) == 5
+    assert float(sp["cer"]) == float(plain["cer"])
+    assert int(sp["seq_slices"]) > 0 and int(plain["seq_slices"]) == 0
+    assert int(load(root, "test_sp", 1)["seq_slices"]) == int(
+        sp["seq_slices"])
+
+
 # ---------------------------------------------------------------------------
 # without a group
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n_model", [2, 4])
-def test_param_pspecs_equal_jax(n_model):
-    """The port's shard map is JAX's on the same tree, with an
-    indivisible leaf (w1 of 6 inner columns at n_model 4) replicated."""
-    cfg = small_config(num_heads=4, dim_inner=8 if n_model == 2 else 6)
-    params = jax_params(cfg, VOCAB, seed=1)
+def _jax_specs(params, n_model):
     specs = jax.tree_util.tree_flatten_with_path(
         JTP.param_pspecs(params, n_model),
         is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
@@ -255,12 +383,84 @@ def test_param_pspecs_equal_jax(n_model):
                         for p in path)
         dims = [i for i, a in enumerate(spec) if a == "model"]
         want[key] = dims[0] if dims else None
+    return want
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_param_pspecs_equal_jax(n_model):
+    """The port's shard map is JAX's on the same tree, with an
+    indivisible leaf (w1 of 6 inner columns at n_model 4) replicated."""
+    cfg = small_config(num_heads=4, dim_inner=8 if n_model == 2 else 6)
+    params = jax_params(cfg, VOCAB, seed=1)
     got = PTP.param_pspecs(TC.flatten_params(to_port(params)), n_model)
-    assert got == want
+    assert got == _jax_specs(params, n_model)
     assert sum(d is not None for d in got.values()) > 0
     if n_model == 4:
         assert got["encoder::layers::0::ffn::w1::w"] is None
         assert got["encoder::layers::0::ffn::w2::w"] is None
+
+
+@pytest.mark.parametrize("variant", ["lowrank", "int8"])
+def test_param_pspecs_of_low_rank_and_int8_trees_equal_jax(variant):
+    """The shard map of an LRTRFS tree and of a quantised tree (the JAX
+    package's and the port's quantize_for_inference on the same weights)
+    is JAX's: the factors u / v and the int8 q8 / scale whole on every
+    rank, a column parent's bias split, a row parent's replicated."""
+    from end2end_asr_tpu.models.quantize import quantize_for_inference
+    from end2end_asr_tpu_torch.models.quantize import \
+        quantize_for_inference as port_quantize
+    params = jax_params(small_config(rank=RANK if variant == "lowrank"
+                                     else 0, num_heads=4, dim_inner=8),
+                        VOCAB, seed=1)
+    port = to_port(params)
+    if variant == "int8":
+        params, port = quantize_for_inference(params), port_quantize(port)
+    got = PTP.param_pspecs(TC.flatten_params(port), 2)
+    assert got == _jax_specs(params, 2)
+    leaf = "encoder::layers::0::self_attn::"
+    factors = ("u", "v") if variant == "lowrank" else ("q8", "scale")
+    for parent in ("q", "out"):
+        for f in factors:
+            assert got[leaf + parent + "::" + f] is None
+    assert got[leaf + "q::b"] == 0 and got[leaf + "out::b"] is None
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["tp", "tp_sp"])
+def test_partial_gradient_leaves_leaf_by_leaf(seq):
+    """FlatPlan's partial ranges, leaf by leaf over an LRTRFS tree (2
+    encoder and 2 decoder layers): a column parent's u and v and a row
+    parent's u (a rank touches them through its own columns or rows);
+    under SP also the encoder layers' LayerNorms and a row parent's v and
+    b (applied to a T slice); every other leaf is whole on each rank. A
+    full-rank tree has none without SP; at one model rank, none."""
+    keys = TS.FlatParams(to_port(_params(RANK)),
+                         torch.device("cpu")).train_keys
+    got = set(PTP.partial_keys(keys, seq))
+    n = 0
+    for k in keys:
+        *path, parent, leaf = k.split("::")
+        if "layers" not in path:
+            assert k not in got, k
+            continue
+        column = parent in ("q", "k", "v", "w1")
+        row = parent in ("out", "w2")
+        enc_slice = seq and path[0] == "encoder" and (
+            parent == "ln" or (row and leaf in ("v", "b")))
+        want = (column and leaf in ("u", "v")) or (row and leaf == "u") \
+            or enc_slice
+        assert (k in got) == want, k
+        n += want
+    # q, k, v, w1 (u, v) and out, w2 (u): 10 leaves an encoder layer, 17 a
+    # decoder layer; SP adds two LayerNorms (4) and out, w2 (v, b) (4)
+    assert len(got) == n == 2 * 10 + 2 * 17 + (2 * 8 if seq else 0)
+    full = TS.FlatParams(to_port(_params()), torch.device("cpu"))
+    assert PTP.partial_keys(full.train_keys, False) == []
+    fp = TS.FlatParams(to_port(_params(RANK)), torch.device("cpu"))
+    offsets = dict(zip(fp.train_keys, np.cumsum([0] + fp.sizes[:-1])))
+    plan = PTP.FlatPlan(fp, [], 2, seq)
+    assert sorted(plan.partial) == sorted(
+        (int(offsets[k]), fp.sizes[fp.train_keys.index(k)]) for k in got)
+    assert PTP.FlatPlan(fp, [], 1, seq).partial == []
 
 
 def test_local_heads_draw_the_same_dropout_masks():

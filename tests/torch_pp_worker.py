@@ -91,8 +91,8 @@ def run_pp_steps(cfg, params, batch_path, spect_T, zero_stage=0,
 def pp_steps(root, spec, tag):
     """The step scenarios of group `tag` (spec["steps"][tag]: name ->
     {"layout": [data, pipe, model], "cfg": overrides, "zero": stage,
-    "rng": seed, "model": "emb" for the emb_cnn model, its state and
-    batch, one step})."""
+    "rng": seed, "params": file (default "params"), "model": "emb" for
+    the emb_cnn model, its state and batch, one step})."""
     out = {}
     for name, sc in spec["steps"].get(tag, {}).items():
         n_data, n_pipe, n_model = sc["layout"]
@@ -103,7 +103,8 @@ def pp_steps(root, spec, tag):
                         **sc.get("cfg", {}))
         f = lambda n: os.path.join(root, ("emb_" if emb else "") + n)
         out[name] = run_pp_steps(
-            c, load_tree(f("params.npz")), f("batch.npz"), spec["T"],
+            c, load_tree(f(sc.get("params", "params") + ".npz")),
+            f("batch.npz"), spec["T"],
             zero_stage=sc.get("zero", 0), rng_seed=sc.get("rng"),
             steps=1 if emb else STEPS,
             state=load_tree(f("state.npz")) if emb else None)

@@ -89,15 +89,16 @@ def run_tp_steps(cfg, params, batch_path, spect_T, zero_stage=0,
 
 def tp_steps(root, spec, world):
     """The step scenarios of this layout (spec["steps"][str(world)]:
-    name -> {"cfg": overrides, "batch": file, "zero": stage, "rng": seed,
-    "steps": n})."""
+    name -> {"cfg": overrides, "params": file (default "params"), "batch":
+    file, "zero": stage, "rng": seed, "steps": n})."""
     out = {}
     if not spec["steps"].get(str(world)):
         return out
     cfg = Config.from_dict(spec["cfg"])
-    params = load_tree(os.path.join(root, "params.npz"))
     for name, sc in spec["steps"][str(world)].items():
         c = cfg.replace(**sc.get("cfg", {}))
+        params = load_tree(os.path.join(root, sc.get("params", "params")
+                                        + ".npz"))
         out[name] = run_tp_steps(
             c, params, os.path.join(root, sc.get("batch", "ce") + ".npz"),
             spec["T"], zero_stage=sc.get("zero", 0),
@@ -108,7 +109,8 @@ def tp_steps(root, spec, world):
 def entry_points(root, spec, world):
     """The entry-point runs of this layout (spec["entry"][str(world)]: a
     list of {"train": argv} / {"test": argv, "name": ...}): the trainer's
-    results, and the test's HYP lines and metrics."""
+    results, and the test's HYP lines, metrics and calls of
+    tp.split_seq (the encoder's entry into sequence parallelism)."""
     os.chdir(root)
     out = {}
     for run in spec["entry"].get(str(world), []):
@@ -122,13 +124,22 @@ def entry_points(root, spec, world):
         handler.emit = lambda r: lines.append(r.getMessage())
         log = logging.getLogger("end2end_asr_tpu_torch")
         log.addHandler(handler)
+        split_seq, slices = tp.split_seq, [0]
+
+        def counted(x):
+            slices[0] += 1
+            return split_seq(x)
+
+        tp.split_seq = counted
         try:
             res = port_test.main(run["test"])
         finally:
             log.removeHandler(handler)
+            tp.split_seq = split_seq
         hyps = [ln for ln in lines if ln.startswith("HYP: ")]
         out[run["name"]] = {"hyps": np.asarray(hyps, dtype=str),
-                            "cer": np.asarray(res.get("cer", -1.0))}
+                            "cer": np.asarray(res.get("cer", -1.0)),
+                            "seq_slices": np.asarray(slices[0])}
     return out
 
 
