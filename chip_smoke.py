@@ -156,10 +156,27 @@ Phases (any failure exits non-zero without the final result line):
      first run's gathered checkpoint served through one-process `test` on
      phase 3's 12 rows must give the one-process run's strings at --dtype
      float32; at bf16 the equal strings are counted;
-  12. the streaming probe's entry point, its four lines printed;
-  13. one JSON line of per-kernel numbers (and the serving, training,
-     serve-option, augmented-training and parallelism numbers, the
-     script's seconds), then the result line {"ok": true, "device": {...}}.
+  12. --steps-per-dispatch 4 at the same width (batch 12, bf16, dropout
+     0.1, the 800-frame bucket): in six mixes (the default, the block-2
+     gate on, --spec-augment --remat, emb_cnn with --loss ctc, --grad-accum
+     2, --dtype float32) 8 single eager steps and 2 replays of the 4-step
+     CUDA graph (training/steps.GraphedSteps) from the same weights and
+     seeds must give the same losses, parameters, optimizer state and
+     model state bit for bit; an infinite batch inside a group (--loss
+     ctc, an infeasible batch) must skip its own step only; a gloo group
+     must be refused with a ValueError that names NCCL; the trainer at
+     K = 4 and with the Prefetcher off must equal the
+     trainer at K = 1 with it; the host ms a step, device ms, busy share,
+     kernel and graph launches a step at K = 1 and K = 4, the graphs
+     captured, their memory and their captured launches are printed
+     (`python3 chip_smoke.py --dispatch-only` runs phases 1 and 12 alone;
+     `--nccl-dispatch`, on 2 or more cards, the train entry point at K = 1
+     and 4 over 2-rank NCCL groups: data and tensor parallelism);
+  13. the streaming probe's entry point, its four lines printed;
+  14. one JSON line of per-kernel numbers (and the serving, training,
+     serve-option, augmented-training, parallelism and dispatch numbers,
+     the script's seconds), then the result line {"ok": true, "device":
+     {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -302,7 +319,7 @@ def phase_build(cuda_lib):
     t0 = time.time()
     paths = cuda_lib.build(["stft", "vgg_block1", "vgg_block1_f32",
                             "attention", "pool_bwd", "vgg_block2",
-                            "vgg_block2_f32", "stream"])
+                            "vgg_block2_f32", "stream", "ctc"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
     # the host C++ WSOLA (csrc/audio_host.cc): a CUDA host has g++ (nvcc
     # needs it), so the Python fallback must not hide a failed build
@@ -1021,6 +1038,102 @@ def check_pool_bwd(torch, dev):
                  device_ms=dev_ms, ms_nchw=ms_n, device_ms_nchw=dev_n,
                  max_abs_err_nchw=err_n,
                  device_ms_nchw_with_copies=copies_ms)
+
+
+# the CTC kernels against PyTorch's ctc_loss: log-sum-exps over the same
+# terms in another order, relative to the largest |value|
+CTC_TOL = 1e-4
+CTC_REPLACES = ("end2end_asr_tpu/ops/ctc.py:30 ctc_loss (a lax.scan in "
+                "plain XLA: no pl.pallas_call; the port's plain version, "
+                "PyTorch's ctc_loss, reads the lengths on the host)")
+
+
+def check_ctc(torch, dev):
+    """The CTC kernels (csrc/ctc.cu) at phase 6's shape: B 12, the 51
+    decoder positions of the 50-token bucket, the 4364 AiShell ids,
+    14-label targets (12 distinct characters, SOS, EOS), input lengths
+    45-51 as the step scales them, and one infeasible row (32 labels, 30
+    copies of one character): the nll and the logits' gradient (through
+    log_softmax, on the feasible rows) against the plain version,
+    PyTorch's ctc_loss on the card (also the library yardstick); the
+    infeasible row +inf on both; two backward runs bit-identical."""
+    import torch.nn.functional as Fn
+    from end2end_asr_tpu_torch.ops import ctc as CT
+    g0 = torch.Generator().manual_seed(SEED + 9)
+    T = U = 51
+    C = 4364
+    logits = (torch.randn(B, T, C, generator=g0) * 2).to(dev)
+    targets = torch.zeros(B, U, dtype=torch.int64)
+    tl = torch.full((B,), 14, dtype=torch.int64)
+    for i in range(B):
+        ids = torch.randperm(C - 3, generator=g0)[:12] + 3
+        targets[i, 1:13], targets[i, 0], targets[i, 13] = ids, 1, 2
+    targets[B - 1, 1:31] = targets[B - 1, 1]
+    targets[B - 1, 31] = 2
+    tl[B - 1] = 32
+    il = torch.randint(45, T + 1, (B,), generator=g0)
+    targets, tl, il = targets.to(dev), tl.to(dev), il.to(dev)
+    ok = torch.arange(B, device=dev) < B - 1
+
+    def run(fn):
+        x = logits.detach().requires_grad_()
+        nll = fn(torch.log_softmax(x, -1), targets, il, tl)
+        grad, = torch.autograd.grad(nll[ok].sum(), x)
+        return nll.detach(), grad
+
+    plain = lambda lp, t, i, l: CT.ctc_nll_plain(lp, t, i, l)
+    CT.reset_launches()
+    got, got_g = run(CT.ctc_nll)
+    launches = (CT.FWD.launches, CT.BWD.launches)
+    again = run(CT.ctc_nll)[1]
+    want, want_g = run(plain)
+    torch.cuda.synchronize()
+    err = (got[ok] - want[ok]).abs().max().item()
+    err_rel = err / want[ok].abs().max().item()
+    # the feasible rows (PyTorch's backward puts NaN on an infeasible
+    # row even where its incoming gradient is 0; the kernel zeros)
+    gerr = (got_g[ok] - want_g[ok]).abs().max().item()
+    gerr_rel = gerr / want_g[ok].abs().max().item()
+    inf_ok = bool(torch.isinf(got[B - 1]) and torch.isinf(want[B - 1]))
+    same = torch.equal(got_g, again)
+    log(f"ctc (12, 51, 4364): nll max_abs_err {err:.3e} (rel {err_rel:.2e}), "
+        f"the logits' gradient {gerr:.3e} (rel {gerr_rel:.2e}; tol "
+        f"{CTC_TOL}); infeasible row inf on both: {inf_ok}; backward runs "
+        f"bit-identical: {same}; launches {launches}")
+    if (not err_rel <= CTC_TOL or not gerr_rel <= CTC_TOL or not inf_ok
+            or not same or launches != (1, 1)
+            or not bool(torch.isfinite(got_g).all())):
+        fail("the CTC kernels disagree with PyTorch's ctc_loss")
+    lp = torch.log_softmax(logits, -1).requires_grad_()
+    fwd = lambda: CT.ctc_nll(lp, targets, il, tl)
+    fwd_plain = lambda: plain(lp, targets, il, tl)
+    ms = time_ms(torch, fwd, iters=20)
+    plain_ms = time_ms(torch, fwd_plain, iters=20)
+    dev_fwd = device_ms(torch, fwd, name="ctc_fwd")
+    out, out_p = fwd(), fwd_plain()
+    gout = torch.where(ok, 1.0, 0.0)
+    bms = backward_ms(torch, out, [lp], gout, iters=20)
+    bplain = backward_ms(torch, out_p, [lp], gout, iters=20)
+    S = 2 * U + 1
+    # the forward reads the (B, T, S) log-probabilities of the labels and
+    # writes alpha; the backward reads them and alpha and writes the
+    # (B, T, C) gradient; ~10 operations a (t, s) state each way
+    fwd_bytes = 4 * B * T * S * 2 + 8 * B * (U + 2) + 4 * B
+    bwd_bytes = 4 * B * T * (2 * S + C) + 8 * B * (U + 2)
+    ops = 10 * B * T * S
+    log(f"ctc_fwd ms {ms:.4f} (device {dev_fwd}) against plain "
+        f"{plain_ms:.4f}; ctc_bwd ms {bms:.4f} against plain {bplain:.4f}; "
+        f"bounds {1e3 * fwd_bytes / HBM_BPS:.4f} / "
+        f"{1e3 * bwd_bytes / HBM_BPS:.4f} ms by bytes")
+    shape = ("(12, 51, 4364) f32, 14-label targets, phase 6's shape; "
+             "bound: bytes (latency-bound: 51 sequential steps)")
+    return [entry("ctc_fwd", "ctc.cu", CTC_REPLACES, err, ms, plain_ms,
+                  ops / 67e12, fwd_bytes / HBM_BPS, plain_ms, shape=shape,
+                  device_ms=dev_fwd, max_rel_err=err_rel),
+            entry("ctc_bwd", "ctc.cu", CTC_REPLACES, gerr, bms, bplain,
+                  ops / 67e12, bwd_bytes / HBM_BPS, bplain, shape=shape,
+                  max_rel_err=gerr_rel,
+                  note="the logits' gradient through log_softmax")]
 
 
 def rel_l2(a, b):
@@ -2084,6 +2197,9 @@ def phase_ctc_embcnn(torch, dev, kernels, work, labels_path, epochs=6):
             f"{[round(v, 4) for v in losses]}, valid loss "
             f"{res['metrics']['valid_loss']:.4f}, optimizer step "
             f"{res['opt_step']}, launches {run_counts}")
+        if min(run_counts["ctc_fwd"], run_counts["ctc_bwd"]) < 1:
+            fail(f"ctc / emb_cnn: the CTC kernels did not launch: "
+                 f"{run_counts}")
         if (len(losses) != epochs or res["opt_step"] != epochs
                 or not all(math.isfinite(v) and v > 0 for v in losses)
                 or not losses[-1] < losses[0]
@@ -2127,7 +2243,8 @@ def phase_ctc_embcnn(torch, dev, kernels, work, labels_path, epochs=6):
     fixed = fixed_batch_step(torch, dev, kernels, cfg, params, batch,
                              model_state=init_state(cfg),
                              label="ctc / emb_cnn train step")
-    return {"train_losses": losses, "valid_loss": res["metrics"]["valid_loss"],
+    return {"train_losses": losses, "launches": run_counts,
+            "valid_loss": res["metrics"]["valid_loss"],
             "serve": out, "opt_step_after_infeasible_batch": res2["opt_step"],
             "train_step_ms": fixed["step_ms"],
             "train_step_ms_all": fixed["step_ms_all"],
@@ -3710,6 +3827,375 @@ def phase_pp(torch, dev, serve_kernels, work, labels_path, model, manifest,
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: --steps-per-dispatch K (CUDA graphs) and the Prefetcher
+# ---------------------------------------------------------------------------
+
+DISPATCH_K = 4
+DISPATCH_STEPS = 8      # two groups of DISPATCH_K
+DISPATCH_COST_STEPS = 24    # the timed runs: 24 single steps, 6 groups
+# the mixes held graphed against eager: (name, config overrides, gate on)
+DISPATCH_MIXES = (("default", {}, False), ("block2_gate", {}, True),
+                  ("spec_augment_remat", dict(spec_augment=True, remat=True),
+                   False),
+                  ("emb_cnn_ctc", dict(feat_extractor="emb_cnn", loss="ctc"),
+                   False),
+                  ("grad_accum_2", dict(grad_accum=2), False),
+                  ("float32", dict(dtype="float32"), False))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Trees (dicts, lists, tensors) equal bit for bit."""
+    from end2end_asr_tpu_torch.training.checkpoint import flatten_params
+    fa, fb = flatten_params(a), flatten_params(b)
+    return set(fa) == set(fb) and all(
+        fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def dispatch_runs(torch, dev, cfg, params, state, batches, steps_k):
+    """The same batches through `steps_k` K-step dispatches
+    (training/steps.make_multi_train_step; K = 1: single steps) from the
+    same weights and seeds: (losses, finite flags, data, opt, state,
+    the runner or None, host ms a step (each dispatch between two
+    synchronizes))."""
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                          to_device)
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams,
+                                                      make_multi_train_step,
+                                                      make_train_step_impl)
+    fp = FlatParams(params, dev)
+    data, opt = fp.data, init_opt_state(cfg, fp.data)
+    st = to_device(state or {}, dev)
+    rng = DropoutRng(SEED, dev)
+    step = make_train_step_impl(cfg, dims_from_config(cfg))
+    multi = (make_multi_train_step(cfg, step, steps_k, dev)
+             if steps_k > 1 else None)
+    losses, finite, times = [], [], []
+    T = batches[0][1]
+    for g in range(0, len(batches), steps_k):
+        group = [b[0] for b in batches[g:g + steps_k]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if multi is None:
+            data, opt, st, m, _, _ = step(fp, data, opt, rng, *group[0], T,
+                                          model_state=st)
+            m = {k: v[None] for k, v in m.items()}
+        else:
+            data, opt, st, m, _, _ = multi(fp, data, opt, rng, group, T,
+                                           model_state=st)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / len(group))
+        losses += m["loss"].tolist()
+        finite += m["finite"].tolist()
+    return losses, finite, data, opt, st, multi, times
+
+
+def dispatch_batches(torch, dev, cfg, manifest, label2id, n,
+                     pcm_dtype=None):
+    """n (tensors, bucket) of one shape from the manifest's batches,
+    cycled."""
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
+                                                   batch_tensors)
+    loader = AudioBatchLoader(ManifestDataset([manifest], label2id), cfg)
+    got = [(batch_tensors(b, dev), b.src_bucket) for b in loader]
+    shape = lambda b: [tuple(t.shape) for t in b[0]] + [b[1]]
+    got = [b for b in got if shape(b) == shape(got[0])]
+    out = [got[i % len(got)] for i in range(n)]
+    if pcm_dtype is not None:
+        out = [((t[0].to(pcm_dtype) / 32768.0, *t[1:]), T) for t, T in out]
+    return out
+
+
+def phase_dispatch(torch, dev, work, labels_path, gpu):
+    """12. --steps-per-dispatch K = 4 against K = 1 at the AiShell README
+    width (batch 12, bf16, dropout 0.1, the 800-frame bucket): in each
+    mix of DISPATCH_MIXES, 8 steps as single eager steps and as 2 replays
+    of the K-step CUDA graph, from the same weights and seeds: losses,
+    parameters, optimizer state and model state bit-equal; an infinite
+    batch inside a group skips its own step only (--loss ctc); a gloo
+    group refused; the trainer at K = 4 against K = 1 and with the
+    Prefetcher against without it; the host ms a step, the device ms, the
+    busy share and the launches a step at K = 1 and K = 4, the graphs
+    captured and the memory they took."""
+    import numpy as np
+    import torch.distributed as dist
+    from end2end_asr_tpu_torch.config import load_vocab
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import AudioBatchLoader
+    from end2end_asr_tpu_torch.models.transformer import (init_params,
+                                                          init_state)
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.ops import vgg_fused as V
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams,
+                                                      make_multi_train_step,
+                                                      make_train_step_impl)
+    from end2end_asr_tpu_torch.training.trainer import Trainer
+
+    with open(labels_path, encoding="utf-8") as f:
+        labels = json.load(f)
+    label2id, id2label = load_vocab(labels_path)
+    rs = np.random.RandomState(SEED + 12)
+    # 4 batches of 12 in the 800-frame bucket, one target bucket
+    manifest = make_corpus(work, labels, rs, n=4 * B, name="dispatch.csv",
+                           text=lambda chars, r: "".join(
+                               r.choice(chars, r.randint(12, 16))))
+    out = {"k": DISPATCH_K, "gpu": gpu, "mixes": {}}
+    t_phase = time.time()
+    for name, kw, gate in DISPATCH_MIXES:
+        cfg = aishell_config(**kw)
+        params = init_params(cfg, len(label2id),
+                             torch.Generator().manual_seed(SEED))
+        batches = dispatch_batches(torch, dev, cfg, manifest, label2id,
+                                   DISPATCH_STEPS)
+        V.BLOCK2_ENABLED = gate
+        try:
+            one = dispatch_runs(torch, dev, cfg, params, init_state(cfg),
+                                batches, 1)
+            grp = dispatch_runs(torch, dev, cfg, params, init_state(cfg),
+                                batches, DISPATCH_K)
+        finally:
+            V.BLOCK2_ENABLED = False
+        equal = {"losses": one[0] == grp[0], "data": torch.equal(one[2],
+                                                                 grp[2]),
+                 "opt": same_bits(torch, one[3], grp[3]),
+                 "state": same_bits(torch, one[4], grp[4])}
+        runner = grp[5]
+        out["mixes"][name] = {
+            "losses": grp[0], "equal": equal,
+            "graphs": len(runner.graphs),
+            "memory_mib": {str(k[0]): v / 2 ** 20
+                           for k, v in runner.memory.items()},
+            "captured_launches": {str(k[0]): v
+                                  for k, v in runner.captured.items()},
+            "replays": sum(runner.replays.values())}
+        log(f"dispatch {name}: losses eager {one[0]} graphed {grp[0]}; "
+            f"bit-equal {equal}; {len(runner.graphs)} graph(s), memory "
+            f"{out['mixes'][name]['memory_mib']} MiB; captured launches "
+            f"{out['mixes'][name]['captured_launches']} x "
+            f"{out['mixes'][name]['replays']} replays")
+        if not all(equal.values()) or not all(map(math.isfinite, grp[0])):
+            fail(f"dispatch {name}: the graphed K = {DISPATCH_K} steps are "
+                 f"not the eager steps bit for bit: {equal}")
+        del one, grp, runner
+        torch.cuda.empty_cache()
+    log(f"dispatch mixes done in {time.time() - t_phase:.1f} s")
+
+    # an infinite batch inside a group (--loss ctc; batch 1 of the group
+    # has 30 copies of one character in every row: 61 CTC positions on 50)
+    # skips its own step only, in both runs alike
+    cfg = aishell_config(loss="ctc")
+    params = init_params(cfg, len(label2id),
+                         torch.Generator().manual_seed(SEED))
+    batches = dispatch_batches(torch, dev, cfg, manifest, label2id,
+                               DISPATCH_K)
+    (pcm, n_frames, targets, lengths), T = batches[1]
+    targets = torch.zeros_like(targets)
+    targets[:, 0], targets[:, 1:31], targets[:, 31] = 1, 7, 2
+    batches[1] = ((pcm, n_frames, targets, torch.full_like(lengths, 32)), T)
+    one = dispatch_runs(torch, dev, cfg, params, {}, batches, 1)
+    grp = dispatch_runs(torch, dev, cfg, params, {}, batches, DISPATCH_K)
+    inf_skip = {"finite_eager": one[1], "finite_graphed": grp[1],
+                "step_after_group": int(grp[3]["step"].item()),
+                "equal": torch.equal(one[2], grp[2])
+                and same_bits(torch, one[3], grp[3])}
+    log(f"dispatch: an infinite batch at index 1 of a group: {inf_skip}")
+    if (grp[1] != [True, False, True, True] or one[1] != grp[1]
+            or inf_skip["step_after_group"] != DISPATCH_K - 1
+            or not inf_skip["equal"]):
+        fail(f"dispatch: the infinite batch inside a group: {inf_skip}")
+    out["inf_skip"] = inf_skip
+    del one, grp
+
+    # the refusal: a gloo group on the card
+    cfg = aishell_config()
+    step = make_train_step_impl(cfg, dims_from_config(cfg))
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            make_multi_train_step(cfg, step, DISPATCH_K, dev)
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        finally:
+            dist.destroy_process_group()
+    log(f"dispatch: a gloo group on the card: {refusal}")
+    if refusal is None or "NCCL" not in refusal:
+        fail(f"dispatch: a gloo group was not refused: {refusal}")
+    out["gloo_refusal"] = refusal
+
+    # the trainer: K = 4 against K = 1 (a group of 4 and its drain), and
+    # with the Prefetcher against without it; one epoch of 4 batches
+    cfg = aishell_config(epochs=1, save_every=100,
+                         save_folder=os.path.join(work, "dispatch_models"))
+    runs = {}
+    for tag, k, pf in (("k1_prefetch", 1, True), ("k1_plain", 1, False),
+                       ("k4_prefetch", DISPATCH_K, True)):
+        c = cfg.replace(steps_per_dispatch=k, name=tag)
+        params = init_params(c, len(label2id),
+                             torch.Generator().manual_seed(SEED))
+        ds = ManifestDataset([manifest], label2id)
+        t0 = time.time()
+        res = Trainer(c, label2id, id2label, dev).train(
+            params, None, AudioBatchLoader(ds, c), [], num_epochs=1,
+            prefetch=pf)
+        torch.cuda.synchronize()
+        runs[tag] = (res, time.time() - t0)
+    trainer = {tag: {"train_loss": r["metrics"]["train_loss"],
+                     "opt_step": r["opt_step"], "s": t}
+               for tag, (r, t) in runs.items()}
+    ref = runs["k1_prefetch"][0]
+    for tag in ("k1_plain", "k4_prefetch"):
+        r = runs[tag][0]
+        trainer[tag]["equal"] = (
+            r["metrics"]["train_loss"] == ref["metrics"]["train_loss"]
+            and r["opt_step"] == ref["opt_step"] == 4
+            and same_bits(torch, r["params"], ref["params"])
+            and same_bits(torch, r["opt_state"], ref["opt_state"]))
+    log(f"dispatch trainer runs: {trainer}")
+    if not (trainer["k1_plain"]["equal"] and trainer["k4_prefetch"]["equal"]):
+        fail(f"dispatch: the trainer's runs differ: {trainer}")
+    out["trainer"] = trainer
+    del runs
+
+    # what K = 1 and K = 4 cost: host ms a step (the median over the
+    # dispatches after the first, which warms up, or captures), device
+    # ms, busy share, launches a step (the profile of one dispatch: a
+    # step, or a replay)
+    cfg = aishell_config()
+    params = init_params(cfg, len(label2id),
+                         torch.Generator().manual_seed(SEED))
+    batches = dispatch_batches(torch, dev, cfg, manifest, label2id,
+                               DISPATCH_COST_STEPS)
+    cost = {}
+    for k in (1, DISPATCH_K):
+        res = dispatch_runs(torch, dev, cfg, params, {}, batches, k)
+        runner = res[5]
+        fp = FlatParams(params, dev)
+        data, opt = fp.data, init_opt_state(cfg, fp.data)
+        rng = DropoutRng(SEED, dev)
+        group, T = [b[0] for b in batches[:k]], batches[0][1]
+        if runner is None:
+            step = make_train_step_impl(cfg, dims_from_config(cfg))
+            fn = lambda: step(fp, data, opt, rng, *group[0], T)
+        else:
+            fn = lambda: runner(fp, data, opt, rng, group, T)
+        prof = profile(torch, fn, top=6)
+        cost[k] = {"host_ms_a_step_median": statistics.median(res[6][1:]),
+                   "host_ms_first_dispatch_a_step": res[6][0],
+                   "host_ms_all": res[6],
+                   "device_ms_a_step": (None if prof["device_ms"] is None
+                                        else prof["device_ms"] / k),
+                   "busy_share": prof["device_busy_share"],
+                   "kernel_launches_a_step": prof["kernel_launches"] / k,
+                   "graph_launches_a_step": 0 if runner is None else 1 / k}
+        if runner is not None:
+            cost[k]["graphs"] = len(runner.graphs)
+            cost[k]["memory_mib"] = sum(runner.memory.values()) / 2 ** 20
+            cost[k]["captured_launches_a_step"] = {
+                n: c / k for n, c in
+                next(iter(runner.captured.values())).items()}
+        del res, runner, fn
+    log(f"dispatch cost (K = 1 and K = {DISPATCH_K}; {gpu}): "
+        f"{json.dumps(cost)}")
+    out["cost"] = cost
+    out["s"] = time.time() - t_phase
+    return out
+
+
+NCCL_DISPATCH_RUNS = (("dp2", []), ("tp2", ["--mesh-model", "2"]))
+NCCL_LOG_LINE = "backend nccl"
+
+
+def phase_nccl_dispatch(torch, gpu):
+    """`python3 chip_smoke.py --nccl-dispatch`, on a host of 2 or more
+    cards (not part of the default run, which needs one): the train entry
+    point at --parallel through torchrun, 2 NCCL ranks a card each, at
+    --steps-per-dispatch 1 and 4 on phase 12's corpus (4 batches of 12,
+    one epoch, dropout 0.1): data parallelism and tensor parallelism
+    (--mesh-model 2); with 4 cards the K = 1 and K = 4 runs side by side on
+    two pairs of cards. The K = 4 run's checkpoint must equal the K = 1
+    run's bit for bit (its collectives captured in the CUDA graph), both
+    logs must name NCCL, and each run must end (its process group
+    destroyed after its graphs)."""
+    import numpy as np
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"--nccl-dispatch needs 2 or more cards, found {n}")
+    phase_build(cuda_lib)
+    labels_path = os.path.abspath(os.path.join("data", "labels",
+                                               "aishell_labels.json"))
+    with open(labels_path, encoding="utf-8") as f:
+        labels = json.load(f)
+    rs = np.random.RandomState(SEED + 12)
+    out = {"gpu": gpu, "cards": n}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        manifest = make_corpus(work, labels, rs, n=4 * B,
+                               name="dispatch.csv",
+                               text=lambda chars, r: "".join(
+                                   r.choice(chars, r.randint(12, 16))))
+        cfg = aishell_config()
+        for name, extra in NCCL_DISPATCH_RUNS:
+            procs = {}
+            for i, k in enumerate((1, DISPATCH_K)):
+                tag = f"{name}_k{k}"
+                cards = f"{2 * i},{2 * i + 1}" if n >= 4 else "0,1"
+                argv = [sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", "2", "-m",
+                        "end2end_asr_tpu_torch.train",
+                        *train_argv(cfg, manifest, manifest, labels_path,
+                                    ["--epochs", "1", "--steps-per-dispatch",
+                                     str(k)], name=tag), "--parallel", *extra]
+                log_f = open(os.path.join(work, tag + ".out"), "w")
+                procs[k] = (subprocess.Popen(
+                    argv, cwd=work, env=dict(env, CUDA_VISIBLE_DEVICES=cards),
+                    stdout=log_f, stderr=subprocess.STDOUT), log_f, tag,
+                    time.time())
+                if n < 4:      # one pair of cards: one run at a time
+                    procs[k][0].wait(timeout=300)
+            cks, secs = {}, {}
+            for k, (proc, log_f, tag, t0) in procs.items():
+                try:
+                    rc = proc.wait(timeout=300)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rc = "timed out"
+                secs[k] = time.time() - t0
+                log_f.close()
+                with open(os.path.join(work, tag + ".out")) as f:
+                    text = f.read()
+                if rc != 0:
+                    fail(f"{tag}: exited {rc}:\n{text[-3000:]}")
+                with open(os.path.join(work, "log", tag),
+                          encoding="utf-8") as f:
+                    if NCCL_LOG_LINE not in f.read():
+                        fail(f"{tag}: the group did not run on NCCL")
+                cks[k] = flat_npz(os.path.join(work, "models", tag,
+                                               "epoch_1"))
+            same = set(cks[1]) == set(cks[DISPATCH_K]) and all(
+                np.array_equal(cks[1][key], cks[DISPATCH_K][key])
+                for key in cks[1])
+            out[name] = {"extra": extra, "seconds": secs,
+                         "checkpoint_bit_equal": same}
+            log(f"nccl dispatch {name} (2 ranks {' '.join(extra)}): K = "
+                f"{DISPATCH_K} checkpoint equal to K = 1 bit for bit: "
+                f"{same}; seconds {secs}")
+            if not same:
+                fail(f"nccl dispatch {name}: the K = {DISPATCH_K} run's "
+                     f"checkpoint differs from the K = 1 run's")
+    return out
+
+
 def phase_probe(torch):
     """The streaming probe through its entry point (its four lines go to
     the standard output); returns its kernels' launch counts."""
@@ -3769,6 +4255,10 @@ def main():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     if sys.argv[1:2] == ["--ddp-rank"]:      # a rank of phase 9
         return ddp_rank(sys.argv[2])
+    dispatch_only = sys.argv[1:2] == ["--dispatch-only"]
+    if sys.argv[1:2] == ["--nccl-dispatch"]:
+        print(json.dumps(phase_nccl_dispatch(torch, gpu_line())))
+        return
     try:
         from end2end_asr_tpu_torch.ops import (attention_fused, cuda_lib,
                                                pool_vjp, stft, vgg_fused)
@@ -3788,10 +4278,20 @@ def main():
 
     t0 = time.time()
     phase_build(cuda_lib)
+    labels_path = os.path.abspath(os.path.join("data", "labels",
+                                               "aishell_labels.json"))
+    if dispatch_only:
+        ctc_entries = check_ctc(torch, dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            print(json.dumps({"ctc": ctc_entries,
+                              "dispatch": phase_dispatch(
+                                  torch, dev, work, labels_path, gpu)}))
+        return
     entries = [*check_stft(torch, dev), check_vgg(torch, dev),
                check_vgg_bwd(torch, dev), *check_attention(torch, dev),
                *check_attention_f32(torch, dev), check_pool_bwd(torch, dev),
-               *check_vgg2(torch, dev), *check_stream(torch, dev)]
+               *check_vgg2(torch, dev), *check_stream(torch, dev),
+               *check_ctc(torch, dev)]
     log(f"kernel checks done at {time.time() - t0:.1f} s")
     # the serving path's n_fft (320) takes the FFT kernel: its own count
     fft_count = types.SimpleNamespace(
@@ -3805,11 +4305,13 @@ def main():
         train_kernels,
         attn_fwd_f32=(AF.reset_launches, lambda: AF.FWD_F32.launches),
         attn_bwd_f32=(AF.reset_launches, lambda: AF.BWD_F32.launches))
+    from end2end_asr_tpu_torch.ops import ctc as CT
+    ctc_kernels = dict(train_kernels,
+                       ctc_fwd=(CT.reset_launches, lambda: CT.FWD.launches),
+                       ctc_bwd=(CT.reset_launches, lambda: CT.BWD.launches))
     gate_kernels = dict(train_kernels,
                         vgg_block2_fwd=(V.reset_launches2, V.launches2),
                         vgg_block2_bwd=(V.reset_launches2, V.bwd2_launches))
-    labels_path = os.path.abspath(os.path.join("data", "labels",
-                                               "aishell_labels.json"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         runs, serve, model = phase_serve(torch, dev, kernels, work)
         log(f"serving done at {time.time() - t0:.1f} s")
@@ -3829,7 +4331,7 @@ def main():
             f"with --spec-augment --remat "
             f"{gate['spec_augment_remat_step_ms']:.2f} ms and "
             f"{gate['spec_augment_remat_profile_step']['kernel_launches']}")
-        ctc = phase_ctc_embcnn(torch, dev, train_kernels, work, labels_path)
+        ctc = phase_ctc_embcnn(torch, dev, ctc_kernels, work, labels_path)
         log(f"ctc / emb_cnn done at {time.time() - t0:.1f} s")
         options = phase_serve_options(torch, dev, kernels, work, model,
                                       serve, [model.manifest, manifest,
@@ -3855,6 +4357,8 @@ def main():
         pp_counts, ppar = phase_pp(torch, dev, kernels, work, labels_path,
                                    model, manifest, valid, gpu)
         log(f"pipeline parallelism done at {time.time() - t0:.1f} s")
+        dispatch = phase_dispatch(torch, dev, work, labels_path, gpu)
+        log(f"steps per dispatch done at {time.time() - t0:.1f} s")
     probe_counts = phase_probe(torch)
     for e in entries:
         # each path was driven with the counts set to 0 just before it: the
@@ -3890,17 +4394,21 @@ def main():
                                   "it at n_fft 320 and 322")
         if e["name"] == "dropout_bits":
             e["note"] = "test hook of attn_fwd/attn_bwd; not on the path"
+        if e["name"] in ("ctc_fwd", "ctc_bwd"):
+            e["launches"] = ctc["launches"][e["name"]]
+            e["launches_note"] = ("phase 6's train run (--loss ctc, 6 "
+                                  "steps and the valid passes)")
     log(f"serving times: {serve}; training: {train}; gate on: {gate}; "
         f"ctc / emb_cnn: {ctc}; serve options: {options}; augmented joint "
         f"training and tools: {augment}; data parallelism: {ddp}; tensor "
         f"and sequence parallelism: {tpar}; pipeline parallelism: {ppar}; "
-        f"total {time.time() - t0:.1f} s")
+        f"steps per dispatch: {dispatch}; total {time.time() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries, "serve": serve, "train": train,
                       "gate_on": gate, "ctc_embcnn": ctc,
                       "serve_options": options, "augment_multi": augment,
                       "data_parallel": ddp, "tensor_parallel": tpar,
-                      "pipeline_parallel": ppar,
+                      "pipeline_parallel": ppar, "dispatch": dispatch,
                       "total_s": time.time() - t0, "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

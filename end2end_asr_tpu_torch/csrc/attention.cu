@@ -567,8 +567,24 @@ template <typename T> struct Params {
   int H, Tq, Tk;
   uint32_t thresh32;  // keep below this; 0 = no dropout
   float keep_scale, scale;
+  uint32_t k0, k1;    // the Philox key: the seed's low and high words
+  // where not null, the seed is read from here instead (device memory,
+  // written before the launch: a CUDA graph replays the launch with the
+  // seed of its step)
+  const unsigned long long* seed_at;
+};
+
+// the Philox key of a launch: (k0, k1), or the words of *seed_at
+struct Key {
   uint32_t k0, k1;
 };
+
+template <typename T>
+__device__ __forceinline__ Key philox_key(const Params<T>& f) {
+  if (f.seed_at == nullptr) return Key{f.k0, f.k1};
+  const unsigned long long s = __ldg(f.seed_at);
+  return Key{(uint32_t)(s & 0xffffffffull), (uint32_t)(s >> 32)};
+}
 
 struct Strides {
   long long b, h, t;  // elements between batches, heads, rows
@@ -607,9 +623,10 @@ template <typename T> struct BwdParams {
 // r0 + 8; each keeps the two words of its own elements and sends the two
 // its partner needs, as flags, in one __shfl_xor_sync for the whole tile
 template <int NJ, typename T>
-__device__ __forceinline__ uint32_t keep_bits_fwd(const Params<T>& f, int b,
-                                                  int h, int key0, int r0,
-                                                  int lane, int nj) {
+__device__ __forceinline__ uint32_t keep_bits_fwd(const Params<T>& f,
+                                                  Key key, int b, int h,
+                                                  int key0, int r0, int lane,
+                                                  int nj) {
   const bool odd = lane & 1;
   const uint32_t g0 = ((uint32_t)key0 >> 2) + ((lane & 3) >> 1);
   const uint32_t row = (uint32_t)r0 + (odd ? 8u : 0u);
@@ -617,7 +634,7 @@ __device__ __forceinline__ uint32_t keep_bits_fwd(const Params<T>& f, int b,
 #pragma unroll
   for (int n = 0; n < 2 * NJ; ++n) {
     if (n >= 2 * nj) break;
-    const U4 r = philox(g0 + 2 * n, row, h, b, f.k0, f.k1);
+    const U4 r = philox(g0 + 2 * n, row, h, b, key.k0, key.k1);
     const uint32_t lo = (uint32_t)(r.w[0] < f.thresh32) |
                         (uint32_t)(r.w[1] < f.thresh32) << 1;
     const uint32_t hi = (uint32_t)(r.w[2] < f.thresh32) |
@@ -650,6 +667,7 @@ attn_fwd_kernel(const FwdParams<T> p) {
   T* vs = ks + ST * TE;                                 // [ST] V tiles
   float* bs = reinterpret_cast<float*>(vs + ST * TE);  // [ST][QT][LDF]
   const Params<T>& f = p.f;
+  const Key pkey = philox_key(f);
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wq = warp / WK, wk = warp % WK;
@@ -748,7 +766,7 @@ attn_fwd_kernel(const FwdParams<T> p) {
     }
     // rate 0: every flag set and keep_scale 1
     const uint32_t kb =
-        f.thresh32 ? keep_bits_fwd<NJ>(f, b, h, kw, r0, lane, nj)
+        f.thresh32 ? keep_bits_fwd<NJ>(f, pkey, b, h, kw, r0, lane, nj)
                    : 0xffffffffu;
 #pragma unroll
     for (int n = 0; n < 2 * NJ; ++n)
@@ -847,9 +865,8 @@ attn_fwd_kernel(const FwdParams<T> p) {
 // half + column). Every lane draws one Philox call per 8-query tile, all
 // eight in straight-line code, and the four lanes of a key group swap
 // words with branch-free selects (see the top)
-template <typename T>
-__device__ __forceinline__ uint32_t keep_bits(const BwdParams<T>& p, int b,
-                                              int h, int key0, int q0,
+__device__ __forceinline__ uint32_t keep_bits(Key key, uint32_t thresh32,
+                                              int b, int h, int key0, int q0,
                                               int lane) {
   const int wd = (lane >> 2) & 3;
   const bool a = wd & 1, c = wd & 2;
@@ -858,7 +875,7 @@ __device__ __forceinline__ uint32_t keep_bits(const BwdParams<T>& p, int b,
   U4 r[8];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
-    r[n] = philox(grp, q + 8 * n, h, b, p.f.k0, p.f.k1);
+    r[n] = philox(grp, q + 8 * n, h, b, key.k0, key.k1);
   uint32_t bits = 0;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -870,11 +887,11 @@ __device__ __forceinline__ uint32_t keep_bits(const BwdParams<T>& p, int b,
     const uint32_t u[4] = {c ? t2 : t0, c ? t3 : t1, c ? t0 : t2,
                            c ? t1 : t3};
     // bit x: the flag round x brings, that of element wd ^ x
-    uint32_t f = u[0] < p.f.thresh32;
+    uint32_t f = u[0] < thresh32;
 #pragma unroll
     for (int x = 1; x < 4; ++x)
       f |= (uint32_t)(__shfl_xor_sync(0xffffffffu, u[x], x << 2) <
-                      p.f.thresh32) << x;
+                      thresh32) << x;
     f = a ? ((f & 5u) << 1) | ((f >> 1) & 5u) : f;  // to bit wd ^ x
     f = c ? ((f & 3u) << 2) | ((f >> 2) & 3u) : f;
     bits |= f << (4 * n);
@@ -897,6 +914,7 @@ attn_bwd_kernel(const BwdParams<T> p) {
   float4* rowp = reinterpret_cast<float4*>(bs + ST * TILE * LDB);
   float* pw_all = reinterpret_cast<float*>(rowp + ST * TILE);
   const Params<T>& f = p.f;
+  const Key pkey = philox_key(f);
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* pw = pw_all + warp * 16 * LDF;
@@ -1003,7 +1021,8 @@ attn_bwd_kernel(const BwdParams<T> p) {
       // the keep flags first (4 bits an 8-query tile): integer work the
       // scheduler can put beside the products
       const uint32_t kbits =
-          f.thresh32 ? keep_bits(p, b, h, kw0, q0, lane) : 0xffffffffu;
+          f.thresh32 ? keep_bits(pkey, f.thresh32, b, h, kw0, q0, lane)
+                      : 0xffffffffu;
       float st[8][4], dp[8][4];
       zero(st);
       zero(dp);
@@ -1172,10 +1191,16 @@ __device__ __forceinline__ uint32_t fast_div(uint32_t n, const FastDiv& f) {
 template <bool VEC>
 __global__ void __launch_bounds__(BITS_THREADS)
 dropout_bits_kernel(uint32_t* __restrict__ out, int Tq, int Tk, FastDiv kw,
-                    uint32_t k0, uint32_t k1) {
+                    uint32_t k0, uint32_t k1,
+                    const unsigned long long* __restrict__ seed_at) {
   const uint32_t f = blockIdx.x * BITS_THREADS + threadIdx.x;
   const uint32_t q = fast_div(f, kw);
   if (q >= (uint32_t)Tq) return;
+  if (seed_at != nullptr) {
+    const unsigned long long s = __ldg(seed_at);
+    k0 = (uint32_t)(s & 0xffffffffull);
+    k1 = (uint32_t)(s >> 32);
+  }
   const uint32_t c = f - q * kw.d, h = blockIdx.y, b = blockIdx.z;
   const U4 r = philox(c, q, h, b, k0, k1);
   uint32_t* o = out + ((size_t)b * gridDim.y + h) * ((size_t)Tq * Tk) +
@@ -1194,7 +1219,8 @@ dropout_bits_kernel(uint32_t* __restrict__ out, int Tq, int Tk, FastDiv kw,
 template <typename T>
 Params<T> make_params(const void* q, const void* k, const void* v,
                       const void* bias, int H, int Tq, int Tk, int thresh16,
-                      unsigned long long seed) {
+                      unsigned long long seed,
+                      const unsigned long long* seed_at) {
   Params<T> p;
   p.q = (const T*)q;
   p.k = (const T*)k;
@@ -1209,6 +1235,7 @@ Params<T> make_params(const void* q, const void* k, const void* v,
   p.scale = 1.f / sqrtf((float)D);
   p.k0 = (uint32_t)(seed & 0xffffffffull);
   p.k1 = (uint32_t)(seed >> 32);
+  p.seed_at = seed_at;
   return p;
 }
 
@@ -1230,12 +1257,12 @@ template <typename T>
 int attn_fwd(const void* q, const void* k, const void* v, const void* bias,
              void* out, void* stats, const long long* strides, int B, int H,
              int Tq, int Tk, int d, int thresh16, unsigned long long seed,
-             int wk, void* stream) {
+             const unsigned long long* seed_at, int wk, void* stream) {
   cudaGetLastError();  // report only this call's error
   if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
   FwdParams<T> p;
-  p.f = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
+  p.f = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed, seed_at);
   p.o = (T*)out;
   p.stats = (float2*)stats;
   Strides* ss[4] = {&p.sq, &p.sk, &p.sv, &p.so};
@@ -1257,12 +1284,13 @@ int attn_bwd(const void* q, const void* k, const void* v, const void* bias,
              const void* out, const void* stats, const void* g, void* dq,
              void* dk, void* dv, const long long* strides, int B, int H,
              int Tq, int Tk, int d, int thresh16, unsigned long long seed,
-             void* part, void* arrive, void* stream) {
+             const unsigned long long* seed_at, void* part, void* arrive,
+             void* stream) {
   cudaGetLastError();
   if (d != D || thresh16 <= 0 || Tk < 1) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Tq == 0) return cudaSuccess;
   BwdParams<T> p;
-  p.f = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed);
+  p.f = make_params<T>(q, k, v, bias, H, Tq, Tk, thresh16, seed, seed_at);
   p.o = (const T*)out;
   p.g = (const T*)g;
   p.stats = (const float*)stats;
@@ -1297,7 +1325,9 @@ extern "C" const char* error_string(int err) {
 }
 
 // Every entry point returns cudaGetLastError() after its launches; a D other
-// than 64 or a thresh16 of 0 is refused (cudaErrorInvalidValue). The _bf16
+// than 64 or a thresh16 of 0 is refused (cudaErrorInvalidValue). Each has
+// a device-seed twin (the _ds entries at the end): the seed's address in
+// device memory in place of its value. The _bf16
 // entries take bf16 q, k, v, out, g, dq, dk, dv; the _f32 entries f32 ones.
 // q, k, v, out, g, dq, dk, dv are read and written through (batch, head,
 // row) element strides: rows contiguous and 16-byte aligned.
@@ -1311,7 +1341,7 @@ extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v,
                              int Tk, int d, int thresh16,
                              unsigned long long seed, int wk, void* stream) {
   return attn_fwd<bf16>(q, k, v, bias, out, stats, strides, B, H, Tq, Tk, d,
-                        thresh16, seed, wk, stream);
+                        thresh16, seed, nullptr, wk, stream);
 }
 
 extern "C" int attn_fwd_f32(const void* q, const void* k, const void* v,
@@ -1320,7 +1350,7 @@ extern "C" int attn_fwd_f32(const void* q, const void* k, const void* v,
                             int Tk, int d, int thresh16,
                             unsigned long long seed, int wk, void* stream) {
   return attn_fwd<float>(q, k, v, bias, out, stats, strides, B, H, Tq, Tk, d,
-                         thresh16, seed, wk, stream);
+                         thresh16, seed, nullptr, wk, stream);
 }
 
 // g = dL/d(out); strides: 24 int64, those of q, k, v, g, dq, dk, dv, out;
@@ -1336,7 +1366,8 @@ extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v,
                              int thresh16, unsigned long long seed,
                              void* part, void* arrive, void* stream) {
   return attn_bwd<bf16>(q, k, v, bias, out, stats, g, dq, dk, dv, strides, B,
-                        H, Tq, Tk, d, thresh16, seed, part, arrive, stream);
+                        H, Tq, Tk, d, thresh16, seed, nullptr, part, arrive,
+                        stream);
 }
 
 extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v,
@@ -1347,14 +1378,15 @@ extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v,
                             int thresh16, unsigned long long seed,
                             void* part, void* arrive, void* stream) {
   return attn_bwd<float>(q, k, v, bias, out, stats, g, dq, dk, dv, strides,
-                         B, H, Tq, Tk, d, thresh16, seed, part, arrive,
+                         B, H, Tq, Tk, d, thresh16, seed, nullptr, part, arrive,
                          stream);
 }
 
-// out: (B, H*Tq, Tk) uint32; B, H < 65536, Tq * ceil(Tk / 4) < 2^31 - 256
-// and Tq * Tk < 2^32
-extern "C" int dropout_bits_u32(void* out, int B, int H, int Tq, int Tk,
-                                unsigned long long seed, void* stream) {
+namespace {
+
+int dropout_bits(void* out, int B, int H, int Tq, int Tk,
+                 unsigned long long seed, const unsigned long long* seed_at,
+                 void* stream) {
   cudaGetLastError();
   if (B < 0 || H < 0 || Tq < 0 || Tk < 0) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Tq == 0 || Tk == 0) return cudaSuccess;
@@ -1369,10 +1401,84 @@ extern "C" int dropout_bits_u32(void* out, int B, int H, int Tq, int Tk,
                  k1 = (uint32_t)(seed >> 32);
   if (Tk % 4 == 0 && ((uintptr_t)out & 15) == 0)
     dropout_bits_kernel<true><<<grid, BITS_THREADS, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, Tq, Tk, fd, k0, k1);
+        (uint32_t*)out, Tq, Tk, fd, k0, k1, seed_at);
   else
     dropout_bits_kernel<false><<<grid, BITS_THREADS, 0,
                                  (cudaStream_t)stream>>>((uint32_t*)out, Tq,
-                                                         Tk, fd, k0, k1);
+                                                         Tk, fd, k0, k1,
+                                                         seed_at);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// out: (B, H*Tq, Tk) uint32; B, H < 65536, Tq * ceil(Tk / 4) < 2^31 - 256
+// and Tq * Tk < 2^32
+extern "C" int dropout_bits_u32(void* out, int B, int H, int Tq, int Tk,
+                                unsigned long long seed, void* stream) {
+  return dropout_bits(out, B, H, Tq, Tk, seed, nullptr, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The device-seed entries: as the entries above, with the 64-bit seed read
+// by the kernel from device memory at seed_at (slot i of a buffer of
+// int64 seeds that the host writes before each step: a CUDA graph captured
+// once then reads each replay's seeds); the training path calls these
+// ---------------------------------------------------------------------------
+
+extern "C" int attn_fwd_bf16_ds(const void* q, const void* k, const void* v,
+                                const void* bias, void* out, void* stats,
+                                const long long* strides, int B, int H,
+                                int Tq, int Tk, int d, int thresh16,
+                                const unsigned long long* seed_at, int wk,
+                                void* stream) {
+  if (seed_at == nullptr) return cudaErrorInvalidValue;
+  return attn_fwd<bf16>(q, k, v, bias, out, stats, strides, B, H, Tq, Tk, d,
+                        thresh16, 0ull, seed_at, wk, stream);
+}
+
+extern "C" int attn_fwd_f32_ds(const void* q, const void* k, const void* v,
+                               const void* bias, void* out, void* stats,
+                               const long long* strides, int B, int H, int Tq,
+                               int Tk, int d, int thresh16,
+                               const unsigned long long* seed_at, int wk,
+                               void* stream) {
+  if (seed_at == nullptr) return cudaErrorInvalidValue;
+  return attn_fwd<float>(q, k, v, bias, out, stats, strides, B, H, Tq, Tk, d,
+                         thresh16, 0ull, seed_at, wk, stream);
+}
+
+extern "C" int attn_bwd_bf16_ds(const void* q, const void* k, const void* v,
+                                const void* bias, const void* out,
+                                const void* stats, const void* g, void* dq,
+                                void* dk, void* dv, const long long* strides,
+                                int B, int H, int Tq, int Tk, int d,
+                                int thresh16,
+                                const unsigned long long* seed_at, void* part,
+                                void* arrive, void* stream) {
+  if (seed_at == nullptr) return cudaErrorInvalidValue;
+  return attn_bwd<bf16>(q, k, v, bias, out, stats, g, dq, dk, dv, strides, B,
+                        H, Tq, Tk, d, thresh16, 0ull, seed_at, part, arrive,
+                        stream);
+}
+
+extern "C" int attn_bwd_f32_ds(const void* q, const void* k, const void* v,
+                               const void* bias, const void* out,
+                               const void* stats, const void* g, void* dq,
+                               void* dk, void* dv, const long long* strides,
+                               int B, int H, int Tq, int Tk, int d,
+                               int thresh16,
+                               const unsigned long long* seed_at, void* part,
+                               void* arrive, void* stream) {
+  if (seed_at == nullptr) return cudaErrorInvalidValue;
+  return attn_bwd<float>(q, k, v, bias, out, stats, g, dq, dk, dv, strides,
+                         B, H, Tq, Tk, d, thresh16, 0ull, seed_at, part,
+                         arrive, stream);
+}
+
+extern "C" int dropout_bits_u32_ds(void* out, int B, int H, int Tq, int Tk,
+                                   const unsigned long long* seed_at,
+                                   void* stream) {
+  if (seed_at == nullptr) return cudaErrorInvalidValue;
+  return dropout_bits(out, B, H, Tq, Tk, 0ull, seed_at, stream);
 }

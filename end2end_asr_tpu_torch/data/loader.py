@@ -1,11 +1,13 @@
 """Bucketed batch loader with static shapes.
 
-A copy of the JAX package's ``data/loader.py`` without the prefetch
-thread and the host-feature path. With
+A copy of the JAX package's ``data/loader.py`` without the host-feature
+path. With
 ``num_workers`` > 1 each utterance of a batch draws from its own
 RandomState, seeded from the epoch's generator as the JAX package's worker
 threads are, so the batches (augmented or joint) equal its batches; the
-port loads the rows one after another. Batches are
+port loads the rows one after another. `Prefetcher` (the JAX package's,
+which its trainer uses by default) builds the batches in one producer
+thread, up to two ahead, and puts them on the device there. Batches are
 padded to a STATIC bucket ladder (Config.src_buckets frames ×
 Config.tgt_buckets tokens) and carry reflect-padded raw PCM; the feature
 math runs on the device (ops/features.py, ops/stft.py).
@@ -27,10 +29,13 @@ rows, which the ranks' slices hold first in rank order.
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from end2end_asr_tpu_torch.config import Config, PAD_TOKEN
 from end2end_asr_tpu_torch.data.audio import get_num_samples
@@ -224,3 +229,85 @@ class AudioBatchLoader:
         return Batch(pcm=pcm, n_frames=frames, src_bucket=T_b,
                      targets=targets, tgt_lengths=tgt_lengths,
                      real_rows=real_rows, bin_rows=bin_rows)
+
+
+def batch_tensors(batch: Batch, device, non_blocking: bool = False
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(pcm, n_frames, targets, tgt_lengths) of a loader batch on device
+    (int64 ids and lengths); `non_blocking` copies from pinned memory."""
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int64))
+    host = (torch.from_numpy(batch.pcm), as_t(batch.n_frames),
+            as_t(batch.targets), as_t(batch.tgt_lengths))
+    if non_blocking:
+        host = tuple(t.pin_memory() for t in host)
+    return tuple(t.to(device, non_blocking=non_blocking) for t in host)
+
+
+# batches the Prefetcher builds ahead of the consumer (the JAX package's
+# default depth)
+PREFETCH_DEPTH = 2
+
+
+class Prefetcher:
+    """Threaded batch prefetcher (the JAX package's ``Prefetcher``): ONE
+    producer thread builds up to PREFETCH_DEPTH batches ahead into a
+    bounded queue, and puts each on `device` there, so that building
+    batch n + 1 and its host-to-device copy overlap step n. Iterating yields
+    (Batch, its tensors on `device` as `batch_tensors` gives them), the
+    loader's batches in the loader's order; an exception in the producer
+    is raised in the consumer, never ends the epoch quietly.
+
+    On a CUDA device the producer copies the fields from pinned memory on
+    its own copy stream and records an event after the copies; the
+    consumer makes its current stream wait on that event and marks the
+    tensors as used on that stream (`record_stream`), so the caching
+    allocator does not hand their memory out while a step reads them."""
+
+    def __init__(self, loader: AudioBatchLoader, device=None):
+        self.loader = loader
+        self.device = torch.device(device or "cpu")
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def _put(self, batch: Batch, stream):
+        if stream is None:
+            return batch, batch_tensors(batch, self.device), None
+        with torch.cuda.stream(stream):
+            tensors = batch_tensors(batch, self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return batch, tensors, event
+
+    def __iter__(self) -> Iterator[Tuple[Batch, Tuple[torch.Tensor, ...]]]:
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
+        sentinel = object()
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def producer():
+            try:
+                if cuda:
+                    torch.cuda.set_device(self.device)
+                for batch in self.loader:
+                    q.put(self._put(batch, stream))
+                q.put(sentinel)
+            except BaseException as e:  # surface in the consumer, don't
+                q.put(e)                # silently end the epoch early
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            batch, tensors, event = item
+            if event is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(event)
+                for x in tensors:
+                    x.record_stream(cur)
+            yield batch, tensors
+        t.join()

@@ -26,6 +26,7 @@ checkpoint loads without renaming (training/checkpoint.py).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, Optional
 
@@ -47,34 +48,148 @@ LN_EPS = 1e-5  # torch nn.LayerNorm default
 ATTN_RANGE: Optional[str] = None
 
 
+# the seeds a DropoutRng holds in device memory: one step's, or one group
+# of steps' (a CUDA graph of K steps)
+SEED_SLOTS = 4096
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 class DropoutRng:
     """The random streams of one training run, seeded from the run's seed:
     `host` (a CPU generator) draws the 64-bit Philox seeds of the
-    attention kernel as host ints, with no device round trip; `dev` (a
-    generator on the training device) draws the uint16 bits of the plain
-    dropout; `spec` (on the device too) draws SpecAugment's bands, so that
-    turning the augmentation on leaves the dropout masks as they were."""
+    attention kernel; `dev` (a generator on the training device) draws the
+    uint16 bits of the plain dropout; `spec` (on the device too) draws
+    SpecAugment's bands, so that turning the augmentation on leaves the
+    dropout masks as they were.
+
+    The kernel seeds live in device memory (`seeds`): a step (`begin_step`)
+    draws its seeds from `host` up front, in the order the step uses them,
+    and writes them there with one copy from pinned memory; `kernel_seed`
+    hands out their slots in turn (ops/attention_fused.DeviceSeed), and the
+    kernels read the seed at launch. A group of steps (`group`: a CUDA
+    graph of K steps) draws the K steps' seeds at once, so the graph reads
+    each replay's seeds and the host stream is the one K single steps
+    draw. The first step draws as it goes (one copy a seed) and sets how
+    many a step takes."""
 
     def __init__(self, seed: int, device):
         device = torch.device(device)
+        self.device = device
         self.host = torch.Generator().manual_seed(seed)
         self.dev = torch.Generator(device=device).manual_seed(seed + 1)
         self.spec = torch.Generator(device=device).manual_seed(seed + 2)
+        self.seeds: Optional[torch.Tensor] = None   # (SEED_SLOTS,) int64
+        self.values: list = []  # the same seeds on the host
+        self.drawn = 0          # seeds drawn into `seeds` for this step
+        self.slot = 0           # the next kernel_seed's slot
+        self.per_step: Optional[int] = None
+        self._grouped = False
+        # `remat` under CUDA-graph capture: the plain dropout's bits of a
+        # layer's first run are recorded, and replayed to its recompute
+        self._record: Optional[list] = None
+        self._replay = None
 
+    # -- the kernel seeds ------------------------------------------------
+    def _draw(self, n: int) -> None:
+        """n more seeds from `host` into slots drawn .. drawn + n."""
+        if n <= 0:
+            return
+        if _capturing(self.device):
+            raise RuntimeError(
+                "a step under CUDA-graph capture asked for more kernel "
+                "seeds than its group drew")
+        if self.drawn + n > SEED_SLOTS:
+            raise RuntimeError(f"more than {SEED_SLOTS} kernel seeds in "
+                               "one step or group")
+        new = [int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
+               for _ in range(n)]
+        self.values[self.drawn:] = new
+        vals = torch.tensor(new, dtype=torch.int64)
+        if self.seeds is None:
+            self.seeds = torch.zeros(SEED_SLOTS, dtype=torch.int64,
+                                     device=self.device)
+        dst = self.seeds[self.drawn:self.drawn + n]
+        if self.device.type == "cuda":
+            # the caching host allocator keeps the pinned block until the
+            # copy has run
+            dst.copy_(vals.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(vals)
+        self.drawn += n
+
+    def _start(self, n: int) -> None:
+        self.drawn = self.slot = 0
+        self._draw(n)
+
+    def begin_step(self) -> None:
+        """Draw a step's seeds (as many as the first step took), unless a
+        group has drawn them."""
+        if not self._grouped:
+            self._start(self.per_step or 0)
+
+    def end_step(self) -> None:
+        if self._grouped:
+            return
+        if self.slot < self.drawn:
+            raise RuntimeError(f"the step used {self.slot} of the "
+                               f"{self.drawn} kernel seeds drawn for it")
+        self.per_step = self.drawn
+
+    @contextlib.contextmanager
+    def group(self, steps: int):
+        """`steps` steps that run with their seeds drawn at once (a CUDA
+        graph of them, its capture and its warm-up): needs `per_step`."""
+        if self.per_step is None:
+            raise RuntimeError("a group of steps needs one step first")
+        self._start(steps * self.per_step)
+        self._grouped = True
+        try:
+            yield
+        finally:
+            self._grouped = False
+
+    def kernel_seed(self) -> AF.DeviceSeed:
+        if self.slot == self.drawn:
+            self._draw(1)
+        s = AF.DeviceSeed(self.seeds, self.slot)
+        self.slot += 1
+        return s
+
+    def host_seed(self) -> int:
+        """The next slot's seed as a host int (pipeline parallelism hashes
+        it into its (layer, microbatch) streams)."""
+        if self.slot == self.drawn:
+            self._draw(1)
+        self.slot += 1
+        return self.values[self.slot - 1]
+
+    # -- snapshots (warm-up and capture must leave the streams as found) --
     def dropout_state(self):
-        """The state of the two dropout streams (for `remat`)."""
+        """The state of the two dropout streams."""
         return self.host.get_state(), self.dev.get_state()
 
-    def set_dropout_state(self, state) -> None:
-        self.host.set_state(state[0])
-        self.dev.set_state(state[1])
+    def state(self):
+        return (self.host.get_state(), self.dev.get_state(),
+                self.spec.get_state(), self.drawn, self.slot)
 
-    def kernel_seed(self) -> int:
-        return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
+    def set_state(self, st) -> None:
+        self.host.set_state(st[0])
+        self.dev.set_state(st[1])
+        self.spec.set_state(st[2])
+        self.drawn, self.slot = st[3], st[4]
 
+    # -- the plain dropout's bits ------------------------------------------
     def bits16(self, shape, device) -> torch.Tensor:
-        return torch.randint(0, 65536, tuple(shape), generator=self.dev,
+        if self._replay is not None:
+            return next(self._replay)
+        bits = torch.randint(0, 65536, tuple(shape), generator=self.dev,
                              device=device, dtype=torch.int32)
+        if self._record is not None:
+            self._record.append(bits)
+        return bits
 
 
 def remat(fn, rng: Optional["DropoutRng"], *args):
@@ -82,27 +197,51 @@ def remat(fn, rng: Optional["DropoutRng"], *args):
     jax.checkpoint around a layer): the layer's activations are dropped
     after the forward and recomputed in the backward. The recomputation
     must draw the SAME dropout masks and must not advance the streams a
-    second time, so it runs with the streams set back to where the first
-    run found them and restores them afterwards."""
+    second time: it reads the first run's kernel-seed slots (the slot
+    index set back) and, eagerly, redraws the plain dropout's bits with
+    `dev` set back to where the first run found it. Under CUDA-graph
+    capture a generator's state cannot be set, so the first run keeps its
+    bits for the recompute instead."""
     from torch.utils.checkpoint import checkpoint
     if rng is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    before = rng.dropout_state()
+    capturing = _capturing(rng.device)
+    slot = rng.slot
+    dev_before = None if capturing else rng.dev.get_state()
+    tape: list = []
     first = [True]
 
     def run(*a):
         if first[0]:
             first[0] = False
-            return fn(*a)
-        now = rng.dropout_state()
-        rng.set_dropout_state(before)
+            rng._record = tape if capturing else None
+            try:
+                return fn(*a)
+            finally:
+                rng._record = None
+        slot_now = rng.slot
+        dev_now = None if capturing else rng.dev.get_state()
+        rng.slot = slot
+        if capturing:
+            rng._replay = iter(tape)
+        else:
+            rng.dev.set_state(dev_before)
         try:
             return fn(*a)
         finally:
-            rng.set_dropout_state(now)
+            rng.slot, rng._replay = slot_now, None
+            if not capturing:
+                rng.dev.set_state(dev_now)
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_scale(thresh: int, dtype: torch.dtype) -> float:
+    """65536/thresh rounded to `dtype`, as a Python float (a step under
+    CUDA-graph capture makes no host-to-device copy)."""
+    return float(torch.tensor(65536.0 / thresh, dtype=dtype))
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng] = None,
@@ -120,8 +259,8 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng] = None,
         return torch.zeros_like(x)
     if bits is None:
         bits = rng.bits16(x.shape, x.device)
-    scale = torch.tensor(65536.0 / thresh, dtype=x.dtype, device=x.device)
-    return torch.where(bits < thresh, x * scale, torch.zeros_like(x))
+    return torch.where(bits < thresh, x * _keep_scale(thresh, x.dtype),
+                       torch.zeros_like(x))
 
 
 def dropout_rows(x: torch.Tensor, rate: float, rng: DropoutRng,

@@ -46,6 +46,12 @@ self-attention is 4·B·H·Tq·Tk·dk ≈ 1 GFLOP forward (≈1 µs on the bf16
 tensor cores, ≈15 µs on f32 FMA) and reads ≈ 9 MB in bf16 (≈3 µs): the
 bf16 kernels are bound by launch cost at this size, the f32 ones by FMA.
 
+The seed comes by value (an int: the tests' and the probes' entry) or
+as a `DeviceSeed`, a slot of an int64 buffer in device memory that the
+kernels read at launch (the `_ds` entry points, the training path's:
+models/layers.DropoutRng writes a step's seeds there before the step, so
+a CUDA graph of the step draws each replay's masks).
+
 `flash_mha_train` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernels, and raises if it cannot. `dropout_bits`
 returns the uint32 bits held in int64 (PyTorch has no comparisons on
@@ -56,7 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -82,8 +88,46 @@ BITS = cuda_lib.CudaKernel("attention", "dropout_bits_u32",
                            [P] + [I] * 4 + [U64, P])
 KERNELS = {"attn_fwd": FWD, "attn_bwd": BWD, "attn_fwd_f32": FWD_F32,
            "attn_bwd_f32": BWD_F32, "dropout_bits": BITS}
-# the entry points by compute dtype: (forward, backward)
+# the device-seed entries of the same kernels (the seed's place in device
+# memory instead of its value; the training path's): a launch through one
+# counts on its kernel's binding above
+_DS = {"attn_fwd": [P] * 7 + [I] * 6 + [P, I, P],
+       "attn_bwd": [P] * 11 + [I] * 6 + [P, P, P, P],
+       "dropout_bits": [P] + [I] * 4 + [P, P]}
+DEVICE_SEED = {
+    k: cuda_lib.CudaKernel("attention", kern.symbol + "_ds",
+                           _DS[k.replace("_f32", "")], counts=kern)
+    for k, kern in KERNELS.items()}
+# the entry points by compute dtype: (forward, backward), by value and by
+# device seed
 _BY_DTYPE = {torch.bfloat16: (FWD, BWD), torch.float32: (FWD_F32, BWD_F32)}
+_BY_DTYPE_DS = {torch.bfloat16: (DEVICE_SEED["attn_fwd"],
+                                 DEVICE_SEED["attn_bwd"]),
+                torch.float32: (DEVICE_SEED["attn_fwd_f32"],
+                                DEVICE_SEED["attn_bwd_f32"])}
+
+
+class DeviceSeed(NamedTuple):
+    """A 64-bit Philox seed held in device memory: slot `slot` of the
+    int64 tensor `buf` (models/layers.DropoutRng writes a step's seeds
+    there before the step). The kernels read it at launch, so a CUDA graph
+    that captured the launch draws each replay's seed; the plain versions
+    read the same slot."""
+    buf: torch.Tensor
+    slot: int
+
+    def value(self) -> int:
+        """The seed on the host (a device read: the plain versions and
+        tests only)."""
+        return int(self.buf[self.slot].item())
+
+    def address(self) -> int:
+        return self.buf.data_ptr() + self.slot * self.buf.element_size()
+
+
+def seed_value(seed) -> int:
+    """A seed given as an int or as a DeviceSeed, as an int."""
+    return seed.value() if isinstance(seed, DeviceSeed) else int(seed)
 
 HEAD_DIMS = (64,)   # head widths the kernels are built for
 MASK_BIAS = -1e9
@@ -159,21 +203,26 @@ def dropout_bits_plain(seed: int, B: int, H: int, Tq: int, Tk: int,
     return philox_bits(seed, B, H, Tq, Tk, device).reshape(B, H * Tq, Tk)
 
 
-def dropout_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
+def dropout_bits(seed, B: int, H: int, Tq: int, Tk: int,
                  device=None) -> torch.Tensor:
     """(B, H·Tq, Tk) int64 holding the uint32 bits that the forward AND
     backward kernels draw for these shapes (the JAX package's
-    ``dropout_bits``). On a CUDA device the kernel writes them."""
+    ``dropout_bits``). `seed`: an int, or a DeviceSeed (the kernel reads
+    it from device memory). On a CUDA device the kernel writes them."""
     device = torch.device(device or "cpu")
     if device.type == "cpu":
-        return dropout_bits_plain(seed, B, H, Tq, Tk, device)
+        return dropout_bits_plain(seed_value(seed), B, H, Tq, Tk, device)
     if device.type != "cuda":
         raise ValueError(f"dropout_bits: unsupported device {device}")
     out = torch.empty((B, H * Tq, Tk), dtype=torch.uint32, device=device)
     if out.numel():
         with torch.cuda.device(device):
-            BITS.launch(out.data_ptr(), B, H, Tq, Tk, seed & (2 ** 64 - 1),
-                        torch.cuda.current_stream().cuda_stream)
+            if isinstance(seed, DeviceSeed):
+                DEVICE_SEED["dropout_bits"].launch(
+                    out.data_ptr(), B, H, Tq, Tk, seed.address(), _stream())
+            else:
+                BITS.launch(out.data_ptr(), B, H, Tq, Tk,
+                            seed & (2 ** 64 - 1), _stream())
     return out.to(torch.int64)       # zero-extended: one pass
 
 
@@ -234,13 +283,14 @@ def dropout_bits_by_threads(seed: int, B: int, H: int, Tq: int, Tk: int,
 # ---------------------------------------------------------------------------
 
 def flash_mha_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor, seed: int, rate: float,
+                          bias: torch.Tensor, seed, rate: float,
                           keep: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """softmax(q kᵀ/√dk + bias) → dropout → @ v with f32 scores and
     softmax, the probabilities rounded to q's dtype before the product
-    (as the JAX kernel's p_all). `keep` (B, H, Tq, Tk) bool overrides the
-    Philox mask (tests feed masks from numpy)."""
+    (as the JAX kernel's p_all). `seed`: an int or a DeviceSeed. `keep`
+    (B, H, Tq, Tk) bool overrides the Philox mask (tests feed masks from
+    numpy)."""
     B, H, Tq, Dk = q.shape
     Tk = k.shape[2]
     s = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
@@ -249,7 +299,8 @@ def flash_mha_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     thresh16 = dropout_thresh16(rate)
     if keep is not None or thresh16 < 65536:
         if keep is None:
-            keep = keep_mask(seed, B, H, Tq, Tk, thresh16, q.device)
+            keep = keep_mask(seed_value(seed), B, H, Tq, Tk, thresh16,
+                             q.device)
         p = torch.where(keep, p * (65536.0 / thresh16),
                         torch.zeros((), dtype=p.dtype, device=p.device))
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
@@ -546,9 +597,11 @@ def _strides(*ts) -> "ctypes.Array":
         *(s for t in ts for s in t.stride()[:3]))
 
 
-def attn_fwd(q, k, v, bias, seed: int, rate: float):
+def attn_fwd(q, k, v, bias, seed, rate: float):
     """Kernel 4: (out (B, H, Tq, d) in q's dtype, stats (B, H, Tq, 2)
-    f32: the row max and row sum of the softmax). bf16 or f32. q, k and v
+    f32: the row max and row sum of the softmax). bf16 or f32. `seed`: an
+    int (the by-value entry) or a DeviceSeed (the device-seed entry, the
+    training path's). q, k and v
     are read through their strides (the transposed (B, T, H, D) views of
     the projections need no copy); out is written into (B, Tq, H, D)
     memory and returned as its (B, H, Tq, D) view, so the caller's
@@ -568,12 +621,14 @@ def attn_fwd(q, k, v, bias, seed: int, rate: float):
     if out.numel():
         with torch.cuda.device(q.device):
             strides = _strides(q, k, v, out)
-            _BY_DTYPE[q.dtype][0].launch(
+            by_dev = isinstance(seed, DeviceSeed)
+            (_BY_DTYPE_DS if by_dev else _BY_DTYPE)[q.dtype][0].launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
                 ctypes.addressof(strides), B, H, Tq, Tk, D,
-                dropout_thresh16(rate), seed & (2 ** 64 - 1), key_split,
-                _stream())
+                dropout_thresh16(rate),
+                seed.address() if by_dev else seed & (2 ** 64 - 1),
+                key_split, _stream())
     return out, stats
 
 
@@ -590,7 +645,7 @@ def _arrive(device, n: int) -> torch.Tensor:
     return t
 
 
-def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
+def attn_bwd(q, k, v, bias, out, stats, g, seed, rate: float):
     """Kernel 5: (dq, dk, dv) in q's dtype, the forward and its mask
     recomputed, in one launch. q, k, v, out and g are read through their
     strides (the (B, T, H, D) layout of the projections, transposed, needs
@@ -617,12 +672,14 @@ def attn_bwd(q, k, v, bias, out, stats, g, seed: int, rate: float):
                                    device=q.device)
                 arrive = _arrive(q.device, B * H)
             strides = _strides(q, k, v, g, dq, dk, dv, out)
-            _BY_DTYPE[q.dtype][1].launch(
+            by_dev = isinstance(seed, DeviceSeed)
+            (_BY_DTYPE_DS if by_dev else _BY_DTYPE)[q.dtype][1].launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), ctypes.addressof(strides), B, H, Tq, Tk, D,
-                dropout_thresh16(rate), seed & (2 ** 64 - 1),
+                dropout_thresh16(rate),
+                seed.address() if by_dev else seed & (2 ** 64 - 1),
                 part.data_ptr() if part is not None else None,
                 arrive.data_ptr() if arrive is not None else None, _stream())
     return dq, dk, dv
@@ -663,17 +720,20 @@ class FlashMhaTrain(torch.autograd.Function):
 
 
 def flash_mha_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor, seed: int,
-                    rate: float) -> torch.Tensor:
+                    bias: torch.Tensor, seed, rate: float) -> torch.Tensor:
     """Fused softmax(q kᵀ/√dk + bias) → dropout(rate) → @ v, as the JAX
     package's ``flash_mha_train``. q, k: (B, H, Tq|Tk, dk); v: (B, H, Tk,
     dv); bias: (B, Tq, Tk) f32 additive mask (0 or −1e9); seed: the 64-bit
-    Philox key of this call; rate in [0, 1). Returns (B, H, Tq, dv) in q's
-    dtype. bias and seed get no gradient."""
+    Philox key of this call, an int or a DeviceSeed (the training path's:
+    the kernels read it from device memory, the backward the same slot);
+    rate in [0, 1). Returns (B, H, Tq, dv) in q's dtype. bias and seed get
+    no gradient."""
     if dropout_thresh16(rate) <= 0:
         raise ValueError("flash_mha_train: rate rounds to keep 0; the "
                          "caller takes the plain path (layers.mha)")
-    return FlashMhaTrain.apply(q, k, v, bias, int(seed), float(rate))
+    if not isinstance(seed, DeviceSeed):
+        seed = int(seed)
+    return FlashMhaTrain.apply(q, k, v, bias, seed, float(rate))
 
 
 def reset_launches() -> None:

@@ -19,7 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -90,21 +90,30 @@ def build_log(source: str) -> str:
         return f.read()
 
 
+# every binding made, in order (`launch_counts`)
+BINDINGS: List["CudaKernel"] = []
+
+
 class CudaKernel:
     """One C entry point of one csrc library, with its launch count.
 
     `launches` counts successful launches through this binding only: a
-    caller that wants the launches of one run sets it to 0 first.
+    caller that wants the launches of one run sets it to 0 first. A
+    second entry point of the same kernel (`counts`: the binding of the
+    first) adds its launches to that binding's count instead.
     """
 
     def __init__(self, source: str, symbol: str,
-                 argtypes: Sequence[type]):
+                 argtypes: Sequence[type],
+                 counts: Optional["CudaKernel"] = None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.counts = counts or self
         self._fn = None
         self._lib = None
+        BINDINGS.append(self)
 
     def load(self):
         if self._fn is None:
@@ -123,7 +132,20 @@ class CudaKernel:
         if err != 0:
             msg = self._lib.error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+        self.counts.launches += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """{symbol: launches} of every counting binding (a snapshot)."""
+    return {k.symbol: k.launches for k in BINDINGS if k.counts is k}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Put the counts of a `launch_counts` snapshot back (a CUDA graph's
+    capture records launches that run only at its replays)."""
+    for k in BINDINGS:
+        if k.symbol in counts:
+            k.launches = counts[k.symbol]
 
 
 P = ctypes.c_void_p

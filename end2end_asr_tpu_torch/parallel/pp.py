@@ -337,7 +337,7 @@ def pipeline_apply(stage_layers: Sequence, act: Optional[torch.Tensor],
                          f"--pipe-microbatches {M}")
     mb_shape = (B // M, *shape[1:])
     record = _SCHEDULE is not None and torch.is_grad_enabled()
-    base = rng.kernel_seed() if rng is not None else None
+    base = rng.host_seed() if rng is not None else None
     lo = s * len(stage_layers)
     entry_leaf = None
     if s == 0:

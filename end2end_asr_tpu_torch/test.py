@@ -101,11 +101,13 @@ def main(argv=None, timings: Optional[list] = None):
         decode_max_len=cli.decode_max_len,
         decode_stage_len=cli.decode_stage_len,
         verbose=cli.verbose, continue_from=cli.continue_from)
-    # a checkpoint trained with --seq-parallel serves its encoder on T
+    # a checkpoint trained with --seq-parallel, or a typed --seq-parallel
+    # (an override, as root test.py applies it), serves the encoder on T
     # slices under --parallel --mesh-model M > 1, as root test.py installs
     # parallel/sp.py there; elsewhere the flag does nothing
-    cfg = cfg.replace(**overrides, seq_parallel=bool(
-        cfg.seq_parallel and mesh.model_size() > 1))
+    cfg = cfg.replace(**overrides)
+    cfg = cfg.replace(seq_parallel=bool(cfg.seq_parallel
+                                        and mesh.model_size() > 1))
     if cfg.seq_parallel:
         logging.getLogger("end2end_asr_tpu_torch").info(
             "sequence parallelism: the encoder on T/%d slices",

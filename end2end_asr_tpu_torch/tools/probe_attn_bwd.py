@@ -56,8 +56,8 @@ CUTS = {
          ""),
         ("      C::mma_abt(dp, va, gt, lane, nj);  // (dO V^T)^T\n", "")],
     # the Philox draw and exchange (every element kept)
-    "philox": [("f.thresh32 ? keep_bits(p, b, h, kw0, q0, lane)",
-                "false ? keep_bits(p, b, h, kw0, q0, lane)")],
+    "philox": [("f.thresh32 ? keep_bits(pkey, f.thresh32, b, h, kw0, q0, lane)",
+                "false ? keep_bits(pkey, f.thresh32, b, h, kw0, q0, lane)")],
     # the rebuilt P and dS: the exp and the bias, (m, 1/l, D) reads
     "softmax": [("          const float pr = expf(x - r.x) * r.y;",
                  "          const float pr = st[n][i];")],

@@ -50,8 +50,8 @@ BUCKET_SHAPES = {"enc_self_50": (50, 50, False),
 # the forward's parts, each cut by replacing lines of the source
 CUTS = {
     # the Philox draw and exchange (every element kept)
-    "philox": [("f.thresh32 ? keep_bits_fwd<NJ>(f, b, h, kw, r0, lane, nj)",
-                "false ? keep_bits_fwd<NJ>(f, b, h, kw, r0, lane, nj)")],
+    "philox": [("f.thresh32 ? keep_bits_fwd<NJ>(f, pkey, b, h, kw, r0, lane, nj)",
+                "false ? keep_bits_fwd<NJ>(f, pkey, b, h, kw, r0, lane, nj)")],
     # the bias tiles' copies and reads
     "bias": [("      for (int e = tid; e < QT * cw; e += THREADS) {",
               "      for (int e = tid; e < 0; e += THREADS) {"),

@@ -50,20 +50,30 @@ Reference behaviours kept (steps.py:56-228 of the JAX package):
     non-PAD token count, so the result equals the full batch's (nested
     inside the sum over the ranks: the split of the local batch);
   * the teacher-forced argmax and gold come back for the train-CER log.
-``--steps-per-dispatch K`` needs nothing here: the trainer runs K single
-steps, which the JAX package pins equal to its K-step scan.
+
+``--steps-per-dispatch K`` (`make_multi_train_step`, the JAX package's
+K-step ``lax.scan``): the trainer hands K consecutive same-shape batches
+to one call. On a CUDA device the call replays ONE CUDA graph of the K
+steps, captured once a batch shape (`GraphedSteps`): one launch and one
+metrics pull a group instead of ~1300 launches a step. The dropout seeds
+are read from device memory (models/layers.DropoutRng), so a replay
+draws the masks that K single steps draw. On CPU tensors the K steps run
+one after another.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from collections import Counter
+from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from end2end_asr_tpu_torch.config import PAD_TOKEN, Config
 from end2end_asr_tpu_torch.models.transformer import (ModelDims, forward,
                                                       forward_state)
+from end2end_asr_tpu_torch.ops import cuda_lib
 from end2end_asr_tpu_torch.ops.specaugment import apply_spec_augment
 from end2end_asr_tpu_torch.ops.stft import batched_features
 from end2end_asr_tpu_torch.parallel import mesh, pp
@@ -272,9 +282,13 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
              spect_T, model_state=None):
         full = zero.gather(data) if zero is not None and zero.stage == 3 \
             else data
+        if rng is not None:
+            rng.begin_step()        # this step's kernel seeds
         (loss_w, g, w, hyp_seq, gold, ncorr, ntok,
          new_state) = local_sums(fp, full, model_state, rng, pcm, n_frames,
                                  targets, tgt_lengths, spect_T)
+        if rng is not None:
+            rng.end_step()
         del full        # --fsdp: the gathered parameters go here
         with torch.no_grad():
             if plan is not None:
@@ -329,6 +343,204 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
         return new_data, new_opt, new_state, metrics, hyp_seq, gold
 
     return step
+
+
+def make_multi_train_step(cfg: Config, step, steps: int,
+                          device: torch.device):
+    """K = `steps` optimizer steps in one dispatch (--steps-per-dispatch;
+    the JAX package's make_multi_train_step): multi(fp, data, opt_state,
+    rng, batches, spect_T, model_state) with `batches` K tuples (pcm,
+    n_frames, targets, tgt_lengths) of one shape → (data, opt_state,
+    model_state, metrics {name: (K,)}, hyps (K, B, U), golds (K, B, U)),
+    equal to K calls of `step` (make_train_step_impl's). On a CUDA device
+    one CUDA graph a shape (GraphedSteps); raises ValueError where the
+    graph cannot be captured, never runs the steps eagerly there. On the
+    CPU the K steps run one after another."""
+    if device.type == "cuda":
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_backend() == "gloo":
+            raise ValueError(
+                "--steps-per-dispatch > 1 on a CUDA device captures the "
+                "steps in a CUDA graph, and gloo's collectives run on the "
+                "host, outside any graph: use the NCCL backend (one card a "
+                "rank)")
+        if mesh.pipe_size() > 1:
+            raise ValueError(
+                "--steps-per-dispatch > 1 on a CUDA device does not capture "
+                "pipeline parallelism: its (layer, microbatch) dropout "
+                "streams are seeded on the host at every step")
+        return GraphedSteps(step, steps)
+    return EagerSteps(step)
+
+
+def stack_outputs(outs):
+    """K steps' (metrics, hyp, gold) as ({name: (K,)}, (K, B, U),
+    (K, B, U))."""
+    ms = {k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]}
+    return (ms, torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+class EagerSteps:
+    """K train steps one after another (the CPU's K-step dispatch)."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, fp, data, opt_state, rng, batches: Sequence,
+                 spect_T: int, model_state=None):
+        outs = []
+        for b in batches:
+            data, opt_state, model_state, m, hyp, gold = self.step(
+                fp, data, opt_state, rng, *b, spect_T,
+                model_state=model_state)
+            outs.append((m, hyp, gold))
+        return (data, opt_state, model_state, *stack_outputs(outs))
+
+    def close(self) -> None:
+        pass
+
+
+class GraphedSteps:
+    """K train steps as one CUDA graph a batch shape.
+
+    The graphs share one memory pool and one set of static buffers for
+    the flat parameters, the optimizer state and the model state; each
+    graph has its own static inputs (the K stacked batches) and outputs
+    (the metrics, hyps and golds of its K steps). A call copies the live
+    state into the static buffers (unless it is them: the state a call
+    returns), the batches into the inputs, draws the K steps' kernel
+    seeds into device memory (DropoutRng.group), replays, and returns the
+    static state and copies of the outputs. Each step of the graph writes
+    its new parameters, optimizer state and model state back into the
+    static buffers, so the next step reads them.
+
+    A shape's first call warms the K steps up on a side stream (the
+    streams and the state restored after), then captures them with the
+    dropout generators registered, so that each replay advances them as
+    K eager steps do. Capture or replay failing raises: nothing falls
+    back to eager steps. `captured` holds each shape's kernel launches of
+    the K steps (the bindings' counts of the capture, put back after it:
+    a capture runs nothing), `replays` the replays a shape, `memory` the
+    bytes the pool grew by at each capture."""
+
+    def __init__(self, step, steps: int):
+        self.step, self.K = step, steps
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[tuple, tuple] = {}
+        self.static = None
+        self.captured: Dict[tuple, Dict[str, int]] = {}
+        self.replays: Counter = Counter()
+        self.memory: Dict[tuple, int] = {}
+        self.per_step: Optional[int] = None    # kernel seeds a step
+
+    # -- the static state ---------------------------------------------------
+    def _state_tensors(self, data, opt, model_state) -> List[torch.Tensor]:
+        return ([data] + [opt[k] for k in sorted(opt)]
+                + list(flatten_params(model_state or {}).values()))
+
+    def _load(self, data, opt, model_state) -> None:
+        live = self._state_tensors(data, opt, model_state)
+        if self.static is None:
+            state = flatten_params(model_state or {})
+            self.static = (data.clone(),
+                           {k: v.clone() for k, v in opt.items()},
+                           unflatten({k: v.clone() for k, v in state.items()}))
+        for dst, src in zip(self._state_tensors(*self.static), live):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+
+    def _body(self, fp, rng, inputs, spect_T, steps=None):
+        data, opt, state = self.static
+        outs = []
+        for j in range(steps or self.K):
+            new = self.step(fp, data, opt, rng, *(t[j] for t in inputs),
+                            spect_T, model_state=state)
+            for dst, src in zip(self._state_tensors(data, opt, state),
+                                self._state_tensors(*new[:3])):
+                dst.copy_(src)
+            outs.append(new[3:])
+        return stack_outputs(outs)
+
+    def _capture(self, key, fp, rng, inputs, spect_T):
+        st = rng.state()
+        backup = [t.clone() for t in self._state_tensors(*self.static)]
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        # the warm-up (autograd, the kernels' libraries, the caches): the
+        # K steps as the graph will run them, after one single step where
+        # no step has yet set how many seeds a step draws
+        with torch.cuda.stream(side):
+            if rng.per_step is None:
+                self._body(fp, rng, inputs, spect_T, steps=1)
+            with rng.group(self.K):
+                self._body(fp, rng, inputs, spect_T)
+        cur.wait_stream(side)
+        rng.set_state(st)
+        self.per_step = rng.per_step
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(rng.dev)
+        graph.register_generator_state(rng.spec)
+        counts = cuda_lib.launch_counts()
+        torch.cuda.synchronize()
+        # the pool's growth: the capture empties the allocator's cache
+        # first, so measure from an empty cache
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        with rng.group(self.K):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                outs = self._body(fp, rng, inputs, spect_T)
+        torch.cuda.synchronize()
+        self.memory[key] = torch.cuda.memory_reserved() - reserved
+        now = cuda_lib.launch_counts()
+        self.captured[key] = {k: now[k] - counts[k] for k in now
+                              if now[k] != counts[k]}
+        cuda_lib.set_launch_counts(counts)
+        rng.set_state(st)
+        for dst, src in zip(self._state_tensors(*self.static), backup):
+            dst.copy_(src)
+        self.graphs[key] = (graph, inputs, outs)
+
+    def __call__(self, fp, data, opt_state, rng, batches: Sequence,
+                 spect_T: int, model_state=None):
+        if len(batches) != self.K:
+            raise ValueError(f"a group holds {self.K} batches, got "
+                             f"{len(batches)}")
+        key = (spect_T,) + tuple((tuple(t.shape), t.dtype)
+                                 for t in batches[0])
+        if self.static is None:
+            self._load(data, opt_state, model_state)
+        entry = self.graphs.get(key)
+        if entry is None:
+            inputs = [torch.stack([b[i] for b in batches])
+                      for i in range(len(batches[0]))]
+            self._capture(key, fp, rng, inputs, spect_T)
+            entry = self.graphs[key]
+        graph, inputs, outs = entry
+        for i, buf in enumerate(inputs):
+            for j, b in enumerate(batches):
+                buf[j].copy_(b[i])
+        self._load(data, opt_state, model_state)
+        if rng.per_step is None:        # a stream that has run no step
+            rng.per_step = self.per_step
+        with rng.group(self.K):
+            graph.replay()
+            rng.slot = rng.drawn
+        self.replays[key] += 1
+        ms, hyps, golds = outs
+        data, opt, state = self.static
+        return (data, opt, state, {k: v.clone() for k, v in ms.items()},
+                hyps.clone(), golds.clone())
+
+    def close(self) -> None:
+        """Free the graphs (before the process group goes: destroying an
+        NCCL group whose collectives a live graph holds hangs)."""
+        torch.cuda.synchronize()
+        for graph, _, _ in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
 
 
 def make_eval_step(cfg: Config, dims: ModelDims):

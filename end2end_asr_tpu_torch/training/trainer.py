@@ -6,8 +6,15 @@ loss / CER / LR lines → per-epoch teacher-forced valid loss and CER over
 every valid loader → metrics history → a checkpoint every `save_every`
 epochs and `best_model` on the valid loss → optional sampler shuffle.
 
-Metrics are read on the host two steps behind the step that made them,
-so the device runs ahead of the logging. `MultiTrainer` (joint training,
+Metrics are read on the host two dispatches behind the one that made
+them, so the device runs ahead of the logging. The loader is wrapped in
+data/loader.Prefetcher by default (`prefetch`): a thread builds the next
+batches and copies them to the device while a step runs.
+``--steps-per-dispatch K`` groups K consecutive batches of one shape into
+one dispatch (training/steps.make_multi_train_step: on a CUDA device one
+CUDA graph of the K steps) whose K steps' metrics are pulled at once, as
+the JAX trainer's flush_group; a partial group (a shape change, the end
+of an epoch) runs single steps. `MultiTrainer` (joint training,
 `multi_train.py`) overrides the three validation hooks.
 
 Data parallelism (parallel/mesh.py): each rank trains on its loaders'
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from end2end_asr_tpu_torch.config import PAD_TOKEN, Config
+from end2end_asr_tpu_torch.data.loader import Prefetcher, batch_tensors
 from end2end_asr_tpu_torch.evaluation import (ids_to_string_until_pad,
                                               strip_specials)
 from end2end_asr_tpu_torch.models.layers import DropoutRng
@@ -57,6 +65,7 @@ from end2end_asr_tpu_torch.training import checkpoint as ckpt
 from end2end_asr_tpu_torch.training.optimizer import init_opt_state
 from end2end_asr_tpu_torch.training.steps import (FlatParams,
                                                   make_eval_step,
+                                                  make_multi_train_step,
                                                   make_train_step_impl)
 from end2end_asr_tpu_torch.utils.metrics import calculate_cer, calculate_wer
 from end2end_asr_tpu_torch.utils.profiling import trace
@@ -133,13 +142,6 @@ def sharded_pieces(fp: FlatParams, data: torch.Tensor, opt: Dict, zero,
     return pieces, layout
 
 
-def batch_tensors(batch, device):
-    """(pcm, n_frames, targets, tgt_lengths) of a loader batch on device."""
-    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(device)
-    return (torch.from_numpy(batch.pcm).to(device), as_t(batch.n_frames),
-            as_t(batch.targets), as_t(batch.tgt_lengths))
-
-
 class Trainer:
     def __init__(self, cfg: Config, label2id: Dict[str, int],
                  id2label: Dict[int, str], device: torch.device,
@@ -181,10 +183,13 @@ class Trainer:
     def train(self, params, opt_state, train_loader, valid_loader_list,
               start_epoch: int = 0, num_epochs: Optional[int] = None,
               last_metrics: Optional[Dict] = None,
-              model_state: Optional[Dict] = None) -> Dict:
+              model_state: Optional[Dict] = None,
+              prefetch: bool = True) -> Dict:
         """Returns {"params", "opt_state", "model_state" (trees), "metrics",
         "epochs_run", "opt_step"}. `model_state` is the emb_cnn batch
-        norms' running statistics ({} or None for the other front ends)."""
+        norms' running statistics ({} or None for the other front ends).
+        `prefetch`: build and place the train batches in a
+        data/loader.Prefetcher thread (the JAX trainer's default)."""
         cfg, dev = self.cfg, self.device
         num_epochs = cfg.epochs if num_epochs is None else num_epochs
         history: List[Dict] = list((last_metrics or {}).get("history", []))
@@ -237,6 +242,11 @@ class Trainer:
         rng = DropoutRng(cfg.seed + start_epoch, dev)
         step = make_train_step_impl(cfg, self.dims, zero=zero, plan=plan)
         eval_step = make_eval_step(cfg, self.dims)
+        # --steps-per-dispatch K: K same-shape batches a dispatch; built
+        # once, so a shape's CUDA graph serves every epoch
+        steps_k = max(1, int(cfg.steps_per_dispatch))
+        multi = (make_multi_train_step(cfg, step, steps_k, dev)
+                 if steps_k > 1 else None)
         metrics: Dict = {}
 
         for epoch in range(start_epoch, num_epochs):
@@ -245,42 +255,90 @@ class Trainer:
             logger.info("TRAIN")
             t0 = time.time()
             lr = 0.0
+            # one entry a dispatch: ([(batch index, rows)], metrics, hyp,
+            # gold), the K steps' stacked when the dispatch ran K
             pending = []
             buckets: Counter = Counter()   # (frames, target columns)
 
             def drain(entry):
                 nonlocal lr
-                i, rows, m, hyp, gold = entry
-                lr = m["lr"].item()
-                if not bool(m["finite"].item()):
-                    logger.info("Found infinity loss, masking")
-                    return
-                totals["loss"] += m["loss"].item()
-                totals["batches"] += 1
-                totals["utts"] += rows
-                if i % self.metrics_every == 0:
-                    self._accumulate_cer(hyp[:rows].tolist(),
-                                         gold[:rows].tolist(), totals)
-                if i % 20 == 0:
-                    g = summed_over_ranks(totals, CER_KEYS, dev)
-                    logger.info(
-                        "(Epoch %d) it %d TRAIN LOSS:%.4f CER:%.2f%% "
-                        "LR:%.7f", epoch + 1, i,
-                        g["loss"] / max(g["batches"], 1),
-                        g["cer"] * 100 / g["char"], lr)
+                metas, m, hyp, gold = entry
+                many = len(metas) > 1
+                # one device-to-host pull a dispatch
+                loss, finite, lrs = torch.stack(
+                    [m["loss"].to(torch.float32),
+                     m["finite"].to(torch.float32),
+                     m["lr"].to(torch.float32)]).reshape(3, -1).tolist()
+                for j, (i, rows) in enumerate(metas):
+                    lr = lrs[j]
+                    if not finite[j]:
+                        logger.info("Found infinity loss, masking")
+                        continue
+                    totals["loss"] += loss[j]
+                    totals["batches"] += 1
+                    totals["utts"] += rows
+                    if i % self.metrics_every == 0:
+                        h, g = (hyp[j], gold[j]) if many else (hyp, gold)
+                        self._accumulate_cer(h[:rows].tolist(),
+                                             g[:rows].tolist(), totals)
+                    if i % 20 == 0:
+                        t = summed_over_ranks(totals, CER_KEYS, dev)
+                        logger.info(
+                            "(Epoch %d) it %d TRAIN LOSS:%.4f CER:%.2f%% "
+                            "LR:%.7f", epoch + 1, i,
+                            t["loss"] / max(t["batches"], 1),
+                            t["cer"] * 100 / t["char"], lr)
 
+            def run_single(entry):
+                nonlocal data, opt, state
+                i, rows, tensors, bucket = entry
+                data, opt, state, m, hyp, gold = step(
+                    fp, data, opt, rng, *tensors, bucket,
+                    model_state=state)
+                pending.append(([(i, rows)], m, hyp, gold))
+
+            group: List = []
+
+            def flush_group():
+                # K batches: one dispatch; fewer (a shape change, the
+                # epoch's end): single steps
+                nonlocal data, opt, state
+                entries = list(group)
+                group.clear()
+                if len(entries) < steps_k:
+                    for e in entries:
+                        run_single(e)
+                    return
+                data, opt, state, m, hyp, gold = multi(
+                    fp, data, opt, rng, [e[2] for e in entries],
+                    entries[0][3], model_state=state)
+                pending.append(([e[:2] for e in entries], m, hyp, gold))
+
+            batches = (Prefetcher(train_loader, device=dev) if prefetch
+                       else ((b, batch_tensors(b, dev))
+                             for b in train_loader))
             # --trace-dir: a torch.profiler trace of the first epoch's steps
             with trace(cfg.trace_dir if epoch == start_epoch else "", dev):
-                for i, batch in enumerate(train_loader):
+                group_key = None
+                for i, (batch, tensors) in enumerate(batches):
                     rows = (batch.real_rows if batch.real_rows > 0
                             else len(batch.targets))
-                    data, opt, state, m, hyp, gold = step(
-                        fp, data, opt, rng, *batch_tensors(batch, dev),
-                        batch.src_bucket, model_state=state)
-                    pending.append((i, rows, m, hyp, gold))
+                    entry = (i, rows, tensors, batch.src_bucket)
                     buckets[batch.src_bucket, batch.targets.shape[1]] += 1
+                    if steps_k > 1:
+                        key = (batch.src_bucket,) + tuple(
+                            tuple(t.shape) for t in tensors)
+                        if group and key != group_key:
+                            flush_group()
+                        group_key = key
+                        group.append(entry)
+                        if len(group) == steps_k:
+                            flush_group()
+                    else:
+                        run_single(entry)
                     while len(pending) > 2:
                         drain(pending.pop(0))
+                flush_group()
                 for entry in pending:
                     drain(entry)
             wall = time.time() - t0
@@ -368,6 +426,8 @@ class Trainer:
                 logger.info("SHUFFLE")
                 train_loader.shuffle(epoch)
 
+        if multi is not None:
+            multi.close()
         return {"params": unshard(fp.tree(full_params())),
                 "opt_state": unshard_opt(opt_to_tree(fp, full_opt())),
                 "model_state": state, "metrics": metrics,

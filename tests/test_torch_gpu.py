@@ -1167,3 +1167,106 @@ def test_pipeline_stage_on_the_card(dev, tmp_path):
         assert (min(rk["vgg"]) > 0) == (r == 0), rk
     assert ranks[0]["loss"] == ranks[1]["loss"]
     assert torch.isfinite(torch.tensor(ranks[0]["loss"]))
+
+
+def test_graphed_attention_reads_each_replays_seeds(dev):
+    """The attention forward and backward with their seeds in device
+    memory (the device-seed entries), captured once in a CUDA graph and
+    replayed with new seeds written before each replay: each replay's
+    output and gradients are the eager calls' with those seeds, bit for
+    bit, and the eager device-seed calls the by-value ones."""
+    q, k, v, bias = _attn_inputs(dev, 2, 3, 51, 200, seed=5, mask_row=True)
+    g = torch.Generator().manual_seed(3)
+    dout = torch.randn(2, 3, 51, 64, generator=g).to(dev, torch.bfloat16)
+    seeds = torch.zeros(4, dtype=torch.int64, device=dev)
+
+    def run(seed):
+        # leaves made on the stream that runs the call, as the train step
+        # makes its parameter leaves: a capture cannot wait on another's
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = AF.flash_mha_train(*qkv, bias, seed, 0.1)
+        return (out, *torch.autograd.grad(out, qkv, dout))
+
+    values = [0x1234_5678_9ABC_DEF0, 7, 2 ** 62 + 11]
+    want = [[t.clone() for t in run(s)] for s in values]
+    for s, w in zip(values, want):
+        seeds[2] = s
+        got = run(AF.DeviceSeed(seeds, 2))
+        assert all(torch.equal(a, b) for a, b in zip(got, w))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(AF.DeviceSeed(seeds, 2))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run(AF.DeviceSeed(seeds, 2))
+    for s, w in zip(values, want):
+        seeds[2] = s
+        graph.replay()
+        assert all(torch.equal(a, b) for a, b in zip(outs, w))
+
+
+def test_steps_per_dispatch_refuses_a_gloo_group_on_the_card(dev, tmp_path):
+    """--steps-per-dispatch K > 1 on the card captures a CUDA graph; a
+    gloo group's collectives run on the host: make_multi_train_step raises a
+    ValueError that names NCCL."""
+    import torch.distributed as dist
+    from end2end_asr_tpu_torch.config import Config
+    from end2end_asr_tpu_torch.models.transformer import dims_from_config
+    from end2end_asr_tpu_torch.training.steps import (make_multi_train_step,
+                                                      make_train_step_impl)
+    cfg = Config(feat_extractor="vgg_cnn", num_layers=1, num_heads=2,
+                 dim_model=64, dim_key=32, dim_value=32, dim_inner=128,
+                 dim_emb=64)
+    step = make_train_step_impl(cfg, dims_from_config(cfg))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="NCCL"):
+            make_multi_train_step(cfg, step, 2, dev)
+        make_multi_train_step(cfg, step, 2, torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("T,U,case", [(51, 51, "aishell"), (7, 4, "edges"),
+                                      (30, 12, "repeats")])
+def test_ctc_kernels_match_plain(dev, T, U, case):
+    """csrc/ctc.cu against PyTorch's ctc_loss on the card: the nll and the
+    logits' gradient (through log_softmax) of the feasible rows within
+    1e-4 of the largest value, +inf on the infeasible ones; "edges" holds
+    an empty target, input lengths 0 and 1 and one beyond T (clamped),
+    "repeats" labels repeated back to back (a blank between them)."""
+    from end2end_asr_tpu_torch.ops import ctc as CT
+    g = torch.Generator().manual_seed(T * 100 + U)
+    B, C = 6, 40
+    logits = (torch.randn(B, T, C, generator=g) * 2).to(dev)
+    targets = torch.randint(1, C, (B, U), generator=g)
+    tl = torch.randint(0, min(U, T // 2) + 1, (B,), generator=g)
+    il = torch.randint(T // 2, T + 1, (B,), generator=g)
+    if case == "edges":
+        tl[0], il[1], il[2], il[3], tl[1] = 0, 0, 1, T + 3, 1
+    if case == "repeats":
+        targets[:, 1::2] = targets[:, 0::2]
+    targets, tl, il = targets.to(dev), tl.to(dev), il.to(dev)
+
+    def run(fn):
+        x = logits.detach().requires_grad_()
+        nll = fn(torch.log_softmax(x, -1), targets, il, tl)
+        ok = torch.isfinite(nll)
+        grad, = torch.autograd.grad(nll[ok].sum(), x)
+        return nll.detach(), ok, grad
+
+    CT.reset_launches()
+    got, ok, got_g = run(CT.ctc_nll)
+    assert (CT.FWD.launches, CT.BWD.launches) == (1, 1)
+    want, want_ok, want_g = run(
+        lambda lp, t, i, l: CT.ctc_nll_plain(lp, t, i.clamp(max=T), l))
+    assert torch.equal(ok, want_ok) and ok.any()
+    scale = want[ok].abs().max().item()
+    assert (got[ok] - want[ok]).abs().max().item() <= 1e-4 * scale
+    # the feasible rows: PyTorch's backward puts NaN on an infeasible row
+    assert torch.isfinite(got_g).all()
+    assert (got_g[ok] - want_g[ok]).abs().max().item() <= \
+        1e-4 * want_g[ok].abs().max().item()

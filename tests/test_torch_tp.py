@@ -196,12 +196,18 @@ def group(tmp_path_factory):
                 for beam, beam_args in (("", []), ("_beam", BEAM))),
               {"name": "test_sp", "test": test + [
                   "--continue-from", ck("one_sp"), "--parallel",
-                  "--mesh-model", "2"]}],
+                  "--mesh-model", "2"]},
+              {"name": "test_sp_typed", "test": test + [
+                  "--continue-from", ck("one"), "--parallel",
+                  "--mesh-model", "2", "--seq-parallel"]}],
         "4": [{"name": "train_dm", "train": train + [
                   "--name", "dm", "--parallel", "--mesh-data", "2",
                   "--mesh-model", "2", "--zero1", "--seq-parallel"]}]}
     spec = {"cfg": torch_config(cfg).to_dict(), "T": T_FRAMES,
-            "steps": STEPS, "entry": entry}
+            "steps": STEPS, "entry": entry,
+            "encode": {"2": [{"name": "enc_lr_bf16",
+                              "cfg": dict(LR, dtype="bfloat16"),
+                              "params": "lr_params", "batch": "ce"}]}}
     with open(os.path.join(root, "spec.json"), "w") as f:
         json.dump(spec, f)
     # the one-process runs whose checkpoints the tests serve (--parallel
@@ -367,6 +373,73 @@ def test_sp_serving_prints_the_tp_strings_from_t_slices(group):
     assert int(sp["seq_slices"]) > 0 and int(plain["seq_slices"]) == 0
     assert int(load(root, "test_sp", 1)["seq_slices"]) == int(
         sp["seq_slices"])
+
+
+def _bf16_encoder_gaps(root):
+    """LRTRFS at bf16: (the port's TP encoder output against its one
+    process, JAX's 2-device model mesh against its one device), each the
+    largest absolute difference; tests/lowrank_bf16_gap.py prints more."""
+    from end2end_asr_tpu.models.transformer import dims_from_config
+    from end2end_asr_tpu.parallel.tp import make_mesh_2d, shard_params
+    from end2end_asr_tpu.training.steps import make_encode_fn
+    from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
+    from end2end_asr_tpu_torch.models.transformer import \
+        dims_from_config as port_dims
+    cfg = _cfg(rank=RANK).replace(dtype="bfloat16")
+    params = _params(RANK)
+    pcm, n_frames = _batch(0)[:2]
+    tcfg = torch_config(cfg)
+    dims = port_dims(tcfg)
+    with torch.no_grad():
+        one, _ = encode_pcm(prepare_params(to_port(params), dims,
+                                           torch.device("cpu")), tcfg, dims,
+                            torch.from_numpy(pcm),
+                            torch.from_numpy(n_frames.astype(np.int64)),
+                            T_FRAMES)
+    tp2 = load(root, "enc_lr_bf16")["enc"]
+    assert np.array_equal(tp2, load(root, "enc_lr_bf16", 1)["enc"])
+    encode = make_encode_fn(cfg, dims_from_config(cfg), from_pcm=True)
+    jone, _ = encode(params, {}, pcm, n_frames, spect_T=T_FRAMES)
+    jtp2, _ = encode(shard_params(make_mesh_2d(2, n_data=1), params), {},
+                     pcm, n_frames, spect_T=T_FRAMES)
+    gap = lambda a, b: float(np.abs(np.asarray(a, np.float32)
+                                    - np.asarray(b, np.float32)).max())
+    return gap(tp2, one.float().numpy()), gap(jtp2, jone)
+
+
+def test_low_rank_tp_encoder_at_bf16_is_no_farther_than_jax(group):
+    """LRTRFS (--rank 8) served at bf16: the port's encoder at --mesh-model
+    2 is no farther from its one-process output than the JAX package's
+    2-device model mesh is from its one device (a rounding of the r-wide
+    partial product that one process does not do would show here)."""
+    port_gap, jax_gap = _bf16_encoder_gaps(group[0])
+    assert port_gap <= jax_gap, (port_gap, jax_gap)
+
+
+def test_typed_seq_parallel_serves_on_t_slices(group):
+    """A typed --seq-parallel over a checkpoint trained without it: test
+    --parallel --mesh-model 2 serves the encoder on T slices (split_seq
+    counted on both ranks) and prints TP serving's strings and CER."""
+    root = group[0]
+    sp, plain = load(root, "test_sp_typed"), load(root, "test_tp")
+    assert list(sp["hyps"]) == list(plain["hyps"]) and len(sp["hyps"]) == 5
+    assert float(sp["cer"]) == float(plain["cer"])
+    assert int(sp["seq_slices"]) > 0
+    assert int(load(root, "test_sp_typed", 1)["seq_slices"]) == int(
+        sp["seq_slices"])
+
+
+def test_typed_seq_parallel_in_one_process_does_nothing(group):
+    """One process, --device cpu --seq-parallel: no model axis, so the
+    flag does nothing (root test.py), and the strings and CER are those
+    of the run without it."""
+    root, _, corpus, _ = group
+    argv = ["--test-manifest-list", corpus[0], "--batch-size", "4",
+            "--device", "cpu", "--continue-from",
+            os.path.join(root, "models", "one", "epoch_1")]
+    want = port_test.main(argv)
+    got = port_test.main(argv + ["--seq-parallel"])
+    assert got["cer"] == want["cer"] and got["wer"] == want["wer"]
 
 
 # ---------------------------------------------------------------------------

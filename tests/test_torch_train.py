@@ -388,7 +388,7 @@ def _port_loss_and_grad(cfg, params, batch, seed=11):
     loss = TL.calculate_loss(pred, gold, None, tgt_lengths,
                              cfg.label_smoothing)
     grad, = torch.autograd.grad(loss, leaf)
-    tail = (rng.kernel_seed(), rng.bits16((4,), "cpu").tolist())
+    tail = (rng.kernel_seed().value(), rng.bits16((4,), "cpu").tolist())
     return loss.detach(), grad, tail
 
 

@@ -20,6 +20,7 @@ import torch.distributed as dist
 from end2end_asr_tpu_torch import test as port_test
 from end2end_asr_tpu_torch import train as port_train
 from end2end_asr_tpu_torch.config import Config
+from end2end_asr_tpu_torch.evaluation import encode_pcm, prepare_params
 from end2end_asr_tpu_torch.models.layers import DropoutRng
 from end2end_asr_tpu_torch.models.transformer import dims_from_config
 from end2end_asr_tpu_torch.parallel import mesh, tp
@@ -143,6 +144,28 @@ def entry_points(root, spec, world):
     return out
 
 
+def encodes(root, spec, world):
+    """The encoder outputs of this layout's runs (spec["encode"][str(world)]:
+    a list of {"name", "cfg" (overrides), "params", "batch"}): this model
+    rank's shard of the params, the batch whole, as `test` encodes."""
+    out = {}
+    for run in spec.get("encode", {}).get(str(world), []):
+        c = Config.from_dict({**spec["cfg"], **run["cfg"]})
+        params = TC.model_rank_tree(
+            load_tree(os.path.join(root, run["params"] + ".npz")),
+            mesh.model_size(), mesh.model_rank())
+        dims = dims_from_config(c)
+        with np.load(os.path.join(root, run["batch"] + ".npz")) as b:
+            pcm = torch.from_numpy(b["pcm"])
+            n_frames = torch.from_numpy(b["n_frames"].astype(np.int64))
+        with torch.no_grad():
+            enc, _ = encode_pcm(prepare_params(params, dims,
+                                               torch.device("cpu")),
+                                c, dims, pcm, n_frames, spec["T"])
+        out[run["name"]] = {"enc": enc.float().numpy()}
+    return out
+
+
 def _group(root, tag, rank, world):
     store = dist.FileStore(os.path.join(root, "store_" + tag), world)
     dist.init_process_group("gloo", store=store, rank=rank,
@@ -162,7 +185,7 @@ def run(rank, world, root):
         _group(root, str(w), rank, w)
         try:
             mesh.set_layout(2, w // 2)
-            for scenario in (tp_steps, entry_points):
+            for scenario in (tp_steps, entry_points, encodes):
                 for name, res in scenario(root, spec, w).items():
                     np.savez(os.path.join(root, f"{name}.r{rank}.npz"),
                              **res)
