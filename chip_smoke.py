@@ -170,8 +170,10 @@ Phases (any failure exits non-zero without the final result line):
      kernel and graph launches a step at K = 1 and K = 4, the graphs
      captured, their memory and their captured launches are printed
      (`python3 chip_smoke.py --dispatch-only` runs phases 1 and 12 alone;
-     `--nccl-dispatch`, on 2 or more cards, the train entry point at K = 1
-     and 4 over 2-rank NCCL groups: data and tensor parallelism);
+     `--nccl-dispatch`, on 4 cards (2 run the 2-rank layouts and report
+     the others as not run), the train entry point over NCCL, a card a
+     rank, in every layout of phases 9-11 at K = 1 and 4,
+     `phase_nccl_dispatch`);
   13. the streaming probe's entry point, its four lines printed;
   14. one JSON line of per-kernel numbers (and the serving, training,
      serve-option, augmented-training, parallelism and dispatch numbers,
@@ -184,6 +186,7 @@ Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1641,10 +1644,11 @@ def aishell_config(**kw):
 
 
 def train_argv(cfg, manifest, valid, labels_path, extra=(), name="aishell"):
-    """`manifest`, `valid`: a manifest, or a list of them (joint training)."""
+    """`manifest`, `valid`: a manifest, or a list of them (joint training;
+    no `valid`: no validation)."""
     as_list = lambda m: [m] if isinstance(m, str) else list(m)
     return ["--train-manifest-list", *as_list(manifest),
-            "--valid-manifest-list", *as_list(valid),
+            *(["--valid-manifest-list", *as_list(valid)] if valid else []),
             "--labels-path", labels_path,
             "--name", name, "--save-folder", "models",
             "--feat_extractor", cfg.feat_extractor,
@@ -2926,12 +2930,11 @@ def torchrun(work, nproc, args, name, timeout=300):
     return r.stdout, time.time() - t0
 
 
-def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
-    """Median host ms of the train step on `batch` (this rank's rows),
-    each step between two synchronizes, after one untimed step; --zero1 /
-    --fsdp in `cfg` shard it over the data axis, and a data x model
-    layout (phase 10) runs this rank's shard of the parameters, a pipe
-    layout (phase 11) its stage's."""
+def rank_step(cfg, params, dev):
+    """This rank's train step as the trainer sets it up: (fp, data, opt,
+    step, rng); --zero1 / --fsdp in `cfg` shard it over the data axis, a
+    data x model layout (phase 10) runs this rank's shard of the
+    parameters, a pipe layout (phase 11) its stage's."""
     from end2end_asr_tpu_torch.models.layers import DropoutRng
     from end2end_asr_tpu_torch.models.transformer import dims_from_config
     from end2end_asr_tpu_torch.parallel import mesh, tp
@@ -2942,7 +2945,6 @@ def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
     from end2end_asr_tpu_torch.training.optimizer import init_opt_state
     from end2end_asr_tpu_torch.training.steps import (FlatParams,
                                                       make_train_step_impl)
-    from end2end_asr_tpu_torch.training.trainer import batch_tensors
     n_model, n_pipe, plan = mesh.model_size(), mesh.pipe_size(), None
     if n_pipe > 1:
         params = pipe_stage_tree(params, n_pipe, mesh.pipe_rank())
@@ -2962,7 +2964,15 @@ def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
         data = zero.shard(data)
     step = make_train_step_impl(cfg, dims_from_config(cfg), zero=zero,
                                 plan=plan)
-    rng = DropoutRng(SEED, dev)
+    return fp, data, opt, step, DropoutRng(SEED, dev)
+
+
+def rank_step_ms(torch, cfg, params, batch, dev, n=DDP_STEPS):
+    """Median host ms of the train step on `batch` (this rank's rows),
+    each step between two synchronizes, after one untimed step
+    (`rank_step`'s set-up)."""
+    from end2end_asr_tpu_torch.training.trainer import batch_tensors
+    fp, data, opt, step, rng = rank_step(cfg, params, dev)
     tensors = batch_tensors(batch, dev)
     one = lambda: step(fp, data, opt, rng, *tensors, batch.src_bucket)
     one()
@@ -4108,91 +4118,379 @@ def phase_dispatch(torch, dev, work, labels_path, gpu):
     return out
 
 
-NCCL_DISPATCH_RUNS = (("dp2", []), ("tp2", ["--mesh-model", "2"]))
+# the layouts of phases 9-11 over NCCL, a card a rank: (name, ranks,
+# flags), in the order they start (on the first free cards that fit)
+NCCL_DISPATCH_RUNS = (
+    ("pp2", 2, ["--mesh-pipe", "2"]),
+    ("pp2_m4", 2, ["--mesh-pipe", "2", "--pipe-microbatches", "4"]),
+    ("dp2_zero1", 2, ["--zero1"]), ("dp2_fsdp", 2, ["--fsdp"]),
+    ("dp2", 2, []), ("tp2", 2, ["--mesh-model", "2"]),
+    ("pp4_remat", 4, ["--mesh-pipe", "4", "--remat"]),
+    ("pp2_tp2", 4, ["--mesh-pipe", "2", "--mesh-model", "2"]),
+    ("dp2_pp2_zero1", 4, ["--mesh-data", "2", "--mesh-pipe", "2",
+                          "--zero1"]),
+    ("tp4_zero1", 4, ["--mesh-data", "2", "--mesh-model", "2", "--zero1"]))
 NCCL_LOG_LINE = "backend nccl"
+NCCL_RUN_TIMEOUT_S = 480    # a layout's torchrun: its three runs, timed
+NCCL_TIMED = 3          # timed dispatches a rank after an untimed one
+# a layout's runs, in this order in one group: (tag suffix, K, dropout,
+# epochs of 4 batches); at K = 4 an epoch is one replay of the graph, so
+# two epochs replay it twice (the first replay follows the capture)
+NCCL_RUNS = (("k1", 1, 0.1, 2), (f"k{DISPATCH_K}", DISPATCH_K, 0.1, 2),
+             ("k1_d0", 1, 0.0, 1))
+# (b)'s gradient check: the dropout-0 run's gathered Adam first moments
+# (4 steps of (1 - b1)-weighted gradients) against one process's, a leaf
+# at a time, relative L2 with the leaf's norm floored at 1e-2 of the whole
+# model's. bf16 kernels on other row counts, sums in other orders and each
+# rank's gradient rounded to bf16 before the sum move a right gradient by
+# ~1e-2 at most; a hand-off to the wrong peer or a sum left out moves a
+# leaf's by ~1
+NCCL_D0_MU_RTOL = 5e-2
+
+
+def captured_counts(kernels, captured):
+    """`kernels`' counts of a CUDA graph's captured launches
+    (GraphedSteps.captured, by binding)."""
+    from end2end_asr_tpu_torch.ops import cuda_lib
+    saved = cuda_lib.launch_counts()
+    cuda_lib.set_launch_counts(dict.fromkeys(saved, 0))
+    cuda_lib.set_launch_counts(captured)
+    out = kernel_counts(kernels)
+    cuda_lib.set_launch_counts(saved)
+    return out
+
+
+def mu_rel_l2(got, ref):
+    """(b)'s gradient check: the relative L2 distance of each Adam
+    first-moment leaf (``opt::mu::`` of two flat checkpoints), the leaf's
+    norm floored at 1e-2 of the whole model's."""
+    import numpy as np
+    keys = [k for k in ref if k.startswith("opt::mu::")]
+    norm = lambda a: float(np.linalg.norm(np.asarray(a, np.float64)))
+    floor = 1e-2 * math.sqrt(sum(norm(ref[k]) ** 2 for k in keys))
+    return {k: norm(np.asarray(got[k], np.float64) - ref[k])
+            / max(norm(ref[k]), floor) for k in keys}
+
+
+def nccl_rank(spec_path):
+    """One rank of a `--nccl-dispatch` layout (`chip_smoke.py --nccl-rank
+    SPEC`, started by torch.distributed.run, a card a rank): the train
+    entry point with each of the spec's runs' argv in turn, in one group
+    (the backend, launches, peak memory and seconds of each), then the
+    train step of the first run's parameters on this rank's slice of the
+    first batch at K = 1 and at K = DISPATCH_K: NCCL_TIMED dispatches
+    after an untimed one (at K > 1 the one that captures), one more
+    profiled; the step ms (a dispatch's / K), the profiled kernels' summed
+    time a step and over the wall (NCCL's kernels count while they wait
+    for a peer, and overlap the compute on their own stream, so it is no
+    busy share), the hand-offs a step, the launches a step (at K > 1 the
+    graph's captured ones), the graph's pool and the timing's wall-clock
+    window go to <out>.r<rank>.json."""
+    import torch
+    from end2end_asr_tpu_torch import train as port_train
+    from end2end_asr_tpu_torch.config import config_from_args, load_vocab
+    from end2end_asr_tpu_torch.data.dataset import ManifestDataset
+    from end2end_asr_tpu_torch.data.loader import (AudioBatchLoader,
+                                                   batch_tensors)
+    from end2end_asr_tpu_torch.parallel import mesh, pp
+    from end2end_asr_tpu_torch.test import split_device_arg
+    from end2end_asr_tpu_torch.training.steps import make_multi_train_step
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = mesh.rank_device(torch.device("cuda"))
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.maybe_initialize_distributed(dev)
+    kernels = train_kernel_table()
+    out = {"rank": mesh.rank(), "device": str(dev),
+           "backend": torch.distributed.get_backend(), "runs": {}}
+    params = None
+    for run in spec["runs"]:
+        reset_kernels(kernels)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        res = port_train.main(run["argv"])
+        torch.cuda.synchronize()
+        out["runs"][run["tag"]] = {
+            "launches": kernel_counts(kernels),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "train_s": time.time() - t0, "opt_step": res["opt_step"]}
+        params = params or res["params"]
+        del res
+    out.update(stage=mesh.pipe_rank(), transport=mesh.TRANSPORT, timing={})
+    cfg = config_from_args(split_device_arg(spec["runs"][0]["argv"])[1])
+    label2id, _ = load_vocab(cfg.labels_path)
+    batch = next(iter(AudioBatchLoader(
+        ManifestDataset(list(cfg.train_manifest_list), label2id), cfg,
+        process_index=mesh.data_rank(), process_count=mesh.data_size())))
+    fp, data, opt, step, rng = rank_step(cfg, params, dev)
+    tensors = batch_tensors(batch, dev)
+    out["timed"] = [time.time()]
+    for k in (1, DISPATCH_K):
+        runner = make_multi_train_step(cfg, step, k, dev) if k > 1 else None
+        one = ((lambda: step(fp, data, opt, rng, *tensors,
+                             batch.src_bucket)) if runner is None else
+               (lambda: runner(fp, data, opt, rng, [tensors] * k,
+                               batch.src_bucket)))
+        reset_kernels(kernels)
+        pp.reset_handoffs()
+        one()
+        ms, _ = host_ms(torch, one, NCCL_TIMED)
+        t = {"step_ms": ms / k}
+        if runner is None:
+            t["handoffs_a_step"] = pp.HANDOFFS["count"] / (1 + NCCL_TIMED)
+            t["launches_a_step"] = {n: c / (1 + NCCL_TIMED) for n, c in
+                                    kernel_counts(kernels).items()}
+        else:
+            key, = runner.captured
+            t["handoffs_a_step"] = runner.captured_handoffs[key]["count"] / k
+            t["launches_a_step"] = {n: c / k for n, c in captured_counts(
+                kernels, runner.captured[key]).items()}
+            t["graph_pool_mib"] = runner.memory[key] / 2 ** 20
+        prof = profile(torch, one, top=4)
+        t["kernel_time_over_wall"] = prof["device_busy_share"]
+        t["kernel_ms_a_step"] = (None if prof["device_ms"] is None
+                                 else prof["device_ms"] / k)
+        if runner is not None:
+            runner.close()
+        out["timing"][k] = t
+    out["timed"].append(time.time())
+    with open(f"{spec['out']}.r{mesh.rank()}.json", "w") as f:
+        json.dump(out, f)
+    mesh.shutdown()
 
 
 def phase_nccl_dispatch(torch, gpu):
     """`python3 chip_smoke.py --nccl-dispatch`, on a host of 2 or more
-    cards (not part of the default run, which needs one): the train entry
-    point at --parallel through torchrun, 2 NCCL ranks a card each, at
-    --steps-per-dispatch 1 and 4 on phase 12's corpus (4 batches of 12,
-    one epoch, dropout 0.1): data parallelism and tensor parallelism
-    (--mesh-model 2); with 4 cards the K = 1 and K = 4 runs side by side on
-    two pairs of cards. The K = 4 run's checkpoint must equal the K = 1
-    run's bit for bit (its collectives captured in the CUDA graph), both
-    logs must name NCCL, and each run must end (its process group
-    destroyed after its graphs)."""
+    cards (not part of the default run, which needs one): every layout of
+    phases 9-11 (NCCL_DISPATCH_RUNS: data parallelism plain, --zero1 and
+    --fsdp, tensor parallelism, the 2 x 2 --zero1 layout and the four
+    pipelines) through the train entry point at --parallel, one torchrun a
+    layout, a card a rank (this script's --nccl-rank mode around it), on
+    phase 12's corpus (4 batches of 12, bf16): two epochs at
+    --steps-per-dispatch 1 and 4 at dropout 0.1, then one epoch at K = 1
+    at dropout 0, one after the other in the layout's group; the layouts
+    share the host's cards, as many at once as fit, beside one process's
+    run at dropout 0. (a) The K = 4 run's gathered checkpoint must equal
+    the K = 1 run's bit for bit after each epoch (each replay of its
+    graph); (b) the dropout-0 run's loss, gathered parameters and Adam
+    first moments (its gradients) must be the one-process run's within
+    phase 9's rules and NCCL_D0_MU_RTOL; (c) every log must name NCCL;
+    (d) every torchrun must end within NCCL_RUN_TIMEOUT_S. Each rank's
+    step ms at K = 1 and 4 (host clock, a dispatch's median / K), its
+    kernels' time over the wall, peak memory, hand-offs a step and its
+    stage's kernels (at K = 4 the graph's captured launches) are printed,
+    and the jobs that ran beside a layout's timing (they share the host's
+    CPU). The 4-rank layouts need 4 cards: with fewer they are reported
+    as not run, by name, and not counted as passed."""
     import numpy as np
     from end2end_asr_tpu_torch.ops import cuda_lib
+    from end2end_asr_tpu_torch.training.optimizer import noam_rate
+    from end2end_asr_tpu_torch.training.steps import noam_config_from
     n = torch.cuda.device_count()
     if n < 2:
         fail(f"--nccl-dispatch needs 2 or more cards, found {n}")
+    not_run = [r[0] for r in NCCL_DISPATCH_RUNS if r[1] > n]
+    layouts = [r for r in NCCL_DISPATCH_RUNS if r[1] <= n]
     phase_build(cuda_lib)
     labels_path = os.path.abspath(os.path.join("data", "labels",
                                                "aishell_labels.json"))
     with open(labels_path, encoding="utf-8") as f:
         labels = json.load(f)
     rs = np.random.RandomState(SEED + 12)
-    out = {"gpu": gpu, "cards": n}
+    out = {"gpu": gpu, "cards": n, "not_run": not_run, "layouts": {}}
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__))]
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t_phase = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         manifest = make_corpus(work, labels, rs, n=4 * B,
                                name="dispatch.csv",
                                text=lambda chars, r: "".join(
                                    r.choice(chars, r.randint(12, 16))))
-        cfg = aishell_config()
-        for name, extra in NCCL_DISPATCH_RUNS:
-            procs = {}
-            for i, k in enumerate((1, DISPATCH_K)):
-                tag = f"{name}_k{k}"
-                cards = f"{2 * i},{2 * i + 1}" if n >= 4 else "0,1"
-                argv = [sys.executable, "-m", "torch.distributed.run",
-                        "--standalone", "--nproc_per_node", "2", "-m",
-                        "end2end_asr_tpu_torch.train",
-                        *train_argv(cfg, manifest, manifest, labels_path,
-                                    ["--epochs", "1", "--steps-per-dispatch",
-                                     str(k)], name=tag), "--parallel", *extra]
-                log_f = open(os.path.join(work, tag + ".out"), "w")
-                procs[k] = (subprocess.Popen(
-                    argv, cwd=work, env=dict(env, CUDA_VISIBLE_DEVICES=cards),
-                    stdout=log_f, stderr=subprocess.STDOUT), log_f, tag,
-                    time.time())
-                if n < 4:      # one pair of cards: one run at a time
-                    procs[k][0].wait(timeout=300)
-            cks, secs = {}, {}
-            for k, (proc, log_f, tag, t0) in procs.items():
-                try:
-                    rc = proc.wait(timeout=300)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    rc = "timed out"
-                secs[k] = time.time() - t0
-                log_f.close()
-                with open(os.path.join(work, tag + ".out")) as f:
-                    text = f.read()
-                if rc != 0:
-                    fail(f"{tag}: exited {rc}:\n{text[-3000:]}")
-                with open(os.path.join(work, "log", tag),
+        # no validation: the checks read the checkpoints and train losses
+        argv = lambda tag, k, drop, epochs: train_argv(
+            aishell_config(dropout=drop), manifest, [], labels_path,
+            ["--epochs", str(epochs), "--steps-per-dispatch", str(k)],
+            name=tag)
+        # the one-process run first, then the layouts, each started on
+        # the first free cards that fit it
+        jobs = [("one", 1, [sys.executable, "-m",
+                            "end2end_asr_tpu_torch.train",
+                            *argv("one", 1, 0.0, 1), "--device", "cuda"])]
+        for name, nproc, extra in layouts:
+            spec = os.path.join(work, name + ".json")
+            with open(spec, "w") as f:
+                json.dump({"runs": [
+                    {"tag": f"{name}_{sfx}", "argv": argv(
+                        f"{name}_{sfx}", k, drop, epochs) + [
+                        "--parallel", "--device", "cuda", *extra]}
+                    for sfx, k, drop, epochs in NCCL_RUNS],
+                    "out": os.path.join(work, name)}, f)
+            jobs.append((name, nproc, [
+                sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc_per_node", str(nproc),
+                os.path.abspath(__file__), "--nccl-rank", spec]))
+
+        def ck(tag, epoch=1):
+            return flat_npz(os.path.join(work, "models", tag,
+                                         f"epoch_{epoch}"))
+
+        def train_loss(tag):
+            with open(os.path.join(work, "models", tag, "epoch_1.json"),
+                      encoding="utf-8") as f:
+                return json.load(f)["metrics"]["train_loss"]
+
+        lr_sum = sum(float(noam_rate(torch.tensor(st), noam_config_from(
+            aishell_config()))) for st in range(1, 5))
+        k4 = f"k{DISPATCH_K}"
+        epochs = {f"{name}_{sfx}": e for name, _, _ in layouts
+                  for sfx, _, _, e in NCCL_RUNS}
+        bad = []
+
+        def check(name, nproc, extra):
+            """A layout's checks (a)-(c) and its ranks' numbers, logged as
+            soon as it and the one-process run have ended."""
+            ref_ck, ref_loss = ck("one"), train_loss("one")
+            tags = {sfx: f"{name}_{sfx}" for sfx, _, _, _ in NCCL_RUNS}
+            nccl = {}
+            for t in tags.values():
+                with open(os.path.join(work, "log", t),
                           encoding="utf-8") as f:
-                    if NCCL_LOG_LINE not in f.read():
-                        fail(f"{tag}: the group did not run on NCCL")
-                cks[k] = flat_npz(os.path.join(work, "models", tag,
-                                               "epoch_1"))
-            same = set(cks[1]) == set(cks[DISPATCH_K]) and all(
-                np.array_equal(cks[1][key], cks[DISPATCH_K][key])
-                for key in cks[1])
-            out[name] = {"extra": extra, "seconds": secs,
-                         "checkpoint_bit_equal": same}
-            log(f"nccl dispatch {name} (2 ranks {' '.join(extra)}): K = "
-                f"{DISPATCH_K} checkpoint equal to K = 1 bit for bit: "
-                f"{same}; seconds {secs}")
-            if not same:
-                fail(f"nccl dispatch {name}: the K = {DISPATCH_K} run's "
-                     f"checkpoint differs from the K = 1 run's")
+                    nccl[t] = NCCL_LOG_LINE in f.read()
+            same = []           # (a) after each epoch: each replay
+            for e in range(1, epochs[tags["k1"]] + 1):
+                a, b = ck(tags["k1"], e), ck(tags[k4], e)
+                same.append(set(a) == set(b) and all(
+                    np.array_equal(a[key], b[key]) for key in a))
+            d0 = ck(tags["k1_d0"])
+            dp = max(float(np.abs(d0[key].astype(np.float64)
+                                  - ref_ck[key].astype(np.float64)).max())
+                     for key in ref_ck if key.startswith("params::"))
+            mu = mu_rel_l2(d0, ref_ck)
+            mu_worst = max(mu, key=mu.get)
+            loss = train_loss(tags["k1_d0"])
+            ranks = []
+            for r in range(nproc):
+                with open(os.path.join(work, f"{name}.r{r}.json")) as f:
+                    ranks.append(json.load(f))
+            w0, w1 = ranks[0]["timed"]
+            beside = sorted(t for t, (s0, s1) in spans.items() if t != name
+                            and s0 < w1 and (s1 is None or s1 > w0))
+            timing = lambda key: {kk: [rk["timing"][str(kk)][key]
+                                       for rk in ranks]
+                                  for kk in (1, DISPATCH_K)}
+            rep = {"ranks": nproc, "extra": extra, "seconds": seconds[name],
+                   "k4_checkpoint_bit_equal_k1_by_epoch": same,
+                   "logs_name_nccl": all(nccl.values()),
+                   "d0_train_loss": loss, "one_process_loss": ref_loss,
+                   "d0_params_max_abs_vs_1_process": dp,
+                   "params_bound": 2 * lr_sum,
+                   "d0_mu_rel_l2_max": [mu_worst, mu[mu_worst]],
+                   "backend": [rk["backend"] for rk in ranks],
+                   "stages": [rk["stage"] for rk in ranks],
+                   "transport": ranks[0]["transport"],
+                   "opt_step": {t: [rk["runs"][t]["opt_step"]
+                                    for rk in ranks] for t in tags.values()},
+                   "train_s": {t: [rk["runs"][t]["train_s"] for rk in ranks]
+                               for t in tags.values()},
+                   "peak_mem_mib": {t: [rk["runs"][t]["peak_mem_bytes"]
+                                        / 2 ** 20 for rk in ranks]
+                                    for t in tags.values()},
+                   "step_ms": timing("step_ms"),
+                   "timed_beside": beside,
+                   "kernel_time_over_wall": timing("kernel_time_over_wall"),
+                   "kernel_ms_a_step": timing("kernel_ms_a_step"),
+                   "handoffs_a_step": timing("handoffs_a_step"),
+                   "graph_pool_mib": [rk["timing"][str(DISPATCH_K)]
+                                      ["graph_pool_mib"] for rk in ranks],
+                   "launches_a_step": timing("launches_a_step")}
+            out["layouts"][name] = rep
+            log(f"nccl dispatch {name} ({nproc} ranks {' '.join(extra)}; "
+                f"{gpu}): {json.dumps(rep)}")
+            # each stage launches its own kernels: stage 0 the front end's,
+            # every stage the attention's (at K = 4 in the graph)
+            missing = [(rk["rank"], kk, kn) for rk in ranks
+                       for kk in (1, DISPATCH_K)
+                       for kn in STACK_KERNELS + (
+                           FRONT_KERNELS if rk["stage"] == 0 else ())
+                       if rk["timing"][str(kk)]["launches_a_step"][kn] <= 0]
+            steps = {t: set(v) for t, v in rep["opt_step"].items()}
+            if not all(same):
+                bad.append(f"{name}: the K = {DISPATCH_K} checkpoint differs "
+                           f"from the K = 1 checkpoint after epochs {same}")
+            if not all(nccl.values()) or set(rep["backend"]) != {"nccl"}:
+                bad.append(f"{name}: not NCCL: logs {nccl}, backends "
+                           f"{rep['backend']}")
+            if abs(loss - ref_loss) > DDP_LOSS_RTOL * abs(ref_loss):
+                bad.append(f"{name}: the dropout-0 loss {loss} against the "
+                           f"one-process {ref_loss} (rtol {DDP_LOSS_RTOL})")
+            if dp > 2 * lr_sum * 1.01:
+                bad.append(f"{name}: the dropout-0 parameters moved {dp:.3g} "
+                           f"from the one-process run's, beyond 2 * (lr1 + "
+                           f"... + lr4) = {2 * lr_sum:.3g}")
+            if mu[mu_worst] > NCCL_D0_MU_RTOL:
+                bad.append(f"{name}: the dropout-0 gradient (Adam's first "
+                           f"moment) {mu_worst} {mu[mu_worst]:.3g} from the "
+                           f"one-process run's (rtol {NCCL_D0_MU_RTOL})")
+            if missing or any(steps[t] != {4 * epochs[t]} for t in steps):
+                bad.append(f"{name}: (rank, K, kernel) not launched "
+                           f"{missing}; optimizer steps {steps}")
+
+        free, running, seconds = list(range(n)), [], {}
+        spans = {}          # a job's wall-clock [start, end or None]
+        checked = set()
+        while jobs or running:
+            for job in [j for j in jobs]:
+                tag, nproc, cmd = job
+                if nproc > len(free):
+                    continue
+                jobs.remove(job)
+                cards = [free.pop(0) for _ in range(nproc)]
+                log_f = open(os.path.join(work, tag + ".out"), "w")
+                # a process group of its own: a kill reaches torchrun's
+                # ranks
+                proc = subprocess.Popen(
+                    cmd, cwd=work, stdout=log_f, stderr=subprocess.STDOUT,
+                    start_new_session=True, env=dict(
+                        env, CUDA_VISIBLE_DEVICES=",".join(map(str, cards))))
+                running.append((tag, proc, log_f, cards, time.time()))
+                spans[tag] = [time.time(), None]
+            time.sleep(1)
+            for entry in list(running):
+                tag, proc, log_f, cards, t0 = entry
+                rc = proc.poll()
+                if rc is None and time.time() - t0 > NCCL_RUN_TIMEOUT_S:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    rc = f"killed at {NCCL_RUN_TIMEOUT_S} s ({proc.wait()})"
+                if rc is None:
+                    continue
+                running.remove(entry)
+                free = sorted(free + cards)
+                log_f.close()
+                if rc != 0:
+                    for _, p, _, _, _ in running:
+                        os.killpg(p.pid, signal.SIGKILL)
+                        p.wait()
+                    with open(os.path.join(work, tag + ".out")) as f:
+                        fail(f"{tag}: exited {rc}:\n{f.read()[-6000:]}")
+                seconds[tag] = time.time() - t0
+                spans[tag][1] = time.time()
+                log(f"nccl dispatch {tag} ({len(cards)} cards {cards}): "
+                    f"exit 0 in {seconds[tag]:.1f} s")
+                if "one" in seconds:
+                    for lay in layouts:
+                        if lay[0] in seconds and lay[0] not in checked:
+                            checked.add(lay[0])
+                            check(*lay)
+
+    out["s"] = time.time() - t_phase
+    for name in not_run:
+        log(f"nccl dispatch {name}: not run ({n} cards, needs 4)")
+    if bad:
+        fail("nccl dispatch: " + "; ".join(bad))
     return out
 
 
@@ -4255,6 +4553,8 @@ def main():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     if sys.argv[1:2] == ["--ddp-rank"]:      # a rank of phase 9
         return ddp_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--nccl-rank"]:     # a rank of --nccl-dispatch
+        return nccl_rank(sys.argv[2])
     dispatch_only = sys.argv[1:2] == ["--dispatch-only"]
     if sys.argv[1:2] == ["--nccl-dispatch"]:
         print(json.dumps(phase_nccl_dispatch(torch, gpu_line())))

@@ -265,7 +265,12 @@ class Prefetcher:
 
     def __init__(self, loader: AudioBatchLoader, device=None):
         self.loader = loader
-        self.device = torch.device(device or "cpu")
+        device = torch.device(device or "cpu")
+        if device.type == "cuda" and device.index is None:
+            # `--device cuda` (train's default) names no card, and the
+            # thread sets its card by index: the caller's current one
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
 
     def __len__(self) -> int:
         return len(self.loader)

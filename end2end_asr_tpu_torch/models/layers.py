@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import math
 from typing import Dict, Optional
 
@@ -57,7 +58,37 @@ def _capturing(device: torch.device) -> bool:
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
-class DropoutRng:
+def _hash63(text: str) -> int:
+    """A 63-bit integer hashed from `text` (a seed that depends on nothing
+    else)."""
+    h = hashlib.blake2b(text.encode(), digest_size=8).digest()
+    return int.from_bytes(h, "little") >> 1
+
+
+class _Bits:
+    """Draws from the device generator `dev`: the plain dropout's uint16
+    bits. `remat` under CUDA-graph capture records a layer's first-run
+    draws (`_record`) and replays them to its recompute (`_replay`)."""
+
+    dev: torch.Generator
+    _record: Optional[list] = None
+    _replay = None
+
+    def _drawn(self, draw) -> torch.Tensor:
+        if self._replay is not None:
+            return next(self._replay)
+        out = draw()
+        if self._record is not None:
+            self._record.append(out)
+        return out
+
+    def bits16(self, shape, device) -> torch.Tensor:
+        return self._drawn(lambda: torch.randint(
+            0, 65536, tuple(shape), generator=self.dev, device=device,
+            dtype=torch.int32))
+
+
+class DropoutRng(_Bits):
     """The random streams of one training run, seeded from the run's seed:
     `host` (a CPU generator) draws the 64-bit Philox seeds of the
     attention kernel; `dev` (a generator on the training device) draws the
@@ -73,11 +104,13 @@ class DropoutRng:
     graph of K steps) draws the K steps' seeds at once, so the graph reads
     each replay's seeds and the host stream is the one K single steps
     draw. The first step draws as it goes (one copy a seed) and sets how
-    many a step takes."""
+    many a step takes. Pipeline parallelism's (stack, layer, microbatch)
+    streams (`pipe_stream`) draw on the device instead."""
 
     def __init__(self, seed: int, device):
         device = torch.device(device)
         self.device = device
+        self.seed = seed
         self.host = torch.Generator().manual_seed(seed)
         self.dev = torch.Generator(device=device).manual_seed(seed + 1)
         self.spec = torch.Generator(device=device).manual_seed(seed + 2)
@@ -86,11 +119,8 @@ class DropoutRng:
         self.drawn = 0          # seeds drawn into `seeds` for this step
         self.slot = 0           # the next kernel_seed's slot
         self.per_step: Optional[int] = None
+        self.streams: Dict[tuple, "PipeStream"] = {}
         self._grouped = False
-        # `remat` under CUDA-graph capture: the plain dropout's bits of a
-        # layer's first run are recorded, and replayed to its recompute
-        self._record: Optional[list] = None
-        self._replay = None
 
     # -- the kernel seeds ------------------------------------------------
     def _draw(self, n: int) -> None:
@@ -158,13 +188,20 @@ class DropoutRng:
         self.slot += 1
         return s
 
-    def host_seed(self) -> int:
-        """The next slot's seed as a host int (pipeline parallelism hashes
-        it into its (layer, microbatch) streams)."""
-        if self.slot == self.drawn:
-            self._draw(1)
-        self.slot += 1
-        return self.values[self.slot - 1]
+    # -- pipeline parallelism's streams, one a (stack, layer, microbatch) --
+    def pipe_stream(self, stack: str, layer: int, mb: int) -> "PipeStream":
+        """The stream of global layer `layer` of `stack` on microbatch
+        `mb`: made once and reused by every step, so that a CUDA graph can
+        register its generator."""
+        key = (stack, layer, mb)
+        s = self.streams.get(key)
+        if s is None:
+            s = self.streams[key] = PipeStream(self, key)
+        return s
+
+    def generators(self):
+        """The device generators a CUDA graph of steps must register."""
+        return [self.dev, self.spec, *(s.dev for s in self.streams.values())]
 
     # -- snapshots (warm-up and capture must leave the streams as found) --
     def dropout_state(self):
@@ -173,23 +210,44 @@ class DropoutRng:
 
     def state(self):
         return (self.host.get_state(), self.dev.get_state(),
-                self.spec.get_state(), self.drawn, self.slot)
+                self.spec.get_state(), self.drawn, self.slot,
+                {k: s.dev.get_state() for k, s in self.streams.items()})
 
     def set_state(self, st) -> None:
         self.host.set_state(st[0])
         self.dev.set_state(st[1])
         self.spec.set_state(st[2])
         self.drawn, self.slot = st[3], st[4]
+        for k, s in self.streams.items():    # those made since: as new
+            if k in st[5]:
+                s.dev.set_state(st[5][k])
+            else:
+                s.dev.manual_seed(s.seed)
 
-    # -- the plain dropout's bits ------------------------------------------
-    def bits16(self, shape, device) -> torch.Tensor:
-        if self._replay is not None:
-            return next(self._replay)
-        bits = torch.randint(0, 65536, tuple(shape), generator=self.dev,
-                             device=device, dtype=torch.int32)
-        if self._record is not None:
-            self._record.append(bits)
-        return bits
+
+class PipeStream(_Bits):
+    """The dropout stream of one (stack, layer, microbatch) of the
+    pipelined forward (JAX: ``fold_in`` of the layer key with the
+    microbatch id): a device generator of its own, seeded from the run's
+    seed and the key, draws its plain dropout's bits and its attention
+    kernels' seeds (a one-element device tensor each). It depends on no
+    stage, is not seeded during a capture, and a CUDA graph that
+    registers it draws each replay's seeds on the device."""
+
+    slot = 0    # no seed slots: `remat` rewinds nothing but `dev`
+
+    def __init__(self, parent: DropoutRng, key: tuple):
+        if _capturing(parent.device):
+            raise RuntimeError("a pipeline dropout stream made under "
+                               "CUDA-graph capture")
+        self.device = parent.device
+        self.seed = _hash63(f"{parent.seed}:{':'.join(map(str, key))}")
+        self.dev = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def kernel_seed(self) -> AF.DeviceSeed:
+        return AF.DeviceSeed(self._drawn(lambda: torch.randint(
+            0, 2 ** 63 - 1, (1,), generator=self.dev, device=self.device,
+            dtype=torch.int64)), 0)
 
 
 def remat(fn, rng: Optional["DropoutRng"], *args):
@@ -198,10 +256,10 @@ def remat(fn, rng: Optional["DropoutRng"], *args):
     after the forward and recomputed in the backward. The recomputation
     must draw the SAME dropout masks and must not advance the streams a
     second time: it reads the first run's kernel-seed slots (the slot
-    index set back) and, eagerly, redraws the plain dropout's bits with
-    `dev` set back to where the first run found it. Under CUDA-graph
-    capture a generator's state cannot be set, so the first run keeps its
-    bits for the recompute instead."""
+    index set back) and, eagerly, redraws the plain dropout's bits (and a
+    pipeline stream's kernel seeds) with `dev` set back to where the first
+    run found it. Under CUDA-graph capture a generator's state cannot be
+    set, so the first run keeps its draws for the recompute instead."""
     from torch.utils.checkpoint import checkpoint
     if rng is None:
         return checkpoint(fn, *args, use_reentrant=False)

@@ -40,18 +40,28 @@ front end, the embedding).
 
 Dropout (JAX: ``fold_in`` of the layer key with the microbatch id,
 pp.py:33-37). Each (layer, microbatch) draws from a stream of its own
-(`stream`), seeded from one draw of the run's streams per stack and
-forward, which every rank makes: a pipelined step does not depend on the
-stage count, and under tensor parallelism the ranks of a model group stay
-in lockstep. The sequential path's draws are untouched; the pipelined
-path's masks differ from them. Under ``--remat`` a recomputed layer
-redraws its microbatch's masks (models/layers.py `remat`).
+(models/layers.PipeStream, `DropoutRng.pipe_stream`), which every rank
+makes alike: a device generator seeded from the run's seed and the
+(stack, layer, microbatch), made once and reused by every step, draws its
+plain dropout's bits and its attention kernels' seeds. So a pipelined
+step does not depend on the stage count, the ranks of a model group stay
+in lockstep under tensor parallelism, and a CUDA graph of K steps
+(training/steps.GraphedSteps, which registers the streams' generators)
+draws the masks of K single steps. The sequential path's draws are
+untouched; the pipelined path's masks differ from them. Under ``--remat``
+a recomputed layer redraws its microbatch's masks (models/layers.py
+`remat`).
+
+Under a CUDA graph the hand-offs (`send` / `recv`) and the pipe group's
+collectives are captured with the step: the graph's warm-up makes every
+NCCL communicator they use first. `HANDOFFS` then counts what ran
+eagerly; a graph's hand-offs are its captured ones times its replays
+(GraphedSteps.captured_handoffs, .replays), as its kernel launches are.
 """
 
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -233,19 +243,6 @@ def share_state(state):
 
 
 # ---------------------------------------------------------------------------
-# dropout streams, one a (layer, microbatch)
-# ---------------------------------------------------------------------------
-
-def stream(base: int, stack: str, layer: int, mb: int,
-           device) -> L.DropoutRng:
-    """The dropout stream of global layer `layer` of `stack` on microbatch
-    `mb`, from the forward's base seed: it depends on nothing else."""
-    h = hashlib.blake2b(f"{base}:{stack}:{layer}:{mb}".encode(),
-                        digest_size=8).digest()
-    return L.DropoutRng(int.from_bytes(h, "little") >> 2, device)
-
-
-# ---------------------------------------------------------------------------
 # the schedule
 # ---------------------------------------------------------------------------
 
@@ -337,7 +334,6 @@ def pipeline_apply(stage_layers: Sequence, act: Optional[torch.Tensor],
                          f"--pipe-microbatches {M}")
     mb_shape = (B // M, *shape[1:])
     record = _SCHEDULE is not None and torch.is_grad_enabled()
-    base = rng.host_seed() if rng is not None else None
     lo = s * len(stage_layers)
     entry_leaf = None
     if s == 0:
@@ -356,7 +352,7 @@ def pipeline_apply(stage_layers: Sequence, act: Optional[torch.Tensor],
         cs = tuple(None if c is None else c[m] for c in consts_mb)
         a = x
         for j, lp in enumerate(stage_layers):
-            r = (stream(base, stack, lo + j, m, device) if base is not None
+            r = (rng.pipe_stream(stack, lo + j, m) if rng is not None
                  else None)
             if remat:
                 a = L.remat(lambda o, lp=lp, cs=cs, r=r:

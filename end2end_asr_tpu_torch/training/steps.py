@@ -57,8 +57,11 @@ to one call. On a CUDA device the call replays ONE CUDA graph of the K
 steps, captured once a batch shape (`GraphedSteps`): one launch and one
 metrics pull a group instead of ~1300 launches a step. The dropout seeds
 are read from device memory (models/layers.DropoutRng), so a replay
-draws the masks that K single steps draw. On CPU tensors the K steps run
-one after another.
+draws the masks that K single steps draw; under pipeline parallelism the
+graph holds the hand-offs between stages and the pipe group's
+collectives, and its (layer, microbatch) dropout streams' generators are
+registered with it. On CPU tensors the K steps run one after another,
+their seeds drawn at once as the graph's are.
 """
 
 from __future__ import annotations
@@ -353,9 +356,10 @@ def make_multi_train_step(cfg: Config, step, steps: int,
     n_frames, targets, tgt_lengths) of one shape → (data, opt_state,
     model_state, metrics {name: (K,)}, hyps (K, B, U), golds (K, B, U)),
     equal to K calls of `step` (make_train_step_impl's). On a CUDA device
-    one CUDA graph a shape (GraphedSteps); raises ValueError where the
-    graph cannot be captured, never runs the steps eagerly there. On the
-    CPU the K steps run one after another."""
+    one CUDA graph a shape (GraphedSteps), whatever the data x pipe x model
+    layout; raises ValueError where the graph cannot be captured (a gloo
+    group), never runs the steps eagerly there. On the CPU the K steps run
+    one after another."""
     if device.type == "cuda":
         if dist.is_available() and dist.is_initialized() \
                 and dist.get_backend() == "gloo":
@@ -364,11 +368,6 @@ def make_multi_train_step(cfg: Config, step, steps: int,
                 "steps in a CUDA graph, and gloo's collectives run on the "
                 "host, outside any graph: use the NCCL backend (one card a "
                 "rank)")
-        if mesh.pipe_size() > 1:
-            raise ValueError(
-                "--steps-per-dispatch > 1 on a CUDA device does not capture "
-                "pipeline parallelism: its (layer, microbatch) dropout "
-                "streams are seeded on the host at every step")
         return GraphedSteps(step, steps)
     return EagerSteps(step)
 
@@ -382,7 +381,9 @@ def stack_outputs(outs):
 
 
 class EagerSteps:
-    """K train steps one after another (the CPU's K-step dispatch)."""
+    """K train steps one after another (the CPU's K-step dispatch), their
+    kernel seeds drawn at once (DropoutRng.group) as a graph's are, once a
+    step has set how many a step takes."""
 
     def __init__(self, step):
         self.step = step
@@ -390,11 +391,13 @@ class EagerSteps:
     def __call__(self, fp, data, opt_state, rng, batches: Sequence,
                  spect_T: int, model_state=None):
         outs = []
-        for b in batches:
-            data, opt_state, model_state, m, hyp, gold = self.step(
-                fp, data, opt_state, rng, *b, spect_T,
-                model_state=model_state)
-            outs.append((m, hyp, gold))
+        with (rng.group(len(batches)) if rng is not None
+              and rng.per_step is not None else contextlib.nullcontext()):
+            for b in batches:
+                data, opt_state, model_state, m, hyp, gold = self.step(
+                    fp, data, opt_state, rng, *b, spect_T,
+                    model_state=model_state)
+                outs.append((m, hyp, gold))
         return (data, opt_state, model_state, *stack_outputs(outs))
 
     def close(self) -> None:
@@ -417,12 +420,16 @@ class GraphedSteps:
 
     A shape's first call warms the K steps up on a side stream (the
     streams and the state restored after), then captures them with the
-    dropout generators registered, so that each replay advances them as
-    K eager steps do. Capture or replay failing raises: nothing falls
-    back to eager steps. `captured` holds each shape's kernel launches of
-    the K steps (the bindings' counts of the capture, put back after it:
-    a capture runs nothing), `replays` the replays a shape, `memory` the
-    bytes the pool grew by at each capture."""
+    dropout generators registered (pipeline parallelism's streams' too),
+    so that each replay advances them as K eager steps do. The warm-up
+    runs every collective and hand-off of the steps, which makes their
+    NCCL communicators before the capture. Capture or replay failing
+    raises: nothing falls back to eager steps. `captured` holds each
+    shape's kernel launches of the K steps (the bindings' counts of the
+    capture, put back after it: a capture runs nothing),
+    `captured_handoffs` its pipeline hand-offs (count and bytes, put back
+    likewise), `replays` the replays a shape, `memory` the bytes the pool
+    grew by at each capture."""
 
     def __init__(self, step, steps: int):
         self.step, self.K = step, steps
@@ -430,6 +437,7 @@ class GraphedSteps:
         self.graphs: Dict[tuple, tuple] = {}
         self.static = None
         self.captured: Dict[tuple, Dict[str, int]] = {}
+        self.captured_handoffs: Dict[tuple, Dict[str, int]] = {}
         self.replays: Counter = Counter()
         self.memory: Dict[tuple, int] = {}
         self.per_step: Optional[int] = None    # kernel seeds a step
@@ -480,9 +488,10 @@ class GraphedSteps:
         rng.set_state(st)
         self.per_step = rng.per_step
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(rng.dev)
-        graph.register_generator_state(rng.spec)
+        for gen in rng.generators():
+            graph.register_generator_state(gen)
         counts = cuda_lib.launch_counts()
+        handoffs = dict(pp.HANDOFFS)
         torch.cuda.synchronize()
         # the pool's growth: the capture empties the allocator's cache
         # first, so measure from an empty cache
@@ -498,6 +507,9 @@ class GraphedSteps:
         self.captured[key] = {k: now[k] - counts[k] for k in now
                               if now[k] != counts[k]}
         cuda_lib.set_launch_counts(counts)
+        self.captured_handoffs[key] = {k: pp.HANDOFFS[k] - handoffs[k]
+                                       for k in ("count", "bytes")}
+        pp.HANDOFFS.update(handoffs)
         rng.set_state(st)
         for dst, src in zip(self._state_tensors(*self.static), backup):
             dst.copy_(src)

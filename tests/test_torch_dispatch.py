@@ -15,7 +15,10 @@
     plain and with --augment, --noise-dir and --num-workers;
   * the kernels' device-seed entries against their by-value entries (on
     the plain versions here), and the host stream of kernel seeds that
-    DropoutRng draws a step or a group at a time against one draw a call.
+    DropoutRng draws a step or a group at a time against one draw a call;
+    the pipeline's streams' seeds and bits in a group against single
+    steps (tests/test_torch_gpu.py holds them under a CUDA graph), and
+    `remat`'s recompute of a pipeline stream's draws under capture.
 """
 
 import functools
@@ -252,6 +255,21 @@ def test_prefetcher_raises_the_producer_error():
         list(Prefetcher(Broken()))
 
 
+def test_prefetcher_takes_the_current_card_for_cuda_without_an_index(
+        monkeypatch):
+    """`train --device cuda` (the default) names no card; the producer
+    thread sets its card with torch.cuda.set_device, which takes an index
+    only (it raised "Expected a torch.device with a specified index" on
+    the card): the Prefetcher takes the caller's current card."""
+    from torch.cuda._utils import _get_device_index
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    for name, want in (("cuda", 3), ("cuda:1", 1)):
+        pf = Prefetcher([], device=name)
+        assert pf.device == torch.device("cuda", want)
+        assert _get_device_index(pf.device) == want    # set_device's read
+    assert Prefetcher([]).device == torch.device("cpu")
+
+
 def test_device_seed_entries_equal_the_by_value_entries():
     """The seed read from a slot of a seed buffer (DeviceSeed) against
     the same seed by value: the attention forward and its gradients and
@@ -303,3 +321,51 @@ def test_kernel_seeds_keep_the_host_stream():
     rng.kernel_seed()
     with pytest.raises(RuntimeError, match="used 1 of the 4"):
         rng.end_step()
+
+
+def test_pipeline_stream_draws_of_a_group_equal_single_steps():
+    """The pipeline's (stack, layer, microbatch) streams: their kernel
+    seeds and their plain dropout's bits, drawn on the device from each
+    stream's generator, are a group's as K single steps'; the group draws
+    only the run's own seeds up front, and every seed differs from stream
+    to stream and from step to step."""
+    from torch_pipe_draws import pipe_step_draws
+    single = L.DropoutRng(7, "cpu")
+    want = [pipe_step_draws(single) for _ in range(4)]
+    rng = L.DropoutRng(7, "cpu")
+    got = [pipe_step_draws(rng)]
+    with rng.group(3):
+        got += [pipe_step_draws(rng) for _ in range(3)]
+    for (gs, gb), (ws, wb) in zip(got, want):
+        assert torch.equal(gs, ws) and torch.equal(gb, wb)
+    assert rng.per_step == 1
+    seeds = torch.cat([s for s, _ in want])
+    assert seeds.unique().numel() == seeds.numel() == 4 * (1 + 2 * 2 * 3)
+
+
+def test_remat_under_capture_keeps_a_pipeline_streams_draws(monkeypatch):
+    """`remat` of a layer that draws from a pipeline stream (a kernel
+    seed, then bits), as under CUDA-graph capture, where no generator can
+    be set back: the recompute gets the first run's seed and bits from
+    the tape, so the gradient is the one without remat, and the stream
+    advances once."""
+    def layer(r, x):
+        seed = r.kernel_seed().value() % 65536
+        return x * (r.bits16(x.shape, x.device) + seed).to(x.dtype)
+
+    x0 = torch.linspace(-1.0, 1.0, 6, dtype=torch.float64)
+    grads, after = [], []
+    for capture in (False, True):
+        r = L.DropoutRng(5, "cpu").pipe_stream("encoder", 0, 1)
+        monkeypatch.setattr(L, "_capturing", lambda device: capture)
+        x = x0.clone().requires_grad_()
+        L.remat(lambda a: layer(r, a), r, x).sum().backward()
+        monkeypatch.undo()
+        grads.append(x.grad)
+        after.append(r.dev.get_state())
+    r = L.DropoutRng(5, "cpu").pipe_stream("encoder", 0, 1)
+    x = x0.clone().requires_grad_()
+    layer(r, x).sum().backward()
+    for g, st in zip(grads, after):
+        assert torch.equal(g, x.grad)
+        assert torch.equal(st, r.dev.get_state())

@@ -1207,6 +1207,43 @@ def test_graphed_attention_reads_each_replays_seeds(dev):
         assert all(torch.equal(a, b) for a, b in zip(outs, w))
 
 
+def test_pipeline_streams_of_a_graphed_group_equal_single_steps(dev):
+    """The pipeline's (stack, layer, microbatch) dropout streams
+    (models/layers.PipeStream) under a CUDA graph of 2 steps: the graph
+    is captured once, after a warm-up whose streams are put back, with
+    the streams' generators registered; each replay, its group's own
+    seeds drawn before it (DropoutRng.group), draws on the device the
+    kernel seeds and bits that 2 single steps draw, bit for bit, over 3
+    replays."""
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from torch_pipe_draws import pipe_step_draws
+    single = DropoutRng(7, dev)
+    want = [torch.cat(pipe_step_draws(single)) for _ in range(7)]
+    rng = DropoutRng(7, dev)
+    assert torch.equal(torch.cat(pipe_step_draws(rng)), want[0])
+    body = lambda: torch.stack([torch.cat(pipe_step_draws(rng))
+                                for _ in range(2)])
+    st = rng.state()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), rng.group(2):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    rng.set_state(st)
+    graph = torch.cuda.CUDAGraph()
+    for gen in rng.generators():
+        graph.register_generator_state(gen)
+    with rng.group(2), torch.cuda.graph(graph):
+        out = body()
+    rng.set_state(st)
+    for r in range(3):
+        with rng.group(2):
+            graph.replay()
+            rng.slot = rng.drawn
+        assert torch.equal(out[0], want[1 + 2 * r]), r
+        assert torch.equal(out[1], want[2 + 2 * r]), r
+
+
 def test_steps_per_dispatch_refuses_a_gloo_group_on_the_card(dev, tmp_path):
     """--steps-per-dispatch K > 1 on the card captures a CUDA graph; a
     gloo group's collectives run on the host: make_multi_train_step raises a

@@ -66,6 +66,7 @@ CLIP = dict(clip=True, max_norm=0.5)
 # one model, one 8-row batch (M 4 with --grad-accum 2 needs 8 rows)
 LAYERS = 4
 DROP = {"dropout": 0.1, "pipe_microbatches": 4}
+DROP_REMAT = dict(DROP, remat=True)
 RANK = 8
 
 # the groups' scenarios: two worlds of 2 side by side, then a world of 4
@@ -73,7 +74,13 @@ STEPS = {
     "2a": {"p2": {"layout": [1, 2, 1]},
            "p2_m4_accum2": {"layout": [1, 2, 1], "cfg": {
                "pipe_microbatches": 4, "grad_accum": 2}},
-           "p2_emb": {"layout": [1, 2, 1], "model": "emb"}},
+           "p2_emb": {"layout": [1, 2, 1], "model": "emb"},
+           "drop_p2_group": {"layout": [1, 2, 1], "cfg": DROP, "rng": 3,
+                             "group": True},
+           "drop_p2_remat": {"layout": [1, 2, 1], "cfg": DROP_REMAT,
+                             "rng": 3},
+           "drop_p2_remat_group": {"layout": [1, 2, 1], "cfg": DROP_REMAT,
+                                   "rng": 3, "group": True}},
     "2b": {"drop_p2": {"layout": [1, 2, 1], "cfg": DROP, "rng": 3},
            "drop_p2_seed5": {"layout": [1, 2, 1], "cfg": DROP, "rng": 5}},
     "4": {"p4_remat": {"layout": [1, 4, 1], "cfg": {"remat": True}},
@@ -238,6 +245,23 @@ def test_dropout_step_does_not_depend_on_the_stage_count(group):
     # the dropout acts, and follows the seed
     assert abs(a["loss"][0] - load(root, "p2")["loss"][0]) > 1e-3
     assert abs(a["loss"][0] - load(root, "drop_p2_seed5")["loss"][0]) > 1e-4
+
+
+@pytest.mark.parametrize("name,single", [
+    ("drop_p2_group", "drop_p2"), ("drop_p2_remat_group", "drop_p2_remat"),
+    ("drop_p2_remat", "drop_p2")])
+def test_grouped_dropout_steps_equal_single_steps(group, name, single):
+    """Two pipelined steps at dropout 0.1 as one K = 2 dispatch (the
+    run's own kernel seeds drawn at once by DropoutRng.group, the
+    pipeline streams' on the device: the path a CUDA graph of the steps
+    takes) after a step that is put back, equal two single steps bit for
+    bit, plain and under --remat (whose recompute redraws its
+    microbatch's masks); --remat's steps equal the plain ones."""
+    root = group[0]
+    for r in range(2):
+        got, want = load(root, name, r), load(root, single, r)
+        for k in got:      # a group keeps no first step's moments
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_train_entry_point_gathers_the_one_process_parameters(group):

@@ -31,10 +31,15 @@ CPU = torch.device("cpu")
 
 
 def run_pp_steps(cfg, params, batch_path, spect_T, zero_stage=0,
-                 rng_seed=None, steps=STEPS, state=None):
+                 rng_seed=None, steps=STEPS, state=None, group=False):
     """`steps` train steps of this rank's stage (and model shard) on its
     data row's batch, as the trainer sets them up; the parameters and
-    moments gathered to the full model's buffers, and the model state."""
+    moments gathered to the full model's buffers, and the model state.
+    `group`: the steps as one K-step dispatch (make_multi_train_step), the
+    run's own kernel seeds drawn at once as a CUDA graph's are, after one
+    step that sets how many a step takes, its streams put back
+    (GraphedSteps' warm-up); the first step's moments are then not
+    kept."""
     n_model, n_pipe = mesh.model_size(), mesh.pipe_size()
     fp_full = TS.FlatParams(params, CPU)
     stage = TC.pipe_stage_tree(params, n_pipe, mesh.pipe_rank())
@@ -66,6 +71,17 @@ def run_pp_steps(cfg, params, batch_path, spect_T, zero_stage=0,
 
     out = {"loss": [], "num_correct": [], "num_token": [], "lr": []}
     first = {}
+    if group:
+        st = rng.state()
+        step(fp, data, opt, rng, *batch, spect_T, model_state=state)
+        rng.set_state(st)
+        multi = TS.make_multi_train_step(cfg, step, steps, CPU)
+        data, opt, state, ms, hyps, _ = multi(fp, data, opt, rng,
+                                              [batch] * steps, spect_T,
+                                              model_state=state)
+        out = {k: [float(v) for v in ms[k]] for k in out}
+        first = {"hyp1": hyps[0].numpy()}
+        steps = 0
     for i in range(steps):
         data, opt, state, m, hyp, _ = step(fp, data, opt, rng, *batch,
                                            spect_T, model_state=state)
@@ -92,7 +108,8 @@ def pp_steps(root, spec, tag):
     """The step scenarios of group `tag` (spec["steps"][tag]: name ->
     {"layout": [data, pipe, model], "cfg": overrides, "zero": stage,
     "rng": seed, "params": file (default "params"), "model": "emb" for
-    the emb_cnn model, its state and batch, one step})."""
+    the emb_cnn model, its state and batch, one step; "group": true for
+    the steps as one K-step dispatch})."""
     out = {}
     for name, sc in spec["steps"].get(tag, {}).items():
         n_data, n_pipe, n_model = sc["layout"]
@@ -107,7 +124,8 @@ def pp_steps(root, spec, tag):
             f("batch.npz"), spec["T"],
             zero_stage=sc.get("zero", 0), rng_seed=sc.get("rng"),
             steps=1 if emb else STEPS,
-            state=load_tree(f("state.npz")) if emb else None)
+            state=load_tree(f("state.npz")) if emb else None,
+            group=sc.get("group", False))
     return out
 
 
