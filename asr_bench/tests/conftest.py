@@ -1,0 +1,9 @@
+"""The benchmark's own tests (CPU only): python3 -m pytest asr_bench/tests"""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
