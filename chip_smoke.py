@@ -3945,6 +3945,7 @@ def phase_dispatch(torch, dev, work, labels_path, gpu):
                                                       make_multi_train_step,
                                                       make_train_step_impl)
     from end2end_asr_tpu_torch.training.trainer import Trainer
+    from end2end_asr_tpu_torch.utils.profiling import RECORDER
 
     with open(labels_path, encoding="utf-8") as f:
         labels = json.load(f)
@@ -3975,14 +3976,15 @@ def phase_dispatch(torch, dev, work, labels_path, gpu):
                  "opt": same_bits(torch, one[3], grp[3]),
                  "state": same_bits(torch, one[4], grp[4])}
         runner = grp[5]
+        counters = RECORDER.graphs_of(runner.tag)
         out["mixes"][name] = {
             "losses": grp[0], "equal": equal,
             "graphs": len(runner.graphs),
-            "memory_mib": {str(k[0]): v / 2 ** 20
-                           for k, v in runner.memory.items()},
-            "captured_launches": {str(k[0]): v
-                                  for k, v in runner.captured.items()},
-            "replays": sum(runner.replays.values())}
+            "memory_mib": {str(k[0]): v["memory"] / 2 ** 20
+                           for k, v in counters.items()},
+            "captured_launches": {str(k[0]): v["launches"]
+                                  for k, v in counters.items()},
+            "replays": sum(v["replays"] for v in counters.values())}
         log(f"dispatch {name}: losses eager {one[0]} graphed {grp[0]}; "
             f"bit-equal {equal}; {len(runner.graphs)} graph(s), memory "
             f"{out['mixes'][name]['memory_mib']} MiB; captured launches "
@@ -4105,11 +4107,13 @@ def phase_dispatch(torch, dev, work, labels_path, gpu):
                    "kernel_launches_a_step": prof["kernel_launches"] / k,
                    "graph_launches_a_step": 0 if runner is None else 1 / k}
         if runner is not None:
+            counters = RECORDER.graphs_of(runner.tag)
             cost[k]["graphs"] = len(runner.graphs)
-            cost[k]["memory_mib"] = sum(runner.memory.values()) / 2 ** 20
+            cost[k]["memory_mib"] = sum(
+                v["memory"] for v in counters.values()) / 2 ** 20
             cost[k]["captured_launches_a_step"] = {
                 n: c / k for n, c in
-                next(iter(runner.captured.values())).items()}
+                next(iter(counters.values()))["launches"].items()}
         del res, runner, fn
     log(f"dispatch cost (K = 1 and K = {DISPATCH_K}; {gpu}): "
         f"{json.dumps(cost)}")
@@ -4150,7 +4154,7 @@ NCCL_D0_MU_RTOL = 5e-2
 
 def captured_counts(kernels, captured):
     """`kernels`' counts of a CUDA graph's captured launches
-    (GraphedSteps.captured, by binding)."""
+    (the tracer's graph counter "launches", by binding)."""
     from end2end_asr_tpu_torch.ops import cuda_lib
     saved = cuda_lib.launch_counts()
     cuda_lib.set_launch_counts(dict.fromkeys(saved, 0))
@@ -4195,6 +4199,7 @@ def nccl_rank(spec_path):
     from end2end_asr_tpu_torch.parallel import mesh, pp
     from end2end_asr_tpu_torch.test import split_device_arg
     from end2end_asr_tpu_torch.training.steps import make_multi_train_step
+    from end2end_asr_tpu_torch.utils.profiling import RECORDER
     with open(spec_path) as f:
         spec = json.load(f)
     dev = mesh.rank_device(torch.device("cuda"))
@@ -4243,11 +4248,11 @@ def nccl_rank(spec_path):
             t["launches_a_step"] = {n: c / (1 + NCCL_TIMED) for n, c in
                                     kernel_counts(kernels).items()}
         else:
-            key, = runner.captured
-            t["handoffs_a_step"] = runner.captured_handoffs[key]["count"] / k
+            graph, = RECORDER.graphs_of(runner.tag).values()
+            t["handoffs_a_step"] = graph["handoffs"]["count"] / k
             t["launches_a_step"] = {n: c / k for n, c in captured_counts(
-                kernels, runner.captured[key]).items()}
-            t["graph_pool_mib"] = runner.memory[key] / 2 ** 20
+                kernels, graph["launches"]).items()}
+            t["graph_pool_mib"] = graph["memory"] / 2 ** 20
         prof = profile(torch, one, top=4)
         t["kernel_time_over_wall"] = prof["device_busy_share"]
         t["kernel_ms_a_step"] = (None if prof["device_ms"] is None

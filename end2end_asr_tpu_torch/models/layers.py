@@ -38,16 +38,15 @@ import torch.nn.functional as Fn
 from end2end_asr_tpu_torch.ops import attention_fused as AF
 from end2end_asr_tpu_torch.ops.attention_fused import dropout_thresh16
 from end2end_asr_tpu_torch.parallel import mesh, tp
+from end2end_asr_tpu_torch.utils import profiling
 
 Params = Dict[str, object]
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
-# The name of a profiler range around each fused attention call in `mha`
-# and the reshape of its output, or None for no range (tools/probe_step.py
-# names one to find the kernels and copies there).
-ATTN_RANGE: Optional[str] = None
-
+# the tracer's site around each fused attention call in `mha` and the
+# reshape of its output (utils/profiling.Recorder.range)
+ATTENTION_FORWARD = "attention_forward"
 
 # the seeds a DropoutRng holds in device memory: one step's, or one group
 # of steps' (a CUDA graph of K steps)
@@ -542,9 +541,10 @@ def mha(p: Params, query: torch.Tensor, key_: torch.Tensor,
         if bias is None:
             bias = attn_bias(mask)
         # the kernels read the projections through their strides, and
-        # the card's out lies in (B, Tq, H, D) memory: no copy either way
-        with (torch.profiler.record_function(ATTN_RANGE) if ATTN_RANGE
-              else contextlib.nullcontext()):
+        # the card's out lies in (B, Tq, H, D) memory: no copy either way;
+        # the tracer's site ATTENTION_FORWARD (a profiler range where a
+        # tool names one, tools/probe_step.py)
+        with profiling.RECORDER.range(ATTENTION_FORWARD):
             out = AF.flash_mha_train(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), bias,
                                      rng.kernel_seed(), dropout_rate)

@@ -56,7 +56,8 @@ Under a CUDA graph the hand-offs (`send` / `recv`) and the pipe group's
 collectives are captured with the step: the graph's warm-up makes every
 NCCL communicator they use first. `HANDOFFS` then counts what ran
 eagerly; a graph's hand-offs are its captured ones times its replays
-(GraphedSteps.captured_handoffs, .replays), as its kernel launches are.
+(the tracer's graph counters "handoffs" and "replays", GraphedSteps), as
+its kernel launches are.
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@ positions: the train cell of PERF.md §4), and times its train step: the
 median over STEPS steps, each ending in a synchronize. Then one step
 under torch.profiler: its kernel launches, device time and busy share,
 the copy kernels by name, and what runs inside each attention forward
-(models/layers.mha's kernel call and reshape of its output, in the
-record_function range `layers.ATTN_RANGE` names), each attention
+(models/layers.mha's kernel call and reshape of its output, the tracer's
+site `layers.ATTENTION_FORWARD`, whose profiler range `traced` turns
+on), each attention
 backward node and each max-pool backward node, with the memory formats
 of the pool's y, g and dy, and the launches and device time of the
 block-1 and block-2 forwards' and backwards' kernels (`BLOCK1_FWD`,
@@ -30,7 +31,8 @@ compute type f32 with TF32 off (as ``train --dtype float32`` runs it), so
 the f32 kernels' entries run. It
 measures whichever package ``end2end_asr_tpu_torch`` resolves to, so an
 earlier commit unpacked into another directory is measured by putting
-that directory first on PYTHONPATH. One JSON line, with the card's name
+that directory first on PYTHONPATH (a commit that has the tracer's
+sites, utils/profiling.py). One JSON line, with the card's name
 and power limit. Needs a CUDA card; imports nothing at import time that
 needs one.
 """
@@ -71,13 +73,15 @@ def memory_format(t) -> str:
 
 @contextlib.contextmanager
 def traced(formats: list):
-    """Names models/layers.mha's range around each attention forward and
-    the reshape of its output (ATTN_FWD_RANGE), and records the memory
-    formats of each pool backward's y, g and dy into `formats`. The
-    values are the same as without it."""
+    """Turns on the tracer's profiler range around each attention forward
+    and the reshape of its output (models/layers.ATTENTION_FORWARD, named
+    ATTN_FWD_RANGE), and records the memory formats of each pool
+    backward's y, g and dy into `formats`. The values are the same as
+    without it."""
     from end2end_asr_tpu_torch.models import layers as TL
     from end2end_asr_tpu_torch.ops import pool_vjp as PV
-    rng, pool = TL.ATTN_RANGE, PV.pool_bwd
+    from end2end_asr_tpu_torch.utils.profiling import RECORDER
+    pool = PV.pool_bwd
 
     def pool_bwd(y, g):
         dy = pool(y, g)
@@ -85,11 +89,12 @@ def traced(formats: list):
                         "dy": memory_format(dy)})
         return dy
 
-    TL.ATTN_RANGE, PV.pool_bwd = ATTN_FWD_RANGE, pool_bwd
+    PV.pool_bwd = pool_bwd
     try:
-        yield
+        with RECORDER.ranges_on(**{TL.ATTENTION_FORWARD: ATTN_FWD_RANGE}):
+            yield
     finally:
-        TL.ATTN_RANGE, PV.pool_bwd = rng, pool
+        PV.pool_bwd = pool
 
 
 def _kernels_under(events, key: str):

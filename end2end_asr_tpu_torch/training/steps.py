@@ -62,12 +62,18 @@ graph holds the hand-offs between stages and the pipe group's
 collectives, and its (layer, microbatch) dropout streams' generators are
 registered with it. On CPU tensors the K steps run one after another,
 their seeds drawn at once as the graph's are.
+
+The tracer (utils/profiling.RECORDER) stamps each step on its device, so
+that a replayed graph's parts are timed: at its start, after the loss
+(forward), after the gradients' concatenation (backward) and after the
+update; under ``--grad-accum`` the forward and backward stamps mark each
+microbatch, so a part sums over them; under pipeline parallelism they
+bracket the schedule on the main stream.
 """
 
 from __future__ import annotations
 
 import contextlib
-from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -89,6 +95,12 @@ from end2end_asr_tpu_torch.training.optimizer import (NoamConfig,
                                                       noam_rate,
                                                       sgd_annealing_update,
                                                       tree_map)
+from end2end_asr_tpu_torch.utils import profiling
+from end2end_asr_tpu_torch.utils.profiling import (BACKWARD,
+                                                   DISPATCH_END,
+                                                   DISPATCH_START, FORWARD,
+                                                   STEP_START, UPDATE,
+                                                   WRITEBACK)
 
 FIXED_LEAVES = ("pe",)  # no gradient, no update
 
@@ -232,6 +244,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
                                   smoothing, loss_type)
             hyp, ncorr = pred.detach().argmax(dim=-1), token_accuracy(
                 pred.detach(), gold)
+        profiling.RECORDER.stamp(FORWARD, data.device)
         if not pipe:
             grads = torch.autograd.grad(loss * w, list(leaves.values()),
                                         allow_unused=True,
@@ -249,6 +262,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
             if new_state:
                 new_state = pp.share_state(new_state)
         grad = torch.cat([g.reshape(-1) for g in grads])
+        profiling.RECORDER.stamp(BACKWARD, data.device)
         return loss.detach() * w, grad, w, hyp, ncorr, gold, new_state
 
     def local_sums(fp, data, state, rng, pcm, n_frames, targets,
@@ -283,6 +297,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
 
     def step(fp, data, opt_state, rng, pcm, n_frames, targets, tgt_lengths,
              spect_T, model_state=None):
+        profiling.RECORDER.stamp(STEP_START, data.device)
         full = zero.gather(data) if zero is not None and zero.stage == 3 \
             else data
         if rng is not None:
@@ -343,6 +358,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
                                            torch.zeros_like(loss)),
                        "finite": finite, "lr": pick(upd_lr, skip_lr),
                        "num_correct": num_correct, "num_token": num_token}
+        profiling.RECORDER.stamp(UPDATE, data.device)
         return new_data, new_opt, new_state, metrics, hyp_seq, gold
 
     return step
@@ -383,22 +399,31 @@ def stack_outputs(outs):
 class EagerSteps:
     """K train steps one after another (the CPU's K-step dispatch), their
     kernel seeds drawn at once (DropoutRng.group) as a graph's are, once a
-    step has set how many a step takes."""
+    step has set how many a step takes. The tracer records the call as a
+    ``dispatch`` span with a ``step`` span a step, between the dispatch's
+    stamps."""
 
     def __init__(self, step):
         self.step = step
 
     def __call__(self, fp, data, opt_state, rng, batches: Sequence,
                  spect_T: int, model_state=None):
+        rec, dev = profiling.RECORDER, data.device
         outs = []
-        with (rng.group(len(batches)) if rng is not None
-              and rng.per_step is not None else contextlib.nullcontext()):
-            for b in batches:
-                data, opt_state, model_state, m, hyp, gold = self.step(
-                    fp, data, opt_state, rng, *b, spect_T,
-                    model_state=model_state)
-                outs.append((m, hyp, gold))
-        return (data, opt_state, model_state, *stack_outputs(outs))
+        with rec.span("dispatch"):
+            rec.stamp(DISPATCH_START, dev)
+            with (rng.group(len(batches)) if rng is not None
+                  and rng.per_step is not None
+                  else contextlib.nullcontext()):
+                for b in batches:
+                    with rec.span("step"):
+                        data, opt_state, model_state, m, hyp, gold = \
+                            self.step(fp, data, opt_state, rng, *b, spect_T,
+                                      model_state=model_state)
+                    outs.append((m, hyp, gold))
+            out = (data, opt_state, model_state, *stack_outputs(outs))
+            rec.stamp(DISPATCH_END, dev)
+        return out
 
     def close(self) -> None:
         pass
@@ -424,22 +449,27 @@ class GraphedSteps:
     so that each replay advances them as K eager steps do. The warm-up
     runs every collective and hand-off of the steps, which makes their
     NCCL communicators before the capture. Capture or replay failing
-    raises: nothing falls back to eager steps. `captured` holds each
-    shape's kernel launches of the K steps (the bindings' counts of the
-    capture, put back after it: a capture runs nothing),
-    `captured_handoffs` its pipeline hand-offs (count and bytes, put back
-    likewise), `replays` the replays a shape, `memory` the bytes the pool
-    grew by at each capture."""
+    raises: nothing falls back to eager steps.
+
+    The tracer (utils/profiling.RECORDER) times it: a ``dispatch`` span a
+    call with ``stage`` (the input copies, the state's load, the seeds'
+    draw), ``launch`` (the replay) and ``outputs`` (their copies), and
+    ``capture``; device stamps at the call's start and end and, inside
+    the graph, after each step's write-back of its state (besides the
+    step's own). Its graph counters, under (`tag`, shape), hold each
+    shape's kernel launches of the K steps ("launches": the bindings'
+    counts of the capture, put back after it, since a capture runs
+    nothing), its pipeline hand-offs ("handoffs", count and bytes, put
+    back likewise), the bytes the pool grew by at its capture ("memory"),
+    its replays ("replays") and the nodes each part added to the graph
+    (`Recorder.counting`)."""
 
     def __init__(self, step, steps: int):
         self.step, self.K = step, steps
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, tuple] = {}
         self.static = None
-        self.captured: Dict[tuple, Dict[str, int]] = {}
-        self.captured_handoffs: Dict[tuple, Dict[str, int]] = {}
-        self.replays: Counter = Counter()
-        self.memory: Dict[tuple, int] = {}
+        self.tag = profiling.RECORDER.owner("graphed_steps")
         self.per_step: Optional[int] = None    # kernel seeds a step
 
     # -- the static state ---------------------------------------------------
@@ -467,53 +497,59 @@ class GraphedSteps:
             for dst, src in zip(self._state_tensors(data, opt, state),
                                 self._state_tensors(*new[:3])):
                 dst.copy_(src)
+            profiling.RECORDER.stamp(WRITEBACK, data.device)
             outs.append(new[3:])
         return stack_outputs(outs)
 
     def _capture(self, key, fp, rng, inputs, spect_T):
-        st = rng.state()
-        backup = [t.clone() for t in self._state_tensors(*self.static)]
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        # the warm-up (autograd, the kernels' libraries, the caches): the
-        # K steps as the graph will run them, after one single step where
-        # no step has yet set how many seeds a step draws
-        with torch.cuda.stream(side):
-            if rng.per_step is None:
-                self._body(fp, rng, inputs, spect_T, steps=1)
+        rec = profiling.RECORDER
+        with rec.span("capture"):
+            st = rng.state()
+            backup = [t.clone() for t in self._state_tensors(*self.static)]
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            # the warm-up (autograd, the kernels' libraries, the caches):
+            # the K steps as the graph will run them, after one single step
+            # where no step has yet set how many seeds a step draws
+            with torch.cuda.stream(side):
+                if rng.per_step is None:
+                    self._body(fp, rng, inputs, spect_T, steps=1)
+                with rng.group(self.K):
+                    self._body(fp, rng, inputs, spect_T)
+            cur.wait_stream(side)
+            rng.set_state(st)
+            self.per_step = rng.per_step
+            graph = torch.cuda.CUDAGraph()
+            for gen in rng.generators():
+                graph.register_generator_state(gen)
+            counts = cuda_lib.launch_counts()
+            handoffs = dict(pp.HANDOFFS)
+            torch.cuda.synchronize()
+            # the pool's growth: the capture empties the allocator's cache
+            # first, so measure from an empty cache
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
             with rng.group(self.K):
-                self._body(fp, rng, inputs, spect_T)
-        cur.wait_stream(side)
-        rng.set_state(st)
-        self.per_step = rng.per_step
-        graph = torch.cuda.CUDAGraph()
-        for gen in rng.generators():
-            graph.register_generator_state(gen)
-        counts = cuda_lib.launch_counts()
-        handoffs = dict(pp.HANDOFFS)
-        torch.cuda.synchronize()
-        # the pool's growth: the capture empties the allocator's cache
-        # first, so measure from an empty cache
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        with rng.group(self.K):
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
-                outs = self._body(fp, rng, inputs, spect_T)
-        torch.cuda.synchronize()
-        self.memory[key] = torch.cuda.memory_reserved() - reserved
-        now = cuda_lib.launch_counts()
-        self.captured[key] = {k: now[k] - counts[k] for k in now
-                              if now[k] != counts[k]}
-        cuda_lib.set_launch_counts(counts)
-        self.captured_handoffs[key] = {k: pp.HANDOFFS[k] - handoffs[k]
-                                       for k in ("count", "bytes")}
-        pp.HANDOFFS.update(handoffs)
-        rng.set_state(st)
-        for dst, src in zip(self._state_tensors(*self.static), backup):
-            dst.copy_(src)
-        self.graphs[key] = (graph, inputs, outs)
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      capture_error_mode="thread_local"):
+                    with rec.counting(self.tag, key, self.K):
+                        outs = self._body(fp, rng, inputs, spect_T)
+            torch.cuda.synchronize()
+            now = cuda_lib.launch_counts()
+            rec.graph(self.tag, key).update(
+                memory=torch.cuda.memory_reserved() - reserved,
+                launches={k: now[k] - counts[k] for k in now
+                          if now[k] != counts[k]},
+                handoffs={k: pp.HANDOFFS[k] - handoffs[k]
+                          for k in ("count", "bytes")},
+                replays=0)
+            cuda_lib.set_launch_counts(counts)
+            pp.HANDOFFS.update(handoffs)
+            rng.set_state(st)
+            for dst, src in zip(self._state_tensors(*self.static), backup):
+                dst.copy_(src)
+            self.graphs[key] = (graph, inputs, outs)
 
     def __call__(self, fp, data, opt_state, rng, batches: Sequence,
                  spect_T: int, model_state=None):
@@ -522,34 +558,43 @@ class GraphedSteps:
                              f"{len(batches)}")
         key = (spect_T,) + tuple((tuple(t.shape), t.dtype)
                                  for t in batches[0])
-        if self.static is None:
-            self._load(data, opt_state, model_state)
-        entry = self.graphs.get(key)
-        if entry is None:
-            inputs = [torch.stack([b[i] for b in batches])
-                      for i in range(len(batches[0]))]
-            self._capture(key, fp, rng, inputs, spect_T)
-            entry = self.graphs[key]
-        graph, inputs, outs = entry
-        for i, buf in enumerate(inputs):
-            for j, b in enumerate(batches):
-                buf[j].copy_(b[i])
-        self._load(data, opt_state, model_state)
-        if rng.per_step is None:        # a stream that has run no step
-            rng.per_step = self.per_step
-        with rng.group(self.K):
-            graph.replay()
-            rng.slot = rng.drawn
-        self.replays[key] += 1
-        ms, hyps, golds = outs
-        data, opt, state = self.static
-        return (data, opt, state, {k: v.clone() for k, v in ms.items()},
-                hyps.clone(), golds.clone())
+        rec, dev = profiling.RECORDER, data.device
+        with rec.span("dispatch"):
+            rec.stamp(DISPATCH_START, dev)
+            if self.static is None:
+                self._load(data, opt_state, model_state)
+            entry = self.graphs.get(key)
+            if entry is None:
+                inputs = [torch.stack([b[i] for b in batches])
+                          for i in range(len(batches[0]))]
+                self._capture(key, fp, rng, inputs, spect_T)
+                entry = self.graphs[key]
+            graph, inputs, outs = entry
+            with rec.span("stage"):
+                for i, buf in enumerate(inputs):
+                    for j, b in enumerate(batches):
+                        buf[j].copy_(b[i])
+                self._load(data, opt_state, model_state)
+                if rng.per_step is None:    # a stream that has run no step
+                    rng.per_step = self.per_step
+                with rng.group(self.K):     # the K steps' kernel seeds
+                    rng.slot = rng.drawn
+            with rec.span("launch"):
+                graph.replay()
+            rec.graph(self.tag, key)["replays"] += 1
+            with rec.span("outputs"):
+                ms, hyps, golds = outs
+                out = (*self.static, {k: v.clone() for k, v in ms.items()},
+                       hyps.clone(), golds.clone())
+            rec.stamp(DISPATCH_END, dev)
+        return out
 
     def close(self) -> None:
         """Free the graphs (before the process group goes: destroying an
-        NCCL group whose collectives a live graph holds hangs)."""
+        NCCL group whose collectives a live graph holds hangs), and copy
+        the tracer's stamps out."""
         torch.cuda.synchronize()
+        profiling.RECORDER.collect()
         for graph, _, _ in self.graphs.values():
             graph.reset()
         self.graphs.clear()

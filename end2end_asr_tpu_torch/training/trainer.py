@@ -14,7 +14,13 @@ batches and copies them to the device while a step runs.
 one dispatch (training/steps.make_multi_train_step: on a CUDA device one
 CUDA graph of the K steps) whose K steps' metrics are pulled at once, as
 the JAX trainer's flush_group; a partial group (a shape change, the end
-of an epoch) runs single steps. `MultiTrainer` (joint training,
+of an epoch) runs single steps. The tracer (utils/profiling.RECORDER)
+records the loop's spans (``data_wait``: the loader's or the
+Prefetcher's next batch; ``dispatch``; ``drain``: a dispatch's metrics
+pulled), and at each epoch's end, where the loop has waited for the
+card, one log line gives the host ms a step of each span and the ms a
+step of each part of the steps from the stamps (utils/profiling.py).
+`MultiTrainer` (joint training,
 `multi_train.py`) overrides the three validation hooks.
 
 Data parallelism (parallel/mesh.py): each rank trains on its loaders'
@@ -44,6 +50,7 @@ it is the one-process run's file.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from collections import Counter
@@ -68,7 +75,7 @@ from end2end_asr_tpu_torch.training.steps import (FlatParams,
                                                   make_multi_train_step,
                                                   make_train_step_impl)
 from end2end_asr_tpu_torch.utils.metrics import calculate_cer, calculate_wer
-from end2end_asr_tpu_torch.utils.profiling import trace
+from end2end_asr_tpu_torch.utils.profiling import RECORDER, per_step, trace
 
 logger = logging.getLogger("end2end_asr_tpu_torch")
 
@@ -292,9 +299,10 @@ class Trainer:
             def run_single(entry):
                 nonlocal data, opt, state
                 i, rows, tensors, bucket = entry
-                data, opt, state, m, hyp, gold = step(
-                    fp, data, opt, rng, *tensors, bucket,
-                    model_state=state)
+                with RECORDER.span("dispatch"):
+                    data, opt, state, m, hyp, gold = step(
+                        fp, data, opt, rng, *tensors, bucket,
+                        model_state=state)
                 pending.append(([(i, rows)], m, hyp, gold))
 
             group: List = []
@@ -309,6 +317,7 @@ class Trainer:
                     for e in entries:
                         run_single(e)
                     return
+                # GraphedSteps and EagerSteps open the dispatch span
                 data, opt, state, m, hyp, gold = multi(
                     fp, data, opt, rng, [e[2] for e in entries],
                     entries[0][3], model_state=state)
@@ -320,7 +329,14 @@ class Trainer:
             # --trace-dir: a torch.profiler trace of the first epoch's steps
             with trace(cfg.trace_dir if epoch == start_epoch else "", dev):
                 group_key = None
-                for i, (batch, tensors) in enumerate(batches):
+                t_loop = time.perf_counter()
+                batches = iter(batches)
+                for i in itertools.count():
+                    with RECORDER.span("data_wait"):
+                        nxt = next(batches, None)
+                    if nxt is None:
+                        break
+                    batch, tensors = nxt
                     rows = (batch.real_rows if batch.real_rows > 0
                             else len(batch.targets))
                     entry = (i, rows, tensors, batch.src_bucket)
@@ -337,10 +353,15 @@ class Trainer:
                     else:
                         run_single(entry)
                     while len(pending) > 2:
-                        drain(pending.pop(0))
+                        with RECORDER.span("drain"):
+                            drain(pending.pop(0))
                 flush_group()
                 for entry in pending:
-                    drain(entry)
+                    with RECORDER.span("drain"):
+                        drain(entry)
+                # i: the epoch's batches (the last `next` found none)
+                logger.info("(Epoch %d) TRACE %s", epoch + 1, per_step(
+                    RECORDER.summary(t_loop, time.perf_counter()), i))
             wall = time.time() - t0
             totals = summed_over_ranks(totals, CER_KEYS + ("utts",), dev)
             train_loss = totals["loss"] / max(totals["batches"], 1)

@@ -12,6 +12,8 @@ Every f32 comparison runs with TF32 off: cuDNN's convolutions default to
 TF32 on Hopper, which would put the plain version ~1e-3 off.
 """
 
+from collections import Counter
+
 import pytest
 import torch
 
@@ -1307,3 +1309,145 @@ def test_ctc_kernels_match_plain(dev, T, U, case):
     assert torch.isfinite(got_g).all()
     assert (got_g[ok] - want_g[ok]).abs().max().item() <= \
         1e-4 * want_g[ok].abs().max().item()
+
+
+def test_captured_stamps_append_a_set_a_replay(dev):
+    """The tracer's stamps (utils/profiling.py, csrc/trace.cu) captured
+    into a CUDA graph: each replay appends its own set, in order, on the
+    card's clock mapped to the host's, nothing lost; a stamp under capture
+    with no ring yet raises (the ring is made outside any capture)."""
+    from end2end_asr_tpu_torch.utils import profiling as P
+    rec = P.RECORDER
+    x = torch.ones(1 << 20, device=dev)
+    rec.stamp("test.a", dev)        # the ring, made and anchored
+    rec.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rec.stamp("test.a", dev)
+        x.mul_(1.5)
+        rec.stamp("test.b", dev)
+        x.add_(1.0)
+        rec.stamp("test.c", dev)
+    rec.collect()
+    assert not rec.stamps           # a capture runs nothing
+    for _ in range(3):
+        graph.replay()
+    rec.collect()
+    got = [s for s in rec.stamps if s[2] == dev.index]
+    assert [s[0] for s in got] == ["test.a", "test.b", "test.c"] * 3
+    assert all(a[1] <= b[1] for a, b in zip(got, got[1:]))
+    assert rec.summary()["lost"] == {"spans": 0, "stamps": 0}
+    fresh = P.Recorder()
+    side = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="stamp ring"):
+        with torch.cuda.graph(side):
+            x.add_(1.0)
+            fresh.stamp("test.a", dev)
+    assert not fresh._rings
+
+
+def test_capture_counts_each_parts_nodes(dev):
+    """Recorder.counting inside a capture: each part's kernel, memcpy,
+    memset and other nodes a step, the stamps left out, add up to the
+    nodes cudaGraphGetNodes finds in the finished graph."""
+    from end2end_asr_tpu_torch.utils import profiling as P
+    rec = P.RECORDER
+    rec.stamp("test.a", dev)
+    x = torch.ones(1024, device=dev)
+    y = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        with rec.counting("test", ("k",), 2):
+            for _ in range(2):
+                rec.stamp(P.STEP_START, dev)
+                x.mul_(2.0)
+                x.add_(1.0)
+                rec.stamp(P.FORWARD, dev)
+                y.copy_(x)
+                rec.stamp(P.BACKWARD, dev)
+            x.add_(3.0)
+    entry = rec.graph("test", ("k",))
+    nodes = P.graph_nodes(graph.raw_cuda_graph())
+    assert entry["stamps"] == 6 and entry["steps"] == 2
+    assert entry["nodes"]["forward"]["kernel"] == 2
+    assert entry["nodes"]["outputs"]["kernel"] == 0.5     # one, over 2 steps
+    assert nodes["kernel"] == entry["kernel_nodes"] + entry["stamps"]
+    for kind in P.NODE_KINDS:
+        got = sum(p[kind] for p in entry["nodes"].values()) * 2
+        assert got == nodes[kind] - (entry["stamps"] if kind == "kernel"
+                                     else 0), kind
+
+
+def test_graphed_step_parts_sum_to_the_dispatch(dev):
+    """Three dispatches of the K-step CUDA graph (GraphedSteps, K = 2) of
+    a narrow VGG model: the stamped parts between each call's first and
+    last stamp sum to within 3% of the call's device time by CUDA events
+    around it; forward, backward, update and write-back are stamped each
+    step; the graph's counters hold its kernel nodes by part and its
+    replays (the capture's call is the first)."""
+    from end2end_asr_tpu_torch.config import Config
+    from end2end_asr_tpu_torch.models.layers import DropoutRng
+    from end2end_asr_tpu_torch.models.transformer import (dims_from_config,
+                                                          init_params)
+    from end2end_asr_tpu_torch.training.optimizer import init_opt_state
+    from end2end_asr_tpu_torch.training.steps import (FlatParams,
+                                                      make_multi_train_step,
+                                                      make_train_step_impl)
+    from end2end_asr_tpu_torch.utils import profiling as P
+    cfg = Config(feat_extractor="vgg_cnn", num_layers=2, num_heads=4,
+                 dim_model=256, dim_key=64, dim_value=64, dim_inner=1024,
+                 dim_emb=256, dropout=0.1, dtype="bfloat16")
+    g = torch.Generator().manual_seed(0)
+    params = init_params(cfg, 100, g)
+    B, T, K = 4, 400, 2
+    pcm = (torch.randn(B, (T - 1) * 160 + 320, generator=g) * 0.2).to(dev)
+    targets = torch.randint(3, 100, (B, 20), generator=g)
+    targets[:, 0], targets[:, -1] = 1, 2
+    batch = (pcm, torch.full((B,), T, device=dev), targets.to(dev),
+             torch.full((B,), 20, device=dev))
+    fp = FlatParams(params, dev)
+    step = make_train_step_impl(cfg, dims_from_config(cfg))
+    multi = make_multi_train_step(cfg, step, K, dev)
+    rng = DropoutRng(1, dev)
+    data, opt, state = fp.data, init_opt_state(cfg, fp.data), {}
+    data, opt, state, _, _, _ = step(fp, data, opt, rng, *batch, T,
+                                     model_state=state)
+    rec = P.RECORDER
+    rec.clear()
+    event_ms = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        data, opt, state, _, _, _ = multi(fp, data, opt, rng, [batch] * K,
+                                          T, model_state=state)
+        b.record()
+        torch.cuda.synchronize()
+        event_ms.append(a.elapsed_time(b))
+    # each call's intervals, from its "stage" to its "outputs"
+    calls, cur = [], None
+    for part, t0, t1, key in rec.intervals():
+        if key != dev.index:
+            continue
+        if part == "stage":
+            cur = []
+        if cur is not None:
+            cur.append((part, t1 - t0))
+        if part == "outputs":
+            calls.append(cur)
+            cur = None
+    assert len(calls) == 3
+    for parts, ms in zip(calls[1:], event_ms[1:]):        # the replays
+        assert Counter(p for p, _ in parts) == {
+            "stage": 1, "forward": K, "backward": K, "update": K,
+            "writeback": K, "between": K - 1, "outputs": 1}
+        got = 1e3 * sum(s for _, s in parts)
+        assert abs(got - ms) <= 0.03 * ms, (got, ms, parts)
+    (key, counters), = rec.graphs_of(multi.tag).items()
+    assert counters["replays"] == 3 and counters["steps"] == K
+    assert counters["stamps"] == 5 * K
+    for part in ("forward", "backward", "update"):
+        assert counters["nodes"][part]["kernel"] > 0, part
+    assert sum(counters["nodes"]["writeback"].values()) > 0
+    assert counters["kernel_nodes"] == K * sum(
+        p["kernel"] for p in counters["nodes"].values())
+    multi.close()
