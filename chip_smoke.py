@@ -322,7 +322,7 @@ def phase_build(cuda_lib):
     t0 = time.time()
     paths = cuda_lib.build(["stft", "vgg_block1", "vgg_block1_f32",
                             "attention", "pool_bwd", "vgg_block2",
-                            "vgg_block2_f32", "stream", "ctc"])
+                            "vgg_block2_f32", "stream", "ctc", "adam"])
     log(f"built {sorted(paths)} in {time.time() - t0:.1f} s")
     # the host C++ WSOLA (csrc/audio_host.cc): a CUDA host has g++ (nvcc
     # needs it), so the Python fallback must not hide a failed build
@@ -1411,6 +1411,128 @@ def check_stream(torch, dev):
                   library_note=note, gbps=7 * n / adam_ms / 1e6)]
 
 
+# the flat f32 buffers of asr_bench's two train cells (aishell_vgg,
+# aishell_lrt: the trainable leaves; the sinusoid table is not in them)
+ADAM_SIZES = {"vgg": 36776384, "lrt": 16427456}
+
+
+def check_adam(torch, dev):
+    """The train step's update kernel (csrc/adam.cu) at ADAM_SIZES, f32
+    moments: ops/adam.adam_step against the plain chain it replaces
+    (adam_noam_update on g * inv, then the three torch.where picks) at
+    tolerance 0, the step finite and not; then both timed in turns
+    (probe_lib.time_in_turns: events ms, device ms by kernel under
+    torch.profiler). The bound: 28 bytes an element (p, g, m, v read;
+    p, m, v written) at HBM_BPS. The library: torch._fused_adam_ on the
+    same inputs, in place, its grad_scale dividing where the step
+    multiplies by inv (timed, not used)."""
+    from end2end_asr_tpu_torch.ops import adam as A
+    from end2end_asr_tpu_torch.tools import probe_lib as PL
+    from end2end_asr_tpu_torch.training.optimizer import (NoamConfig,
+                                                          adam_noam_update,
+                                                          noam_rate,
+                                                          tree_map)
+    noam = NoamConfig(model_size=512, factor=1.0, warmup=4000, min_lr=1e-6)
+    out = {}
+    for label, n in ADAM_SIZES.items():
+        g0 = torch.Generator(device=dev).manual_seed(SEED + 7 + n)
+        p, g, m = (torch.randn(n, generator=g0, device=dev)
+                   for _ in range(3))
+        v = torch.rand(n, generator=g0, device=dev) * 1e-4
+        state = {"step": torch.tensor(6, dtype=torch.int32, device=dev),
+                 "mu": m, "nu": v}
+        inv = torch.tensor(1.0 / 600.0, device=dev)
+        step = state["step"] + 1
+        t = step.to(torch.float32)
+        lr, bc1, bc2 = (noam_rate(step, noam), 1.0 - noam.beta1 ** t,
+                        1.0 - noam.beta2 ** t)
+        res = {}
+        for finite in (True, False):
+            fin = torch.tensor(finite, device=dev)
+            kernel = lambda: A.adam_step(p, g, m, v, lr=lr, bc1=bc1,
+                                         bc2=bc2, inv=inv, finite=fin,
+                                         beta1=noam.beta1, beta2=noam.beta2,
+                                         eps=noam.eps)
+
+            def plain():
+                upd, new, _ = adam_noam_update(p, g * inv, state, noam)
+                pick = lambda a, b: torch.where(fin, a, b)
+                return pick(upd, p), pick(new["mu"], m), pick(new["nu"], v)
+            A.reset_launches()
+            got = kernel()
+            launches = A.ADAM.launches
+            want = plain()
+            torch.cuda.synchronize()
+            bits = lambda x: x.view(torch.int32)
+            exact = all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(got, want))
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            log(f"adam_noam {label} ({n} elements, finite {finite}): "
+                f"bit-equal to the plain chain {exact}, max_abs_err {err} "
+                f"(tol 0), {launches} launch")
+            if not exact or launches != 1:
+                fail(f"adam_noam {label}: not the plain chain bit for bit "
+                     f"or not one launch (finite {finite})")
+            if finite:
+                ref_p = got[0]
+                res = PL.time_in_turns(torch, {"adam_noam": kernel,
+                                               "plain": plain})
+            del got, want
+        lib_ms, note = None, "none: this PyTorch has no torch._fused_adam_"
+        if hasattr(torch, "_fused_adam_"):
+            # the call writes the unscaled gradient back: a copy of g
+            pl, gl, ml, vl = p.clone(), g.clone(), m.clone(), v.clone()
+            steps = [t.clone()]
+            scale = 1.0 / inv
+            call = lambda: torch._fused_adam_(
+                [pl], [gl], [ml], [vl], [], steps, lr=lr.item(),
+                beta1=noam.beta1, beta2=noam.beta2, weight_decay=0.0,
+                eps=noam.eps, amsgrad=False, maximize=False,
+                grad_scale=scale, found_inf=torch.zeros((), device=dev))
+            try:
+                call()
+                lerr = (pl - ref_p).abs().max().item()
+                lib_ms = time_ms(torch, call)
+                note = (f"torch._fused_adam_ (grad_scale 1/inv, found_inf "
+                        f"0; in place), max_abs_err {lerr:.3g} of p")
+            except (RuntimeError, TypeError) as e:
+                note = f"none: torch._fused_adam_ refused the call ({e})"
+            del pl, gl, ml, vl
+        nbytes = 28 * n
+        out[label] = {"n": n, "res": res, "lib_ms": lib_ms, "note": note,
+                      "nbytes": nbytes}
+        k, pr = res["adam_noam"], res["plain"]
+        log(f"adam_noam {label}: ms {k['events_ms']:.4f} device "
+            f"{k['device_ms']:.4f} ({nbytes / k['device_ms'] / 1e6:.0f} "
+            f"GB/s) plain {pr['events_ms']:.4f} device {pr['device_ms']:.4f}"
+            f" in {len(pr['kernels_ms'])} kernels, library {lib_ms} "
+            f"({note}), bound {1e3 * nbytes / HBM_BPS:.4f} "
+            f"({nbytes / 1e6:.1f} MB)")
+        del p, g, m, v, state, ref_p
+        torch.cuda.empty_cache()
+    vgg, lrt = out["vgg"], out["lrt"]
+    return entry("adam_noam", "adam.cu", "none: the JAX package's update is "
+                 "plain XLA (training/optimizer.py)", 0.0,
+                 vgg["res"]["adam_noam"]["events_ms"],
+                 vgg["res"]["plain"]["events_ms"], 0.0,
+                 vgg["nbytes"] / HBM_BPS, vgg["lib_ms"],
+                 library_note=vgg["note"], elements=vgg["n"],
+                 device_ms=vgg["res"]["adam_noam"]["device_ms"],
+                 plain_device_ms=vgg["res"]["plain"]["device_ms"],
+                 plain_kernels=len(vgg["res"]["plain"]["kernels_ms"]),
+                 gbps=vgg["nbytes"] / vgg["res"]["adam_noam"]["device_ms"]
+                 / 1e6,
+                 elements_lrt=lrt["n"],
+                 ms_lrt=lrt["res"]["adam_noam"]["events_ms"],
+                 device_ms_lrt=lrt["res"]["adam_noam"]["device_ms"],
+                 plain_ms_lrt=lrt["res"]["plain"]["events_ms"],
+                 plain_device_ms_lrt=lrt["res"]["plain"]["device_ms"],
+                 bound_ms_lrt=1e3 * lrt["nbytes"] / HBM_BPS,
+                 library_ms_lrt=lrt["lib_ms"],
+                 gbps_lrt=lrt["nbytes"] / lrt["res"]["adam_noam"]["device_ms"]
+                 / 1e6)
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -1669,8 +1791,8 @@ def train_argv(cfg, manifest, valid, labels_path, extra=(), name="aishell"):
 
 def train_kernel_table():
     """The default training path's kernels: {name: (reset, count)}."""
-    from end2end_asr_tpu_torch.ops import (attention_fused, pool_vjp, stft,
-                                           vgg_fused)
+    from end2end_asr_tpu_torch.ops import (adam, attention_fused, pool_vjp,
+                                           stft, vgg_fused)
     AF, V = attention_fused, vgg_fused
     return {
         "stft_logmag": (stft.reset_launches, lambda: stft.FFT.launches),
@@ -1678,7 +1800,8 @@ def train_kernel_table():
         "vgg_block1_bwd": (V.reset_launches, V.bwd_launches),
         "attn_fwd": (AF.reset_launches, lambda: AF.FWD.launches),
         "attn_bwd": (AF.reset_launches, lambda: AF.BWD.launches),
-        "pool_bwd": (pool_vjp.reset_launches, pool_vjp.launches)}
+        "pool_bwd": (pool_vjp.reset_launches, pool_vjp.launches),
+        "adam_noam": (adam.reset_launches, lambda: adam.ADAM.launches)}
 
 
 def kernel_counts(kernels):
@@ -4587,8 +4710,9 @@ def main():
                                                "aishell_labels.json"))
     if dispatch_only:
         ctc_entries = check_ctc(torch, dev)
+        adam_entry = check_adam(torch, dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-            print(json.dumps({"ctc": ctc_entries,
+            print(json.dumps({"ctc": ctc_entries, "adam": adam_entry,
                               "dispatch": phase_dispatch(
                                   torch, dev, work, labels_path, gpu)}))
         return
@@ -4596,7 +4720,7 @@ def main():
                check_vgg_bwd(torch, dev), *check_attention(torch, dev),
                *check_attention_f32(torch, dev), check_pool_bwd(torch, dev),
                *check_vgg2(torch, dev), *check_stream(torch, dev),
-               *check_ctc(torch, dev)]
+               *check_ctc(torch, dev), check_adam(torch, dev)]
     log(f"kernel checks done at {time.time() - t0:.1f} s")
     # the serving path's n_fft (320) takes the FFT kernel: its own count
     fft_count = types.SimpleNamespace(

@@ -5,7 +5,9 @@ Port of the JAX package's ``training/optimizer.py`` (plain tensor code:
 the JAX package has no kernel here). A pytree is a tensor, or nested
 dicts / lists of tensors; the functions return new trees and state and
 modify nothing in place. The train step (training/steps.py) calls them on
-flat parameter buffers, a one-leaf tree.
+flat parameter buffers, a one-leaf tree; its Noam Adam update
+(`adam_noam_step`, the finite pick included) runs the elementwise part as
+one kernel on a CUDA device (ops/adam.py), the same chain on the CPU.
 
 Noam (utils/optimizer.py:3-32 of the reference):
     rate = max(min_lr, factor · model_size^-0.5 · min(step^-0.5,
@@ -27,6 +29,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from end2end_asr_tpu_torch.ops.adam import adam_step
 
 
 class NoamConfig(NamedTuple):
@@ -86,13 +90,19 @@ def clip_by_global_norm(grads, max_norm: float, reduce_sq=None,
     `sq_weight` (a flat buffer's shape) weighs each element's square
     (parallel/tp.FlatPlan: replicated leaves count once over the model
     group)."""
+    scale, gnorm = clip_scale(grads, max_norm, reduce_sq, sq_weight)
+    return tree_map(lambda g: g * scale, grads), gnorm
+
+
+def clip_scale(grads, max_norm: float, reduce_sq=None, sq_weight=None):
+    """(scale, gnorm) of `clip_by_global_norm`: the factor it multiplies
+    the grads by (a 0-d tensor, at most 1) and their global norm."""
     leaves = tree_leaves(grads)
     w = 1.0 if sq_weight is None else sq_weight
     sq = sum(torch.sum(torch.square(g.to(torch.float32)) * w)
              for g in leaves)
     gnorm = torch.sqrt(sq if reduce_sq is None else reduce_sq(sq))
-    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gnorm
+    return torch.clamp(max_norm / (gnorm + 1e-6), max=1.0), gnorm
 
 
 def adam_update(params, grads, state: Dict, lr, beta1: float = 0.9,
@@ -131,6 +141,40 @@ def adam_noam_update(params, grads, state: Dict, c: NoamConfig,
     new_params, new_state = adam_update(params, grads, state, lr, c.beta1,
                                         c.beta2, c.eps)
     return new_params, new_state, lr
+
+
+def adam_noam_step(params: torch.Tensor, grads: torch.Tensor,
+                   inv: torch.Tensor, finite: torch.Tensor, state: Dict,
+                   c: NoamConfig, clip: bool = False, max_norm: float = 400.0,
+                   reduce_sq=None, sq_weight=None):
+    """The train step's update (training/steps.py): one Noam Adam step on
+    the gradient `grads * inv` where `finite` (a 0-d bool) is true, the
+    parameters and the state as they were where it is false. Returns
+    (new_params, new_state, lr). `params`, `grads` and the moments are
+    matching flat buffers or slices of them (f32 or bf16 moments), as in
+    adam_noam_update; `inv` an f32 0-d tensor. On a CUDA device the
+    elementwise part is one kernel (ops/adam.adam_step), equal bit for bit
+    to what runs elsewhere: adam_noam_update on `grads * inv`, then
+    `torch.where(finite, new, old)` over the parameters and the state."""
+    pick = lambda new, old: torch.where(finite, new, old)
+    if not params.is_cuda:
+        upd, new, lr = adam_noam_update(params, grads * inv, state, c,
+                                        clip=clip, max_norm=max_norm,
+                                        reduce_sq=reduce_sq,
+                                        sq_weight=sq_weight)
+        return pick(upd, params), tree_map(pick, new, state), lr
+    step = state["step"] + 1
+    scale = None
+    if clip:
+        # the norm of the scaled gradient, as clip_by_global_norm takes it
+        scale, _ = clip_scale(grads * inv, max_norm, reduce_sq, sq_weight)
+    lr = noam_rate(step, c)
+    t = step.to(torch.float32)
+    p, m, v = adam_step(params, grads, state["mu"], state["nu"], lr=lr,
+                        bc1=1.0 - c.beta1 ** t, bc2=1.0 - c.beta2 ** t,
+                        inv=inv, finite=finite, clip=scale, beta1=c.beta1,
+                        beta2=c.beta2, eps=c.eps)
+    return p, {"step": pick(step, state["step"]), "mu": m, "nu": v}, lr
 
 
 def init_opt_state(cfg, params, device=None) -> Dict:

@@ -11,9 +11,11 @@ running statistics) goes in and the new one comes out.
 
 The trainable parameters live in ONE flat f32 buffer (`FlatParams`): the
 model reads views of it, the gradients are concatenated into one buffer
-like it, and the optimizer runs a few elementwise passes over it instead
-of a dozen launches per parameter tensor. The sinusoid tables (``pe``) are not in
-it: they get no gradient and no update (the JAX package's stop_gradient).
+like it, and the optimizer passes over it instead of launching a dozen
+kernels per parameter tensor: Noam Adam's update, its gradient scale and
+its finite pick as ONE kernel on a CUDA device (ops/adam.py), in every
+layout. The sinusoid tables (``pe``) are not in it: they get no gradient
+and no update (the JAX package's stop_gradient).
 
 Data parallelism (parallel/mesh.py): each rank runs this step on its
 slice of the global batch and produces, for the ranks' sum, its loss and
@@ -91,8 +93,7 @@ from end2end_asr_tpu_torch.training.checkpoint import (SEP, flatten_params,
 from end2end_asr_tpu_torch.training.loss import (calculate_loss,
                                                  token_accuracy)
 from end2end_asr_tpu_torch.training.optimizer import (NoamConfig,
-                                                      adam_noam_update,
-                                                      noam_rate,
+                                                      adam_noam_step,
                                                       sgd_annealing_update,
                                                       tree_map)
 from end2end_asr_tpu_torch.utils import profiling
@@ -103,6 +104,10 @@ from end2end_asr_tpu_torch.utils.profiling import (BACKWARD,
                                                    WRITEBACK)
 
 FIXED_LEAVES = ("pe",)  # no gradient, no update
+# the tracer's counter of steps built whose update is the plain chain of
+# elementwise kernels on a CUDA device (annealing SGD), not ops/adam.py's
+# one kernel; a captured step counts once, at its capture
+PLAIN_UPDATES_ON_CARD = "plain_updates_on_card"
 
 
 class FlatParams:
@@ -320,7 +325,7 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
             g = (mesh.all_reduce_(g) if zero is None
                  else zero.reduce_scatter(g))
             inv = 1.0 / small[1].clamp_min(1.0)
-            loss, grads = small[0] * inv, g * inv
+            loss = small[0] * inv
             num_correct = small[2].round().to(torch.int64)
             num_token = small[3].round().to(torch.int64)
             finite = torch.isfinite(loss)
@@ -337,26 +342,30 @@ def make_train_step_impl(cfg: Config, dims: ModelDims, zero=None,
                 over_data = reduce_sq
                 reduce_sq = lambda sq: plan.sum_sq(
                     sq if over_data is None else over_data(sq))
+            pick = lambda new, old: torch.where(finite, new, old)
             if cfg.opt == "sgd_annealing":
+                if params.is_cuda:
+                    profiling.RECORDER.counters[PLAIN_UPDATES_ON_CARD] += 1
                 upd, upd_opt, upd_lr = sgd_annealing_update(
-                    params, grads, opt_state, cfg.momentum, cfg.lr_anneal,
+                    params, g * inv, opt_state, cfg.momentum, cfg.lr_anneal,
                     clip=cfg.clip, max_norm=cfg.max_norm,
                     reduce_sq=reduce_sq, sq_weight=sq_weight)
-                skip_lr = opt_state["lr"]
+                new_data, lr = pick(upd, params), pick(upd_lr,
+                                                       opt_state["lr"])
+                new_opt = tree_map(pick, upd_opt, opt_state)
             else:
-                upd, upd_opt, upd_lr = adam_noam_update(
-                    params, grads, opt_state, noam, clip=cfg.clip,
+                # the picks inside: the kernel writes the old state back
+                # where the step is skipped; the rate is the step's either
+                # way
+                new_data, new_opt, lr = adam_noam_step(
+                    params, g, inv, finite, opt_state, noam, clip=cfg.clip,
                     max_norm=cfg.max_norm, reduce_sq=reduce_sq,
                     sq_weight=sq_weight)
-                skip_lr = noam_rate(opt_state["step"] + 1, noam)
-            pick = lambda new, old: torch.where(finite, new, old)
-            new_data = pick(upd, params)
             if zero is not None and zero.stage == 1:
                 new_data = zero.gather(new_data)
-            new_opt = tree_map(pick, upd_opt, opt_state)
             metrics = {"loss": torch.where(finite, loss,
                                            torch.zeros_like(loss)),
-                       "finite": finite, "lr": pick(upd_lr, skip_lr),
+                       "finite": finite, "lr": lr,
                        "num_correct": num_correct, "num_token": num_token}
         profiling.RECORDER.stamp(UPDATE, data.device)
         return new_data, new_opt, new_state, metrics, hyp_seq, gold

@@ -452,16 +452,28 @@ def per_step(summary: dict, steps: int) -> str:
     and of each part of the steps, on the card's clock where the card
     stamped them, else on the host's (the CPU's marks); then the spans and
     stamps lost that may lie in the summary's window (the parts are short
-    by them) and the clocks' drift at the last copy-out."""
+    by them) and the clocks' drift at the last copy-out; then each
+    binding's launches a step in the captured CUDA graphs (each value its
+    graphs hold) and the steps built whose update ran the plain chain on
+    a CUDA device (training/steps.PLAIN_UPDATES_ON_CARD)."""
     steps = max(steps, 1)
     ms = lambda d: " ".join(f"{n} {1e3 * v['s'] / steps:.3f}"
                             for n, v in sorted(d.items()))
     clock = "device" if summary["device_stamps"] else "host"
     lost = summary["lost"]
     drift = summary["counters"].get("stamp_clock_drift_us", 0.0)
+    rates: Dict[str, set] = {}
+    for graph in summary["graphs"].values():
+        for name, n in graph.get("launches", {}).items():
+            rates.setdefault(name, set()).add(n / graph["steps"])
+    launches = " ".join(f"{n} " + "/".join(f"{r:g}" for r in sorted(v))
+                        for n, v in sorted(rates.items()))
+    plain = summary["counters"].get("plain_updates_on_card", 0)
     return (f"host ms a step: {ms(summary['spans'])}; {clock} ms a step: "
             f"{ms(summary['parts'])}; lost spans {lost['spans']} stamps "
-            f"{lost['stamps']}; clock drift {drift:.1f} us")
+            f"{lost['stamps']}; clock drift {drift:.1f} us; graph launches "
+            f"a step: {launches or 'none'}; plain updates on the card "
+            f"{plain}")
 
 
 @contextlib.contextmanager

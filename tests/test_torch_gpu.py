@@ -1451,3 +1451,138 @@ def test_graphed_step_parts_sum_to_the_dispatch(dev):
     assert counters["kernel_nodes"] == K * sum(
         p["kernel"] for p in counters["nodes"].values())
     multi.close()
+
+
+# -- the train step's update kernel (ops/adam.py, csrc/adam.cu) -------------
+
+ADAM_MAX_NORM = 0.5     # below the gradients' norm: the clip binds
+
+
+def adam_noam():
+    from end2end_asr_tpu_torch.training.optimizer import NoamConfig
+    return NoamConfig(model_size=640, factor=1.0, warmup=25, min_lr=1e-6)
+
+
+def adam_inputs(dev, mdt, n: int, layout: str, step: int = 6):
+    """p, g (f32), a state at `step` with moments in `mdt`, and inv, on
+    the card. layout "aligned": each array its own allocation; "offset":
+    each 3 elements into a larger buffer; "mixed": each at another phase
+    (the parameters at 0)."""
+    gen = torch.Generator().manual_seed(n)
+    k = iter(range(4))
+
+    def place(x):
+        o = {"aligned": 0, "offset": 3, "mixed": next(k)}[layout]
+        buf = torch.zeros(n + 4, dtype=x.dtype, device=dev)
+        buf[o:o + n] = x.to(dev)
+        return buf[o:o + n]
+    p = place(torch.randn(n, generator=gen))
+    g = place(torch.randn(n, generator=gen) * 30.0)
+    m = place(torch.randn(n, generator=gen).mul(0.1).to(mdt))
+    v = place(torch.rand(n, generator=gen).mul(1e-2).to(mdt))
+    state = {"step": torch.tensor(step, dtype=torch.int32, device=dev),
+             "mu": m, "nu": v}
+    return p, g, state, torch.tensor(1.0, device=dev) / 7.0
+
+
+def adam_plain_update(p, g, inv, finite, state, clip=False):
+    """The step's update as the plain chain on the card: adam_noam_update
+    on g * inv, then the torch.where picks."""
+    from end2end_asr_tpu_torch.training import optimizer as TO
+    upd, new, lr = TO.adam_noam_update(p, g * inv, state, adam_noam(),
+                                       clip=clip, max_norm=ADAM_MAX_NORM)
+    pick = lambda a, b: torch.where(finite, a, b)
+    return pick(upd, p), TO.tree_map(pick, new, state), lr
+
+
+def same_bits(a, b) -> bool:
+    bits = lambda x: x.reshape(-1).view(
+        torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    return a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset", "mixed"])
+@pytest.mark.parametrize("finite", [True, False])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+def test_adam_kernel_is_the_plain_chain(dev, mdt, clip, finite, layout):
+    """The step's update (training/optimizer.adam_noam_step) on the card is
+    one launch of csrc/adam.cu and equals the plain chain of
+    adam_noam_update and the picks bit for bit, at lengths that are not
+    multiples of 4 (1, 7 and 135173 elements), with the clip on and off;
+    where the step is not finite, p, m and v come back unchanged. Arrays
+    that do not start 16-byte aligned are refused, before any launch."""
+    from end2end_asr_tpu_torch.ops import adam as A
+    from end2end_asr_tpu_torch.training import optimizer as TO
+    for n in (1, 7, 4096 * 33 + 5):
+        p, g, state, inv = adam_inputs(dev, mdt, n, layout)
+        fin = torch.tensor(finite, device=dev)
+        A.reset_launches()
+        step = lambda: TO.adam_noam_step(p, g, inv, fin, state, adam_noam(),
+                                         clip=clip, max_norm=ADAM_MAX_NORM)
+        if layout != "aligned":
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                step()
+            assert A.ADAM.launches == 0
+            continue
+        got = step()
+        assert A.ADAM.launches == 1
+        want = adam_plain_update(p, g, inv, fin, state, clip)
+        assert same_bits(got[0], want[0]), n
+        for k in ("step", "mu", "nu"):
+            assert same_bits(got[1][k], want[1][k]), (n, k)
+        assert same_bits(got[2], want[2])
+        if not finite:
+            assert same_bits(got[0], p) and same_bits(got[1]["mu"],
+                                                      state["mu"])
+            assert same_bits(got[1]["nu"], state["nu"])
+
+
+def test_adam_kernel_in_a_graph_reads_each_replays_scalars(dev):
+    """A CUDA graph of 3 updates (adam_noam_step, the new state copied
+    back into the static buffers, as GraphedSteps does) replayed twice
+    equals 6 eager updates of the plain chain bit for bit: the kernel
+    reads the rate, the bias corrections and inv (changed between the
+    replays) from device memory at each replay."""
+    from end2end_asr_tpu_torch.ops import adam as A
+    from end2end_asr_tpu_torch.training import optimizer as TO
+    n = 4096 * 5 + 3
+    p, g, state, inv = adam_inputs(dev, torch.float32, n, "aligned", step=0)
+    fin = torch.tensor(True, device=dev)
+    invs = (1.0 / 7.0, 1.0 / 3.0)
+    ref_p, ref_s = p.clone(), {k: t.clone() for k, t in state.items()}
+    for r in range(6):
+        ref_p, ref_s, _ = adam_plain_update(
+            ref_p, g, torch.tensor(invs[r // 3], device=dev), fin, ref_s)
+    sp, ss = p.clone(), {k: t.clone() for k, t in state.items()}
+    sinv = torch.tensor(invs[0], device=dev)
+
+    def body():
+        for _ in range(3):
+            new_p, new_s, _ = TO.adam_noam_step(sp, g, sinv, fin, ss,
+                                                adam_noam())
+            sp.copy_(new_p)
+            for k in ss:
+                ss[k].copy_(new_s[k])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the warm-up: the library loaded
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    sp.copy_(p)
+    for k in ss:
+        ss[k].copy_(state[k])
+    graph = torch.cuda.CUDAGraph()
+    A.reset_launches()
+    with torch.cuda.graph(graph):
+        body()
+    assert A.ADAM.launches == 3
+    graph.replay()
+    sinv.fill_(invs[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(ss["step"]) == 6
+    assert same_bits(sp, ref_p)
+    for k in ("mu", "nu"):
+        assert same_bits(ss[k], ref_s[k]), k
+    graph.reset()

@@ -252,8 +252,11 @@ def test_trainer_logs_the_loop_spans_a_step(tmp_path, caplog):
     assert "; host ms a step: " in line and "device" not in line
     for part in ("forward", "backward", "update"):
         assert f" {part} " in line.split(";")[1], line
-    # nothing of the epoch lost; the CPU's marks have no clocks to drift
-    assert line.endswith("; lost spans 0 stamps 0; clock drift 0.0 us"), line
+    # nothing of the epoch lost; the CPU's marks have no clocks to drift;
+    # no CUDA graph captured, no update on a card
+    assert line.endswith("; lost spans 0 stamps 0; clock drift 0.0 us; "
+                         "graph launches a step: none; plain updates on "
+                         "the card 0"), line
     # 4 batches: a group of 3 (one dispatch) and a single step
     assert P.RECORDER.summary()["spans"]["dispatch"]["n"] == 2
     assert P.RECORDER.summary()["spans"]["data_wait"]["n"] == 5
